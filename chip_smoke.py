@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py          # from the repository root
+
+Builds the port's CUDA kernels from ``spectral_tpu_torch/ops/csrc``, holds
+each kernel against its plain PyTorch version on the card, then drives the
+port's main path (``Renderer(...).render()``) at the reference's own
+benchmark size: the Cornell box at 512x512, 32 wavelengths, 30 bounces,
+100 iterations. Prints one JSON line per phase, then the kernel table, the
+card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits non-zero and prints no result; so does a machine without CUDA, or a
+directory without the rest of the repository. Nothing here imports jax
+(checked at the end); the scene schema and presets are the reference
+package's jax-free host modules, which the port reuses.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MAIN = dict(width=512, height=512, n_samples=32, bounces=30, iterations=100)
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from spectral_tpu_torch import presets, schema
+        from spectral_tpu_torch.ops import megakernel as mk
+        from spectral_tpu_torch.ops.vecmath import Vec3
+        from spectral_tpu_torch.render import cuda_integrator as ci
+        from spectral_tpu_torch.render import integrator as ti
+        from spectral_tpu_torch.render.color import spectra_to_rgb
+        from spectral_tpu_torch.render.renderer import Renderer
+        from spectral_tpu_torch.runtime import build
+        from spectral_tpu_torch.scene.flatten import flatten_scene
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
+              file=sys.stderr)
+        return 3
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_all = time.monotonic()
+
+    # ---------------------------------------------------------- 1. environment
+    emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0], kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), card=card)
+
+    # ---------------------------------------------------------------- 2. build
+    t0 = time.monotonic()
+    build.library_path("megakernel").unlink(missing_ok=True)  # build from source
+    build.build("megakernel")
+    build_s = time.monotonic() - t0
+    ptxas = [ln.strip() for ln in build.build_log("megakernel").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit(phase="build", seconds=round(build_s, 3), ptxas=ptxas, card=card)
+
+    def scene_of(maker, w, h, s, bounces, iters):
+        sc = maker(n_samples=s)
+        sc.width, sc.height = w, h
+        sc.nbr_of_ray_bounces, sc.nbr_of_iterations = bounces, iters
+        return sc
+
+    def rgb_of(rad, st):
+        return spectra_to_rgb(rad.T, st.xyz_weights, st.xyz_to_rgb)
+
+    def mono_pair(sc, frame):
+        st, cfg = flatten_scene(sc, dev)
+        tb = mk.pack_tables(st, cfg)
+        planes, px, py = ci.primary_lanes(st, cfg, frame)
+        got = mk.run_mono(*planes, px, py, frame, tb)
+        want = mk.run_mono_plain(*planes, px, py, frame, tb)
+        torch.cuda.synchronize()
+        return got, want, st
+
+    def regen_inputs(sc, first, k):
+        st, cfg = flatten_scene(sc, dev)
+        tb = mk.pack_tables(st, cfg)
+        planes, px, py = ci.primary_lanes(st, cfg, first)
+        dirs = [ci.primary_lanes(st, cfg, first + j)[0][3:] for j in range(1, k)]
+        dirx, diry, dirz = (torch.stack([d[i] for d in dirs]) for i in range(3))
+        return (*planes, px, py, first, dirx, diry, dirz, tb), st
+
+    def rel_err(got_rgb, want_rgb):
+        scale = max(1.0, float(want_rgb.abs().max()))
+        return ((got_rgb - want_rgb).abs().amax(dim=-1) / scale)
+
+    # ------------------------------- 3. kernels vs plain on the card, small size
+    t0 = time.monotonic()
+    small = []
+    for name in ("default", "cornell"):  # direct only: deterministic
+        got, want, st = mono_pair(scene_of(presets.PRESETS[name], 16, 8, 8, 1, 2), 0)
+        err = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
+        small.append(dict(case=f"mono {name} 16x8 b1", max_rel=err, limit=1e-5))
+        assert err <= 1e-5, small[-1]
+    got, want, st = mono_pair(periscope_scene(schema, presets), 0)
+    err = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
+    small.append(dict(case="mono periscope 12x8 b3", max_rel=err, limit=1e-5))
+    assert err <= 1e-5, small[-1]
+    for frame in (0, 1):
+        got, want, st = mono_pair(scene_of(presets.cornell_box, 16, 8, 8, 3, 2), frame)
+        err = rel_err(rgb_of(got, st), rgb_of(want, st))
+        flips = float((err > 1e-5).float().mean())
+        small.append(dict(case=f"mono cornell 16x8 b3 f{frame}",
+                          flipped_fraction=flips, limit=0.15))
+        assert flips <= 0.15, small[-1]
+    args, st = regen_inputs(regen_scene(presets), 0, 3)
+    got = mk.run_regen(*args)
+    want = mk.run_regen_plain(*args)
+    err = float((rgb_of(got, st) - rgb_of(want, st)).abs().max())
+    small.append(dict(case="regen K=3 default 16x128 b4", max_abs=err, limit=1e-4))
+    assert err <= 1e-4, small[-1]
+    emit(phase="kernels_small", seconds=round(time.monotonic() - t0, 3),
+         checks=small, card=card)
+
+    # ------- 3b. kernels vs plain at the main path's shapes (512^2, S=32, K=100)
+    def cuda_ms(fn, reps, warmup=True):
+        if warmup:
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, out
+
+    def envelope(got, want, st):
+        # flipped: a lane whose last-ulp self-hit coin fell the other way
+        err = rel_err(rgb_of(got, st), rgb_of(want, st))
+        flips = float((err > 1e-5).float().mean())
+        return flips, float((got - want).abs().max())
+
+    t0 = time.monotonic()
+    k_main = MAIN["iterations"]
+    # direct only: deterministic, so the kernels must match to rounding
+    b1 = scene_of(presets.cornell_box, 512, 512, 32, 1, k_main)
+    got, want, st = mono_pair(b1, 0)
+    mono_b1_rel = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
+    assert mono_b1_rel <= 1e-5, ("mono 512^2 b1", mono_b1_rel)
+    args, st = regen_inputs(b1, 0, k_main)
+    got, want = mk.run_regen(*args), mk.run_regen_plain(*args)
+    regen_b1_rel = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
+    assert regen_b1_rel <= 1e-5, ("regen 512^2 b1 K=100", regen_b1_rel)
+    del args, got, want
+    # the main config, 30 bounces: timed, and held to the coin-flip envelope
+    full = scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], k_main)
+    st, cfg = flatten_scene(full, dev)
+    tb = mk.pack_tables(st, cfg)
+    planes, px, py = ci.primary_lanes(st, cfg, 0)
+    mono_ms, got = cuda_ms(lambda: mk.run_mono(*planes, px, py, 0, tb), 5)
+    mono_plain_ms, want = cuda_ms(lambda: mk.run_mono_plain(*planes, px, py, 0, tb), 2)
+    mono_flips, mono_err = envelope(got, want, st)
+    assert mono_flips <= 0.15, ("mono 512^2 b30 flipped", mono_flips)
+    args, _ = regen_inputs(full, 0, k_main)
+    regen_ms, got = cuda_ms(lambda: mk.run_regen(*args), 2)
+    regen_plain_ms, want = cuda_ms(lambda: mk.run_regen_plain(*args), 1, warmup=False)
+    regen_flips, regen_err = envelope(got, want, st)
+    assert regen_flips <= 0.15, ("regen 512^2 b30 K=100 flipped", regen_flips)
+    del args, got, want
+    emit(phase="kernels_main_shape", seconds=round(time.monotonic() - t0, 3),
+         b1_mono_max_rel=mono_b1_rel, b1_regen_k100_max_rel=regen_b1_rel,
+         b1_limit=1e-5, b30_mono_flipped=mono_flips, b30_mono_max_abs=mono_err,
+         b30_regen_k100_flipped=regen_flips, b30_regen_k100_max_abs=regen_err,
+         flipped_limit=0.15, mono_ms=mono_ms, mono_plain_ms=mono_plain_ms,
+         regen_k100_ms=regen_ms, regen_k100_plain_ms=regen_plain_ms, card=card)
+
+    # ------------------------------------------- 4. the main path at full size
+    def reset_counts():
+        mk.run_mono.launches = 0
+        mk.run_regen.launches = 0
+
+    launches = {"cuda_mono": 0, "cuda_regen": 0}
+
+    def main_path_run(sc, regen="auto"):
+        r = Renderer(sc, device="cuda", regen_frames=regen)
+        reset_counts()
+        t = time.monotonic()
+        img = r.render()  # ends in a device -> host copy: synchronized
+        dt = time.monotonic() - t
+        counts = {"cuda_mono": mk.run_mono.launches, "cuda_regen": mk.run_regen.launches}
+        for key in launches:
+            launches[key] += counts[key]
+        return r, img, dt, counts
+
+    def check_image(img, w, h):
+        assert img.shape == (h, w, 4), img.shape
+        assert np.isfinite(img).all(), "non-finite pixels"
+        assert float(img[..., :3].mean()) > 0.0, "black image"
+        assert abs(float(img[..., 3].mean()) - 1.0) < 1e-5, "alpha"
+
+    t0 = time.monotonic()
+    r, img, dt, counts = main_path_run(full)
+    assert r.regen_frames == k_main, r.regen_frames
+    assert counts["cuda_regen"] > 0, counts
+    check_image(img, 512, 512)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "cornell512.png"
+        r.save_image(png)
+        png_bytes = png.stat().st_size
+    assert png_bytes > 0
+    frames = r.next_frame
+    _, rays = ti.bounce_loop(
+        Vec3(*planes[:3]), Vec3(*planes[3:]), px.long(), py.long(), 0,
+        st, cfg, return_stats=True,
+    )
+    rays_per_frame = float(rays)
+    s_per_frame = dt / frames
+    emit(phase="main_path", config="cornell 512x512, 32 lambda, 30 bounces, "
+         "100 iterations", regen_frames=r.regen_frames, frames=frames,
+         seconds=dt, seconds_per_frame=s_per_frame, launches=counts,
+         rays_per_frame_plain_f0=rays_per_frame,
+         mrays_lambda_per_s=rays_per_frame * cfg.n_samples / s_per_frame / 1e6,
+         png_bytes=png_bytes, mean_rgb=float(img[..., :3].mean()), card=card)
+
+    # the Renderer against the plain path on the card, 4 frames
+    def plain_render(sc, n):
+        pst, pcfg = flatten_scene(sc, dev)
+        accum = torch.zeros((pcfg.height, pcfg.width, 4), device=dev)
+        for f in range(n):
+            accum = ti.accumulate_frame(accum, ti.integrate_frame(pst, pcfg, f), f)
+        return accum.cpu().numpy()
+
+    b1_4 = scene_of(presets.cornell_box, 512, 512, 32, 1, 4)
+    got = Renderer(b1_4, device="cuda").render()
+    want = plain_render(b1_4, 4)
+    scale = max(1.0, float(np.abs(want).max()))
+    b1_rel = float(np.abs(got - want).max() / scale)
+    assert b1_rel <= 1e-5, ("renderer b1 vs plain", b1_rel)
+    b30_4 = scene_of(presets.cornell_box, 512, 512, 32, 30, 4)
+    t = time.monotonic()
+    want = plain_render(b30_4, 4)
+    plain_s_per_frame = (time.monotonic() - t) / 4
+    got = Renderer(b30_4, device="cuda").render()
+    mean_got, mean_want = float(got[..., :3].mean()), float(want[..., :3].mean())
+    mean_rel = abs(mean_got - mean_want) / mean_want
+    assert mean_rel <= 0.02, ("renderer b30 mean vs plain", mean_got, mean_want)
+    emit(phase="main_path_vs_plain", seconds=round(time.monotonic() - t0, 3),
+         b1_max_rel=b1_rel, b1_limit=1e-5, b30_mean_kernel=mean_got,
+         b30_mean_plain=mean_want, b30_mean_rel=mean_rel, b30_limit=0.02,
+         plain_seconds_per_frame=plain_s_per_frame, card=card)
+
+    # ------------------------ 5. ragged tail and single iteration (main path)
+    t0 = time.monotonic()
+    _, img, _, counts = main_path_run(
+        scene_of(presets.cornell_box, 512, 512, 32, 30, 6), regen=4)
+    assert counts == {"cuda_mono": 2, "cuda_regen": 1}, counts
+    check_image(img, 512, 512)
+    tail_counts = counts
+    _, img, _, counts = main_path_run(
+        scene_of(presets.default_scene, 320, 240, 32, 30, 1))
+    assert counts == {"cuda_mono": 1, "cuda_regen": 0}, counts
+    check_image(img, 320, 240)
+    emit(phase="tail_and_single", seconds=round(time.monotonic() - t0, 3),
+         cornell_6_iter_k4=tail_counts, default_320x240_1_iter=counts, card=card)
+
+    # the repository's goldens: direct-only 32x24 frames (tests/test_goldens.py)
+    for name in ("default", "cornell"):
+        data = np.load(ROOT / "tests" / "goldens" / f"{name}_32x24_b1.npz")
+        want = data["frames"].astype(np.float32)
+        sc = scene_of(presets.PRESETS[name], 32, 24, 32, 1, 4)
+        gst, gcfg = flatten_scene(sc, dev)
+        got = np.stack([ci.integrate_frame_cuda(gst, gcfg, f).cpu().numpy()
+                        for f in range(2)])
+        err = np.abs(got - want) / max(1.0, float(np.abs(want).max()))
+        assert float(err.max()) < 2e-3 and math.sqrt(float((err**2).mean())) < 2e-4, name
+    emit(phase="goldens", checked=["default_32x24_b1", "cornell_32x24_b1"],
+         max_rel_limit=2e-3, rmse_limit=2e-4, card=card)
+
+    for key, n in launches.items():
+        assert n > 0, f"{key} was never launched by the main path"
+    assert "jax" not in sys.modules, "the port imported jax"
+    src = "spectral_tpu_torch/ops/csrc/megakernel.cu"
+    kernels = [
+        dict(name="cuda_mono", route="cuda", source=src,
+             replaces="spectral_tpu/ops/pallas/megakernel.py:2113",
+             launches=launches["cuda_mono"], max_abs_err=mono_err,
+             ms=mono_ms, plain_ms=mono_plain_ms),
+        dict(name="cuda_regen", route="cuda", source=src,
+             replaces="spectral_tpu/ops/pallas/megakernel.py:2153",
+             launches=launches["cuda_regen"], max_abs_err=regen_err,
+             ms=regen_ms, plain_ms=regen_plain_ms),
+    ]
+    emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def periscope_scene(S, presets, bounces=3, samples=8):
+    """Deterministic 3-bounce scene with no self-hit coin (the periscope of
+    tests/test_pallas_megakernel.py): mirror -> mirror -> diffuse wall."""
+    base = presets.default_scene()
+    refl = [sp for sp in base.spectra if sp.effect_type.name == "REFLECTIVE"][0]
+    emis = [sp for sp in base.spectra if sp.effect_type.name == "EMISSIVE"][0]
+    mirror = S.Material(1.0, 0.0, refl, "mirror")
+    diffuse = S.Material(0.0, 0.0, refl, "wall")
+    quarter = float(math.pi / 4)
+    scene = S.Scene(
+        width=12, height=8, nbr_of_iterations=2, nbr_of_ray_bounces=bounces,
+        camera=S.Camera(position=(0.0, 0.0, 0.0), direction=(0.0, 0.0, 1.0),
+                        up=(0.0, 1.0, 0.0), fov_y_deg=30.0),
+        lights=[S.Light((0.0, 4.0, 9.0), emis, "lamp")],
+        objects=[
+            S.SceneObject((0.0, 0.0, 6.0),
+                          S.RotatedBox(4.0, 4.0, 0.2, quarter, 0.0, 0.0), mirror, "M1"),
+            S.SceneObject((0.0, 4.0, 6.0),
+                          S.RotatedBox(4.0, 4.0, 0.2, quarter, 0.0, 0.0), mirror, "M2"),
+            S.SceneObject((0.0, 4.0, 12.0), S.PlainBox(8.0, 8.0, 0.2), diffuse, "wall"),
+        ],
+        spectra=base.spectra, materials=[mirror, diffuse],
+        spectrum_number_of_samples=samples,
+    )
+    scene.update_all_spectrum_sample_sizes()
+    scene.validate()
+    return scene
+
+
+def regen_scene(presets):
+    """The regeneration check's scene (tests/test_pallas_megakernel.py)."""
+    sc = presets.default_scene()
+    sc.spectrum_number_of_samples = 8
+    sc.update_all_spectrum_sample_sizes()
+    sc.width, sc.height = 16, 128
+    sc.nbr_of_ray_bounces = 4
+    sc.nbr_of_iterations = 3
+    return sc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+// Table layout shared by the bounce kernels (megakernel.cu) and their host
+// packer (spectral_tpu_torch/ops/megakernel.py, which mirrors these rows).
+//
+// geom: float32 [GEOM_ROWS][n_obj], one row per field, struct of arrays so
+// that a block's cooperative load into shared memory is contiguous.
+#pragma once
+
+namespace spectral {
+
+constexpr int OBJ_PLAIN_BOX = 0;
+constexpr int OBJ_SPHERE = 1;
+constexpr int OBJ_ROTATED_BOX = 2;
+
+constexpr int G_TYPE = 0;        // object type tag, as float
+constexpr int G_SLAB_MIN = 1;    // 1-3: slab minimum in the object frame
+constexpr int G_SLAB_MAX = 4;    // 4-6: slab maximum in the object frame
+constexpr int G_SHIFT = 7;       // 7-9: world -> object translation
+constexpr int G_INV_ROT = 10;    // 10-18: world -> object rotation, row-major
+constexpr int G_ROT = 19;        // 19-27: object -> world rotation, row-major
+constexpr int G_AABB_MIN = 28;   // 28-30: world AABB (plain-box normals)
+constexpr int G_AABB_MAX = 31;   // 31-33
+constexpr int G_CENTER = 34;     // 34-36: rotated-box centre (normals)
+constexpr int G_HALF = 37;       // 37-39: rotated-box half extents (normals)
+constexpr int G_SPHERE_POS = 40; // 40-42: sphere centre
+constexpr int G_RADIUS = 43;
+constexpr int G_METAL = 44;
+constexpr int G_ROUGH = 45;
+constexpr int GEOM_ROWS = 46;
+
+// albedo: float32 [n_obj][S]; lpos: float32 [n_lights][4] (x, y, z, pad);
+// lspec: float32 [n_lights][S]; cam: float32 [4] (camera position, pad).
+
+constexpr int MAX_OBJECTS = 64;  // the unrolled object loop's scene size
+constexpr int BLOCK = 128;       // threads per block, one pixel-lane each
+
+}  // namespace spectral

@@ -1,0 +1,241 @@
+"""Host side of the bounce kernels (``ops/csrc/megakernel.cu``).
+
+The counterpart of the reference package's
+``spectral_tpu.ops.pallas.megakernel`` entry points ``run`` (``kernel``)
+and ``run_regen`` (``kernel_regen``):
+
+* ``pack_tables`` packs the scene into the kernels' own struct-of-arrays
+  layout (the ``pack_geometry``/``pack_camera`` counterparts; rows listed
+  in ``csrc/megakernel.cuh``);
+* ``run_mono`` / ``run_regen`` launch the CUDA kernels on CUDA tensors and
+  count their launches (``run_mono.launches``, ``run_regen.launches``);
+* ``run_mono_plain`` / ``run_regen_plain`` take the same arguments and run
+  the eager PyTorch bounce loop (``render.integrator.bounce_loop``).
+
+The wrappers take the plain path only for tensors on the CPU. For CUDA
+tensors they launch the kernel or raise; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from spectral_tpu_torch.ops.vecmath import Vec3
+from spectral_tpu_torch.render.integrator import MAX_OBJECTS, bounce_loop, require_slice
+from spectral_tpu_torch.runtime import build
+from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
+
+SUPPORTED_SAMPLES = (8, 16, 32, 64)
+
+# geom rows, mirroring csrc/megakernel.cuh: (field, first row, width)
+GEOM_LAYOUT = (
+    ("obj_type", 0, 1),
+    ("slab_min", 1, 3),
+    ("slab_max", 4, 3),
+    ("shift", 7, 3),
+    ("inv_rot", 10, 9),
+    ("rot", 19, 9),
+    ("aabb_min", 28, 3),
+    ("aabb_max", 31, 3),
+    ("center", 34, 3),
+    ("half_dim", 37, 3),
+    ("sphere_pos", 40, 3),
+    ("radius", 43, 1),
+    ("metallicness", 44, 1),
+    ("roughness", 45, 1),
+)
+GEOM_ROWS = 46
+
+
+@dataclasses.dataclass
+class KernelTables:
+    """Everything a bounce kernel reads besides the lane planes, on one
+    device. ``scene``/``config`` are the tables the plain versions read."""
+
+    geom: torch.Tensor  # f32 [GEOM_ROWS, O]
+    albedo: torch.Tensor  # f32 [O, S]
+    lpos: torch.Tensor  # f32 [L, 4]
+    lspec: torch.Tensor  # f32 [L, S]
+    cam: torch.Tensor  # f32 [4]: camera position, pad
+    scene: SceneTensors
+    config: RenderConfig
+
+
+def pack_tables(scene: SceneTensors, config: RenderConfig) -> KernelTables:
+    """Pack the scene for the kernels (host numpy, then one copy to the
+    scene's device). Raises for scenes outside the port's slice."""
+    require_slice(scene, config)
+    f = scene.np_fields
+    n_obj = config.n_objects
+    geom = np.zeros((GEOM_ROWS, n_obj), np.float32)
+    for name, row, width in GEOM_LAYOUT:
+        geom[row:row + width] = np.asarray(f[name], np.float32).reshape(n_obj, width).T
+    lpos = np.zeros((config.n_lights, 4), np.float32)
+    lpos[:, :3] = f["light_pos"]
+    cam = np.zeros(4, np.float32)
+    cam[:3] = f["cam_pos"]
+    dev = scene.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return KernelTables(
+        geom=t(geom), albedo=t(f["albedo"]), lpos=t(lpos),
+        lspec=t(f["light_spec"]), cam=t(cam), scene=scene, config=config,
+    )
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+                   tables: KernelTables) -> torch.Tensor:
+    """One frame's radiance ``[S, n]`` from the given primary lanes: the
+    eager bounce loop on the same inputs as ``run_mono``."""
+    rad = bounce_loop(
+        Vec3(ox, oy, oz), Vec3(dx, dy, dz), px.long(), py.long(), frame_id,
+        tables.scene, tables.config,
+    )
+    return rad.T.contiguous()
+
+
+def run_regen_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
+                    dirx, diry, dirz, tables: KernelTables) -> torch.Tensor:
+    """The SUM of K ``run_mono_plain`` frames ``[S, n]``: frame 0 from the
+    given primaries, frame j from the camera and direction plane j-1."""
+    n = ox.shape[0]
+    cam = tables.cam
+    total = run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame, tables)
+    for j in range(1, dirx.shape[0] + 1):
+        total = total + run_mono_plain(
+            cam[0].expand(n), cam[1].expand(n), cam[2].expand(n),
+            dirx[j - 1], diry[j - 1], dirz[j - 1], px, py,
+            first_frame + j, tables,
+        )
+    return total
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_lanes(planes: dict, ints: dict, tables: KernelTables, n: int) -> None:
+    dev = tables.geom.device
+    for name, t in {**planes, **ints}.items():
+        want = torch.int32 if name in ints else torch.float32
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the tables on {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.shape[-1] != n:
+            raise ValueError(f"{name} has {t.shape[-1]} lanes, expected {n}")
+    s = tables.config.n_samples
+    if s not in SUPPORTED_SAMPLES:
+        raise ValueError(
+            f"the CUDA kernels are built for S in {SUPPORTED_SAMPLES}, got {s}"
+        )
+    if not 1 <= tables.config.n_objects <= MAX_OBJECTS:
+        raise ValueError(
+            f"the CUDA kernels take 1..{MAX_OBJECTS} objects, "
+            f"got {tables.config.n_objects}"
+        )
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no bounce kernel for device {t.device}")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernels with their C signatures declared."""
+    lib = build.load("megakernel")
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.spectral_mono.argtypes = [ci, ci, ci, ci, ci, cu] + [vp] * 14
+    lib.spectral_mono.restype = ci
+    lib.spectral_regen.argtypes = [ci, ci, ci, ci, ci, cu, ci] + [vp] * 18
+    lib.spectral_regen.restype = ci
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed to launch: cudaError_t {err}")
+
+
+def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+             tables: KernelTables) -> torch.Tensor:
+    """One progressive frame's radiance ``[S, n]`` from the primary lanes
+    (``ox..dz`` f32 ``[n]``, ``px``/``py`` int32 ``[n]``). Launches
+    ``cuda_mono`` for CUDA tensors, runs the plain version for CPU ones."""
+    if not _on_cuda(ox):
+        return run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
+    n = ox.shape[0]
+    _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz),
+                 dict(px=px, py=py), tables, n)
+    cfg = tables.config
+    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
+    err = _lib().spectral_mono(
+        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
+        int(frame_id) & 0xFFFFFFFF,
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.geom,
+                    tables.albedo, tables.lpos, tables.lspec, out)),
+        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+    )
+    _raise_on(err, "cuda_mono")
+    run_mono.launches += 1
+    return out
+
+
+run_mono.launches = 0
+
+
+def run_regen(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
+              dirx, diry, dirz, tables: KernelTables) -> torch.Tensor:
+    """The SUM of K progressive frames' radiance ``[S, n]`` in one launch
+    (K = ``dirx.shape[0] + 1`` >= 2; ``dir*`` are the ``[K-1, n]``
+    primary directions of frames 1..K-1, whose origin is the camera).
+    Launches ``cuda_regen`` for CUDA tensors, runs the plain version for
+    CPU ones."""
+    k = dirx.shape[0] + 1
+    if k < 2:
+        raise ValueError("regen wants k >= 2 (use run_mono)")
+    if not _on_cuda(ox):
+        return run_regen_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame,
+                               dirx, diry, dirz, tables)
+    n = ox.shape[0]
+    _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+                      dirx=dirx, diry=diry, dirz=dirz),
+                 dict(px=px, py=py), tables, n)
+    for name, t in (("diry", diry), ("dirz", dirz)):
+        if t.shape != dirx.shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, dirx {tuple(dirx.shape)}")
+    cfg = tables.config
+    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
+    err = _lib().spectral_regen(
+        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
+        int(first_frame) & 0xFFFFFFFF, k,
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.cam, dirx, diry,
+                    dirz, tables.geom, tables.albedo, tables.lpos,
+                    tables.lspec, out)),
+        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+    )
+    _raise_on(err, "cuda_regen")
+    run_regen.launches += 1
+    return out
+
+
+run_regen.launches = 0

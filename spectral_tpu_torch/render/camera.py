@@ -1,0 +1,84 @@
+"""Primary ray generation (the twin of ``spectral_tpu.render.camera``),
+keeping the reference's quirks: flipped NDC y, the minus on the right
+axis, and one Hammersley sub-pixel offset per frame for every pixel
+(reference ``src/shader.rs:271-293``). Pinhole only: depth of field
+raises until its slice lands."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from spectral_tpu_torch.ops.rng import hammersley
+from spectral_tpu_torch.ops.vecmath import Vec3
+
+PI = math.pi
+
+
+def camera_basis(cam_dir, cam_up, fov_y_deg, width: int, height: int):
+    """``(forward, right, true_up, focal_distance, aspect_ratio)`` as
+    float32 0-d tensors on the camera tables' device, in the exact op
+    order of the reference package's ``camera_basis``."""
+    dev = cam_dir.device
+    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    aspect_ratio = w / h
+    fov_half_rad = (fov_y_deg / 2.0) / 180.0 * PI
+    focal_distance = 1.0 / torch.tan(fov_half_rad)
+    up = Vec3(cam_up[0], cam_up[1], cam_up[2]).normalize()
+    forward = Vec3(cam_dir[0], cam_dir[1], cam_dir[2]).normalize()
+    right = forward.cross(up).normalize()
+    true_up = right.cross(forward)
+    return forward, right, true_up, focal_distance, aspect_ratio
+
+
+def pixel_coords(width: int, height: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major ``(px, py)`` int64 lane planes of a ``width x height``
+    image (uint32 bit patterns for the RNG seeds)."""
+    idx = torch.arange(width * height, dtype=torch.int64, device=device)
+    return idx % width, idx // width
+
+
+def generate_primary_rays(
+    cam_pos: torch.Tensor,
+    cam_dir: torch.Tensor,
+    cam_up: torch.Tensor,
+    fov_y_deg: torch.Tensor,
+    width: int,
+    height: int,
+    frame_id: int,
+    intended_frames: int,
+    dof=None,
+) -> tuple[Vec3, Vec3, torch.Tensor, torch.Tensor]:
+    """The ``[height * width]`` wavefront of camera rays for one frame.
+
+    Returns ``(origins, directions, px, py)``; ``px``/``py`` are int64
+    row-major pixel coordinates."""
+    if dof is not None:
+        raise NotImplementedError(
+            "depth of field is not in the port yet (queued: scene-feature "
+            "slice, ROADMAP queue 1 item 11)"
+        )
+    dev = cam_pos.device
+    px, py = pixel_coords(width, height, dev)
+    n = px.shape[0]
+    xf = px.to(torch.float32)
+    yf = py.to(torch.float32)
+    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    forward, right, true_up, focal_distance, aspect_ratio = camera_basis(
+        cam_dir, cam_up, fov_y_deg, width, height
+    )
+    off_x, off_y = hammersley(frame_id, intended_frames, device=dev)
+
+    y_ndc = -(((yf + off_y) / h) * 2.0 - 1.0)
+    x_ndc = (((xf + off_x) / w) * 2.0 - 1.0) * aspect_ratio
+
+    d = forward * focal_distance - right * x_ndc + true_up * y_ndc
+    # the reference normalizes in raygen AND in Ray::new
+    d = d.normalize().normalize()
+    origin = Vec3(
+        cam_pos[0].expand(n), cam_pos[1].expand(n), cam_pos[2].expand(n)
+    )
+    return origin, d, px, py

@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use and load them
+with ``ctypes`` (the pattern of ``spectral_tpu.runtime.native``).
+
+Each ``ops/csrc/<name>.cu`` becomes ``build/lib<name>.so`` inside this
+package, rebuilt when the ``.cu`` or any ``.cuh`` beside it is newer than
+the library. The sources expose a plain C interface, so the build does not
+include PyTorch's headers and takes seconds. ``nvcc -Xptxas -v``'s report
+of registers, shared memory and spills is kept next to the library
+(``build_log``). Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "ops" / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+# Hopper only (`a` keeps wgmma/setmaxnreg available to later kernels).
+# -fmad=false and no --use_fast_math: the kernels are held to the eager
+# PyTorch path, which contracts nothing and rounds division and sqrt.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else
+    ``nvcc`` on ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built "
+            "from source at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report from the last build of ``name`` (registers,
+    shared memory and spills per kernel), or '' if never built here."""
+    log = BUILD_DIR / f"lib{name}.log"
+    return log.read_text() if log.exists() else ""
+
+
+def build(name: str) -> Path:
+    """Compile ``ops/csrc/<name>.cu`` unless the library is up to date."""
+    src = CSRC_DIR / f"{name}.cu"
+    deps = [src, *CSRC_DIR.glob("*.cuh")]
+    lib = library_path(name)
+    newest = max(p.stat().st_mtime for p in deps)
+    if lib.exists() and lib.stat().st_mtime >= newest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise BuildError(f"nvcc failed to run: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(
+            f"nvcc failed ({proc.returncode}) on {src.name}:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    (BUILD_DIR / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib<name>.so`` once per process."""
+    return ctypes.CDLL(str(build(name)))

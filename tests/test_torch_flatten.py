@@ -1,0 +1,77 @@
+"""The port's jax-free scene flattening against the reference package's:
+every table bitwise equal (dtype, shape and bytes) on every preset, the
+``RenderConfig`` field-equal, and the tensors bit-for-bit copies."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from spectral_tpu.scene import flatten as jflat
+from spectral_tpu.scene import presets
+from spectral_tpu_torch.scene import flatten as tflat
+
+torch.set_num_threads(1)
+
+
+def _same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("name", sorted(presets.PRESETS))
+def test_np_fields_and_config_bitwise_equal(name):
+    arrays, config = jflat.flatten_scene(presets.PRESETS[name]())
+    want = arrays.host.np_fields
+    got, got_config = tflat.flatten_numpy(presets.PRESETS[name]())
+    assert set(got) == set(want) == set(tflat.FIELDS)
+    for key in tflat.FIELDS:
+        assert _same_bits(got[key], want[key]), key
+    assert dataclasses.asdict(got_config) == dataclasses.asdict(config)
+
+
+@pytest.mark.parametrize("name", ["default", "cornell", "prism"])
+def test_tensors_copy_reference_tables(name):
+    arrays, config = jflat.flatten_scene(presets.PRESETS[name]())
+    np_fields = arrays.host.np_fields
+    port_config = tflat.RenderConfig(**dataclasses.asdict(config))
+    scene, cfg = tflat.from_numpy(np_fields, port_config, "cpu")
+    assert cfg == port_config
+    for key in tflat.FIELDS:
+        t = getattr(scene, key)
+        if np_fields[key] is None:
+            assert t is None
+            continue
+        assert t.device.type == "cpu"
+        assert _same_bits(t.numpy(), np_fields[key]), key
+    assert scene.obj_types == tuple(int(x) for x in np_fields["obj_type"])
+    # the scene's own flatten gives the same tensors
+    own, own_cfg = tflat.flatten_scene(presets.PRESETS[name](), "cpu")
+    assert own_cfg == port_config
+    for key in tflat.FIELDS:
+        a, b = getattr(own, key), getattr(scene, key)
+        assert (a is None and b is None) or torch.equal(a, b), key
+
+
+def test_hidden_objects_and_lights_are_dropped():
+    scene = presets.cornell_box()
+    scene.objects[0].hidden = True
+    scene.lights[0].hidden = True
+    got, cfg = tflat.flatten_numpy(scene)
+    arrays, config = jflat.flatten_scene(scene)
+    assert cfg.n_objects == config.n_objects == 6
+    assert cfg.n_lights == 0
+    for key in tflat.FIELDS:
+        assert _same_bits(got[key], arrays.host.np_fields[key]), key
+
+
+def test_euler_rotation_bitwise():
+    rng = np.random.default_rng(7)
+    for roll, pitch, yaw in rng.uniform(-np.pi, np.pi, size=(50, 3)):
+        assert _same_bits(
+            tflat.euler_to_rotation_matrix(roll, pitch, yaw),
+            jflat.euler_to_rotation_matrix(roll, pitch, yaw),
+        )

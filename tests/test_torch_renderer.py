@@ -1,0 +1,168 @@
+"""The port's ``Renderer`` and CLI on the CPU (plain versions of the
+kernels) against the reference package's ``Renderer(backend="jnp")``,
+plus the port's contract: it never imports jax, ``device="cuda"`` without
+a GPU raises, and scene features outside the slice raise.
+
+Tolerances: direct-only and periscope renders are deterministic, so the
+framebuffers agree to 1e-5 of the image scale (the port blends a K-frame
+chunk in one step where the reference blends frame by frame: float32
+rounding only). The 3-bounce Cornell box is held to its image mean (5%),
+because diffuse self-hit coins flip between compilations.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spectral_tpu.render.renderer import Renderer as JaxRenderer
+from spectral_tpu.scene import presets
+from spectral_tpu_torch import cli
+from spectral_tpu_torch.render import renderer as trender
+from tests.test_pallas_megakernel import _periscope_scene
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _scene(name, w, h, bounces, iters, samples=8):
+    scene = presets.PRESETS[name](n_samples=samples)
+    scene.width, scene.height = w, h
+    scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
+    return scene
+
+
+def _max_rel(got, want):
+    return float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("name", ["default", "cornell"])
+def test_direct_only_render_matches_jnp_renderer(name):
+    want = JaxRenderer(_scene(name, 16, 12, 1, 3), backend="jnp").render()
+    r = trender.Renderer(_scene(name, 16, 12, 1, 3), device="cpu")
+    assert r.regen_frames == 3  # the whole render in one regeneration chunk
+    got = r.render()
+    assert got.shape == want.shape == (12, 16, 4) and got.dtype == np.float32
+    assert _max_rel(got, want) <= 1e-5
+
+
+def test_periscope_render_matches_jnp_renderer():
+    scene = _periscope_scene()
+    scene.nbr_of_iterations = 3
+    want = JaxRenderer(scene, backend="jnp").render()
+    got = trender.Renderer(scene, device="cpu", regen_frames=2).render()  # 2 + tail
+    assert float(want[..., :3].max()) > 0.1
+    assert _max_rel(got, want) <= 1e-5
+
+
+def test_multibounce_render_mean_matches_jnp_renderer():
+    want = JaxRenderer(_scene("cornell", 32, 24, 3, 4), backend="jnp").render()
+    got = trender.Renderer(_scene("cornell", 32, 24, 3, 4), device="cpu").render()
+    assert np.isfinite(got).all()
+    assert abs(float(got[..., :3].mean()) / float(want[..., :3].mean()) - 1.0) <= 0.05
+    assert np.allclose(got[..., 3], 1.0, atol=1e-6)
+
+
+def test_ragged_tail_goes_frame_by_frame(monkeypatch):
+    calls = []
+    real_mono, real_regen = trender.render_frame_step_cuda, trender.render_frames_step_cuda_regen
+
+    def mono(scene, config, accum, frame_id, tables):
+        calls.append(("mono", frame_id))
+        return real_mono(scene, config, accum, frame_id, tables)
+
+    def regen(scene, config, accum, first, k, tables):
+        calls.append(("regen", first, k))
+        return real_regen(scene, config, accum, first, k, tables)
+
+    monkeypatch.setattr(trender, "render_frame_step_cuda", mono)
+    monkeypatch.setattr(trender, "render_frames_step_cuda_regen", regen)
+    r = trender.Renderer(_scene("cornell", 8, 6, 2, 6), device="cpu", regen_frames=4)
+    seen = []
+    r.render(progress=lambda p: seen.append(p.frame_id))
+    assert calls == [("regen", 0, 4), ("mono", 4), ("mono", 5)]
+    assert seen == [3, 5] and r.next_frame == 6
+    calls.clear()
+    r1 = trender.Renderer(_scene("cornell", 8, 6, 2, 1), device="cpu")
+    assert r1.regen_frames == 1
+    r1.render()
+    assert calls == [("mono", 0)]
+
+
+def test_abort_stops_at_a_chunk_boundary():
+    r = trender.Renderer(_scene("cornell", 8, 6, 1, 8), device="cpu", regen_frames=2)
+    r.render(abort=lambda: True)
+    assert r.next_frame == 2
+    r.render_frames(4, check_finite=True)
+    assert r.next_frame == 6
+
+
+def test_auto_regen_frames():
+    assert trender.auto_regen_frames(512, 512, 32, 100) == 100
+    assert trender.auto_regen_frames(512, 512, 32, 6) == 6
+    assert trender.auto_regen_frames(320, 240, 32, 1) == 1
+    assert trender.auto_regen_frames(512, 512, 128, 1000) == 64
+    # the direction planes' budget: 1 + 2 GiB // (12 * W * H)
+    assert trender.auto_regen_frames(1920, 1080, 64, 1000) == 1 + 2 * 1024**3 // (12 * 1920 * 1080)
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device='cuda' is expected to work here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cuda")
+
+
+@pytest.mark.parametrize("name", ["prism", "spheres", "mesh"])
+def test_out_of_slice_scene_raises(name):
+    with pytest.raises(NotImplementedError, match="not in the PyTorch/CUDA port yet"):
+        trender.Renderer(presets.PRESETS[name](n_samples=8), device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(persist=True), dict(phase_split=8), dict(sharding=object()), dict(regen_sort=True),
+])
+def test_out_of_slice_modes_raise(option):
+    (name,) = option
+    with pytest.raises(NotImplementedError, match=name):
+        trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cpu", **option)
+
+
+def test_save_image_and_cli(tmp_path):
+    r = trender.Renderer(_scene("cornell", 16, 12, 2, 2), device="cpu")
+    r.render()
+    out = tmp_path / "r.png"
+    r.save_image(out)
+    assert out.stat().st_size > 0
+    cli_out = tmp_path / "cli.png"
+    rc = cli.main(["render", "--preset", "default", "--width", "16", "--height", "12",
+                   "--iterations", "2", "--bounces", "2", "--samples", "8",
+                   "--device", "cpu", "--quiet", "--out", str(cli_out)])
+    assert rc == 0 and cli_out.stat().st_size > 0
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import spectral_tpu_torch as st\n"
+        "for m in pkgutil.walk_packages(st.__path__, 'spectral_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "from spectral_tpu.scene import presets\n"
+        "sc = presets.cornell_box()\n"
+        "sc.width, sc.height, sc.nbr_of_iterations = 16, 12, 2\n"
+        "img = st.Renderer(sc, device='cpu').render()\n"
+        "assert img.shape == (12, 16, 4) and img[..., :3].max() > 0\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
