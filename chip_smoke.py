@@ -5,9 +5,12 @@
 
 Builds the port's CUDA kernels from ``spectral_tpu_torch/ops/csrc``, holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's main path (``Renderer(...).render()``) at the reference's own
-benchmark size: the Cornell box at 512x512, 32 wavelengths, 30 bounces,
-100 iterations. Prints one JSON line per phase, then the kernel table, the
+port's two paths at the reference's own benchmark size, the Cornell box at
+512x512, 32 wavelengths, 30 bounces, 100 iterations: the main path
+(``Renderer(...).render()``, regeneration) and the persist path
+(``Renderer(..., persist=True[, adaptive=...])``, the cost probe and the
+persistent kernel), each with every launch count zeroed just before it
+and read just after. Prints one JSON line per phase, then the kernel table, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA, or a
@@ -57,6 +60,7 @@ def main() -> int:
         from spectral_tpu_torch.ops.vecmath import Vec3
         from spectral_tpu_torch.render import cuda_integrator as ci
         from spectral_tpu_torch.render import integrator as ti
+        from spectral_tpu_torch.render.camera import camera_basis_table
         from spectral_tpu_torch.render.color import spectra_to_rgb
         from spectral_tpu_torch.render.renderer import Renderer
         from spectral_tpu_torch.runtime import build
@@ -144,6 +148,109 @@ def main() -> int:
     emit(phase="kernels_small", seconds=round(time.monotonic() - t0, 3),
          checks=small, card=card)
 
+    # ---------------- 3a. the persist and cost kernels vs plain, small size
+    def persist_drive(sc, budget, ring_w=0, plain=False, stop=None, launches_max=None):
+        """One carried state through the persist scheduler's launches."""
+        st, cfg = flatten_scene(sc, dev)
+        tb = mk.pack_tables(st, cfg)
+        frames = cfg.intended_frames
+        state = ci.persist_init(st, cfg)
+        cam = tb.cam if ring_w else camera_basis_table(st, cfg)
+        ring, lead = None, frames
+        if ring_w:
+            ring = tuple(torch.zeros((ring_w, cfg.width * cfg.height), device=dev)
+                         for _ in range(3))
+            lead = min(ring_w, frames)
+            for f in range(1, lead):
+                ci.ring_refill(ring, f, st, cfg)
+        run = mk.run_persist_plain if plain else mk.run_persist
+        n_launch = 0
+        while True:
+            run(state, lead, frames, tb, cam, ring=ring, stop=stop, budget=budget)
+            n_launch += 1
+            done = int(ci.min_frames_done(state, stop, frames))
+            if done >= frames or n_launch == launches_max:
+                break
+            while ring_w and lead < min(done + ring_w, frames):
+                ci.ring_refill(ring, lead, st, cfg)
+                lead += 1
+        torch.cuda.synchronize()
+        return state, st, cfg, tb, n_launch
+
+    def same_state(a, b):
+        return all(torch.equal(x, getattr(b, k)) for k, x in a.planes().items())
+
+    t0 = time.monotonic()
+    psmall = []
+    ring_sc = regen_scene(presets)
+    ring_sc.nbr_of_iterations = 6
+    got, st, cfg, tb, nl = persist_drive(ring_sc, 13, ring_w=4)
+    want, *_ = persist_drive(ring_sc, 13, ring_w=4, plain=True)
+    regen_rad = ci.regen_radiance(st, cfg, 0, 6, tb)
+    err = float((got.rad - regen_rad).abs().max())
+    psmall.append(dict(case="persist ring W=4 budget 13 default 16x128 b4 6 frames",
+                       launches=nl, state_equals_plain=same_state(got, want),
+                       max_abs_vs_regen_k6=err, limit=0.0))
+    assert same_state(got, want) and torch.equal(got.rad, regen_rad), psmall[-1]
+    cb = scene_of(presets.cornell_box, 16, 8, 8, 3, 6)
+    split = [persist_drive(cb, b)[0] for b in (11, 64)]
+    psmall.append(dict(case="persist free-running cornell 16x8 b3: budget 11 vs 64",
+                       bit_identical=same_state(split[0], split[1])))
+    assert torch.equal(split[0].rad, split[1].rad) and torch.equal(split[0].fid, split[1].fid)
+    for bounces, limit in ((1, 1e-5), (3, 0.15)):
+        sc = scene_of(presets.cornell_box, 16, 8, 8, bounces, 6)
+        got, st, *_ = persist_drive(sc, 11)
+        want, *_ = persist_drive(sc, 11, plain=True)
+        err = rel_err(rgb_of(got.rad, st), rgb_of(want.rad, st))
+        if bounces == 1:
+            psmall.append(dict(case="persist free-running cornell 16x8 b1 vs plain",
+                               max_rel=float(err.max()), limit=limit))
+            assert float(err.max()) <= limit, psmall[-1]
+        else:
+            flips = float((err > 1e-5).float().mean())
+            psmall.append(dict(case="persist free-running cornell 16x8 b3 vs plain",
+                               flipped_fraction=flips, bit_identical=same_state(got, want),
+                               limit=limit))
+            assert flips <= limit, psmall[-1]
+    n_cb = 16 * 8
+    zero, *_ = persist_drive(cb, 11, stop=torch.zeros(n_cb, device=dev))
+    psmall.append(dict(case="lane-stop, all-zero mask vs free-running",
+                       bit_identical=same_state(zero, split[0])))
+    assert same_state(zero, split[0]), psmall[-1]
+    # checkerboard mask set after launch 1: a stopped lane finishes its
+    # in-flight frame and never starts another
+    state, st, cfg, tb, _ = persist_drive(cb, 4, launches_max=1)
+    fid1 = state.fid.clone()
+    lane = torch.arange(n_cb, device=dev)
+    stop = ((lane % 16 + lane // 16) % 2).float()
+    cam = camera_basis_table(st, cfg)
+    for _ in range(8):
+        mk.run_persist(state, 6, 6, tb, cam, stop=stop, budget=4)
+    held = stop > 0
+    frozen = bool(torch.equal(state.fid[held], fid1[held]))
+    psmall.append(dict(case="lane-stop, checkerboard set after launch 1",
+                       stopped_fids_frozen=frozen,
+                       stopped_lanes_dead=bool((state.alive[held] == 0).all()),
+                       others_done=int(state.fid[~held].min()) + 1))
+    assert frozen and bool((state.alive[held] == 0).all()), psmall[-1]
+    for sc, name in ((periscope_scene(schema, presets), "periscope 12x8 b3"),
+                     (scene_of(presets.cornell_box, 16, 8, 8, 3, 2), "cornell 16x8 b3")):
+        st, cfg = flatten_scene(sc, dev)
+        tb = mk.pack_tables(st, cfg)
+        planes, px, py = ci.primary_lanes(st, cfg, 1)
+        rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+        prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+        mono = mk.run_mono(*planes, px, py, 1, tb)
+        torch.cuda.synchronize()
+        psmall.append(dict(case=f"cost {name}", radiance_equals_mono=bool(torch.equal(rad, mono)),
+                           cost_equals_plain=bool(torch.equal(cost, pcost)),
+                           radiance_max_abs_vs_plain=float((rad - prad).abs().max())))
+        assert torch.equal(rad, mono), psmall[-1]
+        if name.startswith("periscope"):
+            assert torch.equal(cost, pcost) and torch.equal(rad, prad), psmall[-1]
+    emit(phase="kernels_persist_small", seconds=round(time.monotonic() - t0, 3),
+         checks=psmall, card=card)
+
     # ------- 3b. kernels vs plain at the main path's shapes (512^2, S=32, K=100)
     def cuda_ms(fn, reps, warmup=True):
         if warmup:
@@ -198,20 +305,93 @@ def main() -> int:
          flipped_limit=0.15, mono_ms=mono_ms, mono_plain_ms=mono_plain_ms,
          regen_k100_ms=regen_ms, regen_k100_plain_ms=regen_plain_ms, card=card)
 
+    # -------- 3c. persist and cost at the main path's shapes (512^2, S=32)
+    t0 = time.monotonic()
+    b1_4 = scene_of(presets.cornell_box, 512, 512, 32, 1, 4)
+    got, pst, pcfg, ptb, nl = persist_drive(b1_4, 2, ring_w=4)
+    ring_b1_equal = bool(torch.equal(got.rad, ci.regen_radiance(pst, pcfg, 0, 4, ptb)))
+    assert nl >= 2 and ring_b1_equal, ("persist ring 512^2 b1 vs cuda_regen K=4", nl)
+    del got
+    # b30: one free-running launch at the main path's default budget
+    budget_main = max(8, round(64 * float(ci.probe_path_cost(st, cfg, tb, 1).mean())))
+    cam_main = camera_basis_table(st, cfg)
+
+    def persist_once(run, reps, stop=None):
+        times = []
+        for _ in range(reps):
+            state = ci.persist_init(st, cfg)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(state, cfg.intended_frames, cfg.intended_frames, tb, cam_main,
+                stop=stop, budget=budget_main)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sum(times) / reps, state
+
+    persist_ms, got = persist_once(mk.run_persist, 3)
+    persist_plain_ms, want = persist_once(mk.run_persist_plain, 1)
+    persist_flips, persist_err = envelope(got.rad, want.rad, st)
+    assert persist_flips <= 0.15, ("persist 512^2 b30 flipped", persist_flips)
+    persist_frames_one_launch = float(ci.completed_frames(got).float().mean())
+    # the lane-stop kernel at the same shape: an all-zero mask must leave
+    # the free-running launch's state bit for bit; a checkerboard from
+    # frame 0 is held to the plain version, and its stopped lanes finish
+    # frame 0 and start no other
+    n_main = cfg.width * cfg.height
+    stop0_ms, stop0 = persist_once(mk.run_persist, 1, stop=torch.zeros(n_main, device=dev))
+    stop0_identical = same_state(stop0, got)
+    assert stop0_identical, "lane-stop 512^2 b30, zero mask: differs from free-running"
+    lane = torch.arange(n_main, device=dev)
+    checker = ((lane % cfg.width + lane // cfg.width) % 2).float()
+    checker_ms, chk = persist_once(mk.run_persist, 1, stop=checker)
+    checker_plain_ms, chk_plain = persist_once(mk.run_persist_plain, 1, stop=checker)
+    checker_flips, checker_err = envelope(chk.rad, chk_plain.rad, st)
+    held = checker > 0
+    checker_held = bool((chk.fid[held] == 0).all() and (chk.alive[held] == 0).all())
+    assert checker_flips <= 0.15 and checker_held, (
+        "lane-stop 512^2 b30, checkerboard", checker_flips, checker_held)
+    del got, want, stop0, chk, chk_plain
+    cost_ms, (crad, cost) = cuda_ms(lambda: mk.run_cost(*planes, px, py, 0, tb), 5)
+    cost_plain_ms, (prad, pcost) = cuda_ms(
+        lambda: mk.run_cost_plain(*planes, px, py, 0, tb), 1, warmup=False)
+    mono_rad = mk.run_mono(*planes, px, py, 0, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(crad, mono_rad), "cuda_cost radiance differs from cuda_mono"
+    cost_err = float((crad - prad).abs().max())
+    cost_equal = float((cost == pcost).float().mean())
+    assert cost_err == 0.0 and cost_equal == 1.0, (
+        "cuda_cost 512^2 b30 vs plain", cost_err, cost_equal)
+    del crad, prad, mono_rad
+    emit(phase="kernels_persist_main_shape", seconds=round(time.monotonic() - t0, 3),
+         b1_ring_w4_vs_regen_k4_bit_identical=ring_b1_equal, b1_ring_launches=nl,
+         budget=budget_main, b30_persist_flipped=persist_flips,
+         b30_persist_max_abs=persist_err, flipped_limit=0.15,
+         persist_ms=persist_ms, persist_plain_ms=persist_plain_ms,
+         persist_mean_frames_per_launch=persist_frames_one_launch,
+         lane_stop_zero_ms=stop0_ms, lane_stop_zero_bit_identical=stop0_identical,
+         lane_stop_checker_ms=checker_ms, lane_stop_checker_plain_ms=checker_plain_ms,
+         lane_stop_checker_flipped=checker_flips, lane_stop_checker_max_abs=checker_err,
+         lane_stop_checker_stopped_lanes_held=checker_held,
+         cost_ms=cost_ms, cost_plain_ms=cost_plain_ms, cost_radiance_max_abs=cost_err,
+         cost_share_equal_to_plain=cost_equal, mean_cost=float(cost.mean()), card=card)
+
     # ------------------------------------------- 4. the main path at full size
-    def reset_counts():
-        mk.run_mono.launches = 0
-        mk.run_regen.launches = 0
+    wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
+                "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost}
+    launches = dict.fromkeys(wrappers, 0)
 
-    launches = {"cuda_mono": 0, "cuda_regen": 0}
-
-    def main_path_run(sc, regen="auto"):
-        r = Renderer(sc, device="cuda", regen_frames=regen)
-        reset_counts()
+    def main_path_run(sc, regen="auto", render=None, **kw):
+        """Build a Renderer, zero every count, render, read the counts."""
+        r = Renderer(sc, device="cuda", regen_frames=regen, **kw)
+        for w in wrappers.values():
+            w.launches = 0
         t = time.monotonic()
-        img = r.render()  # ends in a device -> host copy: synchronized
+        img = (render or Renderer.render)(r)  # ends in a device -> host copy
         dt = time.monotonic() - t
-        counts = {"cuda_mono": mk.run_mono.launches, "cuda_regen": mk.run_regen.launches}
+        counts = {key: w.launches for key, w in wrappers.items()}
         for key in launches:
             launches[key] += counts[key]
         return r, img, dt, counts
@@ -227,6 +407,7 @@ def main() -> int:
     assert r.regen_frames == k_main, r.regen_frames
     assert counts["cuda_regen"] > 0, counts
     check_image(img, 512, 512)
+    regen_img = img
     with tempfile.TemporaryDirectory() as tmp:
         png = Path(tmp) / "cornell512.png"
         r.save_image(png)
@@ -273,16 +454,92 @@ def main() -> int:
          b30_mean_plain=mean_want, b30_mean_rel=mean_rel, b30_limit=0.02,
          plain_seconds_per_frame=plain_s_per_frame, card=card)
 
+    # ------------- 4b. the persist path at full size (persist=True, adaptive)
+    t0 = time.monotonic()
+    r, img, dt, counts = main_path_run(full, persist=True)
+    info = r.persist_info
+    assert counts["cuda_cost"] == 1 and counts["cuda_persist"] > 1, counts
+    assert counts["cuda_mono"] == counts["cuda_regen"] == 0, counts
+    assert info["frames_done"] >= k_main and not info["aborted"], info
+    check_image(img, 512, 512)
+    persist_mean = float(img[..., :3].mean())
+    regen_mean = float(regen_img[..., :3].mean())
+    persist_mean_rel = abs(persist_mean - regen_mean) / regen_mean
+    assert persist_mean_rel <= 0.02, ("persist mean vs regen", persist_mean, regen_mean)
+    budget_default = info["budget"]
+    default_run = dict(budget=budget_default, launches=counts, seconds=dt,
+                       seconds_per_frame=dt / k_main)
+    # one launch does the whole render
+    _, img, dt, counts = main_path_run(full, persist=True,
+                                       persist_budget=k_main * MAIN["bounces"])
+    check_image(img, 512, 512)
+    single_run = dict(budget=k_main * MAIN["bounces"], launches=counts, seconds=dt,
+                      seconds_per_frame=dt / k_main)
+    # variance-adaptive
+    r, img, dt, counts = main_path_run(full, persist=True, adaptive=(16, 0.02, 1e-4))
+    info = r.persist_info
+    adaptive_run = dict(min_counts=info["min_counts"], mean_counts=info["mean_counts"],
+                        max_counts=info["max_counts"], compactions=info["compactions"],
+                        launches=counts, seconds=dt)
+    assert info["min_counts"] >= 16 and counts["cuda_persist"] > 0, adaptive_run
+    check_image(img, 512, 512)
+    # abort after launch 2, checkpoint, resume: bit-identical to the
+    # uninterrupted render at the same budget (a quarter of the default,
+    # so that launch 2 leaves frames to do)
+    budget_abort = max(8, budget_default // 4)
+    _, persist_img, _, _ = main_path_run(full, persist=True, persist_budget=budget_abort)
+    polls = {"n": 0}
+
+    def abort_second():
+        polls["n"] += 1
+        return polls["n"] >= 2
+
+    r, img, _, _ = main_path_run(full, persist=True, persist_budget=budget_abort,
+                                 render=lambda rr: rr.render(abort=abort_second))
+    aborted_info = dict(aborted=r.persist_info["aborted"],
+                        launches=r.persist_info["launches"],
+                        frames_done=r.persist_info["frames_done"])
+    assert r.persist_info["aborted"] and r.persist_info["launches"] == 2, aborted_info
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "persist.ckpt.npz"
+        r.save_checkpoint(ckpt)
+        ckpt_bytes = ckpt.stat().st_size
+        r2 = Renderer(full, device="cuda", persist=True, persist_budget=budget_abort)
+        r2.load_checkpoint(ckpt)
+    resumed = r2.render()
+    resume_identical = bool((resumed == persist_img).all())
+    assert resume_identical, "resumed persist render differs from the uninterrupted one"
+    # regen_sort: pure relabeling of the regeneration lanes
+    r, img, _, counts = main_path_run(full, regen_sort=True)
+    assert counts["cuda_cost"] == 2 and counts["cuda_regen"] == 1, counts
+    sort_rel = float(np.abs(img - regen_img).max() / max(1.0, float(np.abs(regen_img).max())))
+    assert sort_rel <= 1e-6, ("regen_sort image vs unsorted", sort_rel)
+    rad_sorted = ci.regen_radiance(st, cfg, 0, k_main, tb, r._lane_perm)[:, r._lane_inv]
+    sort_rad_identical = bool(torch.equal(rad_sorted, ci.regen_radiance(st, cfg, 0, k_main, tb)))
+    assert sort_rad_identical, "regen_sort radiance differs from the unsorted launch"
+    del rad_sorted
+    emit(phase="persist_path", seconds=round(time.monotonic() - t0, 3),
+         config="cornell 512x512, 32 lambda, 30 bounces, 100 iterations, persist=True",
+         default_budget=default_run, single_launch=single_run,
+         regen_seconds_per_frame=s_per_frame, persist_mean=persist_mean,
+         regen_mean=regen_mean, persist_mean_rel=persist_mean_rel, mean_limit=0.02,
+         adaptive_16_0p02_1em4=adaptive_run, abort_after_2=aborted_info,
+         checkpoint_bytes=ckpt_bytes, resume_bit_identical=resume_identical,
+         regen_sort_image_max_rel=sort_rel, regen_sort_limit=1e-6,
+         regen_sort_radiance_bit_identical=sort_rad_identical, card=card)
+
     # ------------------------ 5. ragged tail and single iteration (main path)
     t0 = time.monotonic()
     _, img, _, counts = main_path_run(
         scene_of(presets.cornell_box, 512, 512, 32, 30, 6), regen=4)
-    assert counts == {"cuda_mono": 2, "cuda_regen": 1}, counts
+    assert counts == {"cuda_mono": 2, "cuda_regen": 1, "cuda_persist": 0,
+                      "cuda_cost": 0}, counts
     check_image(img, 512, 512)
     tail_counts = counts
     _, img, _, counts = main_path_run(
         scene_of(presets.default_scene, 320, 240, 32, 30, 1))
-    assert counts == {"cuda_mono": 1, "cuda_regen": 0}, counts
+    assert counts == {"cuda_mono": 1, "cuda_regen": 0, "cuda_persist": 0,
+                      "cuda_cost": 0}, counts
     check_image(img, 320, 240)
     emit(phase="tail_and_single", seconds=round(time.monotonic() - t0, 3),
          cornell_6_iter_k4=tail_counts, default_320x240_1_iter=counts, card=card)
@@ -313,6 +570,14 @@ def main() -> int:
              replaces="spectral_tpu/ops/pallas/megakernel.py:2153",
              launches=launches["cuda_regen"], max_abs_err=regen_err,
              ms=regen_ms, plain_ms=regen_plain_ms),
+        dict(name="cuda_persist", route="cuda", source=src,
+             replaces="spectral_tpu/ops/pallas/megakernel.py:2198",
+             launches=launches["cuda_persist"], max_abs_err=persist_err,
+             ms=persist_ms, plain_ms=persist_plain_ms),
+        dict(name="cuda_cost", route="cuda", source=src,
+             replaces="spectral_tpu/ops/pallas/megakernel.py:2288",
+             launches=launches["cuda_cost"], max_abs_err=cost_err,
+             ms=cost_ms, plain_ms=cost_plain_ms),
     ]
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

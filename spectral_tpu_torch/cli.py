@@ -4,11 +4,18 @@ package's ``spectral_tpu.cli`` render command, same flag names):
     python -m spectral_tpu_torch render --preset cornell --out cornell.png
     python -m spectral_tpu_torch render --preset default --width 320 \\
         --height 240 --iterations 1 --device cpu
+    python -m spectral_tpu_torch render --preset cornell --persist \\
+        --adaptive 16,0.02,1e-4 --out adaptive.png
+
+The first Ctrl-C finishes the current chunk (persist: launch), saves the
+image and a resumable checkpoint (``--checkpoint``, else
+``<out>.ckpt.npz``), and exits; ``--resume`` continues from it.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 import sys
 import time
 
@@ -39,10 +46,42 @@ def _load_scene(args):
 def cmd_render(args) -> int:
     from spectral_tpu_torch.render.renderer import Renderer
 
+    adaptive = None
+    if args.adaptive is not None:
+        if not args.persist:
+            print("--adaptive requires --persist (it runs on the "
+                  "free-running persist kernel)", file=sys.stderr)
+            return 2
+        try:
+            mn, rt, at = args.adaptive.split(",")
+            adaptive = (int(mn), float(rt), float(at))
+        except ValueError:
+            print(f"--adaptive expects MIN,RTOL,ATOL (got {args.adaptive!r})",
+                  file=sys.stderr)
+            return 2
     scene = _load_scene(args)
     regen = args.regen_frames if args.regen_frames == "auto" else int(args.regen_frames)
     begin = time.monotonic()
-    renderer = Renderer(scene, device=args.device, regen_frames=regen)
+    renderer = Renderer(
+        scene, device=args.device, regen_frames=1 if args.persist else regen,
+        regen_sort={"auto": "auto", "on": True, "off": False}[args.regen_sort],
+        persist=args.persist, persist_budget=args.persist_budget,
+        adaptive=adaptive, persist_keep_state=bool(args.checkpoint),
+    )
+    if args.resume:
+        renderer.load_checkpoint(args.resume)
+        print(f"resumed at frame {renderer.next_frame}", file=sys.stderr)
+
+    # the first Ctrl-C ends the render at the next chunk (persist: launch)
+    # and saves a resumable checkpoint; a second one raises as usual
+    stop = {"requested": False}
+
+    def on_sigint(_sig, _frame):
+        if stop["requested"]:
+            raise KeyboardInterrupt
+        stop["requested"] = True
+        print("\nabort requested: finishing the current chunk "
+              "(Ctrl-C again to force quit)", file=sys.stderr)
 
     def progress(p):
         if not args.quiet:
@@ -52,15 +91,41 @@ def cmd_render(args) -> int:
                 end="", file=sys.stderr, flush=True,
             )
 
-    renderer.render(progress=progress)
+    prev_handler = signal.signal(signal.SIGINT, on_sigint)
+    try:
+        renderer.render(progress=progress, abort=lambda: stop["requested"])
+    finally:
+        signal.signal(signal.SIGINT, prev_handler)
+    aborted = stop["requested"]
     renderer.save_image(args.out)
+    checkpoint = args.checkpoint
+    if checkpoint is None and aborted:
+        checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
+    if checkpoint:
+        renderer.save_checkpoint(checkpoint)
+        if not args.quiet:
+            print(f"\ncheckpoint -> {checkpoint}", file=sys.stderr)
     if not args.quiet:
+        verb = "aborted after" if aborted else "wrote"
         print(
-            f"\nwrote {args.out} ({scene.width}x{scene.height}, "
-            f"{renderer.next_frame} frames, {time.monotonic() - begin:.2f} s "
-            f"on {args.device})",
+            f"\n{verb} {renderer.next_frame} frames in "
+            f"{time.monotonic() - begin:.2f} s on {args.device} -> {args.out} "
+            f"({scene.width}x{scene.height})",
             file=sys.stderr,
         )
+        info = renderer.persist_info
+        if info is not None and "mean_counts" in info:
+            cap = renderer.config.intended_frames
+            print(
+                f"adaptive: {info['mean_counts']:.1f} frames/pixel mean "
+                f"(min {info['min_counts']}, max {info['max_counts']}, cap "
+                f"{cap}, compactions {info['compactions']}): "
+                f"{100.0 * (1.0 - info['mean_counts'] / cap):.0f}% of frame "
+                "work saved against the fixed-count render",
+                file=sys.stderr,
+            )
+        if aborted and checkpoint:
+            print(f"resume with --resume {checkpoint}", file=sys.stderr)
     return 0
 
 
@@ -83,6 +148,28 @@ def build_parser() -> argparse.ArgumentParser:
                          "plain PyTorch versions")
     pr.add_argument("--regen-frames", default="auto", metavar="K",
                     help="frames per regeneration launch ('auto' or K >= 1)")
+    pr.add_argument("--regen-sort", choices=("auto", "on", "off"), default="auto",
+                    help="cost-sorted pixel->lane assignment for the "
+                         "regeneration kernel, from a 2-frame path-cost probe "
+                         "(bit-exact per pixel); 'auto' leaves it off")
+    pr.add_argument("--persist", action="store_true",
+                    help="free-running lane-asynchronous batch render: every "
+                         "lane advances through its own frame stream with its "
+                         "state carried between launches. Whole-render batch; "
+                         "an abort returns the per-pixel average of completed "
+                         "frames, and --checkpoint/--resume save and restore "
+                         "the carried lane state (pass --persist to resume)")
+    pr.add_argument("--persist-budget", type=int, default=None, metavar="B",
+                    help="bounce iterations per persist launch (default: "
+                         "~64 frames' worth from a one-frame cost probe)")
+    pr.add_argument("--adaptive", default=None, metavar="MIN,RTOL,ATOL",
+                    help="(with --persist) per-pixel variance-adaptive "
+                         "stopping: each pixel renders until the standard "
+                         "error of its per-frame luminance mean is under "
+                         "RTOL*|mean|+ATOL, with at least MIN frames; "
+                         "iterations becomes the cap. E.g. --adaptive 16,0.02,1e-4")
+    pr.add_argument("--checkpoint", help=HELP["checkpoint"])
+    pr.add_argument("--resume", help="resume from a checkpoint file")
     pr.add_argument("--quiet", action="store_true")
     pr.set_defaults(func=cmd_render)
     return parser

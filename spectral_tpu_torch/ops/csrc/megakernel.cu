@@ -1,24 +1,33 @@
 // Spectral path-tracing bounce kernels for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's spectral_tpu/ops/pallas/megakernel.py:
-//   cuda_mono   <- `run` -> `kernel` (pallas_call at :2127, body :1845 via
-//                  `_trace_tile` :1803): one progressive frame from the
-//                  given primary rays, the whole bounce loop resident.
-//   cuda_regen  <- `run_regen` -> `kernel_regen` (pallas_call at :2171, body
-//                  :1894): K frames per launch; a lane whose path ends starts
-//                  its pixel's next frame, and the output is the SUM of the
-//                  K frames' radiance.
-// Both run the bounce body of `make_body.bounce` (:1313) with its unrolled
-// object loop for scenes of up to 64 objects: `_candidate_t` (:554),
-// `trace_tile` (:605) and `shadow_blocked` (:714).
+//   cuda_mono    <- `run` -> `kernel` (pallas_call at :2127, body :1845 via
+//                   `_trace_tile` :1803): one progressive frame from the
+//                   given primary rays, the whole bounce loop resident.
+//   cuda_regen   <- `run_regen` -> `kernel_regen` (pallas_call at :2171, body
+//                   :1894): K frames per launch; a lane whose path ends starts
+//                   its pixel's next frame, and the output is the SUM of the
+//                   K frames' radiance.
+//   cuda_persist <- `run_persist` -> `kernel_persist` / `_persist_core`
+//                   (pallas_call at :2246, body :1941-2069): exactly `budget`
+//                   bounce iterations over lane state carried in HBM between
+//                   launches, in three variants: the primary-direction ring,
+//                   free-running (in-kernel restart raygen), and
+//                   free-running with a host stop mask (adaptive sampling).
+//   cuda_cost    <- `run_cost` -> `kernel_cost` (pallas_call at :2302, body
+//                   :1868): cuda_mono plus each lane's live iteration count.
+// All four run one per-iteration step, `bounce_step`, over one lane-state
+// struct, as the four Pallas entry points share `make_body.bounce` (:1313),
+// with its unrolled object loop for scenes of up to 64 objects:
+// `_candidate_t` (:554), `trace_tile` (:605) and `shadow_blocked` (:714).
 //
-// Design. One thread per pixel-lane runs its own paths to completion, in a
-// block of 128 threads, masked by gidx < n; a warp retires lanes on its own,
-// so the TPU kernel's fixed K*max_bounces iteration count and tile-wide
-// all-dead guard are not needed. The per-object, per-lambda and light tables
-// (at most 64 objects) are loaded into shared memory at block start, and the
-// winner's albedo row is indexed directly. The spectral state thr[S] and
-// rad[S] lives in registers, the kernels templated on S in {8,16,32,64}.
+// Design. One thread per pixel-lane runs its own paths, in a block of 128
+// threads, masked by gidx < n; a warp retires lanes on its own, so the TPU
+// kernel's fixed iteration count and tile-wide all-dead guards are not
+// needed. The per-object, per-lambda and light tables (at most 64 objects)
+// are loaded into shared memory at block start, and the winner's albedo
+// row is indexed directly. The spectral state thr[S] and rad[S] lives in
+// registers, the kernels templated on S in {8,16,32,64}.
 //
 // Numerics. The arithmetic follows the torch-eager bounce loop
 // (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
@@ -33,10 +42,18 @@
 // What bounds it on the H100: divergent FP32 ALU work per lane (per bounce,
 // every object is tested twice, for the nearest hit and the shadow ray,
 // plus S-wide shading) and register pressure from the 2*S floats of
-// spectral state. It reads the
-// primary rays and writes [S, n] radiance once, so HBM is not the limit.
-// Making it fast (occupancy tuning, persistent threads, wavefront
-// compaction of live lanes, FMA) is later work, measured against this one.
+// spectral state. cuda_mono, cuda_cost and cuda_regen read the primary rays
+// and write [S, n] radiance once, so HBM is not the limit.
+// cuda_persist is bounded the same way; its extra traffic is the state
+// round trip, (13 + 2S) * 4 B per lane per launch (about 80 MB at 512^2,
+// S = 32), noise beside the ~64 frames of bounce work a launch carries.
+// Its design: the state is loaded once into registers (the [S, n] planes
+// are lane-minor, so the loads coalesce) and stored once; a lane that is
+// dead and cannot restart leaves its loop, the exact per-thread form of the
+// TPU kernel's tile skip; a ring restart reads its direction plane by
+// slot, and a free-running one recomputes raygen from the basis table in
+// shared memory. Making them fast (occupancy tuning, wavefront compaction
+// of live lanes, FMA) is later work, measured against these.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -297,92 +314,163 @@ __device__ __forceinline__ void cosine_hemisphere(float rx, float ry, float nx,
   z = xz * lx + yz * ly + zz * lz;
 }
 
-// One path of frame `fid` from (o, d); its radiance is ADDED to rad.
+// The carried lane state of `make_body.bounce` (megakernel.py:1928-1935,
+// :2001-2006): the ray, the flags, the count-down bounce budget, the frame
+// of the path in flight, and the spectral throughput and radiance. Every
+// kernel below runs its lanes through `bounce_step` on this one struct.
 template <int S>
-__device__ __forceinline__ void trace_path(const Tables& tb, float ox, float oy, float oz,
-                           float dx, float dy, float dz, uint32_t px,
-                           uint32_t py, uint32_t fid, int max_bounces,
-                           float (&rad)[S]) {
+struct Lane {
+  float ox, oy, oz, dx, dy, dz;
+  bool alive;     // a path is in flight
+  bool gate;      // the parent bounce was specular
+  float hero;     // hero wavelength bin, -1 until a dispersive event
+  int bl;         // bounces left: max_bounces at a path's first trace
+  uint32_t fid;   // frame id of the path in flight
   float thr[S];
+  float rad[S];
+};
+
+// A new path of frame `fid` from (o, d) at unit throughput; the radiance
+// sum is kept (the restart rule of megakernel.py:1549-1552, :1752-1769).
+template <int S>
+__device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, uint32_t fid,
+                                           int max_bounces) {
+  L.ox = ox;
+  L.oy = oy;
+  L.oz = oz;
+  L.dx = dx;
+  L.dy = dy;
+  L.dz = dz;
+  L.alive = true;
+  L.gate = false;
+  L.hero = -1.0f;
+  L.bl = max_bounces;
+  L.fid = fid;
 #pragma unroll
-  for (int s = 0; s < S; ++s) thr[s] = 1.0f;
-  bool gate = false;  // the parent bounce was specular
-  for (int bl = max_bounces; bl >= 1; --bl) {
-    float t;
-    const int win = trace_nearest(tb, ox, oy, oz, dx, dy, dz, t);
-    if (win < 0 || (gate && !(t > kSpecMin))) break;  // miss or gated out
+  for (int s = 0; s < S; ++s) L.thr[s] = 1.0f;
+}
 
-    const float ipx = ox + dx * t, ipy = oy + dy * t, ipz = oz + dz * t;
-    float nx, ny, nz;
-    surface_normal(tb, win, ipx, ipy, ipz, nx, ny, nz);
-    const float metal = G(tb, G_METAL, win);
-    const float rough = G(tb, G_ROUGH, win);
-    const float* alb = tb.albedo + win * S;
-
-    float rx, ry, rz;
-    pcg3d(px, py, fid + (uint32_t)bl, rx, ry, rz);
-    const bool spec = rz < metal;
-    const float offx = ipx + nx * kOffset, offy = ipy + ny * kOffset,
-                offz = ipz + nz * kOffset;
-
-    if (!spec) {
-      // next-event estimation: per-light occlusion and scale
-      const float cos_out = max0((-dx) * nx + (-dy) * ny + (-dz) * nz);
-      for (int l = 0; l < tb.n_lights; ++l) {
-        const float ldx = tb.lpos[4 * l] - offx;
-        const float ldy = tb.lpos[4 * l + 1] - offy;
-        const float ldz = tb.lpos[4 * l + 2] - offz;
-        const float dist2 = dot3(ldx, ldy, ldz, ldx, ldy, ldz);
-        const float dist = sqrtf(dist2);
-        float lnx = ldx, lny = ldy, lnz = ldz;
-        normalize3(lnx, lny, lnz);
-        const bool blocked =
-            shadow_blocked(tb, offx, offy, offz, lnx, lny, lnz, dist);
-        normalize3(lnx, lny, lnz);  // the reference re-normalizes
-        const float cos_in = max0(lnx * nx + lny * ny + lnz * nz);
-        const float scale = (cos_in * cos_out) / dist2;
-        tb.scale[l * BLOCK + threadIdx.x] = blocked ? 0.0f : scale;
-      }
-    }
-
-    const bool cont = bl > 1;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float ta = thr[s] * alb[s];
-      if (!spec) {
-        float direct = 0.0f;
-        for (int l = 0; l < tb.n_lights; ++l) {
-          direct = direct + tb.lspec[l * S + s] * tb.scale[l * BLOCK + threadIdx.x];
-        }
-        rad[s] = rad[s] + ta * direct;
-      }
-      if (cont) thr[s] = ta;
-    }
-    if (!cont) break;
-
-    // continuation ray
-    float ndx, ndy, ndz;
-    if (spec) {
-      const float k = 2.0f * (nx * dx + ny * dy + nz * dz);
-      ndx = dx - nx * k;
-      ndy = dy - ny * k;
-      ndz = dz - nz * k;
-      if (rough >= 0.001f) sample_in_cone(ndx, ndy, ndz, rough, rx, ry);
-      ox = offx;
-      oy = offy;
-      oz = offz;
-    } else {
-      cosine_hemisphere(rx, ry, nx, ny, nz, ndx, ndy, ndz);
-      ox = ipx;  // the diffuse continuation starts UN-offset
-      oy = ipy;
-      oz = ipz;
-    }
-    normalize3(ndx, ndy, ndz);  // Ray::new normalizes
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
-    gate = spec;
+// One bounce iteration of a live lane (`make_body.bounce`): trace, add the
+// hit's direct light to rad, and either set up the continuation ray
+// (returns true) or end the path (returns false with alive cleared; the
+// ray, gate, bl and thr stay as they were, like the reference's
+// where(cont, ...)).
+template <int S>
+__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
+                                            uint32_t px, uint32_t py) {
+  float t;
+  const int win = trace_nearest(tb, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, t);
+  if (win < 0 || (L.gate && !(t > kSpecMin))) {  // miss or gated out
+    L.alive = false;
+    return false;
   }
+  const float dx = L.dx, dy = L.dy, dz = L.dz;
+  const float ipx = L.ox + dx * t, ipy = L.oy + dy * t, ipz = L.oz + dz * t;
+  float nx, ny, nz;
+  surface_normal(tb, win, ipx, ipy, ipz, nx, ny, nz);
+  const float metal = G(tb, G_METAL, win);
+  const float rough = G(tb, G_ROUGH, win);
+  const float* alb = tb.albedo + win * S;
+
+  float rx, ry, rz;
+  pcg3d(px, py, L.fid + (uint32_t)L.bl, rx, ry, rz);
+  const bool spec = rz < metal;
+  const float offx = ipx + nx * kOffset, offy = ipy + ny * kOffset,
+              offz = ipz + nz * kOffset;
+
+  if (!spec) {
+    // next-event estimation: per-light occlusion and scale
+    const float cos_out = max0((-dx) * nx + (-dy) * ny + (-dz) * nz);
+    for (int l = 0; l < tb.n_lights; ++l) {
+      const float ldx = tb.lpos[4 * l] - offx;
+      const float ldy = tb.lpos[4 * l + 1] - offy;
+      const float ldz = tb.lpos[4 * l + 2] - offz;
+      const float dist2 = dot3(ldx, ldy, ldz, ldx, ldy, ldz);
+      const float dist = sqrtf(dist2);
+      float lnx = ldx, lny = ldy, lnz = ldz;
+      normalize3(lnx, lny, lnz);
+      const bool blocked =
+          shadow_blocked(tb, offx, offy, offz, lnx, lny, lnz, dist);
+      normalize3(lnx, lny, lnz);  // the reference re-normalizes
+      const float cos_in = max0(lnx * nx + lny * ny + lnz * nz);
+      const float scale = (cos_in * cos_out) / dist2;
+      tb.scale[l * BLOCK + threadIdx.x] = blocked ? 0.0f : scale;
+    }
+  }
+
+  const bool cont = L.bl > 1;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float ta = L.thr[s] * alb[s];
+    if (!spec) {
+      float direct = 0.0f;
+      for (int l = 0; l < tb.n_lights; ++l) {
+        direct = direct + tb.lspec[l * S + s] * tb.scale[l * BLOCK + threadIdx.x];
+      }
+      L.rad[s] = L.rad[s] + ta * direct;
+    }
+    if (cont) L.thr[s] = ta;
+  }
+  if (!cont) {
+    L.alive = false;
+    return false;
+  }
+
+  // continuation ray
+  float ndx, ndy, ndz;
+  if (spec) {
+    const float k = 2.0f * (nx * dx + ny * dy + nz * dz);
+    ndx = dx - nx * k;
+    ndy = dy - ny * k;
+    ndz = dz - nz * k;
+    if (rough >= 0.001f) sample_in_cone(ndx, ndy, ndz, rough, rx, ry);
+    L.ox = offx;
+    L.oy = offy;
+    L.oz = offz;
+  } else {
+    cosine_hemisphere(rx, ry, nx, ny, nz, ndx, ndy, ndz);
+    L.ox = ipx;  // the diffuse continuation starts UN-offset
+    L.oy = ipy;
+    L.oz = ipz;
+  }
+  normalize3(ndx, ndy, ndz);  // Ray::new normalizes
+  L.dx = ndx;
+  L.dy = ndy;
+  L.dz = ndz;
+  L.gate = spec;
+  L.bl -= 1;
+  return true;
+}
+
+// Van der Corput radical inverse (reference src/shader.rs:655-662).
+__device__ __forceinline__ float radical_inverse(uint32_t bits) {
+  return (float)__brev(bits) * kInv2_32;
+}
+
+// Free-running restart raygen: the primary direction of frame nf at
+// pixel (px, py) from the 20-float camera basis (megakernel.py:1677-1713,
+// table :2545-2572), in the op order of the plain twin
+// render/camera.py:restart_directions, with 1/sqrtf where the TPU kernel
+// takes rsqrt so that both compute the same bits.
+__device__ __forceinline__ void restart_direction(const float* cb,
+                                                  uint32_t px, uint32_t py,
+                                                  uint32_t nf, float& x,
+                                                  float& y, float& z) {
+  const float focal = cb[CB_FOCAL], aspect = cb[CB_ASPECT];
+  const float sx = 2.0f * (1.0f / cb[CB_WIDTH]) * aspect;
+  const float sy = 2.0f * (1.0f / cb[CB_HEIGHT]);
+  const float inv_n = 1.0f / cb[CB_FRAMES];
+  const float off_x = ((float)nf + 0.5f) * inv_n;
+  const float off_y = radical_inverse(nf + 1u);
+  const float x_ndc = ((float)px + off_x) * sx - aspect;
+  const float y_ndc = 1.0f - ((float)py + off_y) * sy;
+  x = cb[CB_FWD] * focal - cb[CB_RIGHT] * x_ndc + cb[CB_UP] * y_ndc;
+  y = cb[CB_FWD + 1] * focal - cb[CB_RIGHT + 1] * x_ndc + cb[CB_UP + 1] * y_ndc;
+  z = cb[CB_FWD + 2] * focal - cb[CB_RIGHT + 2] * x_ndc + cb[CB_UP + 2] * y_ndc;
+  normalize3(x, y, z);  // the reference normalizes in raygen AND in Ray::new
+  normalize3(x, y, z);
 }
 
 __device__ __forceinline__ Tables load_tables(float* smem, const float* geom,
@@ -410,7 +498,11 @@ __device__ __forceinline__ Tables load_tables(float* smem, const float* geom,
   return tb;
 }
 
-template <int S>
+// cuda_mono (COST = false) and cuda_cost (COST = true): one path per lane
+// from the given primaries. The cost variant also stores the lane's live
+// iteration count, max_bounces + 1 - bl with bl frozen at death
+// (megakernel.py:1887-1892); its radiance is cuda_mono's bit for bit.
+template <int S, bool COST>
 __global__ void __launch_bounds__(BLOCK)
 mono_kernel(int n, int n_obj, int n_lights, int max_bounces, uint32_t frame_id,
             const float* __restrict__ ox, const float* __restrict__ oy,
@@ -419,20 +511,23 @@ mono_kernel(int n, int n_obj, int n_lights, int max_bounces, uint32_t frame_id,
             const int* __restrict__ px, const int* __restrict__ py,
             const float* __restrict__ geom, const float* __restrict__ albedo,
             const float* __restrict__ lpos, const float* __restrict__ lspec,
-            float* __restrict__ out) {
+            float* __restrict__ out, float* __restrict__ cost) {
   extern __shared__ float smem[];
   const Tables tb =
       load_tables(smem, geom, albedo, lpos, lspec, n_obj, n_lights, S);
   const int gidx = blockIdx.x * BLOCK + threadIdx.x;
   if (gidx >= n) return;
-  float rad[S];
+  Lane<S> L;
+  start_path(L, ox[gidx], oy[gidx], oz[gidx], dx[gidx], dy[gidx], dz[gidx],
+             frame_id, max_bounces);
 #pragma unroll
-  for (int s = 0; s < S; ++s) rad[s] = 0.0f;
-  trace_path<S>(tb, ox[gidx], oy[gidx], oz[gidx], dx[gidx], dy[gidx], dz[gidx],
-                (uint32_t)px[gidx], (uint32_t)py[gidx], frame_id, max_bounces,
-                rad);
+  for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
+  const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
+  while (bounce_step(tb, L, ux, uy)) {
+  }
 #pragma unroll
-  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = rad[s];
+  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
+  if constexpr (COST) cost[gidx] = (float)(max_bounces + 1) - (float)L.bl;
 }
 
 template <int S>
@@ -453,20 +548,114 @@ regen_kernel(int n, int n_obj, int n_lights, int max_bounces,
   const int gidx = blockIdx.x * BLOCK + threadIdx.x;
   if (gidx >= n) return;
   const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
-  float rad[S];
+  Lane<S> L;
+  start_path(L, ox[gidx], oy[gidx], oz[gidx], dx[gidx], dy[gidx], dz[gidx],
+             first_frame, max_bounces);
 #pragma unroll
-  for (int s = 0; s < S; ++s) rad[s] = 0.0f;
-  // frame 0 from the given primaries, frame j from the camera origin and
-  // the host-precomputed direction plane j-1; the K radiances are summed
-  for (int j = 0; j < k; ++j) {
-    const size_t at = (size_t)(j > 0 ? j - 1 : 0) * n + gidx;
-    trace_path<S>(tb, j > 0 ? cam[0] : ox[gidx], j > 0 ? cam[1] : oy[gidx],
-                  j > 0 ? cam[2] : oz[gidx], j > 0 ? dirx[at] : dx[gidx],
-                  j > 0 ? diry[at] : dy[gidx], j > 0 ? dirz[at] : dz[gidx], ux,
-                  uy, first_frame + (uint32_t)j, max_bounces, rad);
+  for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
+  // frame 0 from the given primaries; when a path ends, frame j starts
+  // from the camera origin and the host-precomputed direction plane j-1;
+  // the K radiances are summed in frame order
+  for (int j = 1;;) {
+    if (bounce_step(tb, L, ux, uy)) continue;
+    if (j == k) break;
+    const size_t at = (size_t)(j - 1) * n + gidx;
+    start_path(L, cam[0], cam[1], cam[2], dirx[at], diry[at], dirz[at],
+               first_frame + (uint32_t)j, max_bounces);
+    ++j;
   }
 #pragma unroll
-  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = rad[s];
+  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
+}
+
+// cuda_persist: exactly `budget` bounce iterations over the carried lane
+// state, updated in place. A lane whose path ends (or that idles) starts
+// its pixel's next frame nf = fid + 1 when nf < end, and also nf < lead
+// (RING) and its stop flag is clear (STOP); the restart uses the
+// iteration. A lane that is dead and not restartable stays so for the
+// rest of the launch (lead, end and stop are launch constants), so it
+// leaves its loop: the per-thread form of the TPU kernel's tile skip.
+template <int S, bool RING, bool STOP>
+__global__ void __launch_bounds__(BLOCK)
+persist_kernel(int n, int n_obj, int n_lights, int max_bounces, int budget,
+               uint32_t lead, uint32_t end, int ring_w,
+               float* __restrict__ ox, float* __restrict__ oy,
+               float* __restrict__ oz, float* __restrict__ dx,
+               float* __restrict__ dy, float* __restrict__ dz,
+               float* __restrict__ alive, float* __restrict__ gate,
+               float* __restrict__ hero, int* __restrict__ bl,
+               int* __restrict__ fid, const int* __restrict__ px,
+               const int* __restrict__ py, const float* __restrict__ stop,
+               const float* __restrict__ cam, const float* __restrict__ ringx,
+               const float* __restrict__ ringy,
+               const float* __restrict__ ringz,
+               const float* __restrict__ geom,
+               const float* __restrict__ albedo,
+               const float* __restrict__ lpos,
+               const float* __restrict__ lspec, float* __restrict__ thr,
+               float* __restrict__ rad) {
+  extern __shared__ float smem[];
+  __shared__ float s_cam[CAM_BASIS];
+  constexpr int cam_len = RING ? 3 : CAM_BASIS;
+  if (threadIdx.x < cam_len) s_cam[threadIdx.x] = cam[threadIdx.x];
+  const Tables tb =  // its __syncthreads also publishes s_cam
+      load_tables(smem, geom, albedo, lpos, lspec, n_obj, n_lights, S);
+  const int gidx = blockIdx.x * BLOCK + threadIdx.x;
+  if (gidx >= n) return;
+
+  Lane<S> L;
+  L.ox = ox[gidx];
+  L.oy = oy[gidx];
+  L.oz = oz[gidx];
+  L.dx = dx[gidx];
+  L.dy = dy[gidx];
+  L.dz = dz[gidx];
+  L.alive = alive[gidx] > 0.0f;
+  L.gate = gate[gidx] > 0.0f;
+  L.hero = hero[gidx];
+  L.bl = bl[gidx];
+  L.fid = (uint32_t)fid[gidx];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    L.thr[s] = thr[(size_t)s * n + gidx];
+    L.rad[s] = rad[(size_t)s * n + gidx];
+  }
+  const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
+  const bool stopped = STOP && stop[gidx] > 0.0f;
+
+  for (int it = 0; it < budget; ++it) {
+    if (L.alive && bounce_step(tb, L, ux, uy)) continue;
+    const uint32_t nf = L.fid + 1u;
+    if (!(nf < end) || (RING && !(nf < lead)) || stopped) break;
+    float rdx, rdy, rdz;
+    if constexpr (RING) {
+      const size_t at = (size_t)(nf & (uint32_t)(ring_w - 1)) * n + gidx;
+      rdx = ringx[at];
+      rdy = ringy[at];
+      rdz = ringz[at];
+    } else {
+      restart_direction(s_cam, ux, uy, nf, rdx, rdy, rdz);
+    }
+    start_path(L, s_cam[CB_POS], s_cam[CB_POS + 1], s_cam[CB_POS + 2], rdx,
+               rdy, rdz, nf, max_bounces);
+  }
+
+  ox[gidx] = L.ox;
+  oy[gidx] = L.oy;
+  oz[gidx] = L.oz;
+  dx[gidx] = L.dx;
+  dy[gidx] = L.dy;
+  dz[gidx] = L.dz;
+  alive[gidx] = L.alive ? 1.0f : 0.0f;
+  gate[gidx] = L.gate ? 1.0f : 0.0f;
+  hero[gidx] = L.hero;
+  bl[gidx] = L.bl;
+  fid[gidx] = (int)L.fid;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    thr[(size_t)s * n + gidx] = L.thr[s];
+    rad[(size_t)s * n + gidx] = L.rad[s];
+  }
 }
 
 size_t smem_bytes(int n_obj, int n_lights, int S) {
@@ -484,21 +673,21 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <int S>
+template <int S, bool COST>
 cudaError_t launch_mono(int n, int n_obj, int n_lights, int max_bounces,
                         uint32_t frame_id, const float* ox, const float* oy,
                         const float* oz, const float* dx, const float* dy,
                         const float* dz, const int* px, const int* py,
                         const float* geom, const float* albedo,
                         const float* lpos, const float* lspec, float* out,
-                        cudaStream_t stream) {
+                        float* cost, cudaStream_t stream) {
   const size_t smem = smem_bytes(n_obj, n_lights, S);
-  cudaError_t err = prepare(mono_kernel<S>, smem);
+  cudaError_t err = prepare(mono_kernel<S, COST>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  mono_kernel<S><<<blocks, BLOCK, smem, stream>>>(
+  mono_kernel<S, COST><<<blocks, BLOCK, smem, stream>>>(
       n, n_obj, n_lights, max_bounces, frame_id, ox, oy, oz, dx, dy, dz, px,
-      py, geom, albedo, lpos, lspec, out);
+      py, geom, albedo, lpos, lspec, out, cost);
   return cudaGetLastError();
 }
 
@@ -522,9 +711,54 @@ cudaError_t launch_regen(int n, int n_obj, int n_lights, int max_bounces,
   return cudaGetLastError();
 }
 
+// The persist kernel's planes, in the order of its parameters.
+struct PersistArgs {
+  float *ox, *oy, *oz, *dx, *dy, *dz, *alive, *gate, *hero;
+  int *bl, *fid;
+  const int *px, *py;
+  const float *stop, *cam, *ringx, *ringy, *ringz;
+  const float *geom, *albedo, *lpos, *lspec;
+  float *thr, *rad;
+};
+
+template <int S, bool RING, bool STOP>
+cudaError_t launch_persist(int n, int n_obj, int n_lights, int max_bounces,
+                           int budget, uint32_t lead, uint32_t end,
+                           int ring_w, const PersistArgs& a,
+                           cudaStream_t stream) {
+  const size_t smem = smem_bytes(n_obj, n_lights, S);
+  cudaError_t err = prepare(persist_kernel<S, RING, STOP>, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (n + BLOCK - 1) / BLOCK;
+  persist_kernel<S, RING, STOP><<<blocks, BLOCK, smem, stream>>>(
+      n, n_obj, n_lights, max_bounces, budget, lead, end, ring_w, a.ox, a.oy,
+      a.oz, a.dx, a.dy, a.dz, a.alive, a.gate, a.hero, a.bl, a.fid, a.px,
+      a.py, a.stop, a.cam, a.ringx, a.ringy, a.ringz, a.geom, a.albedo,
+      a.lpos, a.lspec, a.thr, a.rad);
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t dispatch_persist(int n, int n_obj, int n_lights, int max_bounces,
+                             int budget, uint32_t lead, uint32_t end,
+                             int ring_w, const PersistArgs& a,
+                             cudaStream_t stream) {
+  if (ring_w > 0) {
+    return launch_persist<S, true, false>(n, n_obj, n_lights, max_bounces,
+                                          budget, lead, end, ring_w, a, stream);
+  }
+  if (a.stop != nullptr) {
+    return launch_persist<S, false, true>(n, n_obj, n_lights, max_bounces,
+                                          budget, lead, end, 0, a, stream);
+  }
+  return launch_persist<S, false, false>(n, n_obj, n_lights, max_bounces,
+                                         budget, lead, end, 0, a, stream);
+}
+
 }  // namespace
 }  // namespace spectral
 
+using spectral::dispatch_persist;
 using spectral::launch_mono;
 using spectral::launch_regen;
 
@@ -533,6 +767,40 @@ using spectral::launch_regen;
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
 // returns the cudaError_t of the launch (0 on success).
+static int spectral_mono_or_cost(int n, int n_obj, int n_lights,
+                                 int n_samples, int max_bounces,
+                                 unsigned int frame_id, const void* ox,
+                                 const void* oy, const void* oz,
+                                 const void* dx, const void* dy,
+                                 const void* dz, const void* px,
+                                 const void* py, const void* geom,
+                                 const void* albedo, const void* lpos,
+                                 const void* lspec, void* out, void* cost,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  if (n_obj < 1 || n_obj > spectral::MAX_OBJECTS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SPECTRAL_MONO(S, COST)                                               \
+  return (int)launch_mono<S, COST>(                                          \
+      n, n_obj, n_lights, max_bounces, frame_id, SPECTRAL_FLOAT(ox),         \
+      SPECTRAL_FLOAT(oy), SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx),            \
+      SPECTRAL_FLOAT(dy), SPECTRAL_FLOAT(dz), SPECTRAL_INT(px),              \
+      SPECTRAL_INT(py), SPECTRAL_FLOAT(geom), SPECTRAL_FLOAT(albedo),        \
+      SPECTRAL_FLOAT(lpos), SPECTRAL_FLOAT(lspec), static_cast<float*>(out), \
+      static_cast<float*>(cost), st)
+#define SPECTRAL_MONO_S(S) \
+  if (cost != nullptr) SPECTRAL_MONO(S, true); else SPECTRAL_MONO(S, false)
+  switch (n_samples) {
+    case 8: SPECTRAL_MONO_S(8);
+    case 16: SPECTRAL_MONO_S(16);
+    case 32: SPECTRAL_MONO_S(32);
+    case 64: SPECTRAL_MONO_S(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_MONO_S
+#undef SPECTRAL_MONO
+}
+
 extern "C" int spectral_mono(int n, int n_obj, int n_lights, int n_samples,
                              int max_bounces, unsigned int frame_id,
                              const void* ox, const void* oy, const void* oz,
@@ -540,25 +808,23 @@ extern "C" int spectral_mono(int n, int n_obj, int n_lights, int n_samples,
                              const void* px, const void* py, const void* geom,
                              const void* albedo, const void* lpos,
                              const void* lspec, void* out, void* stream) {
-  if (n <= 0) return 0;
-  if (n_obj < 1 || n_obj > spectral::MAX_OBJECTS) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SPECTRAL_MONO(S)                                                     \
-  return (int)launch_mono<S>(                                                \
-      n, n_obj, n_lights, max_bounces, frame_id, SPECTRAL_FLOAT(ox),         \
-      SPECTRAL_FLOAT(oy), SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx),            \
-      SPECTRAL_FLOAT(dy), SPECTRAL_FLOAT(dz), SPECTRAL_INT(px),              \
-      SPECTRAL_INT(py), SPECTRAL_FLOAT(geom), SPECTRAL_FLOAT(albedo),        \
-      SPECTRAL_FLOAT(lpos), SPECTRAL_FLOAT(lspec), static_cast<float*>(out), \
-      st)
-  switch (n_samples) {
-    case 8: SPECTRAL_MONO(8);
-    case 16: SPECTRAL_MONO(16);
-    case 32: SPECTRAL_MONO(32);
-    case 64: SPECTRAL_MONO(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SPECTRAL_MONO
+  return spectral_mono_or_cost(n, n_obj, n_lights, n_samples, max_bounces,
+                               frame_id, ox, oy, oz, dx, dy, dz, px, py, geom,
+                               albedo, lpos, lspec, out, nullptr, stream);
+}
+
+extern "C" int spectral_cost(int n, int n_obj, int n_lights, int n_samples,
+                             int max_bounces, unsigned int frame_id,
+                             const void* ox, const void* oy, const void* oz,
+                             const void* dx, const void* dy, const void* dz,
+                             const void* px, const void* py, const void* geom,
+                             const void* albedo, const void* lpos,
+                             const void* lspec, void* out, void* cost,
+                             void* stream) {
+  if (cost == nullptr) return (int)cudaErrorInvalidValue;
+  return spectral_mono_or_cost(n, n_obj, n_lights, n_samples, max_bounces,
+                               frame_id, ox, oy, oz, dx, dy, dz, px, py, geom,
+                               albedo, lpos, lspec, out, cost, stream);
 }
 
 extern "C" int spectral_regen(int n, int n_obj, int n_lights, int n_samples,
@@ -591,4 +857,48 @@ extern "C" int spectral_regen(int n, int n_obj, int n_lights, int n_samples,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_REGEN
+}
+
+// ring_w > 0 selects the ring variant (ring_w a power of two, the ring
+// planes [ring_w][n]); otherwise a non-null stop selects lane-stop, and
+// null the plain free-running variant. cam is 3 floats (ring) or the
+// CAM_BASIS-float basis table (free-running). State planes update in place.
+extern "C" int spectral_persist(
+    int n, int n_obj, int n_lights, int n_samples, int max_bounces,
+    int budget, unsigned int lead, unsigned int end, int ring_w, void* ox,
+    void* oy, void* oz, void* dx, void* dy, void* dz, void* alive,
+    void* gate, void* hero, void* bl, void* fid, const void* px,
+    const void* py, const void* stop, const void* cam, const void* ringx,
+    const void* ringy, const void* ringz, const void* geom,
+    const void* albedo, const void* lpos, const void* lspec, void* thr,
+    void* rad, void* stream) {
+  if (n <= 0 || budget <= 0) return 0;
+  if (n_obj < 1 || n_obj > spectral::MAX_OBJECTS || ring_w < 0 ||
+      (ring_w & (ring_w - 1)) != 0 || (ring_w > 0 && stop != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const spectral::PersistArgs a{
+      static_cast<float*>(ox),    static_cast<float*>(oy),
+      static_cast<float*>(oz),    static_cast<float*>(dx),
+      static_cast<float*>(dy),    static_cast<float*>(dz),
+      static_cast<float*>(alive), static_cast<float*>(gate),
+      static_cast<float*>(hero),  static_cast<int*>(bl),
+      static_cast<int*>(fid),     SPECTRAL_INT(px),
+      SPECTRAL_INT(py),           SPECTRAL_FLOAT(stop),
+      SPECTRAL_FLOAT(cam),        SPECTRAL_FLOAT(ringx),
+      SPECTRAL_FLOAT(ringy),      SPECTRAL_FLOAT(ringz),
+      SPECTRAL_FLOAT(geom),       SPECTRAL_FLOAT(albedo),
+      SPECTRAL_FLOAT(lpos),       SPECTRAL_FLOAT(lspec),
+      static_cast<float*>(thr),   static_cast<float*>(rad)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SPECTRAL_PERSIST(S)                                                  \
+  return (int)dispatch_persist<S>(n, n_obj, n_lights, max_bounces, budget,   \
+                                  lead, end, ring_w, a, st)
+  switch (n_samples) {
+    case 8: SPECTRAL_PERSIST(8);
+    case 16: SPECTRAL_PERSIST(16);
+    case 32: SPECTRAL_PERSIST(32);
+    case 64: SPECTRAL_PERSIST(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_PERSIST
 }

@@ -30,6 +30,20 @@ constexpr int GEOM_ROWS = 46;
 // albedo: float32 [n_obj][S]; lpos: float32 [n_lights][4] (x, y, z, pad);
 // lspec: float32 [n_lights][S]; cam: float32 [4] (camera position, pad).
 
+// The free-running persist kernel's camera basis, float32 [CAM_BASIS]
+// (the TPU kernel's pack_camera_basis columns; packed by
+// spectral_tpu_torch/render/camera.py:camera_basis_table).
+constexpr int CB_POS = 0;      // 0-2: camera position
+constexpr int CB_FWD = 3;      // 3-5: forward
+constexpr int CB_RIGHT = 6;    // 6-8: right
+constexpr int CB_UP = 9;       // 9-11: true up
+constexpr int CB_FOCAL = 12;   // focal distance
+constexpr int CB_ASPECT = 13;  // aspect ratio
+constexpr int CB_WIDTH = 14;   // image width, as float
+constexpr int CB_HEIGHT = 15;  // image height, as float
+constexpr int CB_FRAMES = 16;  // intended frames (Hammersley N), as float
+constexpr int CAM_BASIS = 20;  // 17-19: pad
+
 constexpr int MAX_OBJECTS = 64;  // the unrolled object loop's scene size
 constexpr int BLOCK = 128;       // threads per block, one pixel-lane each
 

@@ -1,16 +1,19 @@
 """Host side of the bounce kernels (``ops/csrc/megakernel.cu``).
 
 The counterpart of the reference package's
-``spectral_tpu.ops.pallas.megakernel`` entry points ``run`` (``kernel``)
-and ``run_regen`` (``kernel_regen``):
+``spectral_tpu.ops.pallas.megakernel`` entry points ``run`` (``kernel``),
+``run_regen`` (``kernel_regen``), ``run_persist`` (``kernel_persist``)
+and ``run_cost`` (``kernel_cost``):
 
 * ``pack_tables`` packs the scene into the kernels' own struct-of-arrays
   layout (the ``pack_geometry``/``pack_camera`` counterparts; rows listed
   in ``csrc/megakernel.cuh``);
-* ``run_mono`` / ``run_regen`` launch the CUDA kernels on CUDA tensors and
-  count their launches (``run_mono.launches``, ``run_regen.launches``);
-* ``run_mono_plain`` / ``run_regen_plain`` take the same arguments and run
-  the eager PyTorch bounce loop (``render.integrator.bounce_loop``).
+* ``run_mono`` / ``run_regen`` / ``run_persist`` / ``run_cost`` launch the
+  CUDA kernels on CUDA tensors and count their launches (``.launches`` on
+  each wrapper);
+* ``run_mono_plain`` / ``run_regen_plain`` / ``run_persist_plain`` /
+  ``run_cost_plain`` take the same arguments and run the eager PyTorch
+  bounce loop (``render.integrator``).
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; there is no fallback.
@@ -26,11 +29,20 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.ops.vecmath import Vec3
-from spectral_tpu_torch.render.integrator import MAX_OBJECTS, bounce_loop, require_slice
+from spectral_tpu_torch.render.camera import CAM_BASIS
+from spectral_tpu_torch.render.integrator import (
+    MAX_OBJECTS,
+    PersistState,
+    bounce_loop,
+    bounce_loop_cost,
+    persist_iterations,
+    require_slice,
+)
 from spectral_tpu_torch.runtime import build
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 SUPPORTED_SAMPLES = (8, 16, 32, 64)
+BLOCK = 128  # threads (pixel-lanes) per block, csrc/megakernel.cuh
 
 # geom rows, mirroring csrc/megakernel.cuh: (field, first row, width)
 GEOM_LAYOUT = (
@@ -106,18 +118,43 @@ def run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
 
 def run_regen_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
                     dirx, diry, dirz, tables: KernelTables) -> torch.Tensor:
-    """The SUM of K ``run_mono_plain`` frames ``[S, n]``: frame 0 from the
-    given primaries, frame j from the camera and direction plane j-1."""
+    """The SUM of K frames' radiance ``[S, n]``: frame 0 from the given
+    primaries, frame j from the camera and direction plane j-1. One
+    radiance accumulator is carried through the K frames, bounce by
+    bounce, in the kernel's order, so the sum is ``run_regen``'s bit for
+    bit (a sum of K separate frames differs in the last bits)."""
     n = ox.shape[0]
     cam = tables.cam
-    total = run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame, tables)
+    px, py = px.long(), py.long()
+    rad = bounce_loop(Vec3(ox, oy, oz), Vec3(dx, dy, dz), px, py, first_frame,
+                      tables.scene, tables.config)
+    origin = Vec3(cam[0].expand(n), cam[1].expand(n), cam[2].expand(n))
     for j in range(1, dirx.shape[0] + 1):
-        total = total + run_mono_plain(
-            cam[0].expand(n), cam[1].expand(n), cam[2].expand(n),
-            dirx[j - 1], diry[j - 1], dirz[j - 1], px, py,
-            first_frame + j, tables,
-        )
-    return total
+        rad = bounce_loop(origin, Vec3(dirx[j - 1], diry[j - 1], dirz[j - 1]),
+                          px, py, first_frame + j, tables.scene, tables.config,
+                          radiance=rad)
+    return rad.T.contiguous()
+
+
+def run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+                   tables: KernelTables):
+    """``run_mono_plain`` plus each lane's path cost: ``(rad [S, n],
+    cost [n] f32)`` with ``cost = max_bounces + 1 - bounces_left``."""
+    rad, cost = bounce_loop_cost(
+        Vec3(ox, oy, oz), Vec3(dx, dy, dz), px.long(), py.long(), frame_id,
+        tables.scene, tables.config,
+    )
+    return rad.T.contiguous(), cost
+
+
+def run_persist_plain(state: PersistState, lead: int, end: int,
+                      tables: KernelTables, cam: torch.Tensor, ring=None,
+                      stop=None, budget: int = 1) -> None:
+    """``budget`` bounce iterations over the carried lane state, updated
+    IN PLACE (``integrator.persist_iterations``); same contract as
+    ``run_persist``."""
+    persist_iterations(state, lead, end, tables.scene, tables.config, cam,
+                       ring=ring, stop=stop, budget=budget)
 
 
 # ------------------------------------------------------------------ kernels
@@ -168,6 +205,10 @@ def _lib() -> ctypes.CDLL:
     lib.spectral_mono.restype = ci
     lib.spectral_regen.argtypes = [ci, ci, ci, ci, ci, cu, ci] + [vp] * 18
     lib.spectral_regen.restype = ci
+    lib.spectral_cost.argtypes = [ci, ci, ci, ci, ci, cu] + [vp] * 15
+    lib.spectral_cost.restype = ci
+    lib.spectral_persist.argtypes = [ci, ci, ci, ci, ci, ci, cu, cu, ci] + [vp] * 25
+    lib.spectral_persist.restype = ci
     return lib
 
 
@@ -239,3 +280,101 @@ def run_regen(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
 
 
 run_regen.launches = 0
+
+
+def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+             tables: KernelTables):
+    """One frame's radiance ``[S, n]`` and per-lane path cost ``[n]`` f32
+    (live bounce iterations: 1 for a lane that dies on its primary trace,
+    ``max_bounces`` for one that spends its budget). Launches
+    ``cuda_cost`` for CUDA tensors, runs the plain version for CPU ones.
+    The radiance is ``run_mono``'s bit for bit."""
+    if not _on_cuda(ox):
+        return run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
+    n = ox.shape[0]
+    _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz),
+                 dict(px=px, py=py), tables, n)
+    cfg = tables.config
+    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
+    cost = torch.empty((n,), dtype=torch.float32, device=ox.device)
+    err = _lib().spectral_cost(
+        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
+        int(frame_id) & 0xFFFFFFFF,
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.geom,
+                    tables.albedo, tables.lpos, tables.lspec, out, cost)),
+        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+    )
+    _raise_on(err, "cuda_cost")
+    run_cost.launches += 1
+    return out, cost
+
+
+run_cost.launches = 0
+
+
+def run_persist(state: PersistState, lead: int, end: int,
+                tables: KernelTables, cam: torch.Tensor, ring=None,
+                stop: torch.Tensor | None = None, budget: int = 1) -> None:
+    """Exactly ``budget`` bounce iterations over the carried lane state
+    ``state``, which is updated IN PLACE: the counterpart of the
+    reference's ``input_output_aliases`` (``megakernel.py:2242-2245``).
+    Lanes restart their pixel's next frame while ``fid + 1 < end``. The
+    variant follows from the arguments: ``ring = (x, y, z)`` direction
+    planes ``[W, n]`` (W a power of two) give the ring, whose restarts
+    are also gated by ``fid + 1 < lead`` and whose ``cam`` needs only the
+    camera position; otherwise ``cam`` is the ``[20]`` camera table
+    (``camera.camera_basis_table``) and restarts recompute raygen, with
+    ``stop`` (f32 ``[n]``, > 0 holds a lane's restarts) for lane-stop.
+    Launches ``cuda_persist`` for CUDA tensors, runs the plain version
+    for CPU ones."""
+    if not _on_cuda(state.ox):
+        return run_persist_plain(state, lead, end, tables, cam, ring=ring,
+                                 stop=stop, budget=budget)
+    n = state.ox.shape[0]
+    cfg = tables.config
+    s = cfg.n_samples
+    planes = {k: v for k, v in state.planes().items() if k not in ("thr", "rad")}
+    ints = {k: planes.pop(k) for k in ("bl", "fid", "px", "py")}
+    if stop is not None:
+        planes["stop"] = stop
+    _check_lanes(planes, ints, tables, n)
+    for name in ("thr", "rad"):
+        t = getattr(state, name)
+        if t.shape != (s, n) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [{s}, {n}]")
+    ring_w = 0
+    ring_ptrs = (None, None, None)
+    if ring is not None:
+        if stop is not None:
+            raise ValueError("the ring variant takes no stop mask")
+        ring_w = ring[0].shape[0]
+        if ring_w < 2 or ring_w & (ring_w - 1):
+            raise ValueError(f"the ring needs a power-of-two W >= 2, got {ring_w}")
+        _check_lanes(dict(ringx=ring[0], ringy=ring[1], ringz=ring[2]), {}, tables, n)
+        if any(r.shape != (ring_w, n) for r in ring):
+            raise ValueError(f"ring planes must be [{ring_w}, {n}]")
+        ring_ptrs = tuple(_ptr(r) for r in ring)
+    want = 3 if ring is not None else CAM_BASIS
+    if (cam.device != state.ox.device or cam.dtype != torch.float32
+            or not cam.is_contiguous() or cam.numel() < want):
+        raise ValueError(f"cam must be a contiguous float32 table of >= {want} "
+                         "values on the lanes' device")
+    if int(budget) < 1:
+        raise ValueError("budget must be >= 1")
+    carried = [getattr(state, k) for k in (
+        "ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero", "bl", "fid",
+        "px", "py")]
+    err = _lib().spectral_persist(
+        n, cfg.n_objects, cfg.n_lights, s, cfg.max_bounces, int(budget),
+        int(lead) & 0xFFFFFFFF, int(end) & 0xFFFFFFFF, ring_w,
+        *map(_ptr, carried), None if stop is None else _ptr(stop), _ptr(cam),
+        *ring_ptrs,
+        *map(_ptr, (tables.geom, tables.albedo, tables.lpos, tables.lspec,
+                    state.thr, state.rad)),
+        ctypes.c_void_p(torch.cuda.current_stream(state.ox.device).cuda_stream),
+    )
+    _raise_on(err, "cuda_persist")
+    run_persist.launches += 1
+
+
+run_persist.launches = 0

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from spectral_tpu_torch.ops.rng import hammersley
+from spectral_tpu_torch.ops.rng import MASK32, as_u32, hammersley, radical_inverse
 from spectral_tpu_torch.ops.vecmath import Vec3
 
 PI = math.pi
@@ -82,3 +82,58 @@ def generate_primary_rays(
         cam_pos[0].expand(n), cam_pos[1].expand(n), cam_pos[2].expand(n)
     )
     return origin, d, px, py
+
+
+# camera_basis_table columns (csrc/megakernel.cuh CB_*)
+CAM_BASIS = 20
+
+
+def camera_basis_table(scene, config) -> torch.Tensor:
+    """The free-running persist kernel's ``[20]`` float32 camera table on
+    the scene's device (the reference's ``pack_camera_basis``,
+    ``megakernel.py:2545-2572``): position (0-2), forward (3-5), right
+    (6-8), true up (9-11), focal distance (12), aspect ratio (13), width
+    and height (14-15), the Hammersley denominator ``intended_frames``
+    (16), and three pad columns. The basis is ``camera_basis``'s, in the
+    host raygen's op order."""
+    fwd, right, true_up, focal, aspect = camera_basis(
+        scene.cam_dir, scene.cam_up, scene.fov_y_deg, config.width, config.height
+    )
+    dev = scene.cam_pos.device
+    cols = [
+        *scene.cam_pos, *fwd, *right, *true_up, focal, aspect,
+        float(config.width), float(config.height), float(config.intended_frames),
+        0.0, 0.0, 0.0,
+    ]
+    return torch.stack([
+        torch.as_tensor(c, dtype=torch.float32, device=dev) for c in cols
+    ])
+
+
+def restart_directions(px, py, nf, table: torch.Tensor) -> Vec3:
+    """Primary directions of frames ``nf`` at pixels ``(px, py)`` from the
+    camera table: the plain twin of the free-running persist kernel's
+    in-kernel raygen (reference ``megakernel.py:1677-1713``), in its op
+    order. The frame-independent scalars are formed first (``sx``, ``sy``,
+    ``1/N``, ``megakernel.py:1981-1987``), then the jittered NDC and two
+    normalizes. Where the TPU kernel takes ``rsqrt`` this takes the
+    correctly rounded ``1 / sqrt``, as the CUDA kernel does, so the two
+    compute the same bits. The result lands ulps from host raygen
+    (``generate_primary_rays``), which divides where this multiplies."""
+    cb = table
+    focal, aspect = cb[12], cb[13]
+    sx = 2.0 * (1.0 / cb[14]) * aspect
+    sy = 2.0 * (1.0 / cb[15])
+    inv_n = 1.0 / cb[16]
+    nf = as_u32(nf)
+    off_x = (nf.to(torch.float32) + 0.5) * inv_n
+    off_y = radical_inverse((nf + 1) & MASK32)
+    x_ndc = (px.to(torch.float32) + off_x) * sx - aspect
+    y_ndc = 1.0 - (py.to(torch.float32) + off_y) * sy
+    d = Vec3(
+        cb[3] * focal - cb[6] * x_ndc + cb[9] * y_ndc,
+        cb[4] * focal - cb[7] * x_ndc + cb[10] * y_ndc,
+        cb[5] * focal - cb[8] * x_ndc + cb[11] * y_ndc,
+    )
+    # the reference normalizes in raygen AND in Ray::new
+    return d.normalize().normalize()

@@ -23,6 +23,7 @@ port's first slice raise ``NotImplementedError`` (``require_slice``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -35,7 +36,7 @@ from spectral_tpu_torch.ops.sampling import (
     sample_in_cone,
 )
 from spectral_tpu_torch.ops.vecmath import Vec3
-from spectral_tpu_torch.render.camera import generate_primary_rays
+from spectral_tpu_torch.render.camera import generate_primary_rays, restart_directions
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.scene.flatten import OBJ_TRIANGLE, RenderConfig, SceneTensors
 
@@ -113,13 +114,17 @@ def _direct_lighting(
 
 def _bounce(
     state: BounceState,
-    bounces_left: int,
-    frame_id,
+    bounces_left: torch.Tensor,
+    frame_id: torch.Tensor,
     px: torch.Tensor,
     py: torch.Tensor,
     scene: SceneTensors,
     config: RenderConfig,
 ) -> BounceState:
+    """One bounce iteration of every lane. ``bounces_left`` and
+    ``frame_id`` are per-lane int64 ``[N]`` (uint32 bit patterns; callers
+    with one value broadcast it); they seed the RNG and end a path whose
+    budget is spent. The returned ``alive`` is the lanes that continue."""
     o, d, throughput, radiance, alive, pending_gate, ray_count = state
     # one submit_ray per live lane
     ray_count = ray_count + alive.sum(dtype=torch.float32)
@@ -135,7 +140,7 @@ def _bounce(
     m_rough = scene.roughness[res.obj_idx]
     m_albedo = scene.albedo[res.obj_idx]  # [N, S]
 
-    seed = (as_u32(frame_id, px.device) + bounces_left) & MASK32
+    seed = (frame_id + bounces_left) & MASK32
     rx, ry, rz = random_pcg3d(px, py, seed)
     spec = rz < m_metal
 
@@ -165,6 +170,40 @@ def _bounce(
     return BounceState(o, d, throughput, radiance, cont, pending_gate, ray_count)
 
 
+def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
+                 radiance=None):
+    """The one-frame loop over lane planes; returns the final state and
+    the per-lane bounces left (frozen when a path ends). The frame's
+    radiance is added bounce by bounce to ``radiance`` (``[N, S]``, zeros
+    if None), as the kernels add a K-frame sum."""
+    require_slice(scene, config)
+    n = origin.x.shape[0]
+    s = config.n_samples
+    dev = origin.x.device
+    if radiance is None:
+        radiance = torch.zeros((n, s), dtype=torch.float32, device=dev)
+    state = BounceState(
+        origin=origin,
+        direction=direction,
+        throughput=torch.ones((n, s), dtype=torch.float32, device=dev),
+        radiance=radiance,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        pending_gate=torch.zeros((n,), dtype=torch.bool, device=dev),
+        ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    bl = torch.full((n,), config.max_bounces, dtype=torch.int64, device=dev)
+    fid = as_u32(frame_id, dev).expand(n)
+    px, py = px.long(), py.long()
+    if config.n_objects > 0:
+        for _ in range(config.max_bounces):
+            state = _bounce(state, bl, fid, px, py, scene, config)
+            bl = torch.where(state.alive, bl - 1, bl)
+            # a dead lane adds nothing, so an all-dead wavefront is done
+            if not bool(state.alive.any()):
+                break
+    return state, bl
+
+
 def bounce_loop(
     origin: Vec3,
     direction: Vec3,
@@ -174,33 +213,165 @@ def bounce_loop(
     scene: SceneTensors,
     config: RenderConfig,
     return_stats: bool = False,
+    radiance: torch.Tensor | None = None,
 ):
     """Trace one frame's paths from the given primary lanes; returns the
-    radiance ``[N, S]`` (and the reference-equivalent ray count)."""
-    require_slice(scene, config)
-    n = origin.x.shape[0]
-    s = config.n_samples
-    dev = origin.x.device
-    state = BounceState(
-        origin=origin,
-        direction=direction,
-        throughput=torch.ones((n, s), dtype=torch.float32, device=dev),
-        radiance=torch.zeros((n, s), dtype=torch.float32, device=dev),
-        alive=torch.ones((n,), dtype=torch.bool, device=dev),
-        pending_gate=torch.zeros((n,), dtype=torch.bool, device=dev),
-        ray_count=torch.zeros((), dtype=torch.float32, device=dev),
-    )
-    if config.n_objects > 0:
-        for i in range(config.max_bounces):
-            state = _bounce(
-                state, config.max_bounces - i, frame_id, px, py, scene, config
-            )
-            # a dead lane adds nothing, so an all-dead wavefront is done
-            if not bool(state.alive.any()):
-                break
+    radiance ``[N, S]`` (and the reference-equivalent ray count). A given
+    ``radiance`` is carried: the frame is added to it bounce by bounce."""
+    state, _ = _bounce_loop(origin, direction, px, py, frame_id, scene, config,
+                            radiance)
     if return_stats:
         return state.radiance, state.ray_count
     return state.radiance
+
+
+def bounce_loop_cost(origin, direction, px, py, frame_id, scene, config):
+    """``bounce_loop`` plus each lane's live iteration count, the path
+    cost ``max_bounces + 1 - bounces_left`` with the budget frozen at the
+    path's end (the reference's ``kernel_cost``, ``megakernel.py:1887-1892``):
+    returns ``(radiance [N, S], cost [N] f32)``."""
+    state, bl = _bounce_loop(origin, direction, px, py, frame_id, scene, config)
+    top = torch.tensor(float(config.max_bounces + 1), device=bl.device)
+    return state.radiance, top - bl.to(torch.float32)
+
+
+@dataclasses.dataclass
+class PersistState:
+    """The carried lane state of a persistent render (the reference's
+    ``make_body`` carry plus throughput and radiance, ``megakernel.py:
+    1928-1935, 2001-2006``), one lane per pixel slot. ``alive``/``gate``
+    are 1.0/0.0 and ``hero`` the hero-wavelength bin (-1: none). ``bl``
+    (bounces left) and ``fid`` (the frame of the path in flight) are
+    uint32 bit patterns: int32 on the card, as the kernel reads them, and
+    int64 on the CPU, as ``ops/rng.py`` computes. ``px``/``py`` are int32.
+    ``thr`` and ``rad`` are ``[S, n]``, lane-minor."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    alive: torch.Tensor
+    gate: torch.Tensor
+    hero: torch.Tensor
+    bl: torch.Tensor
+    fid: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    thr: torch.Tensor
+    rad: torch.Tensor
+
+    # the reference's carried-state order (its checkpoint's state_0..12)
+    CARRIED = ("ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero",
+               "bl", "fid", "thr", "rad")
+
+    def planes(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+
+def lane_int_dtype(device) -> torch.dtype:
+    """The dtype of the ``bl``/``fid`` planes on ``device``."""
+    return torch.int32 if torch.device(device).type == "cuda" else torch.int64
+
+
+def persist_iterations(
+    st: PersistState,
+    lead: int,
+    end: int,
+    scene: SceneTensors,
+    config: RenderConfig,
+    cam: torch.Tensor,
+    ring=None,
+    stop: torch.Tensor | None = None,
+    budget: int = 1,
+) -> None:
+    """Exactly ``budget`` iterations of the carried-state bounce step
+    (``_bounce``) over every lane, updating ``st`` IN PLACE: the plain
+    version of the persist kernel.
+
+    A lane whose path ends this iteration, or that idles, restarts its
+    pixel's next frame ``nf = fid + 1`` when ``nf < end``, and also
+    ``nf < lead`` when a ring is given and its ``stop`` flag is clear
+    when a stop mask is given (``megakernel.py:1406-1420``); the restart
+    takes the iteration, as in the reference. On restart the throughput
+    goes back to 1, the lane comes alive from the camera position
+    ``cam[0:3]``, with ``max_bounces`` left, hero -1 and the gate open
+    (``:1549-1552, 1752-1769``). The direction comes from the ring slot
+    ``nf % W`` (``ring = (x, y, z)``, ``[W, n]`` each) or, free-running,
+    from ``camera.restart_directions`` with ``cam`` the camera table.
+    Once no lane is alive or restartable every later iteration is a
+    no-op, so the loop stops early; that is exact."""
+    n = st.ox.shape[0]
+    dev = st.ox.device
+    bl = st.bl.long()
+    fid = st.fid.long() & MASK32
+    px, py = st.px.long(), st.py.long()
+    state = BounceState(
+        origin=Vec3(st.ox, st.oy, st.oz),
+        direction=Vec3(st.dx, st.dy, st.dz),
+        throughput=st.thr.T,
+        radiance=st.rad.T,
+        alive=st.alive > 0.0,
+        pending_gate=st.gate > 0.0,
+        ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    hero = st.hero
+    held = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if stop is not None:
+        held = stop > 0.0
+    lanes = torch.arange(n, device=dev)
+
+    def restartable(fid):
+        nf = (fid + 1) & MASK32
+        ok = (nf < int(end)) & ~held
+        if ring is not None:
+            ok &= nf < int(lead)
+        return ok
+
+    for _ in range(int(budget)):
+        ok = restartable(fid)
+        if not bool((state.alive | ok).any()):
+            break
+        state = _bounce(state, bl, fid, px, py, scene, config)
+        cont = state.alive
+        new_path = ~cont & ok
+        bl = torch.where(cont, bl - 1,
+                         torch.where(new_path, config.max_bounces, bl))
+        if not bool(new_path.any()):
+            continue
+        nf = (fid + 1) & MASK32
+        if ring is not None:
+            slot = nf & (ring[0].shape[0] - 1)
+            rd = Vec3(ring[0][slot, lanes], ring[1][slot, lanes], ring[2][slot, lanes])
+        else:
+            rd = restart_directions(px, py, nf, cam)
+        cam_o = Vec3(cam[0].expand(n), cam[1].expand(n), cam[2].expand(n))
+        state = BounceState(
+            origin=cam_o.where(new_path, state.origin),
+            direction=rd.where(new_path, state.direction),
+            throughput=torch.where(new_path[:, None], 1.0, state.throughput),
+            radiance=state.radiance,
+            alive=cont | new_path,
+            pending_gate=state.pending_gate & ~new_path,
+            ray_count=state.ray_count,
+        )
+        hero = torch.where(new_path, -1.0, hero)
+        fid = torch.where(new_path, nf, fid)
+
+    st.ox.copy_(state.origin.x)
+    st.oy.copy_(state.origin.y)
+    st.oz.copy_(state.origin.z)
+    st.dx.copy_(state.direction.x)
+    st.dy.copy_(state.direction.y)
+    st.dz.copy_(state.direction.z)
+    st.alive.copy_(state.alive.to(torch.float32))
+    st.gate.copy_(state.pending_gate.to(torch.float32))
+    st.hero.copy_(hero)
+    st.bl.copy_(bl)
+    st.fid.copy_(fid)
+    st.thr.copy_(state.throughput.T)
+    st.rad.copy_(state.radiance.T)
 
 
 def integrate_frame(

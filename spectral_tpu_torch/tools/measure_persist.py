@@ -1,0 +1,198 @@
+"""Measure the persist path against the regeneration path on one GPU.
+
+    python -m spectral_tpu_torch.tools.measure_persist [--runs 5] [--trace-dir DIR]
+
+On cornell512 (the Cornell box at 512x512, 32 wavelengths, 30 bounces,
+100 iterations) it prints one JSON line per part:
+
+1. ``one_launch``: one ``cuda_persist`` launch at the default budget, in
+   the free-running, lane-stop (all-zero mask) and ring (W = 128, frames
+   1-99 resident) variants, against one ``cuda_regen`` launch of 100
+   frames, in turns, CUDA-event times. Each row has the kernel's ms, the
+   mean completed frames per lane, ms per completed frame, and the rate of
+   live path iterations: the per-frame path costs of ``cuda_cost`` summed
+   over the frames each lane completed, per second. Iterations that idle
+   lanes spend waiting, and the persist lanes' unfinished last frame, are
+   not counted. A free-running restart traces its pixel from in-kernel
+   raygen, ulps from the host raygen the costs come from, so its count is
+   an estimate; the regen and ring counts are exact.
+2. ``seconds_per_frame``: ``Renderer.render()`` wall time over 100 frames
+   for regen, persist at the default budget and persist in a single
+   launch (budget 3,000), ``--runs`` times each, in turns.
+3. ``profile_persist`` / ``profile_regen``: one render of each under
+   ``torch.profiler``: wall ms, device-busy ms (the union of the kernels'
+   spans), the traced span and the top device-time ops. With
+   ``--trace-dir`` the Chrome traces are written there.
+
+Every line carries the card's name and power limit from ``nvidia-smi``.
+Needs one CUDA GPU; builds the kernels at first use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _busy_ms(events) -> tuple[float, float]:
+    """Union of the device events' spans, and the traced span, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return 0.0, 0.0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", type=int, default=5, help="renders per path in part 2")
+    ap.add_argument("--trace-dir", help="write the profiler's Chrome traces here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectral_tpu_torch import presets
+    from spectral_tpu_torch.ops import megakernel as mk
+    from spectral_tpu_torch.render import cuda_integrator as ci
+    from spectral_tpu_torch.render.camera import camera_basis_table
+    from spectral_tpu_torch.render.renderer import Renderer
+    from spectral_tpu_torch.scene.flatten import flatten_scene
+
+    if not torch.cuda.is_available():
+        print("measure_persist needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = _card()
+    frames, bounces = 100, 30
+
+    def scene():
+        sc = presets.cornell_box(n_samples=32)
+        sc.width = sc.height = 512
+        sc.nbr_of_ray_bounces, sc.nbr_of_iterations = bounces, frames
+        return sc
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), out
+
+    st, cfg = flatten_scene(scene(), dev)
+    tb = mk.pack_tables(st, cfg)
+    n = cfg.width * cfg.height
+
+    # ---- 1. one launch of each variant against one regen launch
+    lanes = [ci.primary_lanes(st, cfg, f) for f in range(frames)]
+    cost = torch.stack([mk.run_cost(*planes, px, py, f, tb)[1]
+                        for f, (planes, px, py) in enumerate(lanes)])  # [frames, n]
+    cum_cost = torch.cumsum(cost.double(), dim=0)
+    budget = max(8, round(64 * float(cost[0].mean())))
+    planes, px, py = lanes[0]
+    dirx, diry, dirz = (torch.stack([lanes[f][0][3 + i] for f in range(1, frames)])
+                        for i in range(3))
+    regen_args = (*planes, px, py, 0, dirx, diry, dirz, tb)
+    cam = camera_basis_table(st, cfg)
+    ring = tuple(torch.stack([lanes[f][0][3 + i] if 0 < f < frames
+                              else torch.zeros(n, device=dev) for f in range(128)])
+                 for i in range(3))  # slot f holds frame f's directions
+    del lanes
+
+    def live_iterations(done):
+        """Sum of the per-frame path costs over each lane's completed frames."""
+        idx = (done.long() - 1).clamp_min(0)
+        got = cum_cost.gather(0, idx[None, :])[0]
+        return float(torch.where(done > 0, got, torch.zeros_like(got)).sum())
+
+    variants = {  # name: (camera table, variant arguments)
+        "free": (cam, {}),
+        "stop0": (cam, dict(stop=torch.zeros(n, device=dev))),
+        "ring128": (tb.cam, dict(ring=ring)),
+    }
+    mk.run_regen(*regen_args)  # build and warm up
+    rows = []
+    for rep in range(3):
+        for name, (cam_t, kw) in variants.items():
+            state = ci.persist_init(st, cfg)
+            ms, _ = timed(lambda: mk.run_persist(state, frames, frames, tb, cam_t,
+                                                 budget=budget, **kw))
+            done = ci.completed_frames(state)
+            rows.append(dict(variant=name, rep=rep, ms=ms,
+                             frames_per_lane=float(done.float().mean()),
+                             ms_per_frame=ms / float(done.float().mean()),
+                             g_live_iterations_per_s=live_iterations(done) / ms / 1e6))
+        ms, _ = timed(lambda: mk.run_regen(*regen_args))
+        rows.append(dict(variant="regen K=100", rep=rep, ms=ms, frames_per_lane=frames,
+                         ms_per_frame=ms / frames,
+                         g_live_iterations_per_s=float(cum_cost[-1].sum()) / ms / 1e6))
+    print(json.dumps(dict(part="one_launch", budget=budget,
+                          mean_cost_frame0=float(cost[0].mean()),
+                          rows=rows, card=card)), flush=True)
+    del regen_args, dirx, diry, dirz, ring, cost, cum_cost, variants
+
+    # ---- 2. seconds per frame, the three renders in turns
+    kinds = {"regen": {}, "persist": dict(persist=True),
+             "persist_single": dict(persist=True, persist_budget=frames * bounces)}
+
+    def render(kw):
+        r = Renderer(scene(), device="cuda", **kw)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        r.render()
+        return (time.monotonic() - t) / frames
+
+    spread = {key: [] for key in kinds}
+    for _ in range(args.runs):
+        for key, kw in kinds.items():
+            spread[key].append(render(kw))
+    print(json.dumps(dict(part="seconds_per_frame", runs=spread, card=card)), flush=True)
+
+    # ---- 3. device-busy share under the profiler, after a warm render
+    for key in ("persist", "regen"):
+        render(kinds[key])
+        r = Renderer(scene(), device="cuda", **kinds[key])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            r.render()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t) * 1e3
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms, span_ms = _busy_ms(dev_events)
+        top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:8]
+        print(json.dumps(dict(
+            part=f"profile_{key}", wall_ms=wall_ms, device_busy_ms=busy_ms,
+            traced_span_ms=span_ms, busy_share_of_wall=busy_ms / wall_ms,
+            top=[(k.key[:60], k.device_time_total / 1e3, k.count) for k in top],
+            card=card)), flush=True)
+        if args.trace_dir:
+            Path(args.trace_dir).mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(Path(args.trace_dir) / f"trace_{key}.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

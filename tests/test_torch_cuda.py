@@ -10,7 +10,11 @@ Tolerances: direct-only radiance to 1e-5 of the image scale; multi-bounce
 frames to the coin-flip envelope (at most 15% of pixels off by more than
 1e-5; the kernels are built without FMA contraction precisely so that they
 match the eager path, and on an H100 they match it bit for bit); the
-regeneration sum to 1e-4 (float32 summation order).
+regeneration sum to 1e-4. The persist and cost kernels are held bit for
+bit: the ring variant to its plain version and to ``cuda_regen``, the
+free-running variant across launch splits and to its plain version, the
+all-zero stop mask to the free-running variant, and ``cuda_cost``'s
+radiance to ``cuda_mono``'s.
 """
 
 import pytest
@@ -19,6 +23,7 @@ import torch
 from spectral_tpu.scene import presets
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
+from spectral_tpu_torch.render.camera import camera_basis_table
 from spectral_tpu_torch.render.renderer import Renderer
 from spectral_tpu_torch.scene.flatten import flatten_scene
 
@@ -103,3 +108,104 @@ def test_cuda_wrapper_checks_inputs(cuda):
     cpu_planes = [p.cpu() for p in planes]
     with pytest.raises(ValueError, match="tables"):
         mk.run_mono(planes[0], *cpu_planes[1:], px, py, 0, tb)
+
+
+def _drive(scene, device, budget, ring_w=0, plain=False, stop=None):
+    """One carried state through the persist scheduler's launches."""
+    port, cfg = flatten_scene(scene, device)
+    tb = mk.pack_tables(port, cfg)
+    frames = cfg.intended_frames
+    st = ci.persist_init(port, cfg)
+    cam = tb.cam if ring_w else camera_basis_table(port, cfg)
+    ring, lead = None, frames
+    if ring_w:
+        ring = tuple(torch.zeros((ring_w, cfg.width * cfg.height), device=device)
+                     for _ in range(3))
+        lead = min(ring_w, frames)
+        for f in range(1, lead):
+            ci.ring_refill(ring, f, port, cfg)
+    run = mk.run_persist_plain if plain else mk.run_persist
+    while True:
+        run(st, lead, frames, tb, cam, ring=ring, stop=stop, budget=budget)
+        done = int(ci.min_frames_done(st, stop, frames))
+        if done >= frames:
+            break
+        while ring_w and lead < min(done + ring_w, frames):
+            ci.ring_refill(ring, lead, port, cfg)
+            lead += 1
+    torch.cuda.synchronize()
+    return st, port, cfg, tb
+
+
+def _equal(a, b):
+    return all(torch.equal(t, getattr(b, k)) for k, t in a.planes().items())
+
+
+def test_cuda_persist_ring_bit_identical_to_plain_and_regen(cuda):
+    scene = _scene("default", 16, 128, 4, iters=6)
+    before = mk.run_persist.launches
+    got, port, cfg, tb = _drive(scene, cuda, 13, ring_w=4)
+    assert mk.run_persist.launches > before + 1
+    want, *_ = _drive(scene, cuda, 13, ring_w=4, plain=True)
+    assert _equal(got, want)
+    assert torch.equal(got.rad, ci.regen_radiance(port, cfg, 0, 6, tb))
+
+
+@pytest.mark.parametrize("bounces", [1, 3])
+def test_cuda_persist_free_running_matches_plain_and_splits(cuda, bounces):
+    scene = _scene("cornell", 16, 8, bounces, iters=6)
+    a, *_ = _drive(scene, cuda, 11)
+    b, *_ = _drive(scene, cuda, 64)
+    assert torch.equal(a.rad, b.rad) and torch.equal(a.fid, b.fid)
+    want, *_ = _drive(scene, cuda, 11, plain=True)
+    err = (a.rad - want.rad).abs().amax(0) / max(1.0, float(want.rad.abs().max()))
+    if bounces == 1:
+        assert float(err.max()) <= 1e-5
+    assert float((err > 1e-5).float().mean()) <= 0.15
+
+
+def test_cuda_persist_lane_stop(cuda):
+    scene = _scene("cornell", 16, 8, 3, iters=6)
+    n = 16 * 8
+    free, *_ = _drive(scene, cuda, 11)
+    zero, *_ = _drive(scene, cuda, 11, stop=torch.zeros(n, device=cuda))
+    assert _equal(zero, free)
+    port, cfg = flatten_scene(scene, cuda)
+    tb = mk.pack_tables(port, cfg)
+    cam = camera_basis_table(port, cfg)
+    st = ci.persist_init(port, cfg)
+    mk.run_persist(st, 6, 6, tb, cam, budget=4)
+    fid1 = st.fid.clone()
+    lane = torch.arange(n, device=cuda)
+    stop = ((lane % 16 + lane // 16) % 2).float()
+    for _ in range(8):
+        mk.run_persist(st, 6, 6, tb, cam, stop=stop, budget=4)
+    held = stop > 0
+    assert torch.equal(st.fid[held], fid1[held])
+    assert bool((st.alive[held] == 0).all())
+    assert int(st.fid[~held].min()) == 5 and bool((st.alive[~held] == 0).all())
+
+
+@pytest.mark.parametrize("name,bounces", [("cornell", 3), ("default", 4)])
+def test_cuda_cost_matches_mono_and_plain(cuda, name, bounces):
+    planes, px, py, tb = _lanes(_scene(name, 32, 16, bounces), cuda, frame=1)
+    before = mk.run_cost.launches
+    rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+    assert mk.run_cost.launches == before + 1
+    mono = mk.run_mono(*planes, px, py, 1, tb)
+    prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(rad, mono)
+    assert torch.equal(rad, prad) and torch.equal(cost, pcost)
+
+
+def test_cuda_renderer_persist_counts_launches(cuda):
+    mk.run_persist.launches = mk.run_cost.launches = 0
+    r = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cuda", persist=True)
+    img = r.render()
+    assert mk.run_cost.launches == 1 and mk.run_persist.launches > 1
+    assert r.persist_info["frames_done"] >= 6
+    assert img.shape == (16, 32, 4) and float(img[..., :3].mean()) > 0
+    want = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cpu", persist=True,
+                    persist_budget=r.persist_info["budget"]).render()
+    assert abs(float(img[..., :3].mean()) / float(want[..., :3].mean()) - 1.0) <= 0.05

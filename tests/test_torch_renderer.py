@@ -124,13 +124,128 @@ def test_out_of_slice_scene_raises(name):
         trender.Renderer(presets.PRESETS[name](n_samples=8), device="cpu")
 
 
-@pytest.mark.parametrize("option", [
-    dict(persist=True), dict(phase_split=8), dict(sharding=object()), dict(regen_sort=True),
+@pytest.mark.parametrize("option,error,match", [
+    (dict(persist=True, regen_frames=4), ValueError, "standalone"),
+    (dict(phase_split=8), NotImplementedError, "phase_split"),
+    (dict(sharding=object()), NotImplementedError, "sharding"),
+    (dict(adaptive=(2, 0, 0)), ValueError, "persist=True"),
 ])
-def test_out_of_slice_modes_raise(option):
-    (name,) = option
-    with pytest.raises(NotImplementedError, match=name):
+def test_out_of_slice_modes_raise(option, error, match):
+    """phase_split and sharding wait for their slices; persist and
+    adaptive render now, and refuse what the reference refuses."""
+    with pytest.raises(error, match=match):
         trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cpu", **option)
+
+
+def test_persist_renderer_matches_jax_persist_renderer():
+    """Renderer(persist=True) on the periscope against the reference's
+    Renderer(persist=True) in interpret mode: the same budget, the whole
+    image in one batch, 1e-5 of the image scale (deterministic paths)."""
+    scene = _periscope_scene()
+    scene.nbr_of_iterations = 4
+    want = JaxRenderer(scene, backend="jnp", persist=True, persist_budget=5,
+                       _interpret=True).render()
+    r = trender.Renderer(scene, device="cpu", persist=True, persist_budget=5)
+    assert r.regen_frames == 1
+    got = r.render()
+    assert r.persist_info["budget"] == 5 and r.next_frame == 4
+    assert got.shape == want.shape and np.allclose(got[..., 3], 1.0)
+    assert _max_rel(got, want) <= 1e-5
+    with pytest.raises(ValueError, match="whole image"):
+        r.render_frames(2)
+
+
+def test_persist_adaptive_renderer_reports_counts():
+    r = trender.Renderer(_scene("cornell", 16, 12, 3, 16), device="cpu", persist=True,
+                         persist_budget=6, adaptive=(4, 1e9, 1e9))
+    img = r.render()
+    info = r.persist_info
+    assert np.isfinite(img).all() and float(img[..., :3].mean()) > 0.0
+    assert 4 <= info["min_counts"] <= info["max_counts"] < 16
+    assert info["counts"].shape == (16 * 12,) and info["adaptive"] == (4, 1e9, 1e9)
+
+
+def test_persist_checkpoint_roundtrip(tmp_path):
+    """Abort mid-render, save, load into a FRESH renderer, resume:
+    bit-identical to the uninterrupted render; the file refuses the wrong
+    kind, the wrong adaptive settings and another scene (the reference's
+    tests/test_persist.py:284)."""
+    kw = dict(device="cpu", persist=True, persist_budget=4)
+    want = trender.Renderer(_scene("cornell", 16, 8, 3, 8), **kw).render()
+    r1 = trender.Renderer(_scene("cornell", 16, 8, 3, 8), **kw)
+    r1.render(abort=lambda: True)
+    assert r1.persist_info["aborted"]
+    path = tmp_path / "persist.ckpt.npz"
+    r1.save_checkpoint(path)
+    r2 = trender.Renderer(_scene("cornell", 16, 8, 3, 8), **kw)
+    r2.load_checkpoint(path)
+    got = r2.render()
+    assert not r2.persist_info["aborted"]
+    assert (got == want).all()
+    with pytest.raises(ValueError, match="persist=True"):
+        trender.Renderer(_scene("cornell", 16, 8, 3, 8), device="cpu").load_checkpoint(path)
+    with pytest.raises(ValueError, match="adaptive"):
+        trender.Renderer(_scene("cornell", 16, 8, 3, 8), adaptive=(2, 0.1, 0.0),
+                         **kw).load_checkpoint(path)
+    other = _scene("cornell", 16, 8, 3, 8)
+    other.camera.fov_y_deg += 1.0
+    with pytest.raises(ValueError, match="DIFFERENT scene"):
+        trender.Renderer(other, **kw).load_checkpoint(path)
+
+
+def test_adaptive_persist_checkpoint_roundtrip(tmp_path):
+    kw = dict(device="cpu", persist=True, persist_budget=3, adaptive=(2, 1e9, 1e9))
+    r0 = trender.Renderer(_scene("cornell", 16, 8, 3, 16), **kw)
+    want = r0.render()
+    r1 = trender.Renderer(_scene("cornell", 16, 8, 3, 16), **kw)
+    r1.render(abort=lambda: True)
+    path = tmp_path / "adaptive.ckpt.npz"
+    r1.save_checkpoint(path)
+    r2 = trender.Renderer(_scene("cornell", 16, 8, 3, 16), **kw)
+    r2.load_checkpoint(path)
+    assert (r2.render() == want).all()
+    assert (r2.persist_info["counts"] == r0.persist_info["counts"]).all()
+
+
+def test_persist_state_kept_only_on_abort_or_when_asked(tmp_path):
+    """A finished persist render frees its carried state unless
+    ``persist_keep_state``; a checkpoint without a scene digest is refused."""
+    kw = dict(device="cpu", persist=True, persist_budget=4)
+    r = trender.Renderer(_scene("cornell", 8, 6, 2, 4), **kw)
+    r.render()
+    assert "resume_state" not in r.persist_info
+    with pytest.raises(ValueError, match="persist_keep_state"):
+        r.save_checkpoint(tmp_path / "none.npz")
+    kept = trender.Renderer(_scene("cornell", 8, 6, 2, 4), persist_keep_state=True, **kw)
+    want = kept.render()
+    path = tmp_path / "done.npz"
+    kept.save_checkpoint(path)
+    again = trender.Renderer(_scene("cornell", 8, 6, 2, 4), **kw)
+    again.load_checkpoint(path)
+    assert (again.render() == want).all()
+    data = dict(np.load(path))
+    del data["scene_digest"]
+    with open(tmp_path / "old.npz", "wb") as f:
+        np.savez(f, **data)
+    with pytest.raises(ValueError, match="scene_digest"):
+        trender.Renderer(_scene("cornell", 8, 6, 2, 4), **kw).load_checkpoint(tmp_path / "old.npz")
+
+
+def test_accumulator_checkpoint_roundtrip(tmp_path):
+    want = trender.Renderer(_scene("cornell", 8, 6, 2, 8), device="cpu", regen_frames=2).render()
+    r1 = trender.Renderer(_scene("cornell", 8, 6, 2, 8), device="cpu", regen_frames=2)
+    r1.render(abort=lambda: True)
+    path = tmp_path / "accum.npz"
+    r1.save_checkpoint(path)
+    r2 = trender.Renderer(_scene("cornell", 8, 6, 2, 8), device="cpu", regen_frames=2)
+    r2.load_checkpoint(path)
+    assert r2.next_frame == 2
+    assert (r2.render() == want).all()
+    with pytest.raises(ValueError, match="cannot continue a persist"):
+        trender.Renderer(_scene("cornell", 8, 6, 2, 8), device="cpu",
+                         persist=True).load_checkpoint(path)
+    with pytest.raises(ValueError, match="incompatible"):
+        trender.Renderer(_scene("cornell", 8, 6, 2, 9), device="cpu").load_checkpoint(path)
 
 
 def test_save_image_and_cli(tmp_path):
@@ -146,6 +261,29 @@ def test_save_image_and_cli(tmp_path):
     assert rc == 0 and cli_out.stat().st_size > 0
 
 
+def test_cli_persist_adaptive_checkpoint_and_resume(tmp_path, capsys):
+    base = ["render", "--preset", "cornell", "--width", "16", "--height", "8",
+            "--iterations", "8", "--bounces", "3", "--samples", "8", "--device", "cpu"]
+    out, ckpt = tmp_path / "p.png", tmp_path / "p.ckpt.npz"
+    assert cli.main(base + ["--persist", "--persist-budget", "4", "--adaptive", "2,1e9,1e9",
+                            "--checkpoint", str(ckpt), "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "adaptive:" in err and "frames/pixel" in err
+    assert out.stat().st_size > 0 and ckpt.stat().st_size > 0
+    again = tmp_path / "again.png"
+    assert cli.main(base + ["--persist", "--persist-budget", "4", "--adaptive", "2,1e9,1e9",
+                            "--resume", str(ckpt), "--out", str(again), "--quiet"]) == 0
+    assert again.read_bytes() == out.read_bytes()
+    assert cli.main(base + ["--adaptive", "2,0.1,0", "--out", str(out)]) == 2
+    assert "--adaptive requires --persist" in capsys.readouterr().err
+    assert cli.main(base + ["--persist", "--adaptive", "2,0.1", "--out", str(out)]) == 2
+    assert "MIN,RTOL,ATOL" in capsys.readouterr().err
+    sorted_out = tmp_path / "sorted.png"
+    assert cli.main(base + ["--regen-sort", "on", "--regen-frames", "4", "--quiet",
+                            "--out", str(sorted_out)]) == 0
+    assert sorted_out.stat().st_size > 0
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -158,6 +296,10 @@ def test_port_never_imports_jax():
         "sc.width, sc.height, sc.nbr_of_iterations = 16, 12, 2\n"
         "img = st.Renderer(sc, device='cpu').render()\n"
         "assert img.shape == (12, 16, 4) and img[..., :3].max() > 0\n"
+        "r = st.Renderer(sc, device='cpu', persist=True, adaptive=(2, 0.5, 1e-3))\n"
+        "img = r.render()\n"
+        "assert img.shape == (12, 16, 4) and img[..., :3].max() > 0\n"
+        "assert r.persist_info['min_counts'] >= 2\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
