@@ -3,20 +3,24 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds the port's CUDA kernels from ``spectral_tpu_torch/ops/csrc``, holds
-each kernel against its plain PyTorch version on the card, then drives the
-port's two paths at the reference's own benchmark size, the Cornell box at
-512x512, 32 wavelengths, 30 bounces, 100 iterations: the main path
-(``Renderer(...).render()``, regeneration) and the persist path
-(``Renderer(..., persist=True[, adaptive=...])``, the cost probe and the
-persistent kernel), each with every launch count zeroed just before it
-and read just after. Prints one JSON line per phase, then the kernel table, the
-card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero and prints no result; so does a machine without CUDA, or a
-directory without the rest of the repository. Nothing here imports jax
-(checked at the end); the scene schema and presets are the reference
-package's jax-free host modules, which the port reuses.
+Builds the port's CUDA kernels from ``spectral_tpu_torch/ops/csrc`` (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card, then drives the port's paths through
+``Renderer``, each with every launch count zeroed just before it and read
+just after: at the reference's own benchmark size, the Cornell box at
+512x512, 32 wavelengths, 30 bounces, 100 iterations, the main path
+(regeneration) and the persist path (``persist=True[, adaptive=...]``,
+the cost probe and the persistent kernel); and at the 1000-sphere field
+(``presets.sphere_field(1000)``: 1,001 objects, 1024x768, 32 wavelengths,
+8 bounces, 100 iterations), the many-object main path (clusters,
+regeneration, Morton lanes) and the phased path (``phase_split=2``,
+``"auto"`` and an explicit cascade, ``cuda_seg``). Prints one JSON line
+per phase, then the kernel table, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
+so the script exits non-zero and prints no result; so does a machine
+without CUDA, or a directory without the rest of the repository. Nothing
+here imports jax or the JAX package (checked at the end): the scene
+schema and presets are the port's own copies.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MAIN = dict(width=512, height=512, n_samples=32, bounces=30, iterations=100)
+# BASELINE config 4 (bench.py): the 1000-sphere field
+SPHERES = dict(n_spheres=1000, width=1024, height=768, n_samples=32, bounces=8,
+               iterations=100)
 
 
 def emit(**fields) -> None:
@@ -62,9 +69,11 @@ def main() -> int:
         from spectral_tpu_torch.render import integrator as ti
         from spectral_tpu_torch.render.camera import camera_basis_table
         from spectral_tpu_torch.render.color import spectra_to_rgb
+        from spectral_tpu_torch.render.layout import morton_layout
         from spectral_tpu_torch.render.renderer import Renderer
         from spectral_tpu_torch.runtime import build
         from spectral_tpu_torch.scene.flatten import flatten_scene
+        from spectral_tpu_torch.utils import flops
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -83,12 +92,13 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2. build
     t0 = time.monotonic()
-    build.library_path("megakernel").unlink(missing_ok=True)  # build from source
-    build.build("megakernel")
+    build.build_all(force=True)  # from source, one nvcc per file, in parallel
     build_s = time.monotonic() - t0
-    ptxas = [ln.strip() for ln in build.build_log("megakernel").splitlines()
+    ptxas = [f"{name}: {ln.strip()}" for name in build.SOURCES
+             for ln in build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit(phase="build", seconds=round(build_s, 3), ptxas=ptxas, card=card)
+    emit(phase="build", seconds=round(build_s, 3), sources=list(build.SOURCES),
+         ptxas=ptxas, card=card)
 
     def scene_of(maker, w, h, s, bounces, iters):
         sc = maker(n_samples=s)
@@ -251,6 +261,57 @@ def main() -> int:
     emit(phase="kernels_persist_small", seconds=round(time.monotonic() - t0, 3),
          checks=psmall, card=card)
 
+    # ------------ 3b. the many-object walk and cuda_seg vs plain, small size
+    def field_of(n_spheres, w, h, s, bounces, iters):
+        sc = presets.sphere_field(n_spheres=n_spheres, n_samples=s)
+        sc.width, sc.height = w, h
+        sc.nbr_of_ray_bounces, sc.nbr_of_iterations = bounces, iters
+        return sc
+
+    t0 = time.monotonic()
+    msmall = []
+    for bounces in (1, 3):
+        sc = field_of(100, 32, 16, 8, bounces, 4)
+        st, cfg = flatten_scene(sc, dev)
+        tb = mk.pack_tables(st, cfg)
+        flat = mk.pack_tables(st, cfg, accel="none")
+        assert tb.clusters is not None and flat.clusters is None
+        planes, px, py = ci.primary_lanes(st, cfg, 1)
+        mono = mk.run_mono(*planes, px, py, 1, tb)
+        checks = dict(
+            mono=torch.equal(mono, mk.run_mono_plain(*planes, px, py, 1, tb)),
+            mono_flat_walk=torch.equal(mono, mk.run_mono(*planes, px, py, 1, flat)))
+        rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+        prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+        checks["cost"] = torch.equal(rad, mono) and torch.equal(cost, pcost)
+        args, _ = regen_inputs(sc, 1, 3)
+        checks["regen"] = torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+        got, pst, *_ = persist_drive(sc, 5)
+        want = persist_drive(sc, 5, plain=True)[0]
+        # free-running restarts recompute raygen on each side: held to the
+        # coin-flip envelope beyond one bounce, like the Cornell checks
+        persist_flips = float((rel_err(rgb_of(got.rad, pst), rgb_of(want.rad, pst))
+                               > 1e-5).float().mean())
+        persist_exact = same_state(got, want)
+        if bounces == 1:
+            checks["persist"] = persist_exact
+        wf, pwf = ci.frame_wavefront(st, cfg, 1), ci.frame_wavefront(st, cfg, 1)
+        seg_eq = True
+        for b0, b1 in ((0, 1), (1, cfg.max_bounces)):
+            if b0 < b1:
+                mk.run_seg(wf, b0, b1, 1, tb)
+                mk.run_seg_plain(pwf, b0, b1, 1, tb)
+                seg_eq = seg_eq and same_state(wf, pwf)
+        checks["seg"] = seg_eq and torch.equal(wf.rad, mono)
+        torch.cuda.synchronize()
+        msmall.append(dict(case=f"sphere_field(100) 32x16 S=8 b{bounces}", objects=cfg.n_objects,
+                           runs=tb.runs.shape[0], bit_identical=checks,
+                           persist_bit_identical=persist_exact,
+                           persist_flipped=persist_flips, flipped_limit=0.15))
+        assert all(checks.values()) and persist_flips <= 0.15, msmall[-1]
+    emit(phase="kernels_many_small", seconds=round(time.monotonic() - t0, 3),
+         checks=msmall, card=card)
+
     # ------- 3b. kernels vs plain at the main path's shapes (512^2, S=32, K=100)
     def cuda_ms(fn, reps, warmup=True):
         if warmup:
@@ -336,6 +397,9 @@ def main() -> int:
     persist_flips, persist_err = envelope(got.rad, want.rad, st)
     assert persist_flips <= 0.15, ("persist 512^2 b30 flipped", persist_flips)
     persist_frames_one_launch = float(ci.completed_frames(got).float().mean())
+    # every iteration of the launch is a bounce or a restart, and a lane
+    # restarted fid times from frame 0 (no lane reaches the end here)
+    persist_iters = float((budget_main - got.fid.long()).sum())
     # the lane-stop kernel at the same shape: an all-zero mask must leave
     # the free-running launch's state bit for bit; a checkerboard from
     # frame 0 is held to the plain version, and its stopped lanes finish
@@ -378,9 +442,101 @@ def main() -> int:
          cost_ms=cost_ms, cost_plain_ms=cost_plain_ms, cost_radiance_max_abs=cost_err,
          cost_share_equal_to_plain=cost_equal, mean_cost=float(cost.mean()), card=card)
 
+    # ------- 3d. cuda_seg at the phased shapes: cornell512, spheres 256x192
+    def cuda_span(fn):
+        """Run fn once between two CUDA events: (ms, fn's result)."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    def split_check(sc, split):
+        """The first cuda_seg segment against its plain version (both
+        timed), the two-segment driver ``integrate_frame_split`` against
+        the cuda_mono frame (bit for bit), and a one-stage cascade sized
+        to the live count against the mono frame (float32 summation
+        order)."""
+        s_st, s_cfg = flatten_scene(sc, dev)
+        s_tb = mk.pack_tables(s_st, s_cfg)
+        wf = ci.frame_wavefront(s_st, s_cfg, 0)
+        ms0, _ = cuda_span(lambda: mk.run_seg(wf, 0, split, 0, s_tb))
+        pwf = ci.frame_wavefront(s_st, s_cfg, 0)
+        plain0_ms, _ = cuda_span(lambda: mk.run_seg_plain(pwf, 0, split, 0, s_tb))
+        seg0_exact = same_state(wf, pwf)
+        seg0_err = float((wf.rad - pwf.rad).abs().max())
+        live = int((wf.alive > 0).sum())
+        mono_rgb = ci.integrate_frame_cuda(s_st, s_cfg, 0, s_tb)
+        split_ms, split_rgb = cuda_ms(
+            lambda: ci.integrate_frame_split(s_st, s_cfg, 0, split, s_tb), 2)
+        split_exact = bool(torch.equal(split_rgb, mono_rgb))
+        cap = ci.stage_capacities(((split, live * 5 // 4),), s_cfg.width * s_cfg.height)[0]
+        rgb, overflow = ci.integrate_frame_cascade(s_st, s_cfg, 0, ((split, cap),), s_tb)
+        scale = max(1.0, float(mono_rgb.abs().max()))
+        cascade_rel = float((rgb - mono_rgb).abs().max()) / scale
+        # the compacted wavefront's segment, timed on its own
+        cwf = ci.frame_wavefront(s_st, s_cfg, 0)
+        mk.run_seg(cwf, 0, split, 0, s_tb)
+        cwf = ci._gather(cwf, torch.nonzero(cwf.alive > 0)[:, 0])
+        ms1c, _ = cuda_span(lambda: mk.run_seg(cwf, split, s_cfg.max_bounces, 0, s_tb))
+        out = dict(lanes=s_cfg.width * s_cfg.height, objects=s_cfg.n_objects, split=split,
+                   live_after_split=live, seg0_ms=ms0, seg0_plain_ms=plain0_ms,
+                   seg0_bit_identical=seg0_exact, seg0_max_abs=seg0_err,
+                   split_frame_ms=split_ms, seg1_compacted_ms=ms1c,
+                   split_bit_identical_to_mono=split_exact, cascade_capacity=cap,
+                   cascade_overflow=bool(overflow), cascade_max_rel=cascade_rel,
+                   cascade_limit=1e-6)
+        assert seg0_exact and split_exact and not bool(overflow), out
+        assert cascade_rel <= 1e-6, out
+        return out, (s_st, s_cfg, s_tb)
+
+    t0 = time.monotonic()
+    seg_cornell, _ = split_check(full, 2)
+    sph256 = field_of(SPHERES["n_spheres"], 256, 192, 32, SPHERES["bounces"],
+                      SPHERES["iterations"])
+    seg_sph256, (f_st, f_cfg, f_tb) = split_check(sph256, 2)
+    f_planes, f_px, f_py = ci.primary_lanes(f_st, f_cfg, 0)
+    sph256_mono_ms, f_mono = cuda_ms(lambda: mk.run_mono(*f_planes, f_px, f_py, 0, f_tb), 5)
+    sph256_plain_ms, f_plain = cuda_ms(
+        lambda: mk.run_mono_plain(*f_planes, f_px, f_py, 0, f_tb), 1, warmup=False)
+    sph256_flat_ms, f_flat = cuda_ms(
+        lambda: mk.run_mono(*f_planes, f_px, f_py, 0, mk.pack_tables(f_st, f_cfg, "none")), 2)
+    sph256_mono_exact = bool(torch.equal(f_mono, f_plain)) and bool(torch.equal(f_mono, f_flat))
+    assert sph256_mono_exact, "spheres 256x192: cuda_mono differs from plain or the flat walk"
+    del f_mono, f_plain, f_flat
+    # cuda_regen's many-object build as the spheres main path runs it:
+    # clustered tables, every lane plane permuted to the Morton order the
+    # Renderer gives a clustered scene, K = 4 frames
+    k_sph = 4
+    perm, _ = morton_layout(f_cfg.width, f_cfg.height, dev)
+    args, _ = regen_inputs(sph256, 0, k_sph)
+    args = (*(p[perm] for p in args[:8]), args[8],
+            *(d[:, perm].contiguous() for d in args[9:12]), f_tb)
+    sph256_regen_ms, f_regen = cuda_ms(lambda: mk.run_regen(*args), 2)
+    sph256_regen_plain_ms, f_regen_plain = cuda_ms(
+        lambda: mk.run_regen_plain(*args), 1, warmup=False)
+    sph256_regen_exact = bool(torch.equal(f_regen, f_regen_plain))
+    sph256_regen_err = float((f_regen - f_regen_plain).abs().max())
+    assert sph256_regen_exact, (
+        "spheres 256x192: many-object cuda_regen (K=4, Morton) differs from plain",
+        sph256_regen_err)
+    del args, f_regen, f_regen_plain
+    emit(phase="kernels_seg_main_shape", seconds=round(time.monotonic() - t0, 3),
+         cornell512_b30=seg_cornell, spheres_256x192_b8=seg_sph256,
+         spheres_256x192_mono_ms=sph256_mono_ms, spheres_256x192_mono_plain_ms=sph256_plain_ms,
+         spheres_256x192_mono_flat_walk_ms=sph256_flat_ms,
+         spheres_256x192_mono_bit_identical=sph256_mono_exact,
+         spheres_256x192_regen_k4_morton_ms=sph256_regen_ms,
+         spheres_256x192_regen_k4_morton_plain_ms=sph256_regen_plain_ms,
+         spheres_256x192_regen_k4_morton_bit_identical=sph256_regen_exact, card=card)
+
     # ------------------------------------------- 4. the main path at full size
     wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
-                "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost}
+                "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost,
+                "cuda_seg": mk.run_seg}
     launches = dict.fromkeys(wrappers, 0)
 
     def main_path_run(sc, regen="auto", render=None, **kw):
@@ -533,13 +689,13 @@ def main() -> int:
     _, img, _, counts = main_path_run(
         scene_of(presets.cornell_box, 512, 512, 32, 30, 6), regen=4)
     assert counts == {"cuda_mono": 2, "cuda_regen": 1, "cuda_persist": 0,
-                      "cuda_cost": 0}, counts
+                      "cuda_cost": 0, "cuda_seg": 0}, counts
     check_image(img, 512, 512)
     tail_counts = counts
     _, img, _, counts = main_path_run(
         scene_of(presets.default_scene, 320, 240, 32, 30, 1))
     assert counts == {"cuda_mono": 1, "cuda_regen": 0, "cuda_persist": 0,
-                      "cuda_cost": 0}, counts
+                      "cuda_cost": 0, "cuda_seg": 0}, counts
     check_image(img, 320, 240)
     emit(phase="tail_and_single", seconds=round(time.monotonic() - t0, 3),
          cornell_6_iter_k4=tail_counts, default_320x240_1_iter=counts, card=card)
@@ -557,28 +713,169 @@ def main() -> int:
     emit(phase="goldens", checked=["default_32x24_b1", "cornell_32x24_b1"],
          max_rel_limit=2e-3, rmse_limit=2e-4, card=card)
 
+    # -------------------- 6. the 1000-sphere field: the many-object main path
+    t0 = time.monotonic()
+    sph = field_of(SPHERES["n_spheres"], SPHERES["width"], SPHERES["height"],
+                   SPHERES["n_samples"], SPHERES["bounces"], SPHERES["iterations"])
+    r, img, dt, counts = main_path_run(sph)
+    assert r.regen_frames == SPHERES["iterations"] and r.lane_layout == "morton", (
+        r.regen_frames, r.lane_layout)
+    assert r.clusters is not None and counts["cuda_regen"] == 1, counts
+    check_image(img, SPHERES["width"], SPHERES["height"])
+    sph_regen_img = img
+    sph_frames = r.next_frame
+    sph_s_per_frame = dt / sph_frames
+    s_st, s_cfg, s_tb = r.scene_tensors, r.config, r.tables
+    # rays per frame from the plain frame 0 at 256x192, the same camera,
+    # times 16 (rays per pixel is a per-lane statistic)
+    _, f_rays = ti.bounce_loop(Vec3(*f_planes[:3]), Vec3(*f_planes[3:]), f_px.long(),
+                               f_py.long(), 0, f_st, f_cfg, return_stats=True)
+    sph_rays = float(f_rays) * (s_cfg.width * s_cfg.height) / (f_cfg.width * f_cfg.height)
+    # one regeneration launch timed alone, K = 100, Morton lanes
+    sph_regen_ms, _ = cuda_span(lambda: ci.regen_radiance(
+        s_st, s_cfg, 0, SPHERES["iterations"], s_tb, r._lane_perm))
+    s_planes, s_px, s_py = ci.primary_lanes(s_st, s_cfg, 0)
+    sph_mono_ms, _ = cuda_ms(lambda: mk.run_mono(*s_planes, s_px, s_py, 0, s_tb), 3)
+    emit(phase="spheres_main_path",
+         config="sphere_field(1000): 1001 objects, 1024x768, 32 lambda, 8 bounces, "
+                "100 iterations", clusters=len(r.clusters[1]), lane_layout=r.lane_layout,
+         regen_frames=r.regen_frames, frames=sph_frames, seconds=dt,
+         seconds_per_frame=sph_s_per_frame, launches=counts,
+         rays_per_frame_plain_f0_scaled_from_256x192=sph_rays,
+         mrays_lambda_per_s=sph_rays * s_cfg.n_samples / sph_s_per_frame / 1e6,
+         regen_k100_morton_launch_ms=sph_regen_ms, mono_ms=sph_mono_ms,
+         mean_rgb=float(img[..., :3].mean()), card=card)
+
+    # ------------------------------ 7. the phased path on the 1000-sphere field
+    regen_mean = float(sph_regen_img[..., :3].mean())
+    phased = {}
+    for label, kw in (("split_2", dict(phase_split=2)), ("auto", dict(phase_split="auto"))):
+        r, img, dt, counts = main_path_run(sph, **kw)
+        check_image(img, SPHERES["width"], SPHERES["height"])
+        mean_rel = abs(float(img[..., :3].mean()) - regen_mean) / regen_mean
+        phased[label] = dict(stages=r.phase_stages, overflow_frames=r.overflow_frames,
+                             launches=counts, seconds=dt,
+                             seconds_per_frame=dt / r.next_frame, mean_rel_vs_regen=mean_rel,
+                             mean_limit=0.02)
+        if r.phase_occupancy is not None:
+            phased[label]["occupancy"] = [float(x) for x in r.phase_occupancy]
+            occupancy = r.phase_occupancy
+        assert mean_rel <= 0.02, (label, phased[label])
+        assert r.phase_stages is None or counts["cuda_seg"] > 0, (label, counts)
+    # an explicit cascade: splits at bounces 2 and 4, capacities from the
+    # probe's occupancy with the reference's 1.7x margin
+    n_lanes = SPHERES["width"] * SPHERES["height"]
+    caps = tuple(min(n_lanes, int(math.ceil(1.7 * float(occupancy[b]) * n_lanes)))
+                 for b in (2, 4))
+    r, img, dt, counts = main_path_run(sph, phase_split=(2, 4), phase_capacity=caps)
+    check_image(img, SPHERES["width"], SPHERES["height"])
+    mean_rel = abs(float(img[..., :3].mean()) - regen_mean) / regen_mean
+    phased["cascade_2_4"] = dict(stages=r.phase_stages, overflow_frames=r.overflow_frames,
+                                 launches=counts, seconds=dt,
+                                 seconds_per_frame=dt / r.next_frame,
+                                 mean_rel_vs_regen=mean_rel, mean_limit=0.02)
+    assert mean_rel <= 0.02 and counts["cuda_seg"] > 0, phased["cascade_2_4"]
+    # cuda_seg alone at the full shape: [0, 2) on the whole wavefront, then
+    # [2, 8) on the compacted live lanes; the first against its plain version
+    wf = ci.frame_wavefront(s_st, s_cfg, 0)
+    seg_ms, _ = cuda_span(lambda: mk.run_seg(wf, 0, 2, 0, s_tb))
+    pwf = ci.frame_wavefront(s_st, s_cfg, 0)
+    seg_plain_ms, _ = cuda_span(lambda: mk.run_seg_plain(pwf, 0, 2, 0, s_tb))
+    seg_err = float((wf.rad - pwf.rad).abs().max())
+    seg_exact = same_state(wf, pwf)
+    assert seg_exact, "cuda_seg [0, 2) at 1024x768 differs from its plain version"
+    del pwf
+    live2 = int((wf.alive > 0).sum())
+    cwf = ci._gather(wf, torch.nonzero(wf.alive > 0)[:, 0])
+    seg_tail_ms, _ = cuda_span(lambda: mk.run_seg(cwf, 2, SPHERES["bounces"], 0, s_tb))
+    emit(phase="spheres_phased", runs=phased, regen_mean=regen_mean,
+         seg_0_2_full_ms=seg_ms, seg_0_2_full_plain_ms=seg_plain_ms,
+         seg_0_2_bit_identical=seg_exact, live_after_bounce_2=live2,
+         seg_2_8_compacted_ms=seg_tail_ms, seconds=round(time.monotonic() - t0, 3),
+         card=card)
+
     for key, n in launches.items():
         assert n > 0, f"{key} was never launched by the main path"
-    assert "jax" not in sys.modules, "the port imported jax"
-    src = "spectral_tpu_torch/ops/csrc/megakernel.cu"
-    kernels = [
-        dict(name="cuda_mono", route="cuda", source=src,
-             replaces="spectral_tpu/ops/pallas/megakernel.py:2113",
-             launches=launches["cuda_mono"], max_abs_err=mono_err,
-             ms=mono_ms, plain_ms=mono_plain_ms),
-        dict(name="cuda_regen", route="cuda", source=src,
-             replaces="spectral_tpu/ops/pallas/megakernel.py:2153",
-             launches=launches["cuda_regen"], max_abs_err=regen_err,
-             ms=regen_ms, plain_ms=regen_plain_ms),
-        dict(name="cuda_persist", route="cuda", source=src,
-             replaces="spectral_tpu/ops/pallas/megakernel.py:2198",
-             launches=launches["cuda_persist"], max_abs_err=persist_err,
-             ms=persist_ms, plain_ms=persist_plain_ms),
-        dict(name="cuda_cost", route="cuda", source=src,
-             replaces="spectral_tpu/ops/pallas/megakernel.py:2288",
-             launches=launches["cuda_cost"], max_abs_err=cost_err,
-             ms=cost_ms, plain_ms=cost_plain_ms),
-    ]
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "spectral_tpu"))
+    assert not bad, f"the port imported {bad}"
+
+    # ------------------------------------------------ bounds (flops.bound_ms)
+    def ops_per_iteration(b_st, b_cfg, b_tb):
+        """Ops of one live bounce iteration (``flops.kernel_ops``). A
+        clustered walk is counted at its least: one cluster's members per
+        nearest-hit trace, none per shadow ray, plus every pre-test."""
+        runs = b_tb.clusters[1] if b_tb.clusters else ()
+        n_clustered = sum(1 for run in runs if run[3])
+        return flops.kernel_ops(
+            b_cfg, b_st.obj_types, b_cfg.n_materials, clusters=b_tb.clusters,
+            visited_fraction=1.0 / n_clustered if n_clustered else 1.0,
+            visited_fraction_shadow=0.0 if n_clustered else None).per_lane_bounce
+
+    s32 = 4 * cfg.n_samples  # bytes of one lane's [S] plane
+    n_main = cfg.width * cfg.height
+    lane_in = 4 * 8  # six ray planes, px, py
+    iters_f0 = float(cost.sum())  # live iterations of frame 0 (cuda_cost)
+    iters_regen = 0.0  # frame j of the launch is frame j's primaries
+    for j in range(k_main):
+        j_planes, j_px, j_py = ci.primary_lanes(st, cfg, j)
+        iters_regen += float(mk.run_cost(*j_planes, j_px, j_py, j, tb)[1].sum())
+    opi = ops_per_iteration(st, cfg, tb)
+    bounds = {
+        "cuda_mono": flops.bound_ms(iters_f0 * opi, n_main * (lane_in + s32)),
+        "cuda_cost": flops.bound_ms(iters_f0 * opi, n_main * (lane_in + s32 + 4)),
+        "cuda_regen": flops.bound_ms(
+            iters_regen * opi, n_main * (lane_in + 12 * (k_main - 1) + s32)),
+        "cuda_persist": flops.bound_ms(
+            persist_iters * opi, 2 * n_main * (4 * 13 + 2 * s32)),
+    }
+    s_cost = mk.run_cost(*s_planes, s_px, s_py, 0, s_tb)[1]
+    seg_iters = float(torch.clamp(s_cost, max=2.0).sum())
+    n_sph = s_cfg.width * s_cfg.height
+    bounds["cuda_seg"] = flops.bound_ms(
+        seg_iters * ops_per_iteration(s_st, s_cfg, s_tb),
+        n_sph * (4 * 10 + 2 * s32 + 4 * 8 + 2 * s32))
+    torch.cuda.synchronize()
+    library = None  # no single PyTorch call computes a bounce loop
+    timings = {
+        "cuda_mono": ("spectral_tpu/ops/pallas/megakernel.py:2113", mono_err, mono_ms,
+                      mono_plain_ms),
+        "cuda_regen": ("spectral_tpu/ops/pallas/megakernel.py:2153", regen_err, regen_ms,
+                       regen_plain_ms),
+        "cuda_persist": ("spectral_tpu/ops/pallas/megakernel.py:2198", persist_err,
+                         persist_ms, persist_plain_ms),
+        "cuda_cost": ("spectral_tpu/ops/pallas/megakernel.py:2288", cost_err, cost_ms,
+                      cost_plain_ms),
+        "cuda_seg": ("spectral_tpu/ops/pallas/megakernel.py:2342", seg_err, seg_ms,
+                     seg_plain_ms),
+    }
+    sources = {"cuda_mono": "mono", "cuda_cost": "mono", "cuda_regen": "regen",
+               "cuda_persist": "persist", "cuda_seg": "seg"}
+    # each kernel's many-object build against its plain version: at the
+    # spheres shape where the plain side is affordable, else sphere_field(100)
+    sph256_case = "sphere_field(1000) 256x192 S=32 b8"
+    many_object = {
+        "cuda_mono": dict(case=sph256_case, bit_identical=sph256_mono_exact,
+                          ms=sph256_mono_ms, plain_ms=sph256_plain_ms),
+        "cuda_regen": dict(case=f"{sph256_case} K={k_sph} Morton lanes",
+                           bit_identical=sph256_regen_exact, ms=sph256_regen_ms,
+                           plain_ms=sph256_regen_plain_ms),
+        "cuda_seg": dict(case=f"{sph256_case} bounces [0, 2)",
+                         bit_identical=seg_sph256["seg0_bit_identical"],
+                         ms=seg_sph256["seg0_ms"], plain_ms=seg_sph256["seg0_plain_ms"]),
+        "cuda_persist": dict(case="sphere_field(100) 32x16 S=8 b1",
+                             bit_identical=msmall[0]["bit_identical"]["persist"]),
+        "cuda_cost": dict(case="sphere_field(100) 32x16 S=8 b1, b3",
+                          bit_identical=all(m["bit_identical"]["cost"] for m in msmall)),
+    }
+    kernels = []
+    for name, (replaces, err, ms, plain_ms) in timings.items():
+        b_ms, b_by = bounds[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"spectral_tpu_torch/ops/csrc/{sources[name]}.cu",
+            replaces=replaces, launches=launches[name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library,
+            many_object=many_object[name]))
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

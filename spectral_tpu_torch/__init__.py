@@ -2,15 +2,15 @@
 
 The same spectral path tracer for one NVIDIA H100: eager PyTorch around
 hand-written CUDA kernels (``ops/csrc``), held against the JAX package,
-which stays the reference. This package imports torch and never jax; it
-reuses the reference package's jax-free host modules (scene schema and
-presets, spectra, image output).
+which stays the reference. This package imports torch and never jax, and
+nothing of the JAX package: it keeps its own copies of the host modules it
+needs (scene schema and presets, spectra, image output).
 
 Public surface (lazy):
     spectral_tpu_torch.Renderer       -- progressive renderer
     spectral_tpu_torch.flatten_scene  -- scene -> tensors on a device
-    spectral_tpu_torch.presets        -- the reference package's presets
-    spectral_tpu_torch.schema         -- the reference package's scene schema
+    spectral_tpu_torch.presets        -- scene presets (the port's copy)
+    spectral_tpu_torch.schema         -- scene schema (the port's copy)
 """
 
 __version__ = "0.1.0"
@@ -26,11 +26,11 @@ def __getattr__(name):
 
         return flatten_scene
     if name == "presets":
-        from spectral_tpu.scene import presets
+        from spectral_tpu_torch.scene import presets
 
         return presets
     if name == "schema":
-        from spectral_tpu.scene import schema
+        from spectral_tpu_torch.scene import schema
 
         return schema
     raise AttributeError(f"module 'spectral_tpu_torch' has no attribute {name!r}")

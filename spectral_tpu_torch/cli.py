@@ -6,6 +6,10 @@ package's ``spectral_tpu.cli`` render command, same flag names):
         --height 240 --iterations 1 --device cpu
     python -m spectral_tpu_torch render --preset cornell --persist \\
         --adaptive 16,0.02,1e-4 --out adaptive.png
+    python -m spectral_tpu_torch render --preset spheres --iterations 100 \\
+        --out spheres.png
+    python -m spectral_tpu_torch render --preset spheres --phase-split auto \\
+        --out spheres_phased.png
 
 The first Ctrl-C finishes the current chunk (persist: launch), saves the
 image and a resumable checkpoint (``--checkpoint``, else
@@ -19,14 +23,31 @@ import signal
 import sys
 import time
 
-from spectral_tpu.utils.text_resources import HELP
+from spectral_tpu_torch.utils.text_resources import HELP
 
-# the presets the port's first slice renders
-PRESETS = ("default", "cornell")
+# the presets the port's slices render
+PRESETS = ("default", "cornell", "spheres")
+
+
+def _parse_phase(value, allow_auto: bool = True):
+    """--phase-split / --phase-capacity: int, comma list of ints, or
+    'auto' (split only), passed through to Renderer (the reference's
+    ``cli._parse_phase``)."""
+    if value is None:
+        return value
+    if value == "auto":
+        if not allow_auto:
+            raise SystemExit(
+                "--phase-capacity does not accept 'auto'; use "
+                "--phase-split auto to tune splits AND capacities together"
+            )
+        return value
+    parts = [int(p) for p in str(value).split(",") if p != ""]
+    return parts[0] if len(parts) == 1 else tuple(parts)
 
 
 def _load_scene(args):
-    from spectral_tpu.scene import presets
+    from spectral_tpu_torch.scene import presets
 
     scene = presets.PRESETS[args.preset]()
     if args.width is not None:
@@ -59,6 +80,8 @@ def cmd_render(args) -> int:
             print(f"--adaptive expects MIN,RTOL,ATOL (got {args.adaptive!r})",
                   file=sys.stderr)
             return 2
+    phase_split = _parse_phase(args.phase_split)
+    phase_capacity = _parse_phase(args.phase_capacity, allow_auto=False)
     scene = _load_scene(args)
     regen = args.regen_frames if args.regen_frames == "auto" else int(args.regen_frames)
     begin = time.monotonic()
@@ -67,6 +90,7 @@ def cmd_render(args) -> int:
         regen_sort={"auto": "auto", "on": True, "off": False}[args.regen_sort],
         persist=args.persist, persist_budget=args.persist_budget,
         adaptive=adaptive, persist_keep_state=bool(args.checkpoint),
+        phase_split=phase_split, phase_capacity=phase_capacity,
     )
     if args.resume:
         renderer.load_checkpoint(args.resume)
@@ -113,6 +137,10 @@ def cmd_render(args) -> int:
             f"({scene.width}x{scene.height})",
             file=sys.stderr,
         )
+        if renderer.phase_split is not None:
+            print(f"phased: stages {renderer.phase_stages}, "
+                  f"{renderer.overflow_frames} overflow frames rendered again "
+                  "on the mono kernel", file=sys.stderr)
         info = renderer.persist_info
         if info is not None and "mean_counts" in info:
             cap = renderer.config.intended_frames
@@ -168,6 +196,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "error of its per-frame luminance mean is under "
                          "RTOL*|mean|+ATOL, with at least MIN frames; "
                          "iterations becomes the cap. E.g. --adaptive 16,0.02,1e-4")
+    pr.add_argument("--phase-split",
+                    help="occupancy-compacted rendering (many-object scenes): "
+                         "bounces [0,N) on the full wavefront, the surviving "
+                         "lanes compacted for the tail bounces; a comma list "
+                         "(e.g. 1,3) cascades through successively smaller "
+                         "wavefronts; 'auto' probes the scene's occupancy and "
+                         "chooses splits and capacities; a frame that "
+                         "overflows is rendered again on the mono kernel")
+    pr.add_argument("--phase-capacity",
+                    help="compacted-wavefront lane capacity (default: 1/16 "
+                         "of the image); comma list, one per split")
     pr.add_argument("--checkpoint", help=HELP["checkpoint"])
     pr.add_argument("--resume", help="resume from a checkpoint file")
     pr.add_argument("--quiet", action="store_true")

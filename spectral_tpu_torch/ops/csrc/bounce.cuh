@@ -1,0 +1,639 @@
+// The per-iteration bounce step shared by every bounce kernel (mono.cu,
+// regen.cu, persist.cu, seg.cu): the counterpart of the TPU kernels' one
+// body, `make_body.bounce` in spectral_tpu/ops/pallas/megakernel.py
+// (:1313), over one lane-state struct.
+//
+// The object loop is the counterpart of both of the TPU kernels' loops:
+// the unrolled one for small scenes (`_candidate_t` :554, `trace_tile`
+// :605, `shadow_blocked` :714) and the cluster-culled many-object one
+// (`trace_tile_fori` :888 with `_sphere_t` :738, `_plain_box_t` :806,
+// `_rot_box_t` :817 and the member loops :838-886; the all-lights shadow
+// loop `shadow_blocked_fori_multi` :1124; the cluster pre-test `_slab_t`
+// :217). Every kernel is instantiated twice, on MANY. A small scene
+// (MANY = false: at most SMEM_OBJECTS objects in one unculled run) loops
+// over its objects in index order, geometry in shared memory. A
+// many-object scene (MANY = true) walks runs of objects (megakernel.cuh:
+// order, runs), the Morton-sorted, front-to-back cluster plan of
+// ops/clusters.py, with its geometry in global memory. Two instantiations
+// and not a runtime branch: one kernel with both loops spilled registers
+// and ran 17% slower on cornell512 than the small-scene loop alone.
+//
+// Exactness. A cluster is skipped only when the ray cannot enter its
+// union AABB at or before its current best hit (`<=`, not `<`: a member
+// may tie t_best bitwise), and an exact tie goes to the lowest ORIGINAL
+// object index (`_ORIG`, megakernel.py:923-943), so the winner is the
+// brute-force loop's whatever the visit order. The cull is per thread:
+// a warp runs a cluster's members if any of its lanes needs them, the
+// SIMT form of the TPU kernel's tile-uniform lax.cond. Every object test
+// is `candidate_t`, the division form of the eager trace, where the TPU
+// kernel's many-object loop multiplies by a reciprocal (<= 1 ulp apart).
+// A shadow ray stops at its first blocker: occlusion is an any-hit
+// question, so the walk order cannot change it. That per-light early
+// exit is this loop's design in place of the TPU kernel's fused
+// all-lights walk, which carries a nearest t per light to the end.
+//
+// The TPU kernel also splits its cluster walk into compile-size segments
+// (`_cluster_segments`, megakernel.py:235) and compacts its geometry rows
+// to fit SMEM (`geom_layout`, :105-163). A CUDA loop over a cluster
+// table needs neither: its code size does not grow with the scene, and
+// geometry of more than SMEM_OBJECTS objects is read from global memory
+// through L1 (a warp's lanes all read the same object: a broadcast).
+//
+// Numerics. The arithmetic follows the torch-eager bounce loop
+// (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
+// division form of the quadratic and slabs, normalize as v * (1 /
+// sqrtf(v.v)), the asin form of the cosine sampler, PCG3D seeded with
+// (px, py, frame + bounces_left). The diffuse continuation starts from
+// the UN-offset hit point, so one ulp decides a self-hit: the sources
+// are built with -fmad=false and without --use_fast_math, so no FMA
+// contraction or approximate division/sqrt flips those coins where the
+// plain version does not.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "megakernel.cuh"
+
+namespace spectral {
+namespace {
+
+constexpr float kOffset = 1e-5f;        // reference src/shader.rs:8
+constexpr float kSpecMin = 1e-4f;       // reference src/shader.rs:14
+constexpr float kDelta = 1e-5f;         // reference src/shader.rs:7
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr float kInv2_32 = 2.3283064365386963e-10f;
+
+// The scene tables as the kernels read them (see megakernel.cuh).
+struct TableArgs {
+  const float* geom;        // [GEOM_ROWS][n_obj]
+  const float* mat_albedo;  // [n_mat][S]
+  const int* order;         // [n_obj]
+  const float* runs;        // [n_runs][RUN_COLS]
+  const float* lpos;        // [n_lights][4]
+  const float* lspec;       // [n_lights][S]
+  int n_obj;
+  int n_mat;
+  int n_runs;
+  int n_lights;
+};
+
+struct Tables {
+  const float* geom;        // shared (MANY = false) or global
+  const float* mat_albedo;  // shared
+  const int* order;         // shared (MANY only)
+  const float* runs;        // shared (MANY only)
+  const float* lpos;        // shared
+  const float* lspec;       // shared
+  float* scale;             // [n_lights][BLOCK] this thread's NEE scales
+  int n_obj;
+  int n_runs;
+  int n_lights;
+};
+
+__device__ __forceinline__ float G(const Tables& tb, int row, int o) {
+  return tb.geom[row * tb.n_obj + o];
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float inv = 1.0f / sqrtf(x * x + y * y + z * z);
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+// max(x, 0) with NaN passing through, like torch.clamp_min
+__device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
+
+__device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
+                                      float& rx, float& ry, float& rz) {
+  const uint32_t mul = 1664525u, add = 1013904223u;
+  x = x * mul + add;
+  y = y * mul + add;
+  z = z * mul + add;
+  x = y * z + x;
+  y = z * x + y;
+  z = x * y + z;
+  x = x ^ (x >> 16);
+  y = y ^ (y >> 16);
+  z = z ^ (z >> 16);
+  x = y * z + x;
+  y = z * x + y;
+  z = x * y + z;
+  // (float)u32 rounds to nearest, like Rust `u32 as f32`
+  rx = (float)x * kInv2_32;
+  ry = (float)y * kInv2_32;
+  rz = (float)z * kInv2_32;
+}
+
+// Candidate hit of object o (reference src/shader.rs:508-560): valid and
+// t > 0. One definition for the nearest-hit trace and the shadow test.
+__device__ __forceinline__ bool candidate_t(const Tables& tb, int o, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float& t) {
+  const int type = (int)G(tb, G_TYPE, o);
+  bool valid;
+  if (type == OBJ_SPHERE) {
+    const float ocx = ox - G(tb, G_SPHERE_POS, o);
+    const float ocy = oy - G(tb, G_SPHERE_POS + 1, o);
+    const float ocz = oz - G(tb, G_SPHERE_POS + 2, o);
+    const float r = G(tb, G_RADIUS, o);
+    const float a = dot3(dx, dy, dz, dx, dy, dz);
+    const float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
+    const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
+    const float disc = b * b - 4.0f * a * c;
+    const float sq = sqrtf(max0(disc));
+    const float t1 = (-b - sq) / (2.0f * a);
+    const float t2 = (-b + sq) / (2.0f * a);
+    t = t1 >= 0.0f ? t1 : t2;
+    valid = (disc >= 0.0f) && (t >= 0.0f);
+  } else {
+    // both box types: into the object frame (identity for plain boxes),
+    // then the slab test with NaN-ignoring min/max
+    const float rx = ox - G(tb, G_SHIFT, o);
+    const float ry = oy - G(tb, G_SHIFT + 1, o);
+    const float rz = oz - G(tb, G_SHIFT + 2, o);
+    float lo[3], ld[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float i0 = G(tb, G_INV_ROT + 3 * k, o);
+      const float i1 = G(tb, G_INV_ROT + 3 * k + 1, o);
+      const float i2 = G(tb, G_INV_ROT + 3 * k + 2, o);
+      lo[k] = i0 * rx + i1 * ry + i2 * rz;
+      ld[k] = i0 * dx + i1 * dy + i2 * dz;
+    }
+    float t_min = -INFINITY, t_max = INFINITY;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float iv = 1.0f / ld[k];
+      const float t1 = (G(tb, G_SLAB_MIN + k, o) - lo[k]) * iv;
+      const float t2 = (G(tb, G_SLAB_MAX + k, o) - lo[k]) * iv;
+      const bool swap = iv < 0.0f;
+      t_min = fmaxf(t_min, swap ? t2 : t1);
+      t_max = fminf(t_max, swap ? t1 : t2);
+    }
+    t = t_min >= 0.0f ? t_min : t_max;
+    valid = (t_max > t_min) && (t_max >= 0.0f);
+  }
+  return valid && (t > 0.0f);
+}
+
+// Can a ray (origin o, reciprocal direction iv) reach run R's members at
+// or before `limit`? An unculled run always can; a cluster needs a hit of
+// its union AABB (the slab test of megakernel.py:217) whose entry t is
+// <= limit. Conservative: a member hit t is never below the entry t.
+__device__ __forceinline__ bool run_reachable(const float* R, float ox,
+                                              float oy, float oz, float ivx,
+                                              float ivy, float ivz,
+                                              float limit) {
+  if (!(R[RUN_CULL] > 0.0f)) return true;
+  const float o[3] = {ox, oy, oz};
+  const float iv[3] = {ivx, ivy, ivz};
+  float t_min = -INFINITY, t_max = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t1 = (R[RUN_MIN + k] - o[k]) * iv[k];
+    const float t2 = (R[RUN_MAX + k] - o[k]) * iv[k];
+    const bool swap = iv[k] < 0.0f;
+    t_min = fmaxf(t_min, swap ? t2 : t1);
+    t_max = fminf(t_max, swap ? t1 : t2);
+  }
+  return (t_max > t_min) && (t_max >= 0.0f) && (t_min <= limit);
+}
+
+// Nearest positive hit: returns the winner's original index (-1: miss).
+// A small scene loops over its objects in index order, where strict <
+// alone keeps the lowest index on ties, and without the run table.
+template <bool MANY>
+__device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz,
+                                             float& t_best) {
+  t_best = INFINITY;
+  int win = -1;
+  if constexpr (!MANY) {
+    for (int o = 0; o < tb.n_obj; ++o) {
+      float t;
+      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) && t < t_best) {
+        t_best = t;
+        win = o;
+      }
+    }
+    return win;
+  }
+  const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
+  for (int r = 0; r < tb.n_runs; ++r) {
+    const float* R = tb.runs + r * RUN_COLS;
+    if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, t_best)) continue;
+    const int stop = (int)R[RUN_STOP];
+    for (int k = (int)R[RUN_START]; k < stop; ++k) {
+      const int o = tb.order[k];
+      float t;
+      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) &&
+          (t < t_best || (t == t_best && o < win))) {
+        t_best = t;  // ties: the lowest original index wins
+        win = o;
+      }
+    }
+  }
+  return win;
+}
+
+// Is there a positive hit within max_dist (reference src/shader.rs:484-489)?
+template <bool MANY>
+__device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz,
+                                               float max_dist) {
+  if constexpr (!MANY) {
+    for (int o = 0; o < tb.n_obj; ++o) {
+      float t;
+      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) && t <= max_dist &&
+          t < INFINITY) {
+        return true;
+      }
+    }
+    return false;
+  }
+  const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
+  for (int r = 0; r < tb.n_runs; ++r) {
+    const float* R = tb.runs + r * RUN_COLS;
+    if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist)) continue;
+    const int stop = (int)R[RUN_STOP];
+    for (int k = (int)R[RUN_START]; k < stop; ++k) {
+      float t;
+      if (candidate_t(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t) &&
+          t <= max_dist && t < INFINITY) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ float box_axis(float p, float lo, float hi) {
+  return fabsf(p - lo) < kDelta ? -1.0f : (fabsf(p - hi) < kDelta ? 1.0f : 0.0f);
+}
+
+// Surface normal of object o at ip (reference src/shader.rs:366-378, 582-650).
+__device__ __forceinline__ void surface_normal(const Tables& tb, int o,
+                                               float ipx, float ipy, float ipz,
+                                               float& nx, float& ny,
+                                               float& nz) {
+  const int type = (int)G(tb, G_TYPE, o);
+  if (type == OBJ_SPHERE) {
+    nx = ipx - G(tb, G_SPHERE_POS, o);
+    ny = ipy - G(tb, G_SPHERE_POS + 1, o);
+    nz = ipz - G(tb, G_SPHERE_POS + 2, o);
+    normalize3(nx, ny, nz);
+  } else if (type == OBJ_PLAIN_BOX) {
+    nx = box_axis(ipx, G(tb, G_AABB_MIN, o), G(tb, G_AABB_MAX, o));
+    ny = box_axis(ipy, G(tb, G_AABB_MIN + 1, o), G(tb, G_AABB_MAX + 1, o));
+    nz = box_axis(ipz, G(tb, G_AABB_MIN + 2, o), G(tb, G_AABB_MAX + 2, o));
+    normalize3(nx, ny, nz);
+  } else {  // rotated box: closest local face, strict < in scan order
+    const float rx = ipx - G(tb, G_CENTER, o);
+    const float ry = ipy - G(tb, G_CENTER + 1, o);
+    const float rz = ipz - G(tb, G_CENTER + 2, o);
+    float l[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      l[k] = G(tb, G_INV_ROT + 3 * k, o) * rx +
+             G(tb, G_INV_ROT + 3 * k + 1, o) * ry +
+             G(tb, G_INV_ROT + 3 * k + 2, o) * rz;
+    }
+    const float hx = G(tb, G_HALF, o), hy = G(tb, G_HALF + 1, o),
+                hz = G(tb, G_HALF + 2, o);
+    float min_d = fabsf(hx - l[0]);
+    float lnx = 1.0f, lny = 0.0f, lnz = 0.0f;
+    const float dists[5] = {fabsf(-hx - l[0]), fabsf(hy - l[1]),
+                            fabsf(-hy - l[1]), fabsf(hz - l[2]),
+                            fabsf(-hz - l[2])};
+    const float cand[5][3] = {{-1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f},
+                              {0.0f, -1.0f, 0.0f}, {0.0f, 0.0f, 1.0f},
+                              {0.0f, 0.0f, -1.0f}};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if (dists[k] < min_d) {
+        lnx = cand[k][0];
+        lny = cand[k][1];
+        lnz = cand[k][2];
+      }
+      min_d = fminf(min_d, dists[k]);
+    }
+    nx = G(tb, G_ROT, o) * lnx + G(tb, G_ROT + 1, o) * lny +
+         G(tb, G_ROT + 2, o) * lnz;
+    ny = G(tb, G_ROT + 3, o) * lnx + G(tb, G_ROT + 4, o) * lny +
+         G(tb, G_ROT + 5, o) * lnz;
+    nz = G(tb, G_ROT + 6, o) * lnx + G(tb, G_ROT + 7, o) * lny +
+         G(tb, G_ROT + 8, o) * lnz;
+  }
+}
+
+// Roughness-cone perturbation of (wx, wy, wz) (reference src/shader.rs:736-755).
+__device__ __forceinline__ void sample_in_cone(float& x, float& y, float& z,
+                                               float rough, float rx,
+                                               float ry) {
+  const float theta_max = rough * rough * kHalfPi;
+  const float cos_theta = (1.0f - rx) + rx * cosf(theta_max);
+  const float sin_theta = sqrtf(1.0f - cos_theta * cos_theta);
+  const float phi = kTwoPi * ry;
+  const float lx = sin_theta * cosf(phi);
+  const float ly = sin_theta * sinf(phi);
+  const float lz = cos_theta;
+  float wx = x, wy = y, wz = z;
+  normalize3(wx, wy, wz);
+  const bool near_z = fabsf(wz) < 0.999f;
+  const float ax = near_z ? 0.0f : 1.0f, ay = 0.0f, az = near_z ? 1.0f : 0.0f;
+  float vx = wy * az - wz * ay, vy = wz * ax - wx * az, vz = wx * ay - wy * ax;
+  normalize3(vx, vy, vz);
+  const float ux = vy * wz - vz * wy, uy = vz * wx - vx * wz,
+              uz = vx * wy - vy * wx;
+  x = ux * lx + vx * ly + wx * lz;
+  y = uy * lx + vy * ly + wy * lz;
+  z = uz * lx + vz * ly + wz * lz;
+  normalize3(x, y, z);
+}
+
+// Cosine-importance bounce about n, asin form (reference src/shader.rs:717-729).
+__device__ __forceinline__ void cosine_hemisphere(float rx, float ry, float nx,
+                                                  float ny, float nz,
+                                                  float& x, float& y,
+                                                  float& z) {
+  const float theta = asinf(sqrtf(rx));
+  const float phi = kTwoPi * ry;
+  const float sin_t = sinf(theta);
+  const float lx = sin_t * cosf(phi);
+  const float ly = sin_t * sinf(phi);
+  const float lz = cosf(theta);
+  const bool near_y = fabsf(ny) > 0.9999f;
+  const float upx = near_y ? 1.0f : 0.0f, upy = near_y ? 0.0f : 1.0f,
+              upz = 0.0f;
+  float zx = nx, zy = ny, zz = nz;
+  normalize3(zx, zy, zz);
+  float xx = upy * zz - upz * zy, xy = upz * zx - upx * zz,
+        xz = upx * zy - upy * zx;
+  normalize3(xx, xy, xz);
+  float yx = zy * xz - zz * xy, yy = zz * xx - zx * xz, yz = zx * xy - zy * xx;
+  normalize3(yx, yy, yz);
+  x = xx * lx + yx * ly + zx * lz;
+  y = xy * lx + yy * ly + zy * lz;
+  z = xz * lx + yz * ly + zz * lz;
+}
+
+// The carried lane state of `make_body.bounce` (megakernel.py:1928-1935,
+// :2001-2006): the ray, the flags, the count-down bounce budget, the frame
+// of the path in flight, and the spectral throughput and radiance. Every
+// kernel runs its lanes through `bounce_step` on this one struct.
+template <int S>
+struct Lane {
+  float ox, oy, oz, dx, dy, dz;
+  bool alive;     // a path is in flight
+  bool gate;      // the parent bounce was specular
+  float hero;     // hero wavelength bin, -1 until a dispersive event
+  int bl;         // bounces left: max_bounces at a path's first trace
+  uint32_t fid;   // frame id of the path in flight
+  float thr[S];
+  float rad[S];
+};
+
+// A new path of frame `fid` from (o, d) at unit throughput; the radiance
+// sum is kept (the restart rule of megakernel.py:1549-1552, :1752-1769).
+template <int S>
+__device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, uint32_t fid,
+                                           int max_bounces) {
+  L.ox = ox;
+  L.oy = oy;
+  L.oz = oz;
+  L.dx = dx;
+  L.dy = dy;
+  L.dz = dz;
+  L.alive = true;
+  L.gate = false;
+  L.hero = -1.0f;
+  L.bl = max_bounces;
+  L.fid = fid;
+#pragma unroll
+  for (int s = 0; s < S; ++s) L.thr[s] = 1.0f;
+}
+
+// One bounce iteration of a live lane (`make_body.bounce`): trace, add the
+// hit's direct light to rad, and either set up the continuation ray
+// (returns true) or end the path (returns false with alive cleared; the
+// ray, gate, bl and thr stay as they were, like the reference's
+// where(cont, ...)).
+template <int S, bool MANY>
+__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
+                                            uint32_t px, uint32_t py) {
+  float t;
+  const int win = trace_nearest<MANY>(tb, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, t);
+  if (win < 0 || (L.gate && !(t > kSpecMin))) {  // miss or gated out
+    L.alive = false;
+    return false;
+  }
+  const float dx = L.dx, dy = L.dy, dz = L.dz;
+  const float ipx = L.ox + dx * t, ipy = L.oy + dy * t, ipz = L.oz + dz * t;
+  float nx, ny, nz;
+  surface_normal(tb, win, ipx, ipy, ipz, nx, ny, nz);
+  const float metal = G(tb, G_METAL, win);
+  const float rough = G(tb, G_ROUGH, win);
+  // the material's albedo row: the winner's per-object albedo bit for bit
+  const float* alb = tb.mat_albedo + (int)G(tb, G_MATID, win) * S;
+
+  float rx, ry, rz;
+  pcg3d(px, py, L.fid + (uint32_t)L.bl, rx, ry, rz);
+  const bool spec = rz < metal;
+  const float offx = ipx + nx * kOffset, offy = ipy + ny * kOffset,
+              offz = ipz + nz * kOffset;
+
+  if (!spec) {
+    // next-event estimation: per-light occlusion and scale
+    const float cos_out = max0((-dx) * nx + (-dy) * ny + (-dz) * nz);
+    for (int l = 0; l < tb.n_lights; ++l) {
+      const float ldx = tb.lpos[4 * l] - offx;
+      const float ldy = tb.lpos[4 * l + 1] - offy;
+      const float ldz = tb.lpos[4 * l + 2] - offz;
+      const float dist2 = dot3(ldx, ldy, ldz, ldx, ldy, ldz);
+      const float dist = sqrtf(dist2);
+      float lnx = ldx, lny = ldy, lnz = ldz;
+      normalize3(lnx, lny, lnz);
+      const bool blocked =
+          shadow_blocked<MANY>(tb, offx, offy, offz, lnx, lny, lnz, dist);
+      normalize3(lnx, lny, lnz);  // the reference re-normalizes
+      const float cos_in = max0(lnx * nx + lny * ny + lnz * nz);
+      const float scale = (cos_in * cos_out) / dist2;
+      tb.scale[l * BLOCK + threadIdx.x] = blocked ? 0.0f : scale;
+    }
+  }
+
+  const bool cont = L.bl > 1;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float ta = L.thr[s] * alb[s];
+    if (!spec) {
+      float direct = 0.0f;
+      for (int l = 0; l < tb.n_lights; ++l) {
+        direct = direct + tb.lspec[l * S + s] * tb.scale[l * BLOCK + threadIdx.x];
+      }
+      L.rad[s] = L.rad[s] + ta * direct;
+    }
+    if (cont) L.thr[s] = ta;
+  }
+  if (!cont) {
+    L.alive = false;
+    return false;
+  }
+
+  // continuation ray
+  float ndx, ndy, ndz;
+  if (spec) {
+    const float k = 2.0f * (nx * dx + ny * dy + nz * dz);
+    ndx = dx - nx * k;
+    ndy = dy - ny * k;
+    ndz = dz - nz * k;
+    if (rough >= 0.001f) sample_in_cone(ndx, ndy, ndz, rough, rx, ry);
+    L.ox = offx;
+    L.oy = offy;
+    L.oz = offz;
+  } else {
+    cosine_hemisphere(rx, ry, nx, ny, nz, ndx, ndy, ndz);
+    L.ox = ipx;  // the diffuse continuation starts UN-offset
+    L.oy = ipy;
+    L.oz = ipz;
+  }
+  normalize3(ndx, ndy, ndz);  // Ray::new normalizes
+  L.dx = ndx;
+  L.dy = ndy;
+  L.dz = ndz;
+  L.gate = spec;
+  L.bl -= 1;
+  return true;
+}
+
+// Van der Corput radical inverse (reference src/shader.rs:655-662).
+__device__ __forceinline__ float radical_inverse(uint32_t bits) {
+  return (float)__brev(bits) * kInv2_32;
+}
+
+// Free-running restart raygen: the primary direction of frame nf at
+// pixel (px, py) from the 20-float camera basis (megakernel.py:1677-1713,
+// table :2545-2572), in the op order of the plain twin
+// render/camera.py:restart_directions, with 1/sqrtf where the TPU kernel
+// takes rsqrt so that both compute the same bits.
+__device__ __forceinline__ void restart_direction(const float* cb,
+                                                  uint32_t px, uint32_t py,
+                                                  uint32_t nf, float& x,
+                                                  float& y, float& z) {
+  const float focal = cb[CB_FOCAL], aspect = cb[CB_ASPECT];
+  const float sx = 2.0f * (1.0f / cb[CB_WIDTH]) * aspect;
+  const float sy = 2.0f * (1.0f / cb[CB_HEIGHT]);
+  const float inv_n = 1.0f / cb[CB_FRAMES];
+  const float off_x = ((float)nf + 0.5f) * inv_n;
+  const float off_y = radical_inverse(nf + 1u);
+  const float x_ndc = ((float)px + off_x) * sx - aspect;
+  const float y_ndc = 1.0f - ((float)py + off_y) * sy;
+  x = cb[CB_FWD] * focal - cb[CB_RIGHT] * x_ndc + cb[CB_UP] * y_ndc;
+  y = cb[CB_FWD + 1] * focal - cb[CB_RIGHT + 1] * x_ndc + cb[CB_UP + 1] * y_ndc;
+  z = cb[CB_FWD + 2] * focal - cb[CB_RIGHT + 2] * x_ndc + cb[CB_UP + 2] * y_ndc;
+  normalize3(x, y, z);  // the reference normalizes in raygen AND in Ray::new
+  normalize3(x, y, z);
+}
+
+// Which instantiation the tables take: the many-object loop above
+// SMEM_OBJECTS objects or for a cluster plan, else the small-scene one.
+inline bool many_objects(const TableArgs& a) {
+  return a.n_obj > SMEM_OBJECTS || a.n_runs > 1;
+}
+
+// Bytes of dynamic shared memory a block takes for these tables.
+inline size_t smem_bytes(const TableArgs& a, int S) {
+  const size_t walk = many_objects(a) ? (size_t)a.n_obj + (size_t)a.n_runs * RUN_COLS
+                           : (size_t)GEOM_ROWS * a.n_obj;
+  return sizeof(float) * (walk + (size_t)a.n_mat * S + 4 * (size_t)a.n_lights +
+                          (size_t)a.n_lights * S + (size_t)a.n_lights * BLOCK);
+}
+
+// The block's cooperative copy of the tables into shared memory: the
+// geometry of a small scene, the walk tables of a many-object one.
+template <bool MANY>
+__device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
+                                              int S) {
+  Tables tb;
+  float* p = smem;
+  if constexpr (MANY) {
+    tb.geom = a.geom;
+    int* s_order = reinterpret_cast<int*>(p);
+    for (int i = threadIdx.x; i < a.n_obj; i += blockDim.x) s_order[i] = a.order[i];
+    p += a.n_obj;
+    for (int i = threadIdx.x; i < a.n_runs * RUN_COLS; i += blockDim.x) p[i] = a.runs[i];
+    tb.order = s_order;
+    tb.runs = p;
+    p += a.n_runs * RUN_COLS;
+  } else {
+    for (int i = threadIdx.x; i < GEOM_ROWS * a.n_obj; i += blockDim.x) p[i] = a.geom[i];
+    tb.geom = p;
+    tb.order = nullptr;
+    tb.runs = nullptr;
+    p += GEOM_ROWS * a.n_obj;
+  }
+  float* s_alb = p;
+  p += a.n_mat * S;
+  float* s_lpos = p;
+  p += 4 * a.n_lights;
+  float* s_lspec = p;
+  p += a.n_lights * S;
+  for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_alb[i] = a.mat_albedo[i];
+  for (int i = threadIdx.x; i < 4 * a.n_lights; i += blockDim.x) s_lpos[i] = a.lpos[i];
+  for (int i = threadIdx.x; i < a.n_lights * S; i += blockDim.x) s_lspec[i] = a.lspec[i];
+  __syncthreads();
+  tb.mat_albedo = s_alb;
+  tb.lpos = s_lpos;
+  tb.lspec = s_lspec;
+  tb.scale = p;
+  tb.n_obj = a.n_obj;
+  tb.n_runs = a.n_runs;
+  tb.n_lights = a.n_lights;
+  return tb;
+}
+
+// Checks every launch shares: the table sizes, and the shared memory the
+// tables take (raised above 48 KB for the kernel when needed).
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
+  if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 || a.n_mat > MAX_MATERIALS ||
+      a.n_lights < 0) {
+    return cudaErrorInvalidValue;
+  }
+  smem = smem_bytes(a, S);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace spectral
+
+// The table arguments every C entry point takes, in this order.
+#define SPECTRAL_TABLE_PARAMS                                               \
+  int n_obj, int n_mat, int n_runs, int n_lights, const void *geom,         \
+      const void *mat_albedo, const void *order, const void *runs,          \
+      const void *lpos, const void *lspec
+#define SPECTRAL_TABLE_ARGS                                                 \
+  spectral::TableArgs {                                                     \
+    static_cast<const float*>(geom), static_cast<const float*>(mat_albedo), \
+        static_cast<const int*>(order), static_cast<const float*>(runs),    \
+        static_cast<const float*>(lpos), static_cast<const float*>(lspec),  \
+        n_obj, n_mat, n_runs, n_lights                                      \
+  }

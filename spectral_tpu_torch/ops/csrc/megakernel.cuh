@@ -1,8 +1,11 @@
-// Table layout shared by the bounce kernels (megakernel.cu) and their host
-// packer (spectral_tpu_torch/ops/megakernel.py, which mirrors these rows).
+// Table layout shared by the bounce kernels (bounce.cuh and the kernel
+// sources beside it) and their host packer
+// (spectral_tpu_torch/ops/megakernel.py, which mirrors these rows).
 //
-// geom: float32 [GEOM_ROWS][n_obj], one row per field, struct of arrays so
-// that a block's cooperative load into shared memory is contiguous.
+// geom: float32 [GEOM_ROWS][n_obj], one row per field, struct of arrays:
+// a block's cooperative load into shared memory is contiguous, and in
+// global memory the rows a loop reads for consecutive objects share
+// cache lines.
 #pragma once
 
 namespace spectral {
@@ -25,10 +28,24 @@ constexpr int G_SPHERE_POS = 40; // 40-42: sphere centre
 constexpr int G_RADIUS = 43;
 constexpr int G_METAL = 44;
 constexpr int G_ROUGH = 45;
-constexpr int GEOM_ROWS = 46;
+constexpr int G_MATID = 46;      // material id, as float (mat_albedo row)
+constexpr int GEOM_ROWS = 47;
 
-// albedo: float32 [n_obj][S]; lpos: float32 [n_lights][4] (x, y, z, pad);
-// lspec: float32 [n_lights][S]; cam: float32 [4] (camera position, pad).
+// mat_albedo: float32 [n_mat][S], read through the winner's material id;
+// lpos: float32 [n_lights][4] (x, y, z, pad); lspec: float32
+// [n_lights][S]; cam: float32 [4] (camera position, pad).
+//
+// The object loop walks runs of objects: order: int32 [n_obj], object
+// indices in visit order; runs: float32 [n_runs][RUN_COLS], each run the
+// members order[start, stop). A culled run (a cluster) is skipped by a
+// ray that cannot enter its union AABB before its current best hit; an
+// unculled run is always visited.
+constexpr int RUN_MIN = 0;    // 0-2: union AABB minimum
+constexpr int RUN_MAX = 3;    // 3-5: union AABB maximum
+constexpr int RUN_START = 6;  // first member slot in order[], as float
+constexpr int RUN_STOP = 7;   // one past the last member slot, as float
+constexpr int RUN_CULL = 8;   // 1.0: a cluster (pre-tested), 0.0: always visited
+constexpr int RUN_COLS = 9;
 
 // The free-running persist kernel's camera basis, float32 [CAM_BASIS]
 // (the TPU kernel's pack_camera_basis columns; packed by
@@ -44,7 +61,12 @@ constexpr int CB_HEIGHT = 15;  // image height, as float
 constexpr int CB_FRAMES = 16;  // intended frames (Hammersley N), as float
 constexpr int CAM_BASIS = 20;  // 17-19: pad
 
-constexpr int MAX_OBJECTS = 64;  // the unrolled object loop's scene size
+// scenes of up to SMEM_OBJECTS objects keep geom in shared memory; larger
+// ones read it from global memory through L1 (every lane of a warp reads
+// the same object, so each load is a broadcast)
+constexpr int SMEM_OBJECTS = 64;
+constexpr int MAX_MATERIALS = 256;
 constexpr int BLOCK = 128;       // threads per block, one pixel-lane each
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
 }  // namespace spectral

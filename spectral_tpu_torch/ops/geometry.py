@@ -2,6 +2,9 @@
 ``spectral_tpu.ops.geometry``): every ray tests every object over a
 broadcast ``[n_rays, n_objects]`` grid, and the nearest positive hit wins
 with ties going to the lowest object index (the reference's stable sort).
+Above ``BROADCAST_BUDGET`` grid elements the rays are traced in
+sequential chunks, so that many-object scenes keep their temporaries
+bounded.
 
 The slice covers plain boxes, spheres and rotated boxes. Triangle rows
 raise ``NotImplementedError`` until the mesh slice lands.
@@ -23,6 +26,10 @@ from spectral_tpu_torch.scene.flatten import (
 
 F32_DELTA = 1e-5  # reference src/shader.rs:7
 INF = float("inf")
+# Cap on the [n_rays, n_objects] broadcast temporaries (elements), the
+# reference's _BROADCAST_BUDGET (ops/geometry.py:198): above it, rays are
+# traced in sequential chunks.
+BROADCAST_BUDGET = 32 * 1024 * 1024
 
 
 def require_no_triangles(scene: SceneTensors) -> None:
@@ -128,16 +135,37 @@ class TraceResult(NamedTuple):
 
 def trace(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
     """The reference's ``submit_ray`` trace (``src/shader.rs:468-483``):
-    test all objects, keep ``t > 0``, nearest wins, lowest index on ties."""
+    test all objects, keep ``t > 0``, nearest wins, lowest index on ties.
+    Rays x objects is one dense broadcast when it fits
+    ``BROADCAST_BUDGET``, otherwise sequential ray chunks (every ray's
+    result is its own, so chunking changes no bit)."""
     require_no_triangles(scene)
     n = origin.x.shape[0]
-    if scene.obj_type.shape[0] == 0:
+    n_obj = scene.obj_type.shape[0]
+    if n_obj == 0:
         dev = origin.x.device
         return TraceResult(
             torch.full((n,), INF, device=dev),
             torch.zeros((n,), dtype=torch.int64, device=dev),
             torch.zeros((n,), dtype=torch.bool, device=dev),
         )
+    if n * n_obj <= BROADCAST_BUDGET:
+        return _trace_dense(origin, direction, scene)
+    chunk = max(128, BROADCAST_BUDGET // n_obj)
+    parts = [
+        _trace_dense(Vec3(*(c[lo:lo + chunk] for c in origin)),
+                     Vec3(*(c[lo:lo + chunk] for c in direction)), scene)
+        for lo in range(0, n, chunk)
+    ]
+    return TraceResult(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _trace_dense(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
+    # dense ray planes: a broadcast (stride-0) origin, such as the camera
+    # position of a regenerated frame, would give the [n_rays, n_objects]
+    # temporaries a column-major layout and slow every op on them
+    origin = Vec3(*(c.contiguous() for c in origin))
+    direction = Vec3(*(c.contiguous() for c in direction))
     t_box, hit_box = _box_t(origin, direction, scene)
     t_sph, hit_sph = _sphere_t(origin, direction, scene)
     is_sphere = _row(scene.obj_type == OBJ_SPHERE)

@@ -1,19 +1,20 @@
-"""Host side of the bounce kernels (``ops/csrc/megakernel.cu``).
+"""Host side of the bounce kernels (``ops/csrc``).
 
 The counterpart of the reference package's
 ``spectral_tpu.ops.pallas.megakernel`` entry points ``run`` (``kernel``),
-``run_regen`` (``kernel_regen``), ``run_persist`` (``kernel_persist``)
-and ``run_cost`` (``kernel_cost``):
+``run_regen`` (``kernel_regen``), ``run_persist`` (``kernel_persist``),
+``run_cost`` (``kernel_cost``) and ``run_seg`` (``kernel_seg``):
 
 * ``pack_tables`` packs the scene into the kernels' own struct-of-arrays
   layout (the ``pack_geometry``/``pack_camera`` counterparts; rows listed
-  in ``csrc/megakernel.cuh``);
-* ``run_mono`` / ``run_regen`` / ``run_persist`` / ``run_cost`` launch the
-  CUDA kernels on CUDA tensors and count their launches (``.launches`` on
-  each wrapper);
+  in ``csrc/megakernel.cuh``), with the material albedo table and the
+  object walk of the cluster plan (``ops/clusters.py``);
+* ``run_mono`` / ``run_regen`` / ``run_persist`` / ``run_cost`` /
+  ``run_seg`` launch the CUDA kernels on CUDA tensors and count their
+  launches (``.launches`` on each wrapper);
 * ``run_mono_plain`` / ``run_regen_plain`` / ``run_persist_plain`` /
-  ``run_cost_plain`` take the same arguments and run the eager PyTorch
-  bounce loop (``render.integrator``).
+  ``run_cost_plain`` / ``run_seg_plain`` take the same arguments and run
+  the eager PyTorch bounce loop (``render.integrator``).
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; there is no fallback.
@@ -28,21 +29,26 @@ import functools
 import numpy as np
 import torch
 
+from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops.vecmath import Vec3
 from spectral_tpu_torch.render.camera import CAM_BASIS
 from spectral_tpu_torch.render.integrator import (
-    MAX_OBJECTS,
+    MAX_MATERIALS,
     PersistState,
+    Wavefront,
     bounce_loop,
     bounce_loop_cost,
     persist_iterations,
     require_slice,
+    segment_iterations,
 )
 from spectral_tpu_torch.runtime import build
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 SUPPORTED_SAMPLES = (8, 16, 32, 64)
 BLOCK = 128  # threads (pixel-lanes) per block, csrc/megakernel.cuh
+SMEM_OBJECTS = 64  # geometry in shared memory up to this many objects
+MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 # geom rows, mirroring csrc/megakernel.cuh: (field, first row, width)
 GEOM_LAYOUT = (
@@ -60,27 +66,50 @@ GEOM_LAYOUT = (
     ("radius", 43, 1),
     ("metallicness", 44, 1),
     ("roughness", 45, 1),
+    ("mat_id", 46, 1),
 )
-GEOM_ROWS = 46
+GEOM_ROWS = 47
 
 
 @dataclasses.dataclass
 class KernelTables:
     """Everything a bounce kernel reads besides the lane planes, on one
-    device. ``scene``/``config`` are the tables the plain versions read."""
+    device. ``scene``/``config`` are the tables the plain versions read;
+    ``clusters`` is the cluster plan (None: one run over every object)."""
 
     geom: torch.Tensor  # f32 [GEOM_ROWS, O]
-    albedo: torch.Tensor  # f32 [O, S]
+    mat_albedo: torch.Tensor  # f32 [M, S]
+    order: torch.Tensor  # i32 [O]: object indices in visit order
+    runs: torch.Tensor  # f32 [R, RUN_COLS]
     lpos: torch.Tensor  # f32 [L, 4]
     lspec: torch.Tensor  # f32 [L, S]
     cam: torch.Tensor  # f32 [4]: camera position, pad
     scene: SceneTensors
     config: RenderConfig
+    clusters: tuple | None = None
+
+    def many_objects(self) -> bool:
+        """Whether the kernels take their many-object instantiation
+        (``csrc/bounce.cuh:many_objects``): geometry in global memory and
+        the run walk, instead of shared geometry in index order."""
+        return self.config.n_objects > SMEM_OBJECTS or self.runs.shape[0] > 1
+
+    def smem_bytes(self) -> int:
+        """The kernels' dynamic shared memory for these tables
+        (``csrc/bounce.cuh:smem_bytes``)."""
+        o, s = self.config.n_objects, self.config.n_samples
+        n_l = self.config.n_lights
+        walk = o + self.runs.numel() if self.many_objects() else GEOM_ROWS * o
+        return 4 * (walk + self.mat_albedo.shape[0] * s + 4 * n_l + n_l * s
+                    + n_l * BLOCK)
 
 
-def pack_tables(scene: SceneTensors, config: RenderConfig) -> KernelTables:
+def pack_tables(scene: SceneTensors, config: RenderConfig,
+                accel: str = "auto") -> KernelTables:
     """Pack the scene for the kernels (host numpy, then one copy to the
-    scene's device). Raises for scenes outside the port's slice."""
+    scene's device). ``accel``: "auto" plans 64-object clusters above 64
+    objects (``clusters.renderer_plan``), "none" walks every object.
+    Raises for scenes outside the port's slices."""
     require_slice(scene, config)
     f = scene.np_fields
     n_obj = config.n_objects
@@ -91,15 +120,24 @@ def pack_tables(scene: SceneTensors, config: RenderConfig) -> KernelTables:
     lpos[:, :3] = f["light_pos"]
     cam = np.zeros(4, np.float32)
     cam[:3] = f["cam_pos"]
+    plan = cl.renderer_plan(f, n_obj, accel)
+    order, runs = cl.run_tables(f, n_obj, plan)
     dev = scene.device
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-    return KernelTables(
-        geom=t(geom), albedo=t(f["albedo"]), lpos=t(lpos),
-        lspec=t(f["light_spec"]), cam=t(cam), scene=scene, config=config,
+    tables = KernelTables(
+        geom=t(geom), mat_albedo=t(f["mat_albedo"]), order=t(order, np.int32),
+        runs=t(runs), lpos=t(lpos), lspec=t(f["light_spec"]), cam=t(cam),
+        scene=scene, config=config, clusters=plan,
     )
+    if n_obj and tables.smem_bytes() > MAX_SMEM:
+        raise NotImplementedError(
+            f"the scene's kernel tables take {tables.smem_bytes()} bytes of "
+            f"shared memory, more than a block's {MAX_SMEM}"
+        )
+    return tables
 
 
 # ------------------------------------------------------------ plain versions
@@ -157,6 +195,14 @@ def run_persist_plain(state: PersistState, lead: int, end: int,
                        ring=ring, stop=stop, budget=budget)
 
 
+def run_seg_plain(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
+                  tables: KernelTables) -> None:
+    """Bounces ``[b_start, b_stop)`` of the wavefront's live lanes, IN
+    PLACE (``integrator.segment_iterations``); same contract as
+    ``run_seg``."""
+    segment_iterations(wf, b_start, b_stop, frame_id, tables.scene, tables.config)
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -181,11 +227,15 @@ def _check_lanes(planes: dict, ints: dict, tables: KernelTables, n: int) -> None
         raise ValueError(
             f"the CUDA kernels are built for S in {SUPPORTED_SAMPLES}, got {s}"
         )
-    if not 1 <= tables.config.n_objects <= MAX_OBJECTS:
-        raise ValueError(
-            f"the CUDA kernels take 1..{MAX_OBJECTS} objects, "
-            f"got {tables.config.n_objects}"
-        )
+    if tables.config.n_objects < 1:
+        raise ValueError("the CUDA kernels need at least one object")
+
+
+def _check_spectral(state, n: int, s: int) -> None:
+    for name in ("thr", "rad"):
+        t = getattr(state, name)
+        if t.shape != (s, n) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [{s}, {n}]")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -196,25 +246,49 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no bounce kernel for device {t.device}")
 
 
+# the table arguments of every C entry point (csrc/bounce.cuh:
+# SPECTRAL_TABLE_PARAMS): 4 ints, 6 pointers
+_TABLE_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+
+
+def _table_args(tables: KernelTables) -> tuple:
+    cfg = tables.config
+    return (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
+            cfg.n_lights,
+            *map(_ptr, (tables.geom, tables.mat_albedo, tables.order,
+                        tables.runs, tables.lpos, tables.lspec)))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built kernels with their C signatures declared."""
-    lib = build.load("megakernel")
+def _lib() -> dict:
+    """The built kernel libraries (one per csrc source, built together)
+    with their C signatures declared, by entry point."""
+    build.build_all()
     vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.spectral_mono.argtypes = [ci, ci, ci, ci, ci, cu] + [vp] * 14
-    lib.spectral_mono.restype = ci
-    lib.spectral_regen.argtypes = [ci, ci, ci, ci, ci, cu, ci] + [vp] * 18
-    lib.spectral_regen.restype = ci
-    lib.spectral_cost.argtypes = [ci, ci, ci, ci, ci, cu] + [vp] * 15
-    lib.spectral_cost.restype = ci
-    lib.spectral_persist.argtypes = [ci, ci, ci, ci, ci, ci, cu, cu, ci] + [vp] * 25
-    lib.spectral_persist.restype = ci
-    return lib
+    tab = _TABLE_ARGTYPES
+    sigs = {
+        "spectral_mono": ("mono", [ci, ci, ci, cu] + tab + [vp] * 10),
+        "spectral_cost": ("mono", [ci, ci, ci, cu] + tab + [vp] * 11),
+        "spectral_regen": ("regen", [ci, ci, ci, cu, ci] + tab + [vp] * 14),
+        "spectral_persist": ("persist", [ci, ci, ci, ci, cu, cu, ci] + tab + [vp] * 21),
+        "spectral_seg": ("seg", [ci, ci, ci, ci, ci, cu] + tab + [vp] * 13),
+    }
+    fns = {}
+    for fn, (src, argtypes) in sigs.items():
+        f = getattr(build.load(src), fn)
+        f.argtypes = argtypes
+        f.restype = ci
+        fns[fn] = f
+    return fns
 
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError_t {err}")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
@@ -229,12 +303,10 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
                  dict(px=px, py=py), tables, n)
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _lib().spectral_mono(
-        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
-        int(frame_id) & 0xFFFFFFFF,
-        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.geom,
-                    tables.albedo, tables.lpos, tables.lspec, out)),
-        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+    err = _lib()["spectral_mono"](
+        n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
+        *_table_args(tables),
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out)), _stream(ox),
     )
     _raise_on(err, "cuda_mono")
     run_mono.launches += 1
@@ -266,13 +338,11 @@ def run_regen(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
             raise ValueError(f"{name} is {tuple(t.shape)}, dirx {tuple(dirx.shape)}")
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _lib().spectral_regen(
-        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
-        int(first_frame) & 0xFFFFFFFF, k,
+    err = _lib()["spectral_regen"](
+        n, cfg.n_samples, cfg.max_bounces, int(first_frame) & 0xFFFFFFFF, k,
+        *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.cam, dirx, diry,
-                    dirz, tables.geom, tables.albedo, tables.lpos,
-                    tables.lspec, out)),
-        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+                    dirz, out)), _stream(ox),
     )
     _raise_on(err, "cuda_regen")
     run_regen.launches += 1
@@ -297,12 +367,10 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
     cost = torch.empty((n,), dtype=torch.float32, device=ox.device)
-    err = _lib().spectral_cost(
-        n, cfg.n_objects, cfg.n_lights, cfg.n_samples, cfg.max_bounces,
-        int(frame_id) & 0xFFFFFFFF,
-        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.geom,
-                    tables.albedo, tables.lpos, tables.lspec, out, cost)),
-        ctypes.c_void_p(torch.cuda.current_stream(ox.device).cuda_stream),
+    err = _lib()["spectral_cost"](
+        n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
+        *_table_args(tables),
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out, cost)), _stream(ox),
     )
     _raise_on(err, "cuda_cost")
     run_cost.launches += 1
@@ -332,16 +400,12 @@ def run_persist(state: PersistState, lead: int, end: int,
                                  stop=stop, budget=budget)
     n = state.ox.shape[0]
     cfg = tables.config
-    s = cfg.n_samples
     planes = {k: v for k, v in state.planes().items() if k not in ("thr", "rad")}
     ints = {k: planes.pop(k) for k in ("bl", "fid", "px", "py")}
     if stop is not None:
         planes["stop"] = stop
     _check_lanes(planes, ints, tables, n)
-    for name in ("thr", "rad"):
-        t = getattr(state, name)
-        if t.shape != (s, n) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 [{s}, {n}]")
+    _check_spectral(state, n, cfg.n_samples)
     ring_w = 0
     ring_ptrs = (None, None, None)
     if ring is not None:
@@ -364,17 +428,48 @@ def run_persist(state: PersistState, lead: int, end: int,
     carried = [getattr(state, k) for k in (
         "ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero", "bl", "fid",
         "px", "py")]
-    err = _lib().spectral_persist(
-        n, cfg.n_objects, cfg.n_lights, s, cfg.max_bounces, int(budget),
+    err = _lib()["spectral_persist"](
+        n, cfg.n_samples, cfg.max_bounces, int(budget),
         int(lead) & 0xFFFFFFFF, int(end) & 0xFFFFFFFF, ring_w,
+        *_table_args(tables),
         *map(_ptr, carried), None if stop is None else _ptr(stop), _ptr(cam),
-        *ring_ptrs,
-        *map(_ptr, (tables.geom, tables.albedo, tables.lpos, tables.lspec,
-                    state.thr, state.rad)),
-        ctypes.c_void_p(torch.cuda.current_stream(state.ox.device).cuda_stream),
+        *ring_ptrs, _ptr(state.thr), _ptr(state.rad), _stream(state.ox),
     )
     _raise_on(err, "cuda_persist")
     run_persist.launches += 1
 
 
 run_persist.launches = 0
+
+
+def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
+            tables: KernelTables) -> None:
+    """Bounces ``[b_start, b_stop)`` of one frame's wavefront ``wf``,
+    updated IN PLACE: a live lane enters with ``max_bounces - b_start``
+    bounces left and the frame id ``frame_id``, and carries its ray,
+    gate, throughput and radiance (the reference's ``run_seg``,
+    ``megakernel.py:2342``). Launches ``cuda_seg`` for CUDA tensors, runs
+    the plain version for CPU ones."""
+    cfg = tables.config
+    b_start, b_stop = int(b_start), int(b_stop)
+    if not 0 <= b_start < b_stop <= cfg.max_bounces:
+        raise ValueError(f"segment [{b_start}, {b_stop}) is not inside "
+                         f"[0, {cfg.max_bounces})")
+    if not _on_cuda(wf.ox):
+        return run_seg_plain(wf, b_start, b_stop, frame_id, tables)
+    n = wf.ox.shape[0]
+    planes = {k: v for k, v in wf.planes().items() if k not in ("thr", "rad")}
+    ints = {k: planes.pop(k) for k in ("px", "py")}
+    _check_lanes(planes, ints, tables, n)
+    _check_spectral(wf, n, cfg.n_samples)
+    err = _lib()["spectral_seg"](
+        n, cfg.n_samples, cfg.max_bounces, b_start, b_stop,
+        int(frame_id) & 0xFFFFFFFF, *_table_args(tables),
+        *map(_ptr, (wf.ox, wf.oy, wf.oz, wf.dx, wf.dy, wf.dz, wf.alive,
+                    wf.gate, wf.px, wf.py, wf.thr, wf.rad)), _stream(wf.ox),
+    )
+    _raise_on(err, "cuda_seg")
+    run_seg.launches += 1
+
+
+run_seg.launches = 0

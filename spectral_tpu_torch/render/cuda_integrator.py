@@ -14,6 +14,13 @@ primary directions or, free-running, from in-kernel raygen; with
 ``adaptive`` each pixel stops once its mean has converged.
 ``probe_path_cost`` (``run_cost``) measures per-pixel path length for
 the persist budget and for cost-sorted lane assignment.
+
+``integrate_frame_split`` and ``integrate_frame_cascade`` run one frame
+as bounce segments (``run_seg``) with the live lanes compacted between
+them: the phased path for many-object scenes, where few lanes survive
+the first bounces. The reference's single-stage
+``integrate_frame_pallas_phased`` is the cascade with one stage at
+``default_phase_capacity``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from spectral_tpu_torch.render.camera import camera_basis_table, generate_primar
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.render.integrator import (
     PersistState,
+    Wavefront,
     accumulate_frame,
     accumulate_frames,
     lane_int_dtype,
@@ -140,6 +148,156 @@ def render_frames_step_cuda_regen(
     rgb_sum = integrate_frames_cuda_regen(
         scene, config, first_frame_id, k, tables, lane_perm, lane_inv)
     return accumulate_frames(accum, rgb_sum, first_frame_id, k)
+
+
+# ----------------------------------------------------- bounce segments
+
+
+def frame_wavefront(scene: SceneTensors, config: RenderConfig,
+                    frame_id: int) -> Wavefront:
+    """Frame ``frame_id``'s primary lanes as a segment-0 wavefront: every
+    lane alive, gate open, no hero, unit throughput, zero radiance."""
+    planes, px, py = primary_lanes(scene, config, frame_id)
+    n = px.shape[0]
+    dev = px.device
+    f32 = torch.float32
+    s = config.n_samples
+    return Wavefront(
+        *planes, px=px, py=py,
+        alive=torch.ones((n,), dtype=f32, device=dev),
+        gate=torch.zeros((n,), dtype=f32, device=dev),
+        hero=torch.full((n,), -1.0, dtype=f32, device=dev),
+        thr=torch.ones((s, n), dtype=f32, device=dev),
+        rad=torch.zeros((s, n), dtype=f32, device=dev),
+    )
+
+
+def _gather(wf: Wavefront, idx: torch.Tensor) -> Wavefront:
+    """The wavefront of lanes ``idx`` (every plane gathered, contiguous)."""
+    return Wavefront(**{k: v[..., idx].contiguous() for k, v in wf.planes().items()})
+
+
+def check_splits(splits: tuple, config: RenderConfig) -> None:
+    """Raise unless the stage splits increase strictly inside
+    ``(0, max_bounces)``."""
+    if not splits:
+        raise ValueError("stages must be non-empty")
+    if list(splits) != sorted(set(splits)):
+        raise ValueError(f"stage splits must be strictly increasing: {splits}")
+    if not (0 < splits[0] and splits[-1] < config.max_bounces):
+        raise ValueError(
+            f"stage splits {splits} must lie inside (0, {config.max_bounces})"
+        )
+
+
+def integrate_frame_split(
+    scene: SceneTensors, config: RenderConfig, frame_id: int, split: int,
+    tables: mk.KernelTables | None = None,
+) -> torch.Tensor:
+    """One frame as two segments with the live lanes permuted to the front
+    between them (the reference's ``integrate_frame_pallas_split``,
+    ``pallas_integrator.py:1449``): bounces ``[0, split)`` on the full
+    wavefront, then a stable argsort puts the live lanes first and
+    ``[split, max_bounces)`` runs on the permuted wavefront, whose dead
+    lanes exit at once. Segment 2 carries segment 1's radiance, and every
+    lane's arithmetic is its own, so the image is the mono frame's bit
+    for bit. Returns linear RGB ``[H, W, 3]``."""
+    check_splits((int(split),), config)
+    if config.n_objects == 0:
+        return torch.zeros((config.height, config.width, 3), device=scene.device)
+    tables = tables or mk.pack_tables(scene, config)
+    wf = frame_wavefront(scene, config, frame_id)
+    mk.run_seg(wf, 0, split, frame_id, tables)
+    perm = torch.argsort(-wf.alive, stable=True)
+    wf = _gather(wf, perm)
+    mk.run_seg(wf, split, config.max_bounces, frame_id, tables)
+    # back to pixel order BEFORE the RGB fold, so that the fold sees the
+    # mono frame's radiance in the mono frame's layout
+    return _to_rgb(wf.rad[:, torch.argsort(perm)], scene, config)
+
+
+def stage_capacities(stages: tuple, n: int) -> list[int]:
+    """Each stage's compacted-wavefront capacity, rounded up to whole
+    blocks of ``mk.BLOCK`` lanes and at most the block-padded image."""
+    n_pad = -(-n // mk.BLOCK) * mk.BLOCK
+    return [-(-min(int(c), n_pad) // mk.BLOCK) * mk.BLOCK for _, c in stages]
+
+
+def integrate_frame_cascade(
+    scene: SceneTensors, config: RenderConfig, frame_id: int, stages: tuple,
+    tables: mk.KernelTables | None = None, return_chains: bool = False,
+):
+    """N-stage occupancy-compacted frame (the reference's
+    ``integrate_frame_pallas_cascade``, ``pallas_integrator.py:1615``).
+
+    ``stages`` is ``((split, capacity_lanes), ...)`` with strictly
+    increasing splits: bounces ``[0, s0)`` run on the full wavefront,
+    ``[s0, s1)`` on a ``cap0``-lane wavefront of the lanes still alive,
+    and so on. Each extraction takes the live lanes in ascending order
+    (a cumsum of the alive mask and one scatter into a capacity-sized
+    index buffer; fill entries point at lane 0 and stay dead): no host
+    synchronisation, the live count and the overflow flag stay on the
+    device. Only the throughput and the ray state move; every segment
+    starts from zero radiance, which is added back to the full-image
+    lanes through the chain of extraction indices. The sum therefore
+    runs in another order than one accumulator: within float32 rounding
+    of the mono frame, with the same paths.
+
+    Returns ``(rgb [H, W, 3], overflow)``: ``overflow`` (a device bool)
+    is true when any stage's live count exceeded its capacity; the
+    caller must then render the frame again with ``run_mono`` (the
+    estimator is never truncated). ``return_chains=True`` appends the
+    list of each compacted stage's full-image lane indices and live
+    counts."""
+    splits = tuple(int(sp) for sp, _ in stages)
+    check_splits(splits, config)
+    dev = scene.device
+    if config.n_objects == 0:
+        rgb = torch.zeros((config.height, config.width, 3), device=dev)
+        out = (rgb, torch.zeros((), dtype=torch.bool, device=dev))
+        return out + ([],) if return_chains else out
+    tables = tables or mk.pack_tables(scene, config)
+    n = config.width * config.height
+    caps = stage_capacities(stages, n)
+    bounds = (0,) + splits + (config.max_bounces,)
+    wf = frame_wavefront(scene, config, frame_id)
+    rad_t = None  # [n, S] lane-major radiance of the full image
+    chain = None  # current wavefront lane -> full-image lane
+    chains = []
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(len(bounds) - 1):
+        mk.run_seg(wf, bounds[i], bounds[i + 1], frame_id, tables)
+        if chain is None:
+            rad_t = wf.rad.T
+        else:
+            rad_t.index_add_(0, chain, wf.rad.T)
+        if i == len(bounds) - 2:
+            break
+        cap = wf.ox.shape[0]
+        ncap = caps[i]
+        live = wf.alive > 0.0
+        count = live.sum()
+        overflow = overflow | (count > ncap)
+        pos = torch.cumsum(live, 0) - 1
+        dest = torch.where(live & (pos < ncap), pos, ncap)  # slot ncap: discarded
+        idx = torch.zeros((ncap + 1,), dtype=torch.int64, device=dev)
+        idx.scatter_(0, dest, torch.arange(cap, device=dev))
+        idx = idx[:ncap]
+        wf = _gather(wf, idx)
+        wf.alive = (torch.arange(ncap, device=dev) < count).to(torch.float32)
+        wf.rad = torch.zeros_like(wf.rad)
+        chain = idx if chain is None else chain[idx]
+        chains.append((chain, count))
+    rgb = spectra_to_rgb(rad_t, scene.xyz_weights, scene.xyz_to_rgb)
+    out = (rgb.reshape(config.height, config.width, 3), overflow)
+    return out + (chains,) if return_chains else out
+
+
+def default_phase_capacity(n: int) -> int:
+    """The single-split default capacity: 1/16 of the block-padded
+    wavefront, at least one block (the reference's ``n_pad // 16``)."""
+    n_pad = -(-n // mk.BLOCK) * mk.BLOCK
+    return max(mk.BLOCK, n_pad // 16)
 
 
 # ------------------------------------------------------------ path cost

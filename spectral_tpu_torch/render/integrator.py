@@ -18,7 +18,7 @@ specular/diffuse branch on ``rz < metallicness``.
 ``bounce_loop`` runs that loop over lane planes; it is also the plain
 version of the CUDA kernels (``spectral_tpu_torch.ops.megakernel``), so
 there is one bounce implementation in torch. Scene features outside the
-port's first slice raise ``NotImplementedError`` (``require_slice``).
+port's slices raise ``NotImplementedError`` (``require_slice``).
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ from spectral_tpu_torch.scene.flatten import OBJ_TRIANGLE, RenderConfig, SceneTe
 # reference src/shader.rs:8 and :14
 NEW_RAY_POSITION_OFFSET_DISTANCE = 1e-5
 SPECULAR_MIN_RAY_DISTANCE = 1e-4
-# the unrolled object loop of the reference package's kernels
-MAX_OBJECTS = 64
+# the kernels read albedo through the material id (csrc/megakernel.cuh);
+# the reference's many-object loop has the same limit
+MAX_MATERIALS = 256
 
 
 def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
@@ -64,10 +65,11 @@ def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
         later.append("depth of field (DoF slice)")
     if OBJ_TRIANGLE in scene.obj_types:
         later.append("triangle meshes (mesh slice)")
-    if config.n_objects > MAX_OBJECTS:
+    if config.n_materials > MAX_MATERIALS:
         later.append(
-            f"more than {MAX_OBJECTS} objects (many-object slice: the "
-            "type-run and cluster-culled object loops)"
+            f"more than {MAX_MATERIALS} materials (the kernels index a "
+            f"material table of at most {MAX_MATERIALS} rows; no slice "
+            "lifts it yet)"
         )
     if later:
         raise NotImplementedError(
@@ -171,11 +173,13 @@ def _bounce(
 
 
 def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
-                 radiance=None):
+                 radiance=None, occupancy=None):
     """The one-frame loop over lane planes; returns the final state and
     the per-lane bounces left (frozen when a path ends). The frame's
     radiance is added bounce by bounce to ``radiance`` (``[N, S]``, zeros
-    if None), as the kernels add a K-frame sum."""
+    if None), as the kernels add a K-frame sum. ``occupancy`` (f32
+    ``[max_bounces]``) gets the count of lanes alive entering each
+    bounce."""
     require_slice(scene, config)
     n = origin.x.shape[0]
     s = config.n_samples
@@ -195,7 +199,9 @@ def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
     fid = as_u32(frame_id, dev).expand(n)
     px, py = px.long(), py.long()
     if config.n_objects > 0:
-        for _ in range(config.max_bounces):
+        for b in range(config.max_bounces):
+            if occupancy is not None:
+                occupancy[b] = state.alive.sum(dtype=torch.float32)
             state = _bounce(state, bl, fid, px, py, scene, config)
             bl = torch.where(state.alive, bl - 1, bl)
             # a dead lane adds nothing, so an all-dead wavefront is done
@@ -374,26 +380,102 @@ def persist_iterations(
     st.rad.copy_(state.radiance.T)
 
 
+@dataclasses.dataclass
+class Wavefront:
+    """One frame's lane state between bounce segments (the reference's
+    ``kernel_seg`` state in and out, ``megakernel.py:2071-2110``).
+    ``alive``/``gate`` are 1.0/0.0 and ``hero`` the hero-wavelength bin
+    (-1: none); ``px``/``py`` are int32; ``thr`` and ``rad`` are
+    ``[S, n]``, lane-minor. Every live lane is at the same bounce: the
+    one its segment starts at."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    alive: torch.Tensor
+    gate: torch.Tensor
+    hero: torch.Tensor
+    thr: torch.Tensor
+    rad: torch.Tensor
+
+    def planes(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+
+def segment_iterations(wf: Wavefront, b_start: int, b_stop: int, frame_id,
+                       scene: SceneTensors, config: RenderConfig) -> None:
+    """Bounces ``[b_start, b_stop)`` of every live lane of ``wf``, updated
+    IN PLACE: the plain version of the segment kernel. A live lane enters
+    with ``max_bounces - b_start`` bounces left (``megakernel.py:2104``)
+    and the wavefront's frame id, so its path is the one the whole-frame
+    loop traces; dead lanes stay as they are."""
+    require_slice(scene, config)
+    n = wf.ox.shape[0]
+    dev = wf.ox.device
+    state = BounceState(
+        origin=Vec3(wf.ox, wf.oy, wf.oz),
+        direction=Vec3(wf.dx, wf.dy, wf.dz),
+        throughput=wf.thr.T,
+        radiance=wf.rad.T,
+        alive=wf.alive > 0.0,
+        pending_gate=wf.gate > 0.0,
+        ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    bl = torch.full((n,), config.max_bounces - int(b_start), dtype=torch.int64,
+                    device=dev)
+    fid = as_u32(frame_id, dev).expand(n)
+    px, py = wf.px.long(), wf.py.long()
+    if config.n_objects > 0:
+        for _ in range(int(b_start), int(b_stop)):
+            if not bool(state.alive.any()):
+                break  # a dead lane adds nothing
+            state = _bounce(state, bl, fid, px, py, scene, config)
+            bl = torch.where(state.alive, bl - 1, bl)
+    wf.ox.copy_(state.origin.x)
+    wf.oy.copy_(state.origin.y)
+    wf.oz.copy_(state.origin.z)
+    wf.dx.copy_(state.direction.x)
+    wf.dy.copy_(state.direction.y)
+    wf.dz.copy_(state.direction.z)
+    wf.alive.copy_(state.alive.to(torch.float32))
+    wf.gate.copy_(state.pending_gate.to(torch.float32))
+    wf.thr.copy_(state.throughput.T)
+    wf.rad.copy_(state.radiance.T)
+
+
 def integrate_frame(
     scene: SceneTensors,
     config: RenderConfig,
     frame_id,
     return_stats: bool = False,
+    return_occupancy: bool = False,
 ):
-    """Trace one progressive frame; returns linear RGB ``[H, W, 3]`` (and
-    the reference-equivalent submitted-ray count if requested)."""
+    """Trace one progressive frame; returns linear RGB ``[H, W, 3]``, then
+    the reference-equivalent submitted-ray count if ``return_stats``, then
+    the per-bounce live-lane counts ``[max_bounces]`` f32 (lanes entering
+    each bounce, the reference's ``return_occupancy``) if asked."""
     origin, direction, px, py = generate_primary_rays(
         scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
         config.width, config.height, frame_id, config.intended_frames,
     )
-    out = bounce_loop(
-        origin, direction, px, py, frame_id, scene, config,
-        return_stats=return_stats,
-    )
-    rad = out[0] if return_stats else out
-    rgb = spectra_to_rgb(rad, scene.xyz_weights, scene.xyz_to_rgb)
-    rgb = rgb.reshape(config.height, config.width, 3)
-    return (rgb, out[1]) if return_stats else rgb
+    hist = None
+    if return_occupancy:
+        hist = torch.zeros((config.max_bounces,), dtype=torch.float32,
+                           device=origin.x.device)
+    state, _ = _bounce_loop(origin, direction, px, py, frame_id, scene, config,
+                            occupancy=hist)
+    rgb = spectra_to_rgb(state.radiance, scene.xyz_weights, scene.xyz_to_rgb)
+    out = (rgb.reshape(config.height, config.width, 3),)
+    if return_stats:
+        out += (state.ray_count,)
+    if return_occupancy:
+        out += (hist,)
+    return out if len(out) > 1 else out[0]
 
 
 def _f32(v: int, device) -> torch.Tensor:

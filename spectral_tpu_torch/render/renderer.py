@@ -9,32 +9,46 @@ Frames go in K-frame chunks through the regeneration kernel
 renders go frame by frame through the mono kernel (``run_mono``).
 ``persist=True`` renders the whole image in one free-running persistent
 batch (``run_persist``, budget from the ``run_cost`` probe), optionally
-variance-adaptive. Both kinds checkpoint and resume. On ``device="cpu"``
-the same calls run the kernels' plain versions.
+variance-adaptive. ``phase_split`` renders each frame as bounce segments
+(``run_seg``) with the live lanes compacted between them. Scenes of more
+than 64 objects walk a cluster plan (``ops/clusters.py``), and their
+regeneration lanes take the Morton layout (``render/layout.py``). All
+kinds checkpoint and resume. On ``device="cpu"`` the same calls run the
+kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from spectral_tpu.render import image as image_mod
-from spectral_tpu.scene.schema import Scene
-from spectral_tpu_torch.ops.megakernel import pack_tables
+from spectral_tpu_torch.ops.megakernel import BLOCK, pack_tables
+from spectral_tpu_torch.render import image as image_mod
 from spectral_tpu_torch.render.cuda_integrator import (
+    check_splits,
     cost_sort_perm,
+    default_phase_capacity,
+    integrate_frame_cascade,
+    integrate_frame_cuda,
     probe_path_cost,
     render_frame_step_cuda,
     render_frames_step_cuda_regen,
     render_persistent,
 )
-from spectral_tpu_torch.render.integrator import PersistState
+from spectral_tpu_torch.render.integrator import (
+    PersistState,
+    accumulate_frame,
+    integrate_frame,
+)
+from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.scene.flatten import FIELDS, RenderConfig, SceneTensors, flatten_scene
+from spectral_tpu_torch.scene.schema import Scene
 
 # HBM budget for the K-1 direction planes of one regeneration launch
 # (3 f32 planes per frame: 12*(K-1)*W*H bytes)
@@ -81,6 +95,78 @@ def scene_digest(scene: SceneTensors, config: RenderConfig) -> str:
     return h.hexdigest()
 
 
+def choose_stages(
+    occ,
+    n_pad: int,
+    tile: int,
+    margin: float = 1.7,
+    extract_slope: float = 2.4,
+    extract_const: float = 0.10,
+    max_cap_frac: float = 0.25,
+    max_stages: int = 3,
+) -> tuple | None:
+    """Pick cascade compaction stages from an occupancy profile (the
+    reference's ``choose_stages``, ``renderer.py:220``, copied as is).
+
+    ``occ[b]`` is the fraction of lanes alive *entering* bounce ``b``
+    (``occ[0] == 1``). Enumerates every split set of size <= ``max_stages``
+    and minimizes modeled cost in full-wavefront bounce-equivalents: each
+    segment costs ``capacity_fraction x n_bounces``, each extraction
+    costs ``extract_slope x dest_fraction + extract_const``; splits whose
+    tile-rounded capacity exceeds ``max_cap_frac`` are ineligible.
+    Capacities carry ``margin`` headroom over the observed occupancy and
+    are rounded up to whole tiles. Returns ``((split, capacity_lanes),
+    ...)`` or None when no split beats the monolithic kernel under the
+    model.
+
+    The constants were CALIBRATED ON A TPU v5e by the reference (its
+    extraction and full-wavefront bounce costs); they are not an H100
+    model. On the H100 a dead lane costs little (a warp whose lanes are
+    all dead retires), so the true trade differs; calibrating it is an
+    open question (PERF.md section 7).
+    """
+    from itertools import combinations
+
+    occ = np.asarray(occ, np.float64)
+    n_bounces = len(occ)
+
+    def cap_lanes(b: int) -> int:
+        want = min(1.0, float(occ[b]) * margin)
+        return max(tile, int(np.ceil(want * n_pad / tile)) * tile)
+
+    def cap_frac(b: int) -> float:
+        return min(1.0, cap_lanes(b) / n_pad)
+
+    def cost(splits: tuple) -> float:
+        bounds = (0,) + splits + (n_bounces,)
+        fracs = (1.0,) + tuple(cap_frac(s) for s in splits)
+        total = sum(
+            f * (hi - lo) for f, lo, hi in zip(fracs, bounds, bounds[1:])
+        )
+        total += sum(
+            extract_slope * dest + extract_const for dest in fracs[1:]
+        )
+        return total
+
+    best_splits: tuple = ()
+    best_cost = float(n_bounces)  # monolithic
+    candidates = [
+        b for b in range(1, n_bounces) if cap_frac(b) <= max_cap_frac
+    ]
+    for k in range(1, max_stages + 1):
+        for splits in combinations(candidates, k):
+            # a split that doesn't shrink the wavefront only adds overhead
+            fracs = [cap_frac(s) for s in splits]
+            if any(b >= a for a, b in zip([1.0] + fracs, fracs)):
+                continue
+            c = cost(splits)
+            if c < best_cost:
+                best_cost, best_splits = c, splits
+    if not best_splits:
+        return None
+    return tuple((s, cap_lanes(s)) for s in best_splits)
+
+
 def auto_regen_frames(width: int, height: int, n_samples: int, intended: int) -> int:
     """Default K: 100 frames per launch (64 above 64 wavelengths), bounded
     by the direction planes' memory budget and the frames asked for."""
@@ -108,8 +194,22 @@ class Renderer:
     render's ``info``. The carried lane state, which ``save_checkpoint``
     writes, is kept after an aborted persist render, and after a finished
     one only with ``persist_keep_state=True``.
-    The reference renderer's ``phase_split`` and ``sharding`` are refused
-    with ``NotImplementedError`` until their slices land.
+    ``phase_split`` renders frame by frame as bounce segments with the
+    live lanes compacted between them (``integrate_frame_cascade``): an
+    int split (capacity ``phase_capacity``, default 1/16 of the image),
+    a tuple of splits with a tuple of capacities (a cascade), or "auto"
+    (stages chosen from a measured occupancy profile by
+    ``choose_stages``; None when the mono kernel wins). A frame whose
+    compacted wavefront overflows is rendered again by the mono kernel,
+    counted in ``overflow_frames``; the overflow flag is read one frame
+    late, so the host waits on no frame it has just queued.
+    ``accel``: "auto" walks 64-object clusters above 64 objects, "none"
+    every object. The regeneration lanes of a clustered scene take
+    pixels in Morton order, row-major otherwise (``lane_layout``; pure
+    relabeling, bit-identical per pixel).
+    The reference renderer's ``sharding`` is refused with
+    ``NotImplementedError`` until its slice lands; scenes with triangle
+    meshes or more than 256 materials are refused by the table packer.
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",
@@ -119,9 +219,9 @@ class Renderer:
                  adaptive: tuple | None = None,
                  persist_keep_state: bool = False,
                  regen_sort: bool | str = "auto",
-                 phase_split=None, sharding=None):
+                 phase_split=None, phase_capacity=None,
+                 accel: str = "auto", sharding=None):
         later = {
-            "phase_split": (phase_split, "the run_seg kernel's slice"),
             "sharding": (sharding, "multi-GPU slice"),
         }
         asked = [f"{k} ({why})" for k, (v, why) in later.items() if v is not None]
@@ -145,11 +245,14 @@ class Renderer:
         torch.backends.cudnn.allow_tf32 = False
         self.device = device
         self.scene_tensors, self.config = flatten_scene(scene, device)
-        self.tables = pack_tables(self.scene_tensors, self.config)  # raises outside the slice
+        # raises outside the slices
+        self.tables = pack_tables(self.scene_tensors, self.config, accel)
+        self.clusters = self.tables.clusters
         self.scene_digest = scene_digest(self.scene_tensors, self.config)
         cfg = self.config
-        if persist and regen_frames == "auto":
-            regen_frames = 1  # persist supersedes the default regen chunking
+        if (persist or phase_split is not None) and regen_frames == "auto":
+            # persist and the phased path supersede the default chunking
+            regen_frames = 1
         if regen_frames == "auto":
             regen_frames = auto_regen_frames(
                 cfg.width, cfg.height, cfg.n_samples, cfg.intended_frames
@@ -157,6 +260,11 @@ class Renderer:
         if int(regen_frames) < 1:
             raise ValueError("regen_frames must be >= 1")
         self.regen_frames = int(regen_frames)
+        if phase_split is not None and self.regen_frames > 1:
+            raise ValueError(
+                "regen_frames composes with the plain frame step only "
+                "(not phase_split)"
+            )
         if regen_sort == "auto":
             # measured and rejected as a default by the reference (per-pixel
             # cost is mostly per-frame noise); an opt-in here too until an
@@ -165,6 +273,11 @@ class Renderer:
         if regen_sort and self.regen_frames < 2:
             raise ValueError("regen_sort requires regen_frames >= 2")
         self.regen_sort = bool(regen_sort)
+        # the reference's policy (renderer.py:719-742): Morton where the
+        # cluster cull can use coherent lanes
+        self.lane_layout = ("morton" if self.clusters is not None
+                            and self.regen_frames > 1 and not self.regen_sort
+                            else "rowmajor")
         self._lane_perm = self._lane_inv = None
         self.persist = bool(persist)
         self.persist_budget = persist_budget
@@ -177,25 +290,117 @@ class Renderer:
                     "adaptive sampling runs on the persist kernel: pass persist=True"
                 )
             self.adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
-        if self.persist and (self.regen_frames > 1 or self.regen_sort):
+        if self.persist and (self.regen_frames > 1 or self.regen_sort
+                             or phase_split is not None):
             raise ValueError(
-                "persist is a standalone dispatch mode: drop regen_frames/regen_sort"
+                "persist is a standalone dispatch mode: drop "
+                "phase_split/regen_frames/regen_sort"
             )
         self.persist_info: dict | None = None
         self._persist_resume: dict | None = None
+        self.phase_split = phase_split
+        self.phase_capacity = phase_capacity
+        self.overflow_frames = 0
+        self._pending: tuple | None = None
+        self.phase_stages: tuple | None = None
+        self.phase_occupancy = None  # the "auto" probe's profile
+        if phase_split is not None:
+            self.phase_stages = self._resolve_phase_stages(phase_split, phase_capacity)
         self.reset()
 
     def reset(self) -> None:
         cfg = self.config
+        self._pending = None  # frames before the reset are discarded
         self.accum = torch.zeros(
             (cfg.height, cfg.width, 4), dtype=torch.float32, device=self.device
         )
         self.next_frame = 0
 
     def _advance(self, frame_id: int) -> None:
+        if self.phase_stages is not None:
+            rgb, overflow = integrate_frame_cascade(
+                self.scene_tensors, self.config, frame_id, self.phase_stages,
+                self.tables,
+            )
+            self._resolve_pending()  # frame f-1 is done by now: no wait
+            self._pending = (frame_id, rgb, overflow)
+            return
         self.accum = render_frame_step_cuda(
             self.scene_tensors, self.config, self.accum, frame_id, self.tables
         )
+
+    # ------------------------------------------------------------ phased
+
+    def _resolve_phase_stages(self, phase_split, phase_capacity):
+        """The phased request as static stages ``((split, capacity_lanes),
+        ...)`` (the reference's ``_resolve_phase_stages``,
+        ``renderer.py:811``); "auto" may give None (the mono kernel
+        wins)."""
+        n = self.config.width * self.config.height
+        tile = BLOCK
+        n_pad = -(-n // tile) * tile
+        if phase_split == "auto":
+            return self._autotune_stages(tile, n_pad)
+        splits = ((int(phase_split),) if isinstance(phase_split, int)
+                  else tuple(int(sp) for sp in phase_split))
+        if phase_capacity is None:
+            if len(splits) != 1:
+                raise ValueError(
+                    "multi-split phased rendering needs explicit "
+                    "phase_capacity values (or phase_split='auto')"
+                )
+            caps = (default_phase_capacity(n),)
+        elif isinstance(phase_capacity, int):
+            caps = (phase_capacity,)
+        else:
+            caps = tuple(int(c) for c in phase_capacity)
+        if len(caps) != len(splits):
+            raise ValueError(
+                f"{len(splits)} phase splits need {len(splits)} capacities, "
+                f"got {len(caps)}"
+            )
+        check_splits(splits, self.config)
+        return tuple(zip(splits, caps))
+
+    def _autotune_stages(self, tile: int, n_pad: int, probe_lanes: int = 32768,
+                         probe_frames: int = 3, margin: float = 1.7):
+        """Stages from a measured occupancy profile (the reference's
+        ``_autotune_stages``, ``renderer.py:847``): ``probe_frames``
+        frames at about ``probe_lanes`` pixels (the aspect ratio kept)
+        through the plain bounce loop on the renderer's device, which
+        counts the lanes alive entering each bounce; occupancy is a
+        per-lane statistic, so it carries over to the full resolution.
+        This probe is a measurement, not a render: no frame of it is
+        blended."""
+        cfg = self.config
+        if cfg.max_bounces < 2:
+            return None
+        scale = math.sqrt(probe_lanes / (cfg.width * cfg.height))
+        pw = max(8, min(cfg.width, int(cfg.width * scale)))
+        ph = max(8, min(cfg.height, int(cfg.height * scale)))
+        probe_cfg = dataclasses.replace(cfg, width=pw, height=ph)
+        occ = np.zeros((cfg.max_bounces,), np.float64)
+        for f in range(probe_frames):
+            *_, hist = integrate_frame(self.scene_tensors, probe_cfg, f,
+                                       return_occupancy=True)
+            occ = np.maximum(occ, hist.cpu().numpy().astype(np.float64) / (pw * ph))
+        self.phase_occupancy = occ
+        return choose_stages(occ, n_pad, tile, margin=margin)
+
+    def _resolve_pending(self) -> None:
+        """Blend the previous phased frame, rendering it again on the mono
+        kernel if its compacted wavefront overflowed (the estimator is
+        never truncated). Called right after the next frame is queued, so
+        reading the overflow flag waits for nothing still queued."""
+        if self._pending is None:
+            return
+        fid, rgb, overflow = self._pending
+        self._pending = None
+        if bool(overflow):
+            self.overflow_frames += 1
+            rgb = integrate_frame_cuda(self.scene_tensors, self.config, fid,
+                                       self.tables)
+        self.accum = accumulate_frame(self.accum, rgb, fid)
 
     def _ensure_lane_perm(self) -> None:
         """Probe per-pixel path cost over 2 frames and build the cost-sorted
@@ -209,6 +414,11 @@ class Renderer:
         lanes = {}
         if self.regen_sort:
             self._ensure_lane_perm()
+            lanes = dict(lane_perm=self._lane_perm, lane_inv=self._lane_inv)
+        elif self.lane_layout == "morton":
+            if self._lane_perm is None:  # static Z-curve order, built once
+                self._lane_perm, self._lane_inv = morton_layout(
+                    self.config.width, self.config.height, self.device)
             lanes = dict(lane_perm=self._lane_perm, lane_inv=self._lane_inv)
         self.accum = render_frames_step_cuda_regen(
             self.scene_tensors, self.config, self.accum, first_frame, k,
@@ -241,6 +451,8 @@ class Renderer:
                     self._advance(self.next_frame + j)
             self.next_frame += k
             rendered += k
+            if self.phase_stages is not None and self.next_frame >= total:
+                self._resolve_pending()  # the last frame has no successor
             if check_finite and not bool(torch.isfinite(self.accum).all()):
                 raise FloatingPointError(
                     f"non-finite accumulator after frame {self.next_frame - 1}"
@@ -325,12 +537,14 @@ class Renderer:
         )
 
     def framebuffer(self) -> np.ndarray:
-        """The ``[H, W, 4]`` float32 accumulation buffer on the host."""
+        """The ``[H, W, 4]`` float32 accumulation buffer on the host (a
+        phased frame still pending is blended first)."""
+        self._resolve_pending()
         return self.accum.cpu().numpy()
 
     def save_image(self, path, exposure=None, gamma=None) -> None:
         """Save the framebuffer (format by extension; linear, no gamma
-        unless asked), through the reference package's image writer."""
+        unless asked), through the port's image writer."""
         image_mod.save_image(self.framebuffer(), path, exposure=exposure, gamma=gamma)
 
     # ------------------------------------------------------------ checkpoint
@@ -412,6 +626,7 @@ class Renderer:
         if is_persist:
             self._load_persist_checkpoint(data)
             return
+        self._pending = None
         self.accum = torch.as_tensor(data["accum"], dtype=torch.float32).to(self.device)
         self.next_frame = int(data["next_frame"])
 

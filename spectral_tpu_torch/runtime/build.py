@@ -3,10 +3,12 @@ with ``ctypes`` (the pattern of ``spectral_tpu.runtime.native``).
 
 Each ``ops/csrc/<name>.cu`` becomes ``build/lib<name>.so`` inside this
 package, rebuilt when the ``.cu`` or any ``.cuh`` beside it is newer than
-the library. The sources expose a plain C interface, so the build does not
-include PyTorch's headers and takes seconds. ``nvcc -Xptxas -v``'s report
-of registers, shared memory and spills is kept next to the library
-(``build_log``). Nothing here runs at import time.
+the library. ``build_all`` starts one ``nvcc`` per out-of-date source,
+all at once, and waits for them. The sources expose a plain C interface,
+so the build does not include PyTorch's headers and takes seconds.
+``nvcc -Xptxas -v``'s report of registers, shared memory and spills is
+kept next to each library (``build_log``). Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -62,30 +64,63 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+# the kernel sources under ops/csrc, one library each
+SOURCES = ("mono", "regen", "persist", "seg")
+
+
+def _stale(name: str) -> bool:
+    src = CSRC_DIR / f"{name}.cu"
+    lib = library_path(name)
+    newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
+
+
+def build_all(names=SOURCES, force: bool = False) -> list[Path]:
+    """Compile every out-of-date ``ops/csrc/<name>.cu`` (all of them with
+    ``force``), one ``nvcc`` per source, started together."""
+    jobs = []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path() if force or any(map(_stale, names)) else None
+    try:
+        for name in names:
+            if not (force or _stale(name)):
+                continue
+            src = CSRC_DIR / f"{name}.cu"
+            lib = library_path(name)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            except OSError as e:
+                raise BuildError(f"nvcc failed to run: {e}") from e
+            jobs.append((name, src, lib, tmp, proc))
+        failed = []
+        for name, src, lib, tmp, proc in jobs:
+            try:
+                out, _ = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}")
+                continue
+            (BUILD_DIR / f"lib{name}.log").write_text(out)
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for *_, proc in jobs:  # no nvcc outlives the build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise BuildError("\n".join(failed))
+    return [library_path(name) for name in names]
+
+
 def build(name: str) -> Path:
     """Compile ``ops/csrc/<name>.cu`` unless the library is up to date."""
-    src = CSRC_DIR / f"{name}.cu"
-    deps = [src, *CSRC_DIR.glob("*.cuh")]
-    lib = library_path(name)
-    newest = max(p.stat().st_mtime for p in deps)
-    if lib.exists() and lib.stat().st_mtime >= newest:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    except (OSError, subprocess.SubprocessError) as e:
-        raise BuildError(f"nvcc failed to run: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(
-            f"nvcc failed ({proc.returncode}) on {src.name}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    (BUILD_DIR / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
+    return build_all((name,))[0]
 
 
 @functools.cache

@@ -14,14 +14,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from spectral_tpu.scene.schema import (
+from spectral_tpu_torch.scene.schema import (
     Mesh,
     PlainBox,
     RotatedBox,
     Scene,
     Sphere,
 )
-from spectral_tpu.spectral import cie
+from spectral_tpu_torch.spectral import cie
 
 F32 = np.float32
 

@@ -19,11 +19,11 @@ import torch
 import jax.numpy as jnp
 from spectral_tpu.render.pallas_integrator import _adapt_update_fn
 from spectral_tpu.render.pallas_integrator import render_persistent as jax_persist
-from spectral_tpu.scene import presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
+from spectral_tpu_torch.scene import presets
 from tests.test_pallas_megakernel import _periscope_scene
 
 torch.set_num_threads(1)

@@ -16,19 +16,22 @@ import numpy as np
 import torch
 
 from spectral_tpu.render.pallas_integrator import probe_path_cost as jax_probe
-from spectral_tpu.scene import presets
+from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render import renderer as trender
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
+from spectral_tpu_torch.scene import presets
 from tests.test_pallas_megakernel import _periscope_scene
 
 torch.set_num_threads(1)
 
 
-def _cornell(w=32, h=24, bounces=3, iters=8):
-    scene = presets.PRESETS["cornell"](n_samples=8)
+def _cornell(w=32, h=24, bounces=3, iters=8, P=presets):
+    """The Cornell box, built with the port's presets (``P=jax_presets``
+    for the reference's)."""
+    scene = P.PRESETS["cornell"](n_samples=8)
     scene.width, scene.height = w, h
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     return scene
@@ -52,7 +55,7 @@ def test_probe_matches_jax_on_periscope():
 
 
 def test_probe_mean_within_five_percent_on_cornell():
-    arrays, config, port, cfg, obj_types = _pair(_cornell())
+    arrays, config, port, cfg, obj_types = _pair(_cornell(P=jax_presets))
     want = np.asarray(jax_probe(arrays, config, obj_types, n_probe_frames=1, interpret=True))
     got = ci.probe_path_cost(port, cfg, n_probe_frames=1).numpy()
     assert abs(got.mean() / want.mean() - 1.0) <= 0.05

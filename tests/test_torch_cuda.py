@@ -14,18 +14,24 @@ regeneration sum to 1e-4. The persist and cost kernels are held bit for
 bit: the ring variant to its plain version and to ``cuda_regen``, the
 free-running variant across launch splits and to its plain version, the
 all-zero stop mask to the free-running variant, and ``cuda_cost``'s
-radiance to ``cuda_mono``'s.
+radiance to ``cuda_mono``'s. The many-object variants (a 101-object
+sphere field, clustered) and ``cuda_seg`` are held bit for bit to their
+plain versions, the clustered walk to the flat one, and the split frame
+to the mono frame; the cascade to the mono frame within 1e-6 of the
+image scale (it sums each segment's radiance separately).
 """
 
 import pytest
 import torch
 
-from spectral_tpu.scene import presets
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render.camera import camera_basis_table
+from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.render.renderer import Renderer
+from spectral_tpu_torch.scene import presets
 from spectral_tpu_torch.scene.flatten import flatten_scene
+from tests import torch_scenes
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -209,3 +215,86 @@ def test_cuda_renderer_persist_counts_launches(cuda):
     want = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cpu", persist=True,
                     persist_budget=r.persist_info["budget"]).render()
     assert abs(float(img[..., :3].mean()) / float(want[..., :3].mean()) - 1.0) <= 0.05
+
+
+# ------------------------------------------------- many objects, cuda_seg
+
+
+def _field(w, h, bounces, samples=8, iters=2):
+    return torch_scenes.sphere_field(presets, 100, w, h, bounces, iters=iters,
+                                     samples=samples)
+
+
+@pytest.mark.parametrize("bounces", [1, 3])
+def test_cuda_many_object_kernels_match_plain(cuda, bounces):
+    """mono, cost, regen and persist on the clustered 101-object walk."""
+    port, cfg = flatten_scene(_field(32, 16, bounces, iters=4), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.clusters is not None
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    mono = mk.run_mono(*planes, px, py, 1, tb)
+    assert torch.equal(mono, mk.run_mono_plain(*planes, px, py, 1, tb))
+    assert torch.equal(mono, mk.run_mono(*planes, px, py, 1, mk.pack_tables(port, cfg, "none")))
+    rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+    prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+    assert torch.equal(rad, mono) and torch.equal(cost, pcost)
+    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (2, 3)]
+    args = (*planes, px, py, 1, *(torch.stack([d[i] for d in dirs]) for i in range(3)), tb)
+    assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    got, *_ = _drive(_field(32, 16, bounces, iters=4), cuda, 5)
+    want, *_ = _drive(_field(32, 16, bounces, iters=4), cuda, 5, plain=True)
+    assert _equal(got, want)
+    torch.cuda.synchronize()
+
+
+def test_cuda_many_object_regen_on_morton_lanes(cuda):
+    """The many-object regen build at S = 32 on the Morton lane order the
+    Renderer gives a clustered scene, bit for bit to its plain version."""
+    port, cfg = flatten_scene(_field(32, 16, 3, samples=32, iters=3), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.clusters is not None
+    perm, _ = morton_layout(cfg.width, cfg.height, cuda)
+    planes, px, py = ci.primary_lanes(port, cfg, 0)
+    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (1, 2)]
+    args = (*(p[perm] for p in (*planes, px, py)), 0,
+            *(torch.stack([d[i] for d in dirs])[:, perm].contiguous() for i in range(3)), tb)
+    assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scene", ["cornell", "field"])
+def test_cuda_seg_matches_plain_and_composes_to_mono(cuda, scene):
+    sc = (_scene("cornell", 32, 16, 4) if scene == "cornell" else _field(32, 16, 4))
+    port, cfg = flatten_scene(sc, cuda)
+    tb = mk.pack_tables(port, cfg)
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    mono = mk.run_mono(*planes, px, py, 1, tb)
+    got, want = ci.frame_wavefront(port, cfg, 1), ci.frame_wavefront(port, cfg, 1)
+    before = mk.run_seg.launches
+    for b0, b1 in ((0, 1), (1, 2), (2, 4)):
+        mk.run_seg(got, b0, b1, 1, tb)
+        mk.run_seg_plain(want, b0, b1, 1, tb)
+        assert all(torch.equal(v, getattr(want, k)) for k, v in got.planes().items())
+    assert mk.run_seg.launches == before + 3
+    assert torch.equal(got.rad, mono)
+    split = ci.integrate_frame_split(port, cfg, 1, 2, tb)
+    assert torch.equal(split, ci.integrate_frame_cuda(port, cfg, 1, tb))
+    rgb, overflow = ci.integrate_frame_cascade(port, cfg, 1, ((1, 512), (2, 512)), tb)
+    mono_rgb = ci.integrate_frame_cuda(port, cfg, 1, tb)
+    assert not bool(overflow)
+    assert float((rgb - mono_rgb).abs().max()) <= 1e-6 * max(1.0, float(mono_rgb.abs().max()))
+
+
+def test_cuda_renderer_phased_counts_launches(cuda):
+    mk.run_seg.launches = mk.run_mono.launches = mk.run_regen.launches = 0
+    r = Renderer(_field(32, 16, 3, iters=3), device="cuda", phase_split=1,
+                 phase_capacity=512)
+    img = r.render()
+    assert (mk.run_seg.launches, mk.run_mono.launches, mk.run_regen.launches) == (6, 0, 0)
+    assert r.overflow_frames == 0 and img.shape == (16, 32, 4)
+    r = Renderer(_field(32, 16, 3, iters=3), device="cuda", phase_split=1,
+                 phase_capacity=128)
+    r.render()
+    assert r.overflow_frames == 3 and mk.run_mono.launches == 3
+    want = Renderer(_field(32, 16, 3, iters=3), device="cuda", regen_frames=1).render()
+    assert (r.framebuffer() == want).all()

@@ -1,6 +1,7 @@
 """The port's jax-free scene flattening against the reference package's:
-every table bitwise equal (dtype, shape and bytes) on every preset, the
-``RenderConfig`` field-equal, and the tensors bit-for-bit copies."""
+every table bitwise equal (dtype, shape and bytes) on every preset, each
+preset built with its own package's presets, the ``RenderConfig``
+field-equal, and the tensors bit-for-bit copies."""
 
 import dataclasses
 
@@ -11,6 +12,7 @@ import torch
 from spectral_tpu.scene import flatten as jflat
 from spectral_tpu.scene import presets
 from spectral_tpu_torch.scene import flatten as tflat
+from spectral_tpu_torch.scene import presets as tpresets
 
 torch.set_num_threads(1)
 
@@ -26,7 +28,7 @@ def _same_bits(a, b) -> bool:
 def test_np_fields_and_config_bitwise_equal(name):
     arrays, config = jflat.flatten_scene(presets.PRESETS[name]())
     want = arrays.host.np_fields
-    got, got_config = tflat.flatten_numpy(presets.PRESETS[name]())
+    got, got_config = tflat.flatten_numpy(tpresets.PRESETS[name]())
     assert set(got) == set(want) == set(tflat.FIELDS)
     for key in tflat.FIELDS:
         assert _same_bits(got[key], want[key]), key
@@ -49,7 +51,7 @@ def test_tensors_copy_reference_tables(name):
         assert _same_bits(t.numpy(), np_fields[key]), key
     assert scene.obj_types == tuple(int(x) for x in np_fields["obj_type"])
     # the scene's own flatten gives the same tensors
-    own, own_cfg = tflat.flatten_scene(presets.PRESETS[name](), "cpu")
+    own, own_cfg = tflat.flatten_scene(tpresets.PRESETS[name](), "cpu")
     assert own_cfg == port_config
     for key in tflat.FIELDS:
         a, b = getattr(own, key), getattr(scene, key)
@@ -57,11 +59,14 @@ def test_tensors_copy_reference_tables(name):
 
 
 def test_hidden_objects_and_lights_are_dropped():
-    scene = presets.cornell_box()
-    scene.objects[0].hidden = True
-    scene.lights[0].hidden = True
-    got, cfg = tflat.flatten_numpy(scene)
-    arrays, config = jflat.flatten_scene(scene)
+    scenes = []
+    for P in (tpresets, presets):
+        scene = P.cornell_box()
+        scene.objects[0].hidden = True
+        scene.lights[0].hidden = True
+        scenes.append(scene)
+    got, cfg = tflat.flatten_numpy(scenes[0])
+    arrays, config = jflat.flatten_scene(scenes[1])
     assert cfg.n_objects == config.n_objects == 6
     assert cfg.n_lights == 0
     for key in tflat.FIELDS:

@@ -23,18 +23,22 @@ from spectral_tpu.render.pallas_integrator import (
     integrate_frame_pallas,
     integrate_frames_pallas_regen,
 )
-from spectral_tpu.scene import presets
+from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
+from spectral_tpu_torch.scene import presets
+from tests import torch_scenes
 from tests.test_pallas_megakernel import _periscope_scene, _regen_scene
 
 torch.set_num_threads(1)
 
 
-def _scene(name, w, h, bounces, samples=8, iters=2):
-    scene = presets.PRESETS[name](n_samples=samples)
+def _scene(name, w, h, bounces, samples=8, iters=2, P=presets):
+    """A preset built with the port's presets (``P=jax_presets`` for the
+    reference's)."""
+    scene = P.PRESETS[name](n_samples=samples)
     scene.width, scene.height = w, h
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     return scene
@@ -64,11 +68,13 @@ def test_pack_tables_layout(name):
     for field, row, width in mk.GEOM_LAYOUT:
         want = np.asarray(port.np_fields[field], np.float32).reshape(cfg.n_objects, width)
         assert np.array_equal(tb.geom[row:row + width].T.numpy(), want), field
-    assert torch.equal(tb.albedo, port.albedo)
+    # the kernels read albedo through the material id: the per-object
+    # albedo bit for bit
+    assert torch.equal(tb.mat_albedo[port.mat_id.long()], port.albedo)
     assert torch.equal(tb.lspec, port.light_spec)
     assert torch.equal(tb.lpos[:, :3], port.light_pos)
     assert torch.equal(tb.cam[:3], port.cam_pos)
-    for t in (tb.geom, tb.albedo, tb.lpos, tb.lspec, tb.cam):
+    for t in (tb.geom, tb.mat_albedo, tb.runs, tb.lpos, tb.lspec, tb.cam):
         assert t.dtype == torch.float32 and t.is_contiguous()
 
 
@@ -83,7 +89,7 @@ def test_geom_rows_mirror_the_cuda_header():
         "shift": "G_SHIFT", "inv_rot": "G_INV_ROT", "rot": "G_ROT",
         "aabb_min": "G_AABB_MIN", "aabb_max": "G_AABB_MAX", "center": "G_CENTER",
         "half_dim": "G_HALF", "sphere_pos": "G_SPHERE_POS", "radius": "G_RADIUS",
-        "metallicness": "G_METAL", "roughness": "G_ROUGH",
+        "metallicness": "G_METAL", "roughness": "G_ROUGH", "mat_id": "G_MATID",
     }
     for field, row, _ in mk.GEOM_LAYOUT:
         assert consts[names[field]] == row, field
@@ -95,7 +101,7 @@ def test_geom_rows_mirror_the_cuda_header():
 
 @pytest.mark.parametrize("name", ["default", "cornell"])
 def test_plain_mono_direct_only_matches_pallas(name):
-    arrays, config, port, cfg, obj_types = _pair(_scene(name, 16, 8, bounces=1))
+    arrays, config, port, cfg, obj_types = _pair(_scene(name, 16, 8, bounces=1, P=jax_presets))
     want = np.asarray(integrate_frame_pallas(arrays, config, np.uint32(0), obj_types,
                                              interpret=True))
     got = ci.integrate_frame_cuda(port, cfg, 0).numpy()
@@ -116,7 +122,7 @@ def test_plain_mono_multibounce_within_coin_flip_envelope():
     """Pooled over 4 frames of 32x16 (a single 128-pixel frame is too few
     to bound a rate near 10%: measured pooled 10.3% flipped, 88.8% to
     1e-5, 4-frame mean within 2%)."""
-    arrays, config, port, cfg, obj_types = _pair(_scene("cornell", 32, 16, bounces=3))
+    arrays, config, port, cfg, obj_types = _pair(_scene("cornell", 32, 16, bounces=3, P=jax_presets))
     errs = []
     for frame in range(4):
         want = np.asarray(integrate_frame_pallas(arrays, config, np.uint32(frame),
@@ -146,7 +152,7 @@ def test_plain_regen_matches_pallas_regen(case):
 
 
 def test_plain_regen_is_the_sum_of_mono_frames():
-    port, cfg = flatten_scene(_regen_scene(), "cpu")
+    port, cfg = flatten_scene(torch_scenes.regen_scene(presets), "cpu")
     mono = sum(ci.integrate_frame_cuda(port, cfg, f).double() for f in range(3))
     regen = ci.integrate_frames_cuda_regen(port, cfg, 0, 3).double()
     assert float((regen - mono).abs().max()) <= 1e-4  # f32 summation order only

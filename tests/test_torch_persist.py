@@ -21,19 +21,22 @@ import pytest
 import torch
 
 from spectral_tpu.render.pallas_integrator import render_persistent as jax_persist
-from spectral_tpu.scene import presets
+from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import camera as tcam
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
+from spectral_tpu_torch.scene import presets
 from tests.test_pallas_megakernel import _periscope_scene
 
 torch.set_num_threads(1)
 
 
-def _cornell(w=32, h=24, bounces=4, iters=8):
-    scene = presets.PRESETS["cornell"](n_samples=8)
+def _cornell(w=32, h=24, bounces=4, iters=8, P=presets):
+    """The Cornell box, built with the port's presets (``P=jax_presets``
+    for the reference's)."""
+    scene = P.PRESETS["cornell"](n_samples=8)
     scene.width, scene.height = w, h
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     return scene
@@ -109,7 +112,7 @@ def test_free_running_within_jax_coinflip_envelope_on_cornell():
     """The reference's envelope for free-running against another raygen
     program (tests/test_persist.py:132-154): at most half the pixels of a
     6-frame 3-bounce Cornell average diverge by more than 1e-3."""
-    arrays, config, port, cfg, obj_types = _pair(_cornell(bounces=3))
+    arrays, config, port, cfg, obj_types = _pair(_cornell(bounces=3, P=jax_presets))
     want, _ = jax_persist(arrays, config, obj_types, n_frames=6, tile=256,
                           interpret=True, ring_slots=0, budget=64)
     got, _ = ci.render_persistent(port, cfg, 6, budget=64)
@@ -143,7 +146,7 @@ def test_restart_directions_twin_host_raygen_and_the_jax_table():
     few ulps of host raygen, which divides where it multiplies."""
     from spectral_tpu.ops.pallas.megakernel import pack_camera_basis
 
-    arrays, config, port, cfg, _ = _pair(_cornell(16, 8))
+    arrays, config, port, cfg, _ = _pair(_cornell(16, 8, P=jax_presets))
     table = tcam.camera_basis_table(port, cfg)
     assert table.shape == (tcam.CAM_BASIS,) and table.dtype == torch.float32
     np.testing.assert_allclose(table.numpy(), np.asarray(pack_camera_basis(arrays, config))[0],

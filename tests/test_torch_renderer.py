@@ -20,9 +20,12 @@ import pytest
 import torch
 
 from spectral_tpu.render.renderer import Renderer as JaxRenderer
-from spectral_tpu.scene import presets
+from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu_torch import cli
 from spectral_tpu_torch.render import renderer as trender
+from spectral_tpu_torch.scene import presets
+from spectral_tpu_torch.scene import schema
+from tests import torch_scenes
 from tests.test_pallas_megakernel import _periscope_scene
 
 torch.set_num_threads(1)
@@ -30,8 +33,10 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _scene(name, w, h, bounces, iters, samples=8):
-    scene = presets.PRESETS[name](n_samples=samples)
+def _scene(name, w, h, bounces, iters, samples=8, P=presets):
+    """A preset built with the port's presets (``P=jax_presets`` for the
+    reference's)."""
+    scene = P.PRESETS[name](n_samples=samples)
     scene.width, scene.height = w, h
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     return scene
@@ -43,7 +48,7 @@ def _max_rel(got, want):
 
 @pytest.mark.parametrize("name", ["default", "cornell"])
 def test_direct_only_render_matches_jnp_renderer(name):
-    want = JaxRenderer(_scene(name, 16, 12, 1, 3), backend="jnp").render()
+    want = JaxRenderer(_scene(name, 16, 12, 1, 3, P=jax_presets), backend="jnp").render()
     r = trender.Renderer(_scene(name, 16, 12, 1, 3), device="cpu")
     assert r.regen_frames == 3  # the whole render in one regeneration chunk
     got = r.render()
@@ -55,13 +60,14 @@ def test_periscope_render_matches_jnp_renderer():
     scene = _periscope_scene()
     scene.nbr_of_iterations = 3
     want = JaxRenderer(scene, backend="jnp").render()
-    got = trender.Renderer(scene, device="cpu", regen_frames=2).render()  # 2 + tail
+    tscene = torch_scenes.periscope(schema, presets, iters=3)
+    got = trender.Renderer(tscene, device="cpu", regen_frames=2).render()  # 2 + tail
     assert float(want[..., :3].max()) > 0.1
     assert _max_rel(got, want) <= 1e-5
 
 
 def test_multibounce_render_mean_matches_jnp_renderer():
-    want = JaxRenderer(_scene("cornell", 32, 24, 3, 4), backend="jnp").render()
+    want = JaxRenderer(_scene("cornell", 32, 24, 3, 4, P=jax_presets), backend="jnp").render()
     got = trender.Renderer(_scene("cornell", 32, 24, 3, 4), device="cpu").render()
     assert np.isfinite(got).all()
     assert abs(float(got[..., :3].mean()) / float(want[..., :3].mean()) - 1.0) <= 0.05
@@ -118,7 +124,7 @@ def test_cuda_device_without_gpu_raises():
         trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cuda")
 
 
-@pytest.mark.parametrize("name", ["prism", "spheres", "mesh"])
+@pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])
 def test_out_of_slice_scene_raises(name):
     with pytest.raises(NotImplementedError, match="not in the PyTorch/CUDA port yet"):
         trender.Renderer(presets.PRESETS[name](n_samples=8), device="cpu")
@@ -126,13 +132,13 @@ def test_out_of_slice_scene_raises(name):
 
 @pytest.mark.parametrize("option,error,match", [
     (dict(persist=True, regen_frames=4), ValueError, "standalone"),
-    (dict(phase_split=8), NotImplementedError, "phase_split"),
+    (dict(phase_split=2, regen_frames=4), ValueError, "phase_split"),
     (dict(sharding=object()), NotImplementedError, "sharding"),
     (dict(adaptive=(2, 0, 0)), ValueError, "persist=True"),
 ])
 def test_out_of_slice_modes_raise(option, error, match):
-    """phase_split and sharding wait for their slices; persist and
-    adaptive render now, and refuse what the reference refuses."""
+    """sharding waits for its slice; persist, adaptive and phase_split
+    render now, and refuse what the reference refuses."""
     with pytest.raises(error, match=match):
         trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cpu", **option)
 
@@ -145,7 +151,8 @@ def test_persist_renderer_matches_jax_persist_renderer():
     scene.nbr_of_iterations = 4
     want = JaxRenderer(scene, backend="jnp", persist=True, persist_budget=5,
                        _interpret=True).render()
-    r = trender.Renderer(scene, device="cpu", persist=True, persist_budget=5)
+    tscene = torch_scenes.periscope(schema, presets, iters=4)
+    r = trender.Renderer(tscene, device="cpu", persist=True, persist_budget=5)
     assert r.regen_frames == 1
     got = r.render()
     assert r.persist_info["budget"] == 5 and r.next_frame == 4
@@ -291,7 +298,7 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(st.__path__, 'spectral_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
-        "from spectral_tpu.scene import presets\n"
+        "from spectral_tpu_torch.scene import presets\n"
         "sc = presets.cornell_box()\n"
         "sc.width, sc.height, sc.nbr_of_iterations = 16, 12, 2\n"
         "img = st.Renderer(sc, device='cpu').render()\n"
@@ -301,6 +308,8 @@ def test_port_never_imports_jax():
         "assert img.shape == (12, 16, 4) and img[..., :3].max() > 0\n"
         "assert r.persist_info['min_counts'] >= 2\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'spectral_tpu'], "
+        "'the JAX package was imported'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
