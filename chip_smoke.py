@@ -14,8 +14,16 @@ the cost probe and the persistent kernel); and at the 1000-sphere field
 (``presets.sphere_field(1000)``: 1,001 objects, 1024x768, 32 wavelengths,
 8 bounces, 100 iterations), the many-object main path (clusters,
 regeneration, Morton lanes) and the phased path (``phase_split=2``,
-``"auto"`` and an explicit cascade, ``cuda_seg``). Prints one JSON line
-per phase, then the kernel table, the card's name and power limit, and as
+``"auto"`` and an explicit cascade, ``cuda_seg``); at the mesh presets
+(512x512, 32 wavelengths, 30 bounces: ``mesh``, 345 objects, 100
+iterations; ``mesh5k``, 6,405 objects, iterations cut to 10) the triangle
+builds of the kernels through the same main path and the persist path,
+and those builds against their plain versions at 128x128 (frame 0, and
+three regeneration frames on Morton lanes);
+and the trace probe at its full shape (196,608 rays, 1,024 spheres)
+through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
+(``cuda_probe_fori``, ``cuda_probe_mma``). Prints one JSON line per
+phase, then the kernel table, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine
 without CUDA, or a directory without the rest of the repository. Nothing
@@ -27,7 +35,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -38,18 +45,13 @@ MAIN = dict(width=512, height=512, n_samples=32, bounces=30, iterations=100)
 # BASELINE config 4 (bench.py): the 1000-sphere field
 SPHERES = dict(n_spheres=1000, width=1024, height=768, n_samples=32, bounces=8,
                iterations=100)
+# bench.py's mesh configs: 512x512, 32 lambda, 30 bounces, 100 iterations;
+# mesh5k's iterations are cut to 10 here (one 10-frame regeneration launch)
+MESHES = (("mesh", 100), ("mesh5k", 10))
 
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -64,6 +66,7 @@ def main() -> int:
     try:
         from spectral_tpu_torch import presets, schema
         from spectral_tpu_torch.ops import megakernel as mk
+        from spectral_tpu_torch.ops import trace_probe as tp
         from spectral_tpu_torch.ops.vecmath import Vec3
         from spectral_tpu_torch.render import cuda_integrator as ci
         from spectral_tpu_torch.render import integrator as ti
@@ -72,8 +75,12 @@ def main() -> int:
         from spectral_tpu_torch.render.layout import morton_layout
         from spectral_tpu_torch.render.renderer import Renderer
         from spectral_tpu_torch.runtime import build
+        from spectral_tpu_torch.scene import mesh as tmesh
         from spectral_tpu_torch.scene.flatten import flatten_scene
+        from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
+        from spectral_tpu_torch.tools.measure_persist import card as read_card
         from spectral_tpu_torch.utils import flops
+        from tests import torch_scenes as ts
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -82,7 +89,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = read_card()
     t_all = time.monotonic()
 
     # ---------------------------------------------------------- 1. environment
@@ -126,6 +133,14 @@ def main() -> int:
         dirx, diry, dirz = (torch.stack([d[i] for d in dirs]) for i in range(3))
         return (*planes, px, py, first, dirx, diry, dirz, tb), st
 
+    def morton_regen_inputs(sc, k):
+        """``cuda_regen``'s arguments as the Renderer gives a clustered
+        scene: K frames from frame 0, every lane plane in Morton order."""
+        args, r_st = regen_inputs(sc, 0, k)
+        perm, _ = morton_layout(sc.width, sc.height, dev)
+        return (*(p[perm] for p in args[:8]), args[8],
+                *(d[:, perm].contiguous() for d in args[9:12]), args[12]), r_st
+
     def rel_err(got_rgb, want_rgb):
         scale = max(1.0, float(want_rgb.abs().max()))
         return ((got_rgb - want_rgb).abs().amax(dim=-1) / scale)
@@ -138,7 +153,7 @@ def main() -> int:
         err = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
         small.append(dict(case=f"mono {name} 16x8 b1", max_rel=err, limit=1e-5))
         assert err <= 1e-5, small[-1]
-    got, want, st = mono_pair(periscope_scene(schema, presets), 0)
+    got, want, st = mono_pair(ts.periscope(schema, presets), 0)
     err = float(rel_err(rgb_of(got, st), rgb_of(want, st)).max())
     small.append(dict(case="mono periscope 12x8 b3", max_rel=err, limit=1e-5))
     assert err <= 1e-5, small[-1]
@@ -149,7 +164,7 @@ def main() -> int:
         small.append(dict(case=f"mono cornell 16x8 b3 f{frame}",
                           flipped_fraction=flips, limit=0.15))
         assert flips <= 0.15, small[-1]
-    args, st = regen_inputs(regen_scene(presets), 0, 3)
+    args, st = regen_inputs(ts.regen_scene(presets), 0, 3)
     got = mk.run_regen(*args)
     want = mk.run_regen_plain(*args)
     err = float((rgb_of(got, st) - rgb_of(want, st)).abs().max())
@@ -192,7 +207,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     psmall = []
-    ring_sc = regen_scene(presets)
+    ring_sc = ts.regen_scene(presets)
     ring_sc.nbr_of_iterations = 6
     got, st, cfg, tb, nl = persist_drive(ring_sc, 13, ring_w=4)
     want, *_ = persist_drive(ring_sc, 13, ring_w=4, plain=True)
@@ -243,7 +258,7 @@ def main() -> int:
                        stopped_lanes_dead=bool((state.alive[held] == 0).all()),
                        others_done=int(state.fid[~held].min()) + 1))
     assert frozen and bool((state.alive[held] == 0).all()), psmall[-1]
-    for sc, name in ((periscope_scene(schema, presets), "periscope 12x8 b3"),
+    for sc, name in ((ts.periscope(schema, presets), "periscope 12x8 b3"),
                      (scene_of(presets.cornell_box, 16, 8, 8, 3, 2), "cornell 16x8 b3")):
         st, cfg = flatten_scene(sc, dev)
         tb = mk.pack_tables(st, cfg)
@@ -511,10 +526,7 @@ def main() -> int:
     # clustered tables, every lane plane permuted to the Morton order the
     # Renderer gives a clustered scene, K = 4 frames
     k_sph = 4
-    perm, _ = morton_layout(f_cfg.width, f_cfg.height, dev)
-    args, _ = regen_inputs(sph256, 0, k_sph)
-    args = (*(p[perm] for p in args[:8]), args[8],
-            *(d[:, perm].contiguous() for d in args[9:12]), f_tb)
+    args, _ = morton_regen_inputs(sph256, k_sph)
     sph256_regen_ms, f_regen = cuda_ms(lambda: mk.run_regen(*args), 2)
     sph256_regen_plain_ms, f_regen_plain = cuda_ms(
         lambda: mk.run_regen_plain(*args), 1, warmup=False)
@@ -533,10 +545,75 @@ def main() -> int:
          spheres_256x192_regen_k4_morton_plain_ms=sph256_regen_plain_ms,
          spheres_256x192_regen_k4_morton_bit_identical=sph256_regen_exact, card=card)
 
+    # ---------- 3e. the kernels' triangle builds vs plain (the mesh slice)
+    def mesh_check(sc, label, persist_budget=None):
+        """mono, cost and regen (K = 3) from frame 1, bit for bit to their
+        plain versions; for a clustered scene also the flat walk; with a
+        budget, the free-running persist kernel and a two-segment cuda_seg
+        frame (bit for bit at one bounce; the coin-flip envelope beyond,
+        where free-running restarts recompute raygen on each side)."""
+        m_st, m_cfg = flatten_scene(sc, dev)
+        m_tb = mk.pack_tables(m_st, m_cfg)
+        planes_, px_, py_ = ci.primary_lanes(m_st, m_cfg, 1)
+        mono_ms_, mono_ = cuda_ms(lambda: mk.run_mono(*planes_, px_, py_, 1, m_tb), 3)
+        plain_ms_, plain_ = cuda_ms(
+            lambda: mk.run_mono_plain(*planes_, px_, py_, 1, m_tb), 1, warmup=False)
+        checks = dict(mono=bool(torch.equal(mono_, plain_)))
+        out = dict(case=label, objects=m_cfg.n_objects, runs=m_tb.runs.shape[0],
+                   triangles=m_tb.triangles, many_objects=m_tb.many_objects(),
+                   mono_ms=mono_ms_, mono_plain_ms=plain_ms_)
+        if m_tb.clusters is not None:
+            flat_tb = mk.pack_tables(m_st, m_cfg, accel="none")
+            out["mono_flat_walk_ms"], flat_ = cuda_ms(
+                lambda: mk.run_mono(*planes_, px_, py_, 1, flat_tb), 3)
+            checks["clustered_equals_flat"] = bool(torch.equal(mono_, flat_))
+        rad_, cost_ = mk.run_cost(*planes_, px_, py_, 1, m_tb)
+        prad_, pcost_ = mk.run_cost_plain(*planes_, px_, py_, 1, m_tb)
+        checks["cost"] = bool(torch.equal(rad_, mono_) and torch.equal(rad_, prad_)
+                              and torch.equal(cost_, pcost_))
+        args_, _ = regen_inputs(sc, 1, 3)
+        checks["regen"] = bool(torch.equal(mk.run_regen(*args_), mk.run_regen_plain(*args_)))
+        if persist_budget is not None:
+            wf_, pwf_ = ci.frame_wavefront(m_st, m_cfg, 1), ci.frame_wavefront(m_st, m_cfg, 1)
+            for b0, b1 in ((0, 1), (1, m_cfg.max_bounces)):
+                if b0 < b1:
+                    mk.run_seg(wf_, b0, b1, 1, m_tb)
+                    mk.run_seg_plain(pwf_, b0, b1, 1, m_tb)
+            checks["seg"] = same_state(wf_, pwf_) and bool(torch.equal(wf_.rad, mono_))
+            got_, pst_, *_ = persist_drive(sc, persist_budget)
+            want_ = persist_drive(sc, persist_budget, plain=True)[0]
+            out["persist_bit_identical"] = same_state(got_, want_)
+            out["persist_flipped"] = float((rel_err(rgb_of(got_.rad, pst_), rgb_of(
+                want_.rad, pst_)) > 1e-5).float().mean())
+            out["persist_flipped_limit"] = 0.15
+            if m_cfg.max_bounces == 1:
+                checks["persist"] = out["persist_bit_identical"]
+            assert out["persist_flipped"] <= 0.15, out
+        torch.cuda.synchronize()
+        out["bit_identical"] = checks
+        assert all(checks.values()), out
+        return out
+
+    t0 = time.monotonic()
+    tri = []
+    for s in (8, 32):
+        for bounces in (1, 3):
+            tri.append(mesh_check(scene_of(presets.mesh_demo, 128, 128, s, bounces, 4),
+                                  f"mesh 128x128 S={s} b{bounces}",
+                                  persist_budget=5 if s == 32 else None))
+    for sub in (0, 1):  # a smooth icosphere: the small-scene and the many-object build
+        for bounces in (1, 3):
+            sc = ts.smooth_mesh(presets, tmesh, 64, 64, bounces, sub, iters=4)
+            tri.append(mesh_check(sc, f"smooth icosphere({sub}) 64x64 S=8 b{bounces}",
+                                  persist_budget=5))
+    emit(phase="kernels_triangles_small", seconds=round(time.monotonic() - t0, 3),
+         checks=tri, card=card)
+
     # ------------------------------------------- 4. the main path at full size
     wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
                 "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost,
-                "cuda_seg": mk.run_seg}
+                "cuda_seg": mk.run_seg, "cuda_probe_fori": tp.cuda_probe_fori,
+                "cuda_probe_mma": tp.cuda_probe_mma}
     launches = dict.fromkeys(wrappers, 0)
 
     def main_path_run(sc, regen="auto", render=None, **kw):
@@ -688,14 +765,14 @@ def main() -> int:
     t0 = time.monotonic()
     _, img, _, counts = main_path_run(
         scene_of(presets.cornell_box, 512, 512, 32, 30, 6), regen=4)
-    assert counts == {"cuda_mono": 2, "cuda_regen": 1, "cuda_persist": 0,
-                      "cuda_cost": 0, "cuda_seg": 0}, counts
+    assert counts == {"cuda_mono": 2, "cuda_regen": 1, "cuda_persist": 0, "cuda_cost": 0,
+                      "cuda_seg": 0, "cuda_probe_fori": 0, "cuda_probe_mma": 0}, counts
     check_image(img, 512, 512)
     tail_counts = counts
     _, img, _, counts = main_path_run(
         scene_of(presets.default_scene, 320, 240, 32, 30, 1))
-    assert counts == {"cuda_mono": 1, "cuda_regen": 0, "cuda_persist": 0,
-                      "cuda_cost": 0, "cuda_seg": 0}, counts
+    assert counts == {"cuda_mono": 1, "cuda_regen": 0, "cuda_persist": 0, "cuda_cost": 0,
+                      "cuda_seg": 0, "cuda_probe_fori": 0, "cuda_probe_mma": 0}, counts
     check_image(img, 320, 240)
     emit(phase="tail_and_single", seconds=round(time.monotonic() - t0, 3),
          cornell_6_iter_k4=tail_counts, default_320x240_1_iter=counts, card=card)
@@ -794,6 +871,123 @@ def main() -> int:
          seg_2_8_compacted_ms=seg_tail_ms, seconds=round(time.monotonic() - t0, 3),
          card=card)
 
+    # ------------------------- 8. the mesh presets through the main path
+    mesh_runs = {}
+    for name, iters in MESHES:
+        t0 = time.monotonic()
+        sc = scene_of(presets.PRESETS[name], 512, 512, 32, 30, iters)
+        r, img, dt, counts = main_path_run(sc)
+        assert r.regen_frames == iters and r.lane_layout == "morton", (
+            r.regen_frames, r.lane_layout)
+        assert r.tables.triangles == 1 and r.clusters is not None, name
+        assert counts["cuda_regen"] == 1, counts
+        check_image(img, 512, 512)
+        m_st, m_cfg, m_tb = r.scene_tensors, r.config, r.tables
+        m_frames = r.next_frame
+        m_s_per_frame = dt / m_frames
+        # rays per frame from the plain frame 0 at 128x128, the same
+        # camera, times 16 (rays per pixel is a per-lane statistic)
+        small = scene_of(presets.PRESETS[name], 128, 128, 32, 30, iters)
+        small_st, small_cfg = flatten_scene(small, dev)
+        sp, spx, spy = ci.primary_lanes(small_st, small_cfg, 0)
+        _, m_rays = ti.bounce_loop(Vec3(*sp[:3]), Vec3(*sp[3:]), spx.long(), spy.long(), 0,
+                                   small_st, small_cfg, return_stats=True)
+        m_rays = float(m_rays) * 16
+        # the triangle kernels as this path runs them (clustered, S = 32,
+        # 30 bounces, Morton lanes for regen), cut to 128x128, against
+        # their plain versions bit for bit: cuda_mono frame 0, cuda_regen K = 3
+        small_tb = mk.pack_tables(small_st, small_cfg)
+        assert small_tb.triangles == 1 and small_tb.clusters is not None, name
+        ms128, got = cuda_ms(lambda: mk.run_mono(*sp, spx, spy, 0, small_tb), 2)
+        plain_ms128, want = cuda_span(lambda: mk.run_mono_plain(*sp, spx, spy, 0, small_tb))
+        mono128 = dict(case=f"{name} 128x128 S=32 b30 frame 0", ms=ms128, plain_ms=plain_ms128,
+                       bit_identical=bool(torch.equal(got, want)),
+                       max_abs=float((got - want).abs().max()))
+        assert mono128["bit_identical"], mono128
+        args, _ = morton_regen_inputs(small, 3)
+        ms128, got = cuda_ms(lambda: mk.run_regen(*args), 2)
+        plain_ms128, want = cuda_span(lambda: mk.run_regen_plain(*args))
+        regen128 = dict(case=f"{name} 128x128 S=32 b30 K=3 Morton lanes", ms=ms128,
+                        plain_ms=plain_ms128, bit_identical=bool(torch.equal(got, want)),
+                        max_abs=float((got - want).abs().max()))
+        assert regen128["bit_identical"], regen128
+        del args, got, want
+        m_regen_ms, _ = cuda_span(lambda: ci.regen_radiance(
+            m_st, m_cfg, 0, iters, m_tb, r._lane_perm))
+        m_planes, m_px, m_py = ci.primary_lanes(m_st, m_cfg, 0)
+        m_mono_ms, _ = cuda_ms(lambda: mk.run_mono(*m_planes, m_px, m_py, 0, m_tb), 2)
+        # the persist path on the same scene: the image mean within 2%
+        pr, pimg, pdt, pcounts = main_path_run(sc, persist=True)
+        check_image(pimg, 512, 512)
+        assert pcounts["cuda_persist"] > 0 and pcounts["cuda_cost"] == 1, pcounts
+        regen_mean = float(img[..., :3].mean())
+        persist_mean = float(pimg[..., :3].mean())
+        mean_rel = abs(persist_mean - regen_mean) / regen_mean
+        assert mean_rel <= 0.02, (name, persist_mean, regen_mean)
+        mesh_runs[name] = dict(regen_k_launch_ms=m_regen_ms, mono_ms=m_mono_ms,
+                               seconds_per_frame=m_s_per_frame, mono_128=mono128,
+                               regen_128=regen128)
+        emit(phase=f"{name}_main_path",
+             config=f"presets.{presets.PRESETS[name].__name__}: {m_cfg.n_objects} objects, "
+                    f"512x512, 32 lambda, 30 bounces, {iters} iterations",
+             clusters=len(r.clusters[1]), lane_layout=r.lane_layout,
+             regen_frames=r.regen_frames, frames=m_frames, seconds=dt,
+             seconds_per_frame=m_s_per_frame, launches=counts,
+             rays_per_frame_plain_f0_scaled_from_128x128=m_rays,
+             mrays_lambda_per_s=m_rays * m_cfg.n_samples / m_s_per_frame / 1e6,
+             regen_launch_ms=m_regen_ms, mono_ms=m_mono_ms, mean_rgb=regen_mean,
+             kernels_vs_plain_128=[mono128, regen128],
+             persist=dict(seconds=pdt, seconds_per_frame=pdt / iters, launches=pcounts,
+                          budget=pr.persist_info["budget"], mean_rgb=persist_mean,
+                          mean_rel_vs_regen=mean_rel, mean_limit=0.02),
+             phase_seconds=round(time.monotonic() - t0, 3), card=card)
+
+    # ------------- 9. the trace probe at full shape, then through its tool
+    t0 = time.monotonic()
+    p_in = tp.make_inputs(0)
+    fori = tuple(torch.from_numpy(a).to(dev) for a in p_in["fori"])
+    mma = tuple(torch.from_numpy(a).to(dev) for a in p_in["mma"])
+    fori_ms, (g_t, g_w) = cuda_ms(lambda: tp.cuda_probe_fori(*fori), 30)
+    fori_plain_ms, (gp_t, gp_w) = cuda_ms(lambda: tp.probe_fori_plain(*fori), 1, warmup=False)
+    fori_exact = bool(torch.equal(g_t, gp_t) and torch.equal(g_w, gp_w))
+    fori_err = float(torch.where(torch.isfinite(gp_t), (g_t - gp_t).abs(), 0.0).max())
+    assert fori_exact, "cuda_probe_fori differs from its plain version"
+    mma_ms, (h_t, h_w) = cuda_ms(lambda: tp.cuda_probe_mma(*mma), 30)
+    mma_plain_ms, (hp_t, hp_w) = cuda_ms(lambda: tp.probe_mma_plain(*mma), 1, warmup=False)
+    ex_t, ex_w = tp.probe_exact(*mma)
+    mma_vs_plain = tp.compare(h_t, h_w, hp_t, hp_w)
+    mma_vs_exact = tp.compare(h_t, h_w, ex_t, ex_w,
+                              tp.error_bound(*mma, ex_w, tp.MMA_DOT_GAMMA))
+    plain_vs_exact = tp.compare(hp_t, hp_w, ex_t, ex_w,
+                                tp.error_bound(*mma, ex_w, tp.PLAIN_DOT_GAMMA))
+    crosscheck = tp.compare(h_t, h_w, g_t.reshape(-1, 1), g_w.reshape(-1, 1))
+    mma_err = float(torch.where(torch.isfinite(hp_t) & (h_w == hp_w),
+                                (h_t - hp_t).abs(), 0.0).max())
+    probe_out = dict(rays=fori[1].numel(), objects=tp.N_OBJ, fori_ms=fori_ms,
+                     fori_plain_ms=fori_plain_ms, fori_bit_identical=fori_exact,
+                     mma_ms=mma_ms, mma_plain_ms=mma_plain_ms, mma_vs_plain=mma_vs_plain,
+                     mma_vs_float64=mma_vs_exact, plain_vs_float64=plain_vs_exact,
+                     fori_vs_mma=crosscheck, winner_limit=tp.MMA_WINNERS_MIN,
+                     err_over_bound_limit=1.0, share_within_1e5_limit=tp.MMA_SHARE_1E5_MIN)
+    assert mma_vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, probe_out
+    # the formula cancels (b = 2 (d.o - d.c)): t agrees with the plain
+    # version only to float32's error, so each hit is held to its own
+    # error bound against a float64 evaluation (trace_probe.error_bound)
+    assert mma_vs_exact["max_err_over_bound"] <= 1.0, probe_out
+    assert plain_vs_exact["max_err_over_bound"] <= 1.0, probe_out
+    assert mma_vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, probe_out
+    del ex_t, ex_w, hp_t, hp_w, gp_t, gp_w
+    # the probe's entry point: the tool at its full shape, seed 0
+    for w in wrappers.values():
+        w.launches = 0
+    probe_tool.main([])
+    probe_counts = {key: w.launches for key, w in wrappers.items()}
+    assert probe_counts["cuda_probe_fori"] > 0 and probe_counts["cuda_probe_mma"] > 0
+    for key in launches:
+        launches[key] += probe_counts[key]
+    emit(phase="trace_probe", seconds=round(time.monotonic() - t0, 3), **probe_out,
+         tool_launches=probe_counts, card=card)
+
     for key, n in launches.items():
         assert n > 0, f"{key} was never launched by the main path"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "spectral_tpu"))
@@ -835,7 +1029,13 @@ def main() -> int:
         seg_iters * ops_per_iteration(s_st, s_cfg, s_tb),
         n_sph * (4 * 10 + 2 * s32 + 4 * 8 + 2 * s32))
     torch.cuda.synchronize()
-    library = None  # no single PyTorch call computes a bounce loop
+    n_tests = fori[1].numel() * tp.N_OBJ  # every ray against every sphere
+    n_pr = fori[1].numel()
+    bounds["cuda_probe_fori"] = flops.bound_ms(
+        n_tests * flops.PROBE_TEST_OPS, 4 * (8 * n_pr + 4 * tp.N_OBJ))
+    bounds["cuda_probe_mma"] = flops.bound_ms(
+        n_tests * flops.PROBE_TEST_OPS, 4 * (21 * n_pr + 9 * tp.N_OBJ))
+    library = None  # no single PyTorch call computes a bounce loop or a nearest hit
     timings = {
         "cuda_mono": ("spectral_tpu/ops/pallas/megakernel.py:2113", mono_err, mono_ms,
                       mono_plain_ms),
@@ -847,9 +1047,12 @@ def main() -> int:
                       cost_plain_ms),
         "cuda_seg": ("spectral_tpu/ops/pallas/megakernel.py:2342", seg_err, seg_ms,
                      seg_plain_ms),
+        "cuda_probe_fori": ("tools/mxu_trace_probe.py:78", fori_err, fori_ms, fori_plain_ms),
+        "cuda_probe_mma": ("tools/mxu_trace_probe.py:172", mma_err, mma_ms, mma_plain_ms),
     }
     sources = {"cuda_mono": "mono", "cuda_cost": "mono", "cuda_regen": "regen",
-               "cuda_persist": "persist", "cuda_seg": "seg"}
+               "cuda_persist": "persist", "cuda_seg": "seg", "cuda_probe_fori": "probe",
+               "cuda_probe_mma": "probe"}
     # each kernel's many-object build against its plain version: at the
     # spheres shape where the plain side is affordable, else sphere_field(100)
     sph256_case = "sphere_field(1000) 256x192 S=32 b8"
@@ -867,15 +1070,38 @@ def main() -> int:
         "cuda_cost": dict(case="sphere_field(100) 32x16 S=8 b1, b3",
                           bit_identical=all(m["bit_identical"]["cost"] for m in msmall)),
     }
+    # each bounce kernel's triangle builds against its plain version, and
+    # its times at the mesh presets' main shapes
+    tri_cases = [t["case"] for t in tri]
+    triangles = {
+        "cuda_mono": dict(cases=tri_cases, bit_identical=all(t["bit_identical"]["mono"]
+                                                             for t in tri),
+                          main_path_128={k: v["mono_128"] for k, v in mesh_runs.items()},
+                          ms_512={k: v["mono_ms"] for k, v in mesh_runs.items()}),
+        "cuda_cost": dict(cases=tri_cases, bit_identical=all(t["bit_identical"]["cost"]
+                                                             for t in tri)),
+        "cuda_regen": dict(cases=tri_cases, bit_identical=all(t["bit_identical"]["regen"]
+                                                              for t in tri),
+                           main_path_128={k: v["regen_128"] for k, v in mesh_runs.items()},
+                           launch_ms_512={k: v["regen_k_launch_ms"]
+                                          for k, v in mesh_runs.items()}),
+        "cuda_persist": dict(cases=[t["case"] for t in tri if "persist_bit_identical" in t],
+                             bit_identical_b1=all(t["bit_identical"].get("persist", True)
+                                                  for t in tri)),
+        "cuda_seg": dict(cases=[t["case"] for t in tri if "seg" in t["bit_identical"]],
+                         bit_identical=all(t["bit_identical"].get("seg", True) for t in tri)),
+    }
     kernels = []
     for name, (replaces, err, ms, plain_ms) in timings.items():
         b_ms, b_by = bounds[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source=f"spectral_tpu_torch/ops/csrc/{sources[name]}.cu",
             replaces=replaces, launches=launches[name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library,
-            many_object=many_object[name]))
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        if name in many_object:
+            entry.update(many_object=many_object[name], triangles=triangles[name])
+        kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -883,46 +1109,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def periscope_scene(S, presets, bounces=3, samples=8):
-    """Deterministic 3-bounce scene with no self-hit coin (the periscope of
-    tests/test_pallas_megakernel.py): mirror -> mirror -> diffuse wall."""
-    base = presets.default_scene()
-    refl = [sp for sp in base.spectra if sp.effect_type.name == "REFLECTIVE"][0]
-    emis = [sp for sp in base.spectra if sp.effect_type.name == "EMISSIVE"][0]
-    mirror = S.Material(1.0, 0.0, refl, "mirror")
-    diffuse = S.Material(0.0, 0.0, refl, "wall")
-    quarter = float(math.pi / 4)
-    scene = S.Scene(
-        width=12, height=8, nbr_of_iterations=2, nbr_of_ray_bounces=bounces,
-        camera=S.Camera(position=(0.0, 0.0, 0.0), direction=(0.0, 0.0, 1.0),
-                        up=(0.0, 1.0, 0.0), fov_y_deg=30.0),
-        lights=[S.Light((0.0, 4.0, 9.0), emis, "lamp")],
-        objects=[
-            S.SceneObject((0.0, 0.0, 6.0),
-                          S.RotatedBox(4.0, 4.0, 0.2, quarter, 0.0, 0.0), mirror, "M1"),
-            S.SceneObject((0.0, 4.0, 6.0),
-                          S.RotatedBox(4.0, 4.0, 0.2, quarter, 0.0, 0.0), mirror, "M2"),
-            S.SceneObject((0.0, 4.0, 12.0), S.PlainBox(8.0, 8.0, 0.2), diffuse, "wall"),
-        ],
-        spectra=base.spectra, materials=[mirror, diffuse],
-        spectrum_number_of_samples=samples,
-    )
-    scene.update_all_spectrum_sample_sizes()
-    scene.validate()
-    return scene
-
-
-def regen_scene(presets):
-    """The regeneration check's scene (tests/test_pallas_megakernel.py)."""
-    sc = presets.default_scene()
-    sc.spectrum_number_of_samples = 8
-    sc.update_all_spectrum_sample_sizes()
-    sc.width, sc.height = 16, 128
-    sc.nbr_of_ray_bounces = 4
-    sc.nbr_of_iterations = 3
-    return sc
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@ package's ``spectral_tpu.cli`` render command, same flag names):
         --out spheres.png
     python -m spectral_tpu_torch render --preset spheres --phase-split auto \\
         --out spheres_phased.png
+    python -m spectral_tpu_torch render --preset mesh5k --width 512 \\
+        --height 512 --bounces 30 --iterations 100 --out mesh5k.png
 
 The first Ctrl-C finishes the current chunk (persist: launch), saves the
 image and a resumable checkpoint (``--checkpoint``, else
@@ -26,7 +28,7 @@ import time
 from spectral_tpu_torch.utils.text_resources import HELP
 
 # the presets the port's slices render
-PRESETS = ("default", "cornell", "spheres")
+PRESETS = ("default", "cornell", "spheres", "mesh", "mesh5k")
 
 
 def _parse_phase(value, allow_auto: bool = True):

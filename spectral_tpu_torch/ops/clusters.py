@@ -10,7 +10,8 @@ against its union AABB (``csrc/bounce.cuh``: ``run_reachable``).
 ``run_tables`` turns a plan into the two tables the kernels walk
 (``csrc/megakernel.cuh``): ``order``, the object indices in visit order,
 and ``runs``, one row per run with its union AABB, its slice of
-``order`` and whether it is culled. The TPU kernel's compile-size
+``order``, whether it is culled, and its object type (-1 for the one
+mixed run of an unclustered walk). The TPU kernel's compile-size
 segmentation of the cluster walk (``_cluster_segments``, megakernel.py:
 235) and its SMEM row compaction (``geom_layout``, :105-163) have no
 counterpart here: a CUDA loop over a cluster table compiles to the same
@@ -26,7 +27,7 @@ CLUSTER_ABOVE = 64
 CLUSTER_SIZE = 64
 
 # csrc/megakernel.cuh: the columns of a run row
-RUN_MIN, RUN_MAX, RUN_START, RUN_STOP, RUN_CULL, RUN_COLS = 0, 3, 6, 7, 8, 9
+RUN_MIN, RUN_MAX, RUN_START, RUN_STOP, RUN_CULL, RUN_TYPE, RUN_COLS = 0, 3, 6, 7, 8, 9, 10
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -142,14 +143,16 @@ def run_tables(np_fields: dict, n_objects: int, plan) -> tuple[np.ndarray, np.nd
         runs[0, RUN_MIN:RUN_MIN + 3] = -np.inf
         runs[0, RUN_MAX:RUN_MAX + 3] = np.inf
         runs[0, RUN_STOP] = n_objects
+        runs[0, RUN_TYPE] = -1
         return np.arange(n_objects, dtype=np.int32), runs
     sigma, plan_runs = plan
     bounds = pack_cluster_bounds(np_fields["aabb_min"], np_fields["aabb_max"],
                                  sigma, plan_runs)
     runs = np.zeros((len(plan_runs), RUN_COLS), np.float32)
     runs[:, RUN_MIN:RUN_MIN + 6] = bounds[:6].T
-    for r, (_tag, start, stop, clustered) in enumerate(plan_runs):
+    for r, (tag, start, stop, clustered) in enumerate(plan_runs):
         runs[r, RUN_START] = start
         runs[r, RUN_STOP] = stop
         runs[r, RUN_CULL] = 1.0 if clustered else 0.0
+        runs[r, RUN_TYPE] = tag
     return np.asarray(sigma, np.int32), runs

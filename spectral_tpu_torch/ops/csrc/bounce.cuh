@@ -39,6 +39,18 @@
 // geometry of more than SMEM_OBJECTS objects is read from global memory
 // through L1 (a warp's lanes all read the same object: a broadcast).
 //
+// Triangles (mesh faces; `_tri_t` :759, `_tri_normal` :793) are a third
+// instantiation flag, TRI, and not a runtime branch of the existing
+// builds: a kernel built without it has no triangle code at all, and the
+// host never hands it a triangle scene. With TRI, a cluster plan's
+// triangle run (runs hold one type) walks a loop of Moller-Trumbore
+// tests alone, other runs dispatch per object, and the triangle normal
+// is the stored winding normal, or, for a mesh with vertex normals, the
+// interpolated one at barycentrics recomputed for the winner (the jnp
+// form, spectral_tpu/ops/geometry.py:364-382). Möller-Trumbore rejects a
+// degenerate triangle through inf/NaN barycentrics, which needs IEEE
+// division and no FMA: the same build flags as the rest.
+//
 // Numerics. The arithmetic follows the torch-eager bounce loop
 // (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
 // division form of the quadratic and slabs, normalize as v * (1 /
@@ -53,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "megakernel.cuh"
 
@@ -78,6 +92,7 @@ struct TableArgs {
   int n_mat;
   int n_runs;
   int n_lights;
+  int tri;                  // 0: no triangles, 1: flat meshes, 2: vertex normals
 };
 
 struct Tables {
@@ -91,6 +106,7 @@ struct Tables {
   int n_obj;
   int n_runs;
   int n_lights;
+  bool smooth;              // interpolate triangle normals (tri == 2)
 };
 
 __device__ __forceinline__ float G(const Tables& tb, int row, int o) {
@@ -133,14 +149,45 @@ __device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
   rz = (float)z * kInv2_32;
 }
 
+// Moller-Trumbore for triangle o in the eager trace's op order
+// (ops/geometry.py:triangle_t): two-sided, no epsilon; returns valid with
+// t >= 0 (the caller applies t > 0) and the barycentrics u, v.
+__device__ __forceinline__ bool tri_t(const Tables& tb, int o, float ox,
+                                      float oy, float oz, float dx, float dy,
+                                      float dz, float& t, float& u, float& v) {
+  const float e1x = G(tb, G_SLAB_MIN, o), e1y = G(tb, G_SLAB_MIN + 1, o),
+              e1z = G(tb, G_SLAB_MIN + 2, o);
+  const float e2x = G(tb, G_SLAB_MAX, o), e2y = G(tb, G_SLAB_MAX + 1, o),
+              e2z = G(tb, G_SLAB_MAX + 2, o);
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float inv_det = 1.0f / dot3(e1x, e1y, e1z, px, py, pz);
+  const float sx = ox - G(tb, G_SHIFT, o), sy = oy - G(tb, G_SHIFT + 1, o),
+              sz = oz - G(tb, G_SHIFT + 2, o);
+  u = dot3(sx, sy, sz, px, py, pz) * inv_det;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  v = dot3(dx, dy, dz, qx, qy, qz) * inv_det;
+  t = dot3(e2x, e2y, e2z, qx, qy, qz) * inv_det;
+  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f);
+}
+
 // Candidate hit of object o (reference src/shader.rs:508-560): valid and
 // t > 0. One definition for the nearest-hit trace and the shadow test.
+// Spheres and triangles by their tags; every other tag the host lets
+// through (plain and rotated boxes) is a box.
+template <bool TRI>
 __device__ __forceinline__ bool candidate_t(const Tables& tb, int o, float ox,
                                             float oy, float oz, float dx,
                                             float dy, float dz, float& t) {
   const int type = (int)G(tb, G_TYPE, o);
   bool valid;
-  if (type == OBJ_SPHERE) {
+  if (TRI && type == OBJ_TRIANGLE) {
+    float u, v;
+    valid = tri_t(tb, o, ox, oy, oz, dx, dy, dz, t, u, v);
+  } else if (type == OBJ_SPHERE) {
     const float ocx = ox - G(tb, G_SPHERE_POS, o);
     const float ocy = oy - G(tb, G_SPHERE_POS + 1, o);
     const float ocz = oz - G(tb, G_SPHERE_POS + 2, o);
@@ -208,10 +255,16 @@ __device__ __forceinline__ bool run_reachable(const float* R, float ox,
   return (t_max > t_min) && (t_max >= 0.0f) && (t_min <= limit);
 }
 
+// Does run R hold triangles only (a cluster plan's triangle run)?
+template <bool TRI>
+__device__ __forceinline__ bool triangle_run(const float* R) {
+  return TRI && (int)R[RUN_TYPE] == OBJ_TRIANGLE;
+}
+
 // Nearest positive hit: returns the winner's original index (-1: miss).
 // A small scene loops over its objects in index order, where strict <
 // alone keeps the lowest index on ties, and without the run table.
-template <bool MANY>
+template <bool MANY, bool TRI>
 __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
                                              float oy, float oz, float dx,
                                              float dy, float dz,
@@ -221,7 +274,7 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
   if constexpr (!MANY) {
     for (int o = 0; o < tb.n_obj; ++o) {
       float t;
-      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) && t < t_best) {
+      if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) && t < t_best) {
         t_best = t;
         win = o;
       }
@@ -233,10 +286,22 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
     const float* R = tb.runs + r * RUN_COLS;
     if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, t_best)) continue;
     const int stop = (int)R[RUN_STOP];
+    if (triangle_run<TRI>(R)) {  // one type: no per-object dispatch
+      for (int k = (int)R[RUN_START]; k < stop; ++k) {
+        const int o = tb.order[k];
+        float t, u, v;
+        if (tri_t(tb, o, ox, oy, oz, dx, dy, dz, t, u, v) && t > 0.0f &&
+            (t < t_best || (t == t_best && o < win))) {
+          t_best = t;
+          win = o;
+        }
+      }
+      continue;
+    }
     for (int k = (int)R[RUN_START]; k < stop; ++k) {
       const int o = tb.order[k];
       float t;
-      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) &&
+      if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) &&
           (t < t_best || (t == t_best && o < win))) {
         t_best = t;  // ties: the lowest original index wins
         win = o;
@@ -247,7 +312,7 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
 }
 
 // Is there a positive hit within max_dist (reference src/shader.rs:484-489)?
-template <bool MANY>
+template <bool MANY, bool TRI>
 __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
                                                float oy, float oz, float dx,
                                                float dy, float dz,
@@ -255,7 +320,7 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
   if constexpr (!MANY) {
     for (int o = 0; o < tb.n_obj; ++o) {
       float t;
-      if (candidate_t(tb, o, ox, oy, oz, dx, dy, dz, t) && t <= max_dist &&
+      if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) && t <= max_dist &&
           t < INFINITY) {
         return true;
       }
@@ -267,9 +332,19 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
     const float* R = tb.runs + r * RUN_COLS;
     if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist)) continue;
     const int stop = (int)R[RUN_STOP];
+    if (triangle_run<TRI>(R)) {
+      for (int k = (int)R[RUN_START]; k < stop; ++k) {
+        float t, u, v;
+        if (tri_t(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t, u, v) &&
+            t > 0.0f && t <= max_dist && t < INFINITY) {
+          return true;
+        }
+      }
+      continue;
+    }
     for (int k = (int)R[RUN_START]; k < stop; ++k) {
       float t;
-      if (candidate_t(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t) &&
+      if (candidate_t<TRI>(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t) &&
           t <= max_dist && t < INFINITY) {
         return true;
       }
@@ -282,13 +357,33 @@ __device__ __forceinline__ float box_axis(float p, float lo, float hi) {
   return fabsf(p - lo) < kDelta ? -1.0f : (fabsf(p - hi) < kDelta ? 1.0f : 0.0f);
 }
 
-// Surface normal of object o at ip (reference src/shader.rs:366-378, 582-650).
+// Surface normal of object o at ip (reference src/shader.rs:366-378,
+// 582-650), which the ray (o, d) hit. A triangle's is its stored winding
+// normal n0, or with vertex normals normalize(n0 + dn1*u + dn2*v) at the
+// ray's barycentrics, recomputed here rather than carried through the
+// walk (spectral_tpu/ops/geometry.py:364-382); never flipped.
+template <bool TRI>
 __device__ __forceinline__ void surface_normal(const Tables& tb, int o,
                                                float ipx, float ipy, float ipz,
+                                               float rox, float roy,
+                                               float roz, float rdx,
+                                               float rdy, float rdz,
                                                float& nx, float& ny,
                                                float& nz) {
   const int type = (int)G(tb, G_TYPE, o);
-  if (type == OBJ_SPHERE) {
+  if (TRI && type == OBJ_TRIANGLE) {
+    nx = G(tb, G_INV_ROT, o);
+    ny = G(tb, G_INV_ROT + 1, o);
+    nz = G(tb, G_INV_ROT + 2, o);
+    if (tb.smooth) {
+      float t, u, v;
+      tri_t(tb, o, rox, roy, roz, rdx, rdy, rdz, t, u, v);
+      nx = (nx + G(tb, G_INV_ROT + 3, o) * u) + G(tb, G_INV_ROT + 6, o) * v;
+      ny = (ny + G(tb, G_INV_ROT + 4, o) * u) + G(tb, G_INV_ROT + 7, o) * v;
+      nz = (nz + G(tb, G_INV_ROT + 5, o) * u) + G(tb, G_INV_ROT + 8, o) * v;
+      normalize3(nx, ny, nz);
+    }
+  } else if (type == OBJ_SPHERE) {
     nx = ipx - G(tb, G_SPHERE_POS, o);
     ny = ipy - G(tb, G_SPHERE_POS + 1, o);
     nz = ipz - G(tb, G_SPHERE_POS + 2, o);
@@ -431,11 +526,12 @@ __device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
 // (returns true) or end the path (returns false with alive cleared; the
 // ray, gate, bl and thr stay as they were, like the reference's
 // where(cont, ...)).
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
                                             uint32_t px, uint32_t py) {
   float t;
-  const int win = trace_nearest<MANY>(tb, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, t);
+  const int win =
+      trace_nearest<MANY, TRI>(tb, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, t);
   if (win < 0 || (L.gate && !(t > kSpecMin))) {  // miss or gated out
     L.alive = false;
     return false;
@@ -443,7 +539,8 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
   const float dx = L.dx, dy = L.dy, dz = L.dz;
   const float ipx = L.ox + dx * t, ipy = L.oy + dy * t, ipz = L.oz + dz * t;
   float nx, ny, nz;
-  surface_normal(tb, win, ipx, ipy, ipz, nx, ny, nz);
+  surface_normal<TRI>(tb, win, ipx, ipy, ipz, L.ox, L.oy, L.oz, dx, dy, dz,
+                      nx, ny, nz);
   const float metal = G(tb, G_METAL, win);
   const float rough = G(tb, G_ROUGH, win);
   // the material's albedo row: the winner's per-object albedo bit for bit
@@ -467,7 +564,7 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
       float lnx = ldx, lny = ldy, lnz = ldz;
       normalize3(lnx, lny, lnz);
       const bool blocked =
-          shadow_blocked<MANY>(tb, offx, offy, offz, lnx, lny, lnz, dist);
+          shadow_blocked<MANY, TRI>(tb, offx, offy, offz, lnx, lny, lnz, dist);
       normalize3(lnx, lny, lnz);  // the reference re-normalizes
       const float cos_in = max0(lnx * nx + lny * ny + lnz * nz);
       const float scale = (cos_in * cos_out) / dist2;
@@ -602,6 +699,7 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   tb.n_obj = a.n_obj;
   tb.n_runs = a.n_runs;
   tb.n_lights = a.n_lights;
+  tb.smooth = a.tri == 2;
   return tb;
 }
 
@@ -610,7 +708,7 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
   if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 || a.n_mat > MAX_MATERIALS ||
-      a.n_lights < 0) {
+      a.n_lights < 0 || a.tri < 0 || a.tri > 2) {
     return cudaErrorInvalidValue;
   }
   smem = smem_bytes(a, S);
@@ -622,18 +720,38 @@ cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
   return cudaSuccess;
 }
 
+// The instantiation the tables take, as
+// launch(std::bool_constant<MANY>{}, std::bool_constant<TRI>{}): MANY
+// from many_objects, TRI when the scene has triangles. Triangle builds
+// exist for S in {8, 32} only (the host refuses a triangle scene at
+// another S); a triangle scene never reaches a build without TRI.
+template <int S, typename Launch>
+cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
+  const bool many = many_objects(ta);
+  if (ta.tri != 0) {
+    if constexpr (S == 8 || S == 32) {
+      return many ? launch(std::true_type{}, std::true_type{})
+                  : launch(std::false_type{}, std::true_type{});
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return many ? launch(std::true_type{}, std::false_type{})
+              : launch(std::false_type{}, std::false_type{});
+}
+
 }  // namespace
 }  // namespace spectral
 
 // The table arguments every C entry point takes, in this order.
 #define SPECTRAL_TABLE_PARAMS                                               \
-  int n_obj, int n_mat, int n_runs, int n_lights, const void *geom,         \
-      const void *mat_albedo, const void *order, const void *runs,          \
-      const void *lpos, const void *lspec
+  int n_obj, int n_mat, int n_runs, int n_lights, int tri,                 \
+      const void *geom, const void *mat_albedo, const void *order,         \
+      const void *runs, const void *lpos, const void *lspec
 #define SPECTRAL_TABLE_ARGS                                                 \
   spectral::TableArgs {                                                     \
     static_cast<const float*>(geom), static_cast<const float*>(mat_albedo), \
         static_cast<const int*>(order), static_cast<const float*>(runs),    \
         static_cast<const float*>(lpos), static_cast<const float*>(lspec),  \
-        n_obj, n_mat, n_runs, n_lights                                      \
+        n_obj, n_mat, n_runs, n_lights, tri                                 \
   }

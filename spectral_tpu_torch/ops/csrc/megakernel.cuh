@@ -13,6 +13,7 @@ namespace spectral {
 constexpr int OBJ_PLAIN_BOX = 0;
 constexpr int OBJ_SPHERE = 1;
 constexpr int OBJ_ROTATED_BOX = 2;
+constexpr int OBJ_TRIANGLE = 3;
 
 constexpr int G_TYPE = 0;        // object type tag, as float
 constexpr int G_SLAB_MIN = 1;    // 1-3: slab minimum in the object frame
@@ -30,6 +31,10 @@ constexpr int G_METAL = 44;
 constexpr int G_ROUGH = 45;
 constexpr int G_MATID = 46;      // material id, as float (mat_albedo row)
 constexpr int GEOM_ROWS = 47;
+// A triangle row (a mesh face) reuses the box rows: G_SHIFT holds v0,
+// G_SLAB_MIN e1 = v1 - v0, G_SLAB_MAX e2 = v2 - v0, and the three
+// G_INV_ROT rows the shading normal as n0, n1 - n0, n2 - n0 (zero deltas
+// for a flat mesh).
 
 // mat_albedo: float32 [n_mat][S], read through the winner's material id;
 // lpos: float32 [n_lights][4] (x, y, z, pad); lspec: float32
@@ -39,13 +44,16 @@ constexpr int GEOM_ROWS = 47;
 // indices in visit order; runs: float32 [n_runs][RUN_COLS], each run the
 // members order[start, stop). A culled run (a cluster) is skipped by a
 // ray that cannot enter its union AABB before its current best hit; an
-// unculled run is always visited.
+// unculled run is always visited. A run of a cluster plan holds one
+// object type (RUN_TYPE); the one run of an unclustered walk has -1 and
+// its members say their own type.
 constexpr int RUN_MIN = 0;    // 0-2: union AABB minimum
 constexpr int RUN_MAX = 3;    // 3-5: union AABB maximum
 constexpr int RUN_START = 6;  // first member slot in order[], as float
 constexpr int RUN_STOP = 7;   // one past the last member slot, as float
 constexpr int RUN_CULL = 8;   // 1.0: a cluster (pre-tested), 0.0: always visited
-constexpr int RUN_COLS = 9;
+constexpr int RUN_TYPE = 9;   // the members' object type, as float; -1: mixed
+constexpr int RUN_COLS = 10;
 
 // The free-running persist kernel's camera basis, float32 [CAM_BASIS]
 // (the TPU kernel's pack_camera_basis columns; packed by

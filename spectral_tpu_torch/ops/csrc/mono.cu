@@ -31,7 +31,7 @@ namespace {
 // from the given primaries. The cost variant also stores the lane's live
 // iteration count, max_bounces + 1 - bl with bl frozen at death
 // (megakernel.py:1887-1892); its radiance is cuda_mono's bit for bit.
-template <int S, bool COST, bool MANY>
+template <int S, bool COST, bool MANY, bool TRI>
 __global__ void __launch_bounds__(BLOCK)
 mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
             const float* __restrict__ ox, const float* __restrict__ oy,
@@ -49,24 +49,24 @@ mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
 #pragma unroll
   for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
   const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
-  while (bounce_step<S, MANY>(tb, L, ux, uy)) {
+  while (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) {
   }
 #pragma unroll
   for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
   if constexpr (COST) cost[gidx] = (float)(max_bounces + 1) - (float)L.bl;
 }
 
-template <int S, bool COST, bool MANY>
+template <int S, bool COST, bool MANY, bool TRI>
 cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
                         uint32_t frame_id, const float* ox, const float* oy,
                         const float* oz, const float* dx, const float* dy,
                         const float* dz, const int* px, const int* py,
                         float* out, float* cost, cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(mono_kernel<S, COST, MANY>, ta, S, smem);
+  cudaError_t err = prepare(mono_kernel<S, COST, MANY, TRI>, ta, S, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  mono_kernel<S, COST, MANY><<<blocks, BLOCK, smem, stream>>>(
+  mono_kernel<S, COST, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
       n, ta, max_bounces, frame_id, ox, oy, oz, dx, dy, dz, px, py, out, cost);
   return cudaGetLastError();
 }
@@ -88,18 +88,20 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
                                  void* cost, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool many = spectral::many_objects(ta);
-#define SPECTRAL_MONO(S, COST, MANY)                                      \
-  return (int)spectral::launch_mono<S, COST, MANY>(                       \
-      n, ta, max_bounces, frame_id, SPECTRAL_FLOAT(ox), SPECTRAL_FLOAT(oy), \
-      SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx), SPECTRAL_FLOAT(dy),         \
-      SPECTRAL_FLOAT(dz), static_cast<const int*>(px),                    \
-      static_cast<const int*>(py), static_cast<float*>(out),              \
+#define SPECTRAL_MONO_L(COST)                                                 \
+  spectral::launch_mono<S, COST, decltype(many)::value, decltype(tri)::value>( \
+      n, ta, max_bounces, frame_id, SPECTRAL_FLOAT(ox), SPECTRAL_FLOAT(oy),   \
+      SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx), SPECTRAL_FLOAT(dy),             \
+      SPECTRAL_FLOAT(dz), static_cast<const int*>(px),                        \
+      static_cast<const int*>(py), static_cast<float*>(out),                  \
       static_cast<float*>(cost), st)
-#define SPECTRAL_MONO_C(S, COST) \
-  if (many) SPECTRAL_MONO(S, COST, true); else SPECTRAL_MONO(S, COST, false)
-#define SPECTRAL_MONO_S(S) \
-  if (cost != nullptr) SPECTRAL_MONO_C(S, true); else SPECTRAL_MONO_C(S, false)
+#define SPECTRAL_MONO_S(SS)                                                \
+  {                                                                        \
+    constexpr int S = SS;                                                  \
+    return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) { \
+      return cost != nullptr ? SPECTRAL_MONO_L(true) : SPECTRAL_MONO_L(false); \
+    });                                                                    \
+  }
   switch (n_samples) {
     case 8: SPECTRAL_MONO_S(8);
     case 16: SPECTRAL_MONO_S(16);
@@ -108,8 +110,7 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_MONO_S
-#undef SPECTRAL_MONO_C
-#undef SPECTRAL_MONO
+#undef SPECTRAL_MONO_L
 }
 
 extern "C" int spectral_mono(int n, int n_samples, int max_bounces,

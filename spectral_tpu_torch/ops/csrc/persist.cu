@@ -40,7 +40,7 @@ struct PersistArgs {
 // that is dead and not restartable stays so for the rest of the launch
 // (lead, end and stop are launch constants), so it leaves its loop: the
 // per-thread form of the TPU kernel's tile skip.
-template <int S, bool RING, bool STOP, bool MANY>
+template <int S, bool RING, bool STOP, bool MANY, bool TRI>
 __global__ void __launch_bounds__(BLOCK)
 persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
                uint32_t lead, uint32_t end, int ring_w, PersistArgs a) {
@@ -73,7 +73,7 @@ persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
   const bool stopped = STOP && a.stop[gidx] > 0.0f;
 
   for (int it = 0; it < budget; ++it) {
-    if (L.alive && bounce_step<S, MANY>(tb, L, ux, uy)) continue;
+    if (L.alive && bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
     const uint32_t nf = L.fid + 1u;
     if (!(nf < end) || (RING && !(nf < lead)) || stopped) break;
     float rdx, rdy, rdz;
@@ -107,35 +107,36 @@ persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
   }
 }
 
-template <int S, bool RING, bool STOP, bool MANY>
+template <int S, bool RING, bool STOP, bool MANY, bool TRI>
 cudaError_t launch_persist(int n, const TableArgs& ta, int max_bounces,
                            int budget, uint32_t lead, uint32_t end,
                            int ring_w, const PersistArgs& a,
                            cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(persist_kernel<S, RING, STOP, MANY>, ta, S, smem);
+  cudaError_t err =
+      prepare(persist_kernel<S, RING, STOP, MANY, TRI>, ta, S, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  persist_kernel<S, RING, STOP, MANY><<<blocks, BLOCK, smem, stream>>>(
+  persist_kernel<S, RING, STOP, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
       n, ta, max_bounces, budget, lead, end, ring_w, a);
   return cudaGetLastError();
 }
 
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 cudaError_t dispatch_persist(int n, const TableArgs& ta, int max_bounces,
                              int budget, uint32_t lead, uint32_t end,
                              int ring_w, const PersistArgs& a,
                              cudaStream_t stream) {
   if (ring_w > 0) {
-    return launch_persist<S, true, false, MANY>(n, ta, max_bounces, budget, lead,
-                                          end, ring_w, a, stream);
+    return launch_persist<S, true, false, MANY, TRI>(
+        n, ta, max_bounces, budget, lead, end, ring_w, a, stream);
   }
   if (a.stop != nullptr) {
-    return launch_persist<S, false, true, MANY>(n, ta, max_bounces, budget, lead,
-                                          end, 0, a, stream);
+    return launch_persist<S, false, true, MANY, TRI>(
+        n, ta, max_bounces, budget, lead, end, 0, a, stream);
   }
-  return launch_persist<S, false, false, MANY>(n, ta, max_bounces, budget, lead,
-                                         end, 0, a, stream);
+  return launch_persist<S, false, false, MANY, TRI>(
+      n, ta, max_bounces, budget, lead, end, 0, a, stream);
 }
 
 }  // namespace
@@ -173,12 +174,12 @@ extern "C" int spectral_persist(
       SPECTRAL_FLOAT(ringy),      SPECTRAL_FLOAT(ringz),
       static_cast<float*>(thr),   static_cast<float*>(rad)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool many = spectral::many_objects(ta);
-#define SPECTRAL_PERSIST_M(S, MANY)                                        \
-  return (int)spectral::dispatch_persist<S, MANY>(                         \
-      n, ta, max_bounces, budget, lead, end, ring_w, a, st)
-#define SPECTRAL_PERSIST(S) \
-  if (many) SPECTRAL_PERSIST_M(S, true); else SPECTRAL_PERSIST_M(S, false)
+#define SPECTRAL_PERSIST(S)                                                \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) { \
+    return spectral::dispatch_persist<S, decltype(many)::value,           \
+                                      decltype(tri)::value>(              \
+        n, ta, max_bounces, budget, lead, end, ring_w, a, st);            \
+  })
   switch (n_samples) {
     case 8: SPECTRAL_PERSIST(8);
     case 16: SPECTRAL_PERSIST(16);
@@ -187,5 +188,4 @@ extern "C" int spectral_persist(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_PERSIST
-#undef SPECTRAL_PERSIST_M
 }

@@ -19,7 +19,7 @@
 namespace spectral {
 namespace {
 
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 __global__ void __launch_bounds__(BLOCK)
 regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
              int k, const float* __restrict__ ox,
@@ -43,7 +43,7 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
   // from the camera origin and the host-precomputed direction plane j-1;
   // the K radiances are summed in frame order
   for (int j = 1;;) {
-    if (bounce_step<S, MANY>(tb, L, ux, uy)) continue;
+    if (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
     if (j == k) break;
     const size_t at = (size_t)(j - 1) * n + gidx;
     start_path(L, cam[0], cam[1], cam[2], dirx[at], diry[at], dirz[at],
@@ -54,7 +54,7 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
   for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
 }
 
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
                          uint32_t first_frame, int k, const float* ox,
                          const float* oy, const float* oz, const float* dx,
@@ -63,10 +63,10 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
                          const float* diry, const float* dirz, float* out,
                          cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(regen_kernel<S, MANY>, ta, S, smem);
+  cudaError_t err = prepare(regen_kernel<S, MANY, TRI>, ta, S, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  regen_kernel<S, MANY><<<blocks, BLOCK, smem, stream>>>(
+  regen_kernel<S, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
       n, ta, max_bounces, first_frame, k, ox, oy, oz, dx, dy, dz, px, py,
       cam, dirx, diry, dirz, out);
   return cudaGetLastError();
@@ -91,17 +91,17 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
   if (k < 1) return (int)cudaErrorInvalidValue;
   const spectral::TableArgs ta = SPECTRAL_TABLE_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool many = spectral::many_objects(ta);
-#define SPECTRAL_REGEN_M(S, MANY)                                            \
-  return (int)spectral::launch_regen<S, MANY>(                               \
-      n, ta, max_bounces, first_frame, k, SPECTRAL_FLOAT(ox),                \
-      SPECTRAL_FLOAT(oy), SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx),            \
-      SPECTRAL_FLOAT(dy), SPECTRAL_FLOAT(dz), static_cast<const int*>(px),   \
-      static_cast<const int*>(py), SPECTRAL_FLOAT(cam), SPECTRAL_FLOAT(dirx), \
-      SPECTRAL_FLOAT(diry), SPECTRAL_FLOAT(dirz), static_cast<float*>(out),  \
-      st)
-#define SPECTRAL_REGEN(S) \
-  if (many) SPECTRAL_REGEN_M(S, true); else SPECTRAL_REGEN_M(S, false)
+#define SPECTRAL_REGEN(S)                                                      \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) {     \
+    return spectral::launch_regen<S, decltype(many)::value,                   \
+                                  decltype(tri)::value>(                      \
+        n, ta, max_bounces, first_frame, k, SPECTRAL_FLOAT(ox),               \
+        SPECTRAL_FLOAT(oy), SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx),           \
+        SPECTRAL_FLOAT(dy), SPECTRAL_FLOAT(dz), static_cast<const int*>(px),  \
+        static_cast<const int*>(py), SPECTRAL_FLOAT(cam), SPECTRAL_FLOAT(dirx), \
+        SPECTRAL_FLOAT(diry), SPECTRAL_FLOAT(dirz), static_cast<float*>(out), \
+        st);                                                                  \
+  })
   switch (n_samples) {
     case 8: SPECTRAL_REGEN(8);
     case 16: SPECTRAL_REGEN(16);
@@ -110,5 +110,4 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_REGEN
-#undef SPECTRAL_REGEN_M
 }

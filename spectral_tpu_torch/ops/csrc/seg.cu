@@ -46,7 +46,7 @@ struct SegArgs {
   float *thr, *rad;
 };
 
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 __global__ void __launch_bounds__(BLOCK)
 seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
            uint32_t frame_id, SegArgs a) {
@@ -74,7 +74,7 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   }
   const uint32_t ux = (uint32_t)a.px[gidx], uy = (uint32_t)a.py[gidx];
   for (int b = b_start; b < b_stop; ++b) {
-    if (!bounce_step<S, MANY>(tb, L, ux, uy)) break;
+    if (!bounce_step<S, MANY, TRI>(tb, L, ux, uy)) break;
   }
 
   const int gq = opaque(gidx);
@@ -94,15 +94,15 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   }
 }
 
-template <int S, bool MANY>
+template <int S, bool MANY, bool TRI>
 cudaError_t launch_seg(int n, const TableArgs& ta, int max_bounces,
                        int b_start, int b_stop, uint32_t frame_id,
                        const SegArgs& a, cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare(seg_kernel<S, MANY>, ta, S, smem);
+  cudaError_t err = prepare(seg_kernel<S, MANY, TRI>, ta, S, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  seg_kernel<S, MANY><<<blocks, BLOCK, smem, stream>>>(
+  seg_kernel<S, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
       n, ta, max_bounces, b_start, b_stop, frame_id, a);
   return cudaGetLastError();
 }
@@ -132,12 +132,12 @@ extern "C" int spectral_seg(int n, int n_samples, int max_bounces,
       static_cast<const int*>(px), static_cast<const int*>(py),
       static_cast<float*>(thr),   static_cast<float*>(rad)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool many = spectral::many_objects(ta);
-#define SPECTRAL_SEG_M(S, MANY)                                              \
-  return (int)spectral::launch_seg<S, MANY>(n, ta, max_bounces, b_start,     \
-                                            b_stop, frame_id, a, st)
-#define SPECTRAL_SEG(S) \
-  if (many) SPECTRAL_SEG_M(S, true); else SPECTRAL_SEG_M(S, false)
+#define SPECTRAL_SEG(S)                                                      \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) {   \
+    return spectral::launch_seg<S, decltype(many)::value,                   \
+                                decltype(tri)::value>(                      \
+        n, ta, max_bounces, b_start, b_stop, frame_id, a, st);              \
+  })
   switch (n_samples) {
     case 8: SPECTRAL_SEG(8);
     case 16: SPECTRAL_SEG(16);
@@ -146,5 +146,4 @@ extern "C" int spectral_seg(int n, int n_samples, int max_bounces,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_SEG
-#undef SPECTRAL_SEG_M
 }

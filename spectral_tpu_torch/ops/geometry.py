@@ -6,8 +6,8 @@ Above ``BROADCAST_BUDGET`` grid elements the rays are traced in
 sequential chunks, so that many-object scenes keep their temporaries
 bounded.
 
-The slice covers plain boxes, spheres and rotated boxes. Triangle rows
-raise ``NotImplementedError`` until the mesh slice lands.
+Plain boxes, spheres, rotated boxes and triangles (mesh faces,
+Moller-Trumbore in the reference's op order).
 """
 
 from __future__ import annotations
@@ -30,14 +30,6 @@ INF = float("inf")
 # reference's _BROADCAST_BUDGET (ops/geometry.py:198): above it, rays are
 # traced in sequential chunks.
 BROADCAST_BUDGET = 32 * 1024 * 1024
-
-
-def require_no_triangles(scene: SceneTensors) -> None:
-    if OBJ_TRIANGLE in scene.obj_types:
-        raise NotImplementedError(
-            "triangle meshes are not in the port yet (queued: the mesh "
-            "slice, ROADMAP queue 1 item 11)"
-        )
 
 
 def ray_slabs(origin: Vec3, direction: Vec3, smin: Vec3, smax: Vec3):
@@ -80,6 +72,25 @@ def sphere_nearest_t(oc: Vec3, d: Vec3, radius):
     t2 = (-b + sq) / (2.0 * a)
     t = torch.where(t1 >= 0.0, t1, t2)
     return t, (disc >= 0.0) & (t >= 0.0)
+
+
+def triangle_t(origin: Vec3, direction: Vec3, v0: Vec3, e1: Vec3, e2: Vec3):
+    """Moller-Trumbore ray/triangle intersection in the reference's op
+    order (``spectral_tpu/ops/geometry.py:134-157``); inputs broadcast to
+    a common shape. Two-sided, no epsilon: a zero determinant makes
+    ``inv_det`` inf, and the inf/NaN barycentrics fail the ``>= 0`` box
+    conditions. Returns ``(t, valid, u, v)``; the caller applies the
+    strict ``t > 0`` rule."""
+    p = direction.cross(e2)
+    det = e1.dot(p)
+    inv_det = 1.0 / det
+    s = origin - v0
+    u = s.dot(p) * inv_det
+    q = s.cross(e1)
+    v = direction.dot(q) * inv_det
+    t = e2.dot(q) * inv_det
+    valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
+    return t, valid, u, v
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -127,6 +138,20 @@ def _sphere_t(origin: Vec3, direction: Vec3, scene: SceneTensors):
     return sphere_nearest_t(oc, d_b, _row(scene.radius))
 
 
+def _triangle_t(origin: Vec3, direction: Vec3, scene: SceneTensors):
+    """Triangle candidates over ``[n_rays, n_objects]``: triangle rows
+    store v0 in ``shift`` and e1/e2 in ``slab_min``/``slab_max``."""
+    v0, e1, e2 = (Vec3.from_array(a) for a in (scene.shift, scene.slab_min, scene.slab_max))
+    t, valid, _u, _v = triangle_t(
+        Vec3(_col(origin.x), _col(origin.y), _col(origin.z)),
+        Vec3(_col(direction.x), _col(direction.y), _col(direction.z)),
+        Vec3(_row(v0.x), _row(v0.y), _row(v0.z)),
+        Vec3(_row(e1.x), _row(e1.y), _row(e1.z)),
+        Vec3(_row(e2.x), _row(e2.y), _row(e2.z)),
+    )
+    return t, valid
+
+
 class TraceResult(NamedTuple):
     t: torch.Tensor  # [N] nearest hit distance (+inf on miss)
     obj_idx: torch.Tensor  # [N] int64 index of the nearest object (0 on miss)
@@ -139,7 +164,6 @@ def trace(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
     Rays x objects is one dense broadcast when it fits
     ``BROADCAST_BUDGET``, otherwise sequential ray chunks (every ray's
     result is its own, so chunking changes no bit)."""
-    require_no_triangles(scene)
     n = origin.x.shape[0]
     n_obj = scene.obj_type.shape[0]
     if n_obj == 0:
@@ -160,7 +184,9 @@ def trace(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
     return TraceResult(*(torch.cat(f) for f in zip(*parts)))
 
 
-def _trace_dense(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
+def candidates(origin: Vec3, direction: Vec3, scene: SceneTensors) -> torch.Tensor:
+    """``[n_rays, n_objects]`` hit distances of every ray against every
+    object: t where the object's test is valid and ``t > 0``, else +inf."""
     # dense ray planes: a broadcast (stride-0) origin, such as the camera
     # position of a regenerated frame, would give the [n_rays, n_objects]
     # temporaries a column-major layout and slow every op on them
@@ -170,8 +196,19 @@ def _trace_dense(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceRes
     t_sph, hit_sph = _sphere_t(origin, direction, scene)
     is_sphere = _row(scene.obj_type == OBJ_SPHERE)
     t = torch.where(is_sphere, t_sph, t_box)
-    valid = torch.where(is_sphere, hit_sph, hit_box) & (t > 0.0)
-    t_all = torch.where(valid, t, INF)
+    valid = torch.where(is_sphere, hit_sph, hit_box)
+    if scene.has_triangles:
+        # triangle rows reuse the slab columns for e1/e2, so their t_box
+        # is meaningless: selected out here, as the sphere rows are
+        t_tri, hit_tri = _triangle_t(origin, direction, scene)
+        is_tri = _row(scene.obj_type == OBJ_TRIANGLE)
+        t = torch.where(is_tri, t_tri, t)
+        valid = torch.where(is_tri, hit_tri, valid)
+    return torch.where(valid & (t > 0.0), t, INF)
+
+
+def _trace_dense(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceResult:
+    t_all = candidates(origin, direction, scene)
     # argmin returns the first minimal index: the lowest-index tie rule
     obj_idx = torch.argmin(t_all, dim=1)
     t_hit = torch.gather(t_all, 1, obj_idx[:, None])[:, 0]
@@ -225,10 +262,17 @@ def _rotated_box_normal(ip: Vec3, pos: Vec3, half: Vec3, rot_rows, inv_rows) -> 
     return rotate(rot_rows, n)
 
 
-def surface_normal(ip: Vec3, obj_idx: torch.Tensor, scene: SceneTensors) -> Vec3:
+def surface_normal(ip: Vec3, obj_idx: torch.Tensor, scene: SceneTensors,
+                   origin: Vec3 | None = None,
+                   direction: Vec3 | None = None) -> Vec3:
     """Per-ray surface normal at hit points (reference ``hit_shader``
-    normal dispatch, ``src/shader.rs:366-378``)."""
-    require_no_triangles(scene)
+    normal dispatch, ``src/shader.rs:366-378``). A triangle's normal is
+    its stored winding normal ``n0`` (the ``inv_rot`` rows hold ``n0,
+    n1-n0, n2-n0``); in a scene with vertex normals (``smooth_tri``) it
+    is ``normalize(n0 + dn1*u + dn2*v)`` at the winner's barycentrics,
+    recomputed from the ray ``origin``/``direction`` that made ``ip`` in
+    the trace's op order (the jnp form, ``spectral_tpu/ops/geometry.py:
+    364-382``). Never flipped toward the ray."""
     amin = Vec3.from_array(scene.aabb_min).take(obj_idx)
     amax = Vec3.from_array(scene.aabb_max).take(obj_idx)
     pos = Vec3.from_array(scene.center).take(obj_idx)
@@ -242,4 +286,14 @@ def surface_normal(ip: Vec3, obj_idx: torch.Tensor, scene: SceneTensors) -> Vec3
     n_sphere = (ip - sp).normalize()
     n_rot = _rotated_box_normal(ip, pos, half, rot_rows, inv_rows)
     n = n_box.where(otype == OBJ_PLAIN_BOX, n_rot)
-    return n_sphere.where(otype == OBJ_SPHERE, n)
+    n = n_sphere.where(otype == OBJ_SPHERE, n)
+    if scene.has_triangles:
+        n0, dn1, dn2 = inv_rows
+        n_tri = n0
+        if scene.smooth_tri and origin is not None and direction is not None:
+            v0, e1, e2 = (Vec3.from_array(a).take(obj_idx)
+                          for a in (scene.shift, scene.slab_min, scene.slab_max))
+            _t, _ok, u, v = triangle_t(origin, direction, v0, e1, e2)
+            n_tri = (n0 + dn1 * u + dn2 * v).normalize()
+        n = n_tri.where(otype == OBJ_TRIANGLE, n)
+    return n

@@ -43,9 +43,20 @@ from spectral_tpu_torch.render.integrator import (
     segment_iterations,
 )
 from spectral_tpu_torch.runtime import build
-from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
+from spectral_tpu_torch.scene.flatten import (
+    OBJ_PLAIN_BOX,
+    OBJ_ROTATED_BOX,
+    OBJ_SPHERE,
+    OBJ_TRIANGLE,
+    RenderConfig,
+    SceneTensors,
+)
 
 SUPPORTED_SAMPLES = (8, 16, 32, 64)
+# the kernels' triangle builds (csrc/bounce.cuh: dispatch_tables): each
+# kernel is instantiated with triangles for these S only
+TRIANGLE_SAMPLES = (8, 32)
+OBJECT_TYPES = (OBJ_PLAIN_BOX, OBJ_SPHERE, OBJ_ROTATED_BOX, OBJ_TRIANGLE)
 BLOCK = 128  # threads (pixel-lanes) per block, csrc/megakernel.cuh
 SMEM_OBJECTS = 64  # geometry in shared memory up to this many objects
 MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
@@ -87,6 +98,7 @@ class KernelTables:
     scene: SceneTensors
     config: RenderConfig
     clusters: tuple | None = None
+    triangles: int = 0
 
     def many_objects(self) -> bool:
         """Whether the kernels take their many-object instantiation
@@ -109,9 +121,13 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     """Pack the scene for the kernels (host numpy, then one copy to the
     scene's device). ``accel``: "auto" plans 64-object clusters above 64
     objects (``clusters.renderer_plan``), "none" walks every object.
-    Raises for scenes outside the port's slices."""
+    Raises for scenes outside the port's slices, and for an object type
+    tag that no kernel branch knows."""
     require_slice(scene, config)
     f = scene.np_fields
+    unknown = set(np.unique(f["obj_type"]).tolist()) - set(OBJECT_TYPES)
+    if unknown:
+        raise ValueError(f"unknown object type tag(s) {sorted(unknown)}")
     n_obj = config.n_objects
     geom = np.zeros((GEOM_ROWS, n_obj), np.float32)
     for name, row, width in GEOM_LAYOUT:
@@ -131,6 +147,7 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
         geom=t(geom), mat_albedo=t(f["mat_albedo"]), order=t(order, np.int32),
         runs=t(runs), lpos=t(lpos), lspec=t(f["light_spec"]), cam=t(cam),
         scene=scene, config=config, clusters=plan,
+        triangles=(2 if scene.smooth_tri else 1) if scene.has_triangles else 0,
     )
     if n_obj and tables.smem_bytes() > MAX_SMEM:
         raise NotImplementedError(
@@ -229,6 +246,11 @@ def _check_lanes(planes: dict, ints: dict, tables: KernelTables, n: int) -> None
         )
     if tables.config.n_objects < 1:
         raise ValueError("the CUDA kernels need at least one object")
+    if tables.triangles and s not in TRIANGLE_SAMPLES:
+        raise NotImplementedError(
+            f"the CUDA kernels' triangle builds are for S in {TRIANGLE_SAMPLES}, "
+            f"got {s}"
+        )
 
 
 def _check_spectral(state, n: int, s: int) -> None:
@@ -247,14 +269,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 # the table arguments of every C entry point (csrc/bounce.cuh:
-# SPECTRAL_TABLE_PARAMS): 4 ints, 6 pointers
-_TABLE_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+# SPECTRAL_TABLE_PARAMS): 5 ints, 6 pointers
+_TABLE_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
 
 
 def _table_args(tables: KernelTables) -> tuple:
     cfg = tables.config
     return (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
-            cfg.n_lights,
+            cfg.n_lights, tables.triangles,
             *map(_ptr, (tables.geom, tables.mat_albedo, tables.order,
                         tables.runs, tables.lpos, tables.lspec)))
 

@@ -38,7 +38,7 @@ from spectral_tpu_torch.ops.sampling import (
 from spectral_tpu_torch.ops.vecmath import Vec3
 from spectral_tpu_torch.render.camera import generate_primary_rays, restart_directions
 from spectral_tpu_torch.render.color import spectra_to_rgb
-from spectral_tpu_torch.scene.flatten import OBJ_TRIANGLE, RenderConfig, SceneTensors
+from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 # reference src/shader.rs:8 and :14
 NEW_RAY_POSITION_OFFSET_DISTANCE = 1e-5
@@ -63,8 +63,6 @@ def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
         later.append("checker textures (texture slice)")
     if config.has_dof:
         later.append("depth of field (DoF slice)")
-    if OBJ_TRIANGLE in scene.obj_types:
-        later.append("triangle meshes (mesh slice)")
     if config.n_materials > MAX_MATERIALS:
         later.append(
             f"more than {MAX_MATERIALS} materials (the kernels index a "
@@ -137,7 +135,7 @@ def _bounce(
 
     t_safe = torch.where(alive, res.t, 0.0)
     ip = o + d * t_safe
-    normal = surface_normal(ip, res.obj_idx, scene)
+    normal = surface_normal(ip, res.obj_idx, scene, origin=o, direction=d)
     m_metal = scene.metallicness[res.obj_idx]
     m_rough = scene.roughness[res.obj_idx]
     m_albedo = scene.albedo[res.obj_idx]  # [N, S]

@@ -92,6 +92,8 @@ def scene_digest(scene: SceneTensors, config: RenderConfig) -> str:
         h.update(str(a.shape).encode())
         h.update(str(a.dtype).encode())
         h.update(a.tobytes())
+    if scene.smooth_tri:
+        h.update(b"smooth_tri")
     return h.hexdigest()
 
 
@@ -207,9 +209,11 @@ class Renderer:
     every object. The regeneration lanes of a clustered scene take
     pixels in Morton order, row-major otherwise (``lane_layout``; pure
     relabeling, bit-identical per pixel).
+    Triangle meshes render on every path (the kernels' triangle builds
+    are for 8 and 32 wavelengths; the plain versions take any count).
     The reference renderer's ``sharding`` is refused with
-    ``NotImplementedError`` until its slice lands; scenes with triangle
-    meshes or more than 256 materials are refused by the table packer.
+    ``NotImplementedError`` until its slice lands; scenes with more than
+    256 materials are refused by the table packer.
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",

@@ -65,7 +65,7 @@ def build_log(name: str) -> str:
 
 
 # the kernel sources under ops/csrc, one library each
-SOURCES = ("mono", "regen", "persist", "seg")
+SOURCES = ("mono", "regen", "persist", "seg", "probe")
 
 
 def _stale(name: str) -> bool:

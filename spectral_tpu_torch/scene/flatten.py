@@ -86,7 +86,10 @@ class SceneTensors:
     ``obj_type`` and ``mat_id`` are int32, everything else float32;
     ``sky`` is None for sky-less scenes. ``np_fields`` keeps the host
     numpy tables they were made from (read by kernel packing and by
-    feature checks without a device readback)."""
+    feature checks without a device readback). ``smooth_tri`` is the
+    reference's ``smooth_tri_static``: some mesh carries vertex normals,
+    so triangle normals are interpolated (flat meshes keep the stored
+    winding normal)."""
 
     obj_type: torch.Tensor  # i32 [O]
     slab_min: torch.Tensor  # [O, 3]
@@ -126,6 +129,7 @@ class SceneTensors:
     xyz_weights: torch.Tensor  # [S, 3]
     xyz_to_rgb: torch.Tensor  # [3, 3]
     np_fields: dict = dataclasses.field(repr=False, default_factory=dict)
+    smooth_tri: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -134,6 +138,10 @@ class SceneTensors:
     @property
     def obj_types(self) -> tuple[int, ...]:
         return tuple(int(t) for t in self.np_fields["obj_type"])
+
+    @property
+    def has_triangles(self) -> bool:
+        return bool((self.np_fields["obj_type"] == OBJ_TRIANGLE).any())
 
 
 def _sphere_tables(center, radius_in):
@@ -387,12 +395,21 @@ def flatten_numpy(scene: Scene) -> tuple[dict, RenderConfig]:
     return np_fields, config
 
 
+def smooth_triangles(scene: Scene) -> bool:
+    """The reference's ``smooth_tri_static``: a visible mesh carries
+    vertex normals."""
+    return any(isinstance(o.object_type, Mesh) and bool(o.object_type.normals)
+               for o in scene.visible_objects())
+
+
 def from_numpy(
-    np_fields: dict, config: RenderConfig, device: str | torch.device
+    np_fields: dict, config: RenderConfig, device: str | torch.device,
+    smooth_tri: bool = False,
 ) -> tuple[SceneTensors, RenderConfig]:
     """Tables from host numpy (this module's ``flatten_numpy`` or the
     reference package's ``arrays.host.np_fields``) as tensors on
-    ``device``. Values are copied bit for bit."""
+    ``device``. Values are copied bit for bit. ``smooth_tri``: see
+    ``SceneTensors`` (``smooth_triangles`` of the scene)."""
     device = torch.device(device)
     tensors = {
         name: None
@@ -400,7 +417,8 @@ def from_numpy(
         else torch.from_numpy(np.array(np_fields[name], copy=True)).to(device)
         for name in FIELDS
     }
-    return SceneTensors(**tensors, np_fields=dict(np_fields)), config
+    return SceneTensors(**tensors, np_fields=dict(np_fields),
+                        smooth_tri=bool(smooth_tri)), config
 
 
 def flatten_scene(
@@ -408,4 +426,4 @@ def flatten_scene(
 ) -> tuple[SceneTensors, RenderConfig]:
     """Snapshot a validated scene into tensors on ``device``."""
     np_fields, config = flatten_numpy(scene)
-    return from_numpy(np_fields, config, device)
+    return from_numpy(np_fields, config, device, smooth_triangles(scene))

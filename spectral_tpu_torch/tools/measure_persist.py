@@ -8,7 +8,7 @@ On cornell512 (the Cornell box at 512x512, 32 wavelengths, 30 bounces,
 1. ``one_launch``: one ``cuda_persist`` launch at the default budget, in
    the free-running, lane-stop (all-zero mask) and ring (W = 128, frames
    1-99 resident) variants, against one ``cuda_regen`` launch of 100
-   frames, in turns, CUDA-event times. Each row has the kernel's ms, the
+   frames and one ``cuda_mono`` frame, in turns, CUDA-event times. Each row has the kernel's ms, the
    mean completed frames per lane, ms per completed frame, and the rate of
    live path iterations: the per-frame path costs of ``cuda_cost`` summed
    over the frames each lane completed, per second. Iterations that idle
@@ -25,7 +25,12 @@ On cornell512 (the Cornell box at 512x512, 32 wavelengths, 30 bounces,
    ``--trace-dir`` the Chrome traces are written there.
 
 Every line carries the card's name and power limit from ``nvidia-smi``.
-Needs one CUDA GPU; builds the kernels at first use.
+Needs one CUDA GPU; builds the kernels at first use. ``--runs 0`` skips
+part 2. The tool uses only entry points that the port has had since its
+persist slice, so it also times an older checkout of the package: run it
+as a file with that checkout first on ``PYTHONPATH``, which then builds
+and times its own kernels (compare two trees within one machine, in
+turns).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import time
 from pathlib import Path
 
 
-def _card() -> str:
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -82,7 +88,7 @@ def main(argv=None) -> int:
         print("measure_persist needs a CUDA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = _card()
+    gpu = card()
     frames, bounces = 100, 30
 
     def scene():
@@ -132,7 +138,10 @@ def main(argv=None) -> int:
         "stop0": (cam, dict(stop=torch.zeros(n, device=dev))),
         "ring128": (tb.cam, dict(ring=ring)),
     }
-    mk.run_regen(*regen_args)  # build and warm up
+    mk.run_regen(*regen_args)  # build, and load each kernel before its timed launches
+    mk.run_mono(*planes, px, py, 0, tb)
+    for cam_t, kw in variants.values():
+        mk.run_persist(ci.persist_init(st, cfg), frames, frames, tb, cam_t, budget=8, **kw)
     rows = []
     for rep in range(3):
         for name, (cam_t, kw) in variants.items():
@@ -148,9 +157,13 @@ def main(argv=None) -> int:
         rows.append(dict(variant="regen K=100", rep=rep, ms=ms, frames_per_lane=frames,
                          ms_per_frame=ms / frames,
                          g_live_iterations_per_s=float(cum_cost[-1].sum()) / ms / 1e6))
-    print(json.dumps(dict(part="one_launch", budget=budget,
+        ms, _ = timed(lambda: mk.run_mono(*planes, px, py, 0, tb))
+        rows.append(dict(variant="mono", rep=rep, ms=ms, frames_per_lane=1, ms_per_frame=ms,
+                         g_live_iterations_per_s=float(cost[0].sum()) / ms / 1e6))
+    print(json.dumps(dict(part="one_launch", package=str(Path(mk.__file__).parents[1]),
+                          budget=budget,
                           mean_cost_frame0=float(cost[0].mean()),
-                          rows=rows, card=card)), flush=True)
+                          rows=rows, card=gpu)), flush=True)
     del regen_args, dirx, diry, dirz, ring, cost, cum_cost, variants
 
     # ---- 2. seconds per frame, the three renders in turns
@@ -168,7 +181,7 @@ def main(argv=None) -> int:
     for _ in range(args.runs):
         for key, kw in kinds.items():
             spread[key].append(render(kw))
-    print(json.dumps(dict(part="seconds_per_frame", runs=spread, card=card)), flush=True)
+    print(json.dumps(dict(part="seconds_per_frame", runs=spread, card=gpu)), flush=True)
 
     # ---- 3. device-busy share under the profiler, after a warm render
     for key in ("persist", "regen"):
@@ -187,7 +200,7 @@ def main(argv=None) -> int:
             part=f"profile_{key}", wall_ms=wall_ms, device_busy_ms=busy_ms,
             traced_span_ms=span_ms, busy_share_of_wall=busy_ms / wall_ms,
             top=[(k.key[:60], k.device_time_total / 1e3, k.count) for k in top],
-            card=card)), flush=True)
+            card=gpu)), flush=True)
         if args.trace_dir:
             Path(args.trace_dir).mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(Path(args.trace_dir) / f"trace_{key}.json"))

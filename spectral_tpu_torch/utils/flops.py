@@ -193,3 +193,12 @@ def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
     if t_ops >= t_bytes:
         return 1e3 * t_ops, "operations"
     return 1e3 * t_bytes, "bytes"
+
+
+# --- the trace probe (ops/trace_probe.py), per ray-sphere test: the
+# offsets o - c (3), b = 2 dot3(d, r) (6: a dot3 is a multiply and two
+# FMAs, 5 ops), c = dot3(r, r) - r^2 (6), disc = fma(b, b, -(4a c)) (4),
+# clamp and sqrt (2), the two roots (5), the root pick (2), the validity
+# mask and its select (4), the running minimum (3). Kernel B computes the
+# same function (d.c and o.c 10, b 2, c 3, the rest 20).
+PROBE_TEST_OPS = 35

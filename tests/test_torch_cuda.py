@@ -18,17 +18,30 @@ radiance to ``cuda_mono``'s. The many-object variants (a 101-object
 sphere field, clustered) and ``cuda_seg`` are held bit for bit to their
 plain versions, the clustered walk to the flat one, and the split frame
 to the mono frame; the cascade to the mono frame within 1e-6 of the
-image scale (it sums each segment's radiance separately).
+image scale (it sums each segment's radiance separately). The triangle
+builds (the mesh preset, clustered and flat, and a smooth mesh in the
+small-scene and the many-object build) are held bit for bit to their
+plain versions. The trace probe: ``cuda_probe_fori`` bit for bit to its
+plain version; ``cuda_probe_mma`` (3xTF32 products) with the same
+winners on 99.99% of rays and, against a float64 evaluation, every hit
+within its own first-order error bound (``trace_probe.error_bound``:
+the 3xTF32 dot products err by at most 22 float32 roundings of their
+terms' magnitudes, the rest as the plain version) and 98% of hits within
+1e-5. The formula cancels, so t agrees with the plain version only to
+float32's error.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from spectral_tpu_torch.ops import megakernel as mk
+from spectral_tpu_torch.ops import trace_probe as tp
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render.camera import camera_basis_table
 from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.render.renderer import Renderer
+from spectral_tpu_torch.scene import mesh as tmesh
 from spectral_tpu_torch.scene import presets
 from spectral_tpu_torch.scene.flatten import flatten_scene
 from tests import torch_scenes
@@ -298,3 +311,113 @@ def test_cuda_renderer_phased_counts_launches(cuda):
     assert r.overflow_frames == 3 and mk.run_mono.launches == 3
     want = Renderer(_field(32, 16, 3, iters=3), device="cuda", regen_frames=1).render()
     assert (r.framebuffer() == want).all()
+
+
+# ------------------------------------------------------------ triangles
+
+
+def _mesh(kind, w, h, bounces, samples=8, iters=4):
+    """The mesh preset, or a smooth icosphere of subdivision 0 (45 objects:
+    the small-scene build) or 1 (105: clusters) beside a flat icosahedron."""
+    if kind == "mesh":
+        return torch_scenes.preset(presets, "mesh", w, h, bounces, iters, samples)
+    return torch_scenes.smooth_mesh(presets, tmesh, w, h, bounces,
+                                    subdivisions=int(kind[-1]), iters=iters,
+                                    samples=samples)
+
+
+@pytest.mark.parametrize("samples", [8, 32])
+@pytest.mark.parametrize("bounces", [1, 3])
+@pytest.mark.parametrize("kind", ["mesh", "smooth0", "smooth1"])
+def test_cuda_triangle_kernels_match_plain(cuda, kind, bounces, samples):
+    """mono, cost, regen, persist and seg in their triangle builds."""
+    port, cfg = flatten_scene(_mesh(kind, 32, 16, bounces, samples), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.triangles == (1 if kind == "mesh" else 2)
+    assert tb.many_objects() == (kind != "smooth0")
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    mono = mk.run_mono(*planes, px, py, 1, tb)
+    assert torch.equal(mono, mk.run_mono_plain(*planes, px, py, 1, tb))
+    if kind == "mesh":  # the clustered walk against the flat one
+        assert torch.equal(mono, mk.run_mono(*planes, px, py, 1,
+                                             mk.pack_tables(port, cfg, "none")))
+    rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+    prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+    assert torch.equal(rad, mono) and torch.equal(cost, pcost)
+    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (2, 3)]
+    args = (*planes, px, py, 1, *(torch.stack([d[i] for d in dirs]) for i in range(3)), tb)
+    assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    got, want = ci.frame_wavefront(port, cfg, 1), ci.frame_wavefront(port, cfg, 1)
+    for b0, b1 in ((0, 1), (1, bounces)):
+        if b0 < b1:
+            mk.run_seg(got, b0, b1, 1, tb)
+            mk.run_seg_plain(want, b0, b1, 1, tb)
+    assert _equal(got, want) and torch.equal(got.rad, mono)
+    sc = _mesh(kind, 32, 16, bounces, samples)
+    pgot, *_ = _drive(sc, cuda, 5)
+    pwant, *_ = _drive(sc, cuda, 5, plain=True)
+    assert _equal(pgot, pwant)
+    torch.cuda.synchronize()
+
+
+def test_cuda_triangles_need_a_triangle_build(cuda):
+    """Triangle builds exist for S in (8, 32): another S raises on the host
+    and never reaches a kernel without triangles."""
+    port, cfg = flatten_scene(_mesh("mesh", 16, 8, 1, samples=16), cuda)
+    tb = mk.pack_tables(port, cfg)
+    planes, px, py = ci.primary_lanes(port, cfg, 0)
+    before = mk.run_mono.launches
+    with pytest.raises(NotImplementedError, match="triangle"):
+        mk.run_mono(*planes, px, py, 0, tb)
+    assert mk.run_mono.launches == before
+
+
+def test_cuda_renderer_mesh_counts_launches(cuda):
+    mk.run_regen.launches = mk.run_mono.launches = 0
+    r = Renderer(_mesh("mesh", 32, 16, 3, samples=32, iters=5), device="cuda", regen_frames=4)
+    img = r.render()
+    assert (mk.run_regen.launches, mk.run_mono.launches) == (1, 1)
+    assert r.clusters is not None and r.lane_layout == "morton"
+    assert img.shape == (16, 32, 4) and np.isfinite(img).all()
+
+
+# ------------------------------------------------------------ trace probe
+
+
+def test_cuda_probe_fori_bit_identical_to_plain(cuda):
+    args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 4, 1024)["fori"])
+    before = tp.cuda_probe_fori.launches
+    t, win = tp.cuda_probe_fori(*args)
+    assert tp.cuda_probe_fori.launches == before + 1
+    pt, pwin = tp.probe_fori_plain(*args)
+    assert torch.equal(win, pwin) and torch.equal(t, pt)
+    assert 0.05 < float(torch.isfinite(t).float().mean()) < 0.95
+
+
+def test_cuda_probe_mma_matches_plain_to_float32_error(cuda):
+    args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 4, 1024)["mma"])
+    before = tp.cuda_probe_mma.launches
+    t, win = tp.cuda_probe_mma(*args)
+    assert tp.cuda_probe_mma.launches == before + 1
+    pt, pwin = tp.probe_mma_plain(*args)
+    et, ewin = tp.probe_exact(*args)
+    vs_plain = tp.compare(t, win, pt, pwin)
+    assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN
+    kernel = tp.compare(t, win, et, ewin, tp.error_bound(*args, ewin, tp.MMA_DOT_GAMMA))
+    plain = tp.compare(pt, pwin, et, ewin, tp.error_bound(*args, ewin, tp.PLAIN_DOT_GAMMA))
+    assert kernel["max_err_over_bound"] <= 1.0 and plain["max_err_over_bound"] <= 1.0
+    assert kernel["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, (kernel, plain)
+
+
+def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
+    """Every sphere sits in a block's shared memory: 3,416 spheres fit
+    kernel B (68 B each), 3,424 raise on the host and launch nothing."""
+    before = tp.cuda_probe_mma.launches
+    for n_obj, fits in ((3416, True), (3424, False)):
+        args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["mma"])
+        if fits:
+            tp.cuda_probe_mma(*args)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                tp.cuda_probe_mma(*args)
+    assert tp.cuda_probe_mma.launches == before + 1

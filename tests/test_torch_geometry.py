@@ -9,6 +9,8 @@ implementations differ by up to 2 ulp between XLA's and PyTorch's CPU
 math, so their unit-vector outputs are held to 1e-6.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -174,8 +176,47 @@ def test_reflect_and_refract_match():
 
 
 def test_triangles_are_refused():
+    """Degenerate triangles are refused: with both edges of every triangle
+    of the mesh preset collapsed to zero, det is 0 and Moller-Trumbore's
+    u, v and t are NaN, so no triangle is ever a candidate; the trace
+    finds the room's boxes alone, exactly where jnp does (a NaN never
+    wins the nearest-hit minimum)."""
+    arrays, config = jax_flatten(presets.PRESETS["mesh"](n_samples=8))
+    fields = dict(arrays.host.np_fields)
+    tri = fields["obj_type"] == 3  # OBJ_TRIANGLE
+    assert tri.sum() == 340
+    for key in ("slab_min", "slab_max"):  # a triangle's e1 and e2
+        fields[key] = np.where(tri[:, None], np.float32(0), fields[key]).astype(np.float32)
+    arrays = dataclasses.replace(arrays, slab_min=jnp.asarray(fields["slab_min"]),
+                                 slab_max=jnp.asarray(fields["slab_max"]))
+    scene, _ = from_numpy(fields, RenderConfig(**vars(config)), "cpu")
+    rng = np.random.default_rng(17)
+    o = np.zeros((3, N), np.float32)
+    d = _unit(rng, N)
+    d[2] = np.abs(d[2])  # toward the back wall and the meshes
+    got = tgeo.trace(_t(o), _t(d), scene)
+    want = jgeo.trace(_j(o), _j(d), arrays)
+    hit = np.asarray(want.hit)
+    assert np.array_equal(got.hit.numpy(), hit) and hit.mean() > 0.5
+    widx = np.asarray(want.obj_idx)[hit]
+    assert np.array_equal(got.obj_idx.numpy()[hit], widx) and not tri[widx].any()
+    assert np.array_equal(got.t.numpy()[hit], np.asarray(want.t)[hit])
+
+
+def test_mesh_trace_matches_jnp():
+    """The mesh preset traces with the reference's winners and t within 1
+    ulp (``tests/test_torch_mesh.py`` holds the rest of the mesh slice)."""
     arrays, config = jax_flatten(presets.PRESETS["mesh"](n_samples=8))
     scene, _ = from_numpy(arrays.host.np_fields, RenderConfig(**vars(config)), "cpu")
-    o = _t(np.zeros((3, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tgeo.trace(o, o, scene)
+    rng = np.random.default_rng(17)
+    o = np.zeros((3, N), np.float32)
+    d = _unit(rng, N)
+    d[2] = np.abs(d[2])  # toward the back wall and the meshes
+    got = tgeo.trace(_t(o), _t(d), scene)
+    want = jgeo.trace(_j(o), _j(d), arrays)
+    hit = np.asarray(want.hit)
+    assert np.array_equal(got.hit.numpy(), hit) and hit.mean() > 0.5
+    widx = np.asarray(want.obj_idx)[hit]
+    assert np.array_equal(got.obj_idx.numpy()[hit], widx)
+    assert (arrays.host.np_fields["obj_type"][widx] == 3).mean() > 0.05
+    assert int(_ulps(got.t.numpy()[hit], np.asarray(want.t)[hit]).max()) <= 1

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``spectral_tpu_torch``, and not
-``chip_smoke.py``, imports ``jax`` or anything of the JAX package
-``spectral_tpu``, neither at the top of a module nor inside a function.
+``chip_smoke.py``, imports ``jax``, anything of the JAX package
+``spectral_tpu`` or the reference's ``tools/`` (the port's probe keeps
+its own copy of ``tools/mxu_trace_probe.py``'s inputs and kernels),
+neither at the top of a module nor inside a function.
 
 Two checks: every ``import`` statement of every source file, parsed with
 ``ast`` (one case per file), and every module imported in a fresh
@@ -21,7 +23,7 @@ SOURCES = sorted((REPO / "spectral_tpu_torch").rglob("*.py")) + [REPO / "chip_sm
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "spectral_tpu")
+    return top in ("jax", "jaxlib", "spectral_tpu", "tools")
 
 
 def _imports(path: Path) -> list[str]:

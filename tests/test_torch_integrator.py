@@ -144,7 +144,7 @@ def test_render_frame_step_blends():
 
 @pytest.mark.parametrize("name,feature", [
     ("prism", "transmission"), ("measured_sun", None), ("spheres", None),
-    ("mesh", "triangle"),
+    pytest.param("mesh", None, id="mesh-triangle"),  # triangles render now
 ])
 def test_out_of_slice_features_raise(name, feature):
     port, cfg = flatten_scene(presets.PRESETS[name](n_samples=8), "cpu")

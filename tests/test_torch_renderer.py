@@ -126,8 +126,25 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])
 def test_out_of_slice_scene_raises(name):
-    with pytest.raises(NotImplementedError, match="not in the PyTorch/CUDA port yet"):
-        trender.Renderer(presets.PRESETS[name](n_samples=8), device="cpu")
+    """The dielectric is outside the port's slices: the prism, and the mesh
+    presets with glass on their meshes (triangles render since the mesh
+    slice; the other gates stay)."""
+    scene = presets.PRESETS[name](n_samples=8)
+    for obj in scene.objects:
+        if isinstance(obj.object_type, schema.Mesh):
+            obj.material.transmission = 0.9
+    with pytest.raises(NotImplementedError,
+                       match="not in the PyTorch/CUDA port yet: transmission"):
+        trender.Renderer(scene, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["mesh5k", "mesh"])
+def test_mesh_presets_build_clustered_renderer(name):
+    """The mesh presets are inside the port since the mesh slice: they
+    build a clustered Renderer with the triangle tables and Morton lanes."""
+    r = trender.Renderer(presets.PRESETS[name](n_samples=8), device="cpu")
+    assert r.tables.triangles == 1 and r.clusters is not None
+    assert r.lane_layout == "morton" and r.regen_frames > 1
 
 
 @pytest.mark.parametrize("option,error,match", [

@@ -71,3 +71,20 @@ def sphere_field(presets, n_spheres, w, h, bounces, iters=2, samples=8):
     scene.width, scene.height = w, h
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     return scene
+
+
+def smooth_mesh(presets, mesh, w, h, bounces, subdivisions=1, iters=2, samples=8):
+    """``presets.mesh_demo`` with its mirror icosphere swapped for a
+    DIFFUSE icosphere of ``subdivisions`` carrying vertex normals
+    (``mesh.icosphere(..., smooth=True)``; ``mesh`` is the scene.mesh
+    module of the same package), beside the flat icosahedron: a smooth
+    and a flat mesh in one scene. Subdivision 0 keeps the scene at 45
+    objects (the kernels' small-scene build), 1 gives 105 (clusters)."""
+    scene = presets.mesh_demo(n_samples=samples)
+    ball, blue = scene.objects[5], scene.objects[6]
+    ball.object_type = mesh.icosphere(0.55, subdivisions, smooth=True)
+    ball.material = blue.material
+    scene.width, scene.height = w, h
+    scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
+    scene.validate()
+    return scene
