@@ -22,7 +22,12 @@ and those builds against their plain versions at 128x128 (frame 0, and
 three regeneration frames on Morton lanes);
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
-(``cuda_probe_fori``, ``cuda_probe_mma``). Prints one JSON line per
+(``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
+to the sum of its K frames as ``cuda_mono`` traces them from host
+raygen (its kernel generates the primaries itself), and the two
+redesigned kernels are timed in turns beside the earlier design (the
+``regen_parent`` build's one-lane-per-pixel grid; tables without packed
+walk records) at cornell512 and spheres1000. Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine
@@ -99,7 +104,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2. build
     t0 = time.monotonic()
-    build.build_all(force=True)  # from source, one nvcc per file, in parallel
+    # from source, one nvcc per library, in parallel: the main ones and the
+    # earlier regen grid (regen_parent), timed beside the new one below
+    build.build_all(build.SOURCES + ("regen_parent",), force=True)
     build_s = time.monotonic() - t0
     ptxas = [f"{name}: {ln.strip()}" for name in build.SOURCES
              for ln in build.build_log(name).splitlines()
@@ -125,21 +132,31 @@ def main() -> int:
         torch.cuda.synchronize()
         return got, want, st
 
-    def regen_inputs(sc, first, k):
+    def regen_inputs(sc, first, k, perm=None):
         st, cfg = flatten_scene(sc, dev)
         tb = mk.pack_tables(st, cfg)
-        planes, px, py = ci.primary_lanes(st, cfg, first)
-        dirs = [ci.primary_lanes(st, cfg, first + j)[0][3:] for j in range(1, k)]
-        dirx, diry, dirz = (torch.stack([d[i] for d in dirs]) for i in range(3))
-        return (*planes, px, py, first, dirx, diry, dirz, tb), st
+        return (*ci.regen_args(st, cfg, first, k, perm), tb), st
 
     def morton_regen_inputs(sc, k):
         """``cuda_regen``'s arguments as the Renderer gives a clustered
-        scene: K frames from frame 0, every lane plane in Morton order."""
-        args, r_st = regen_inputs(sc, 0, k)
-        perm, _ = morton_layout(sc.width, sc.height, dev)
-        return (*(p[perm] for p in args[:8]), args[8],
-                *(d[:, perm].contiguous() for d in args[9:12]), args[12]), r_st
+        scene: K frames from frame 0, lanes in Morton order."""
+        return regen_inputs(sc, 0, k, morton_layout(sc.width, sc.height, dev)[0])
+
+    def regen_mono_sum_err(rad, sc, first, k, perm=None):
+        """``cuda_regen``'s radiance against the sum of its K frames as
+        ``cuda_mono`` traces them from host raygen (the same paths; only
+        the summation order differs): the largest error over the scale."""
+        st_, cfg_ = flatten_scene(sc, dev)
+        tb_ = mk.pack_tables(st_, cfg_)
+        total = torch.zeros_like(rad)
+        for j in range(first, first + k):
+            planes_, px_, py_ = ci.primary_lanes(st_, cfg_, j)
+            if perm is not None:
+                planes_, px_, py_ = tuple(p[perm] for p in planes_), px_[perm], py_[perm]
+            total += mk.run_mono(*planes_, px_, py_, j, tb_)
+        err = float((rad - total).abs().max()) / max(1.0, float(total.abs().max()))
+        assert err <= 1e-5, ("cuda_regen against the sum of its cuda_mono frames", err)
+        return err
 
     def rel_err(got_rgb, want_rgb):
         scale = max(1.0, float(want_rgb.abs().max()))
@@ -369,15 +386,31 @@ def main() -> int:
     mono_flips, mono_err = envelope(got, want, st)
     assert mono_flips <= 0.15, ("mono 512^2 b30 flipped", mono_flips)
     args, _ = regen_inputs(full, 0, k_main)
-    regen_ms, got = cuda_ms(lambda: mk.run_regen(*args), 2)
+    # the redesigned kernel and the earlier design's grid (the regen_parent
+    # build: one lane per pixel), in turns: new, parent, parent, new
+    regen_turns = {"new": [], "parent": []}
+    for key in ("new", "parent", "parent", "new"):
+        fn = (lambda: mk.run_regen(*args)) if key == "new" else (
+            lambda: mk.run_regen_variant("regen_parent", *args))
+        t_ms, out = cuda_ms(fn, 2)
+        regen_turns[key].append(t_ms)
+        if key == "new":
+            got = out
+        else:
+            assert torch.equal(out, got), "cuda_regen: parent grid differs from the new one"
+    regen_ms = sum(regen_turns["new"]) / 2
+    regen_parent_ms = sum(regen_turns["parent"]) / 2
     regen_plain_ms, want = cuda_ms(lambda: mk.run_regen_plain(*args), 1, warmup=False)
     regen_flips, regen_err = envelope(got, want, st)
     assert regen_flips <= 0.15, ("regen 512^2 b30 K=100 flipped", regen_flips)
+    regen_vs_mono = regen_mono_sum_err(got, full, 0, k_main)
     del args, got, want
     emit(phase="kernels_main_shape", seconds=round(time.monotonic() - t0, 3),
          b1_mono_max_rel=mono_b1_rel, b1_regen_k100_max_rel=regen_b1_rel,
          b1_limit=1e-5, b30_mono_flipped=mono_flips, b30_mono_max_abs=mono_err,
          b30_regen_k100_flipped=regen_flips, b30_regen_k100_max_abs=regen_err,
+         b30_regen_k100_vs_sum_of_100_mono_max_rel=regen_vs_mono, sum_of_mono_limit=1e-5,
+         regen_k100_turns_ms=regen_turns,
          flipped_limit=0.15, mono_ms=mono_ms, mono_plain_ms=mono_plain_ms,
          regen_k100_ms=regen_ms, regen_k100_plain_ms=regen_plain_ms, card=card)
 
@@ -535,6 +568,8 @@ def main() -> int:
     assert sph256_regen_exact, (
         "spheres 256x192: many-object cuda_regen (K=4, Morton) differs from plain",
         sph256_regen_err)
+    sph256_regen_vs_mono = regen_mono_sum_err(f_regen, sph256, 0, k_sph,
+                                              morton_layout(256, 192, dev)[0])
     del args, f_regen, f_regen_plain
     emit(phase="kernels_seg_main_shape", seconds=round(time.monotonic() - t0, 3),
          cornell512_b30=seg_cornell, spheres_256x192_b8=seg_sph256,
@@ -543,7 +578,8 @@ def main() -> int:
          spheres_256x192_mono_bit_identical=sph256_mono_exact,
          spheres_256x192_regen_k4_morton_ms=sph256_regen_ms,
          spheres_256x192_regen_k4_morton_plain_ms=sph256_regen_plain_ms,
-         spheres_256x192_regen_k4_morton_bit_identical=sph256_regen_exact, card=card)
+         spheres_256x192_regen_k4_morton_bit_identical=sph256_regen_exact,
+         spheres_256x192_regen_k4_vs_sum_of_mono_max_rel=sph256_regen_vs_mono, card=card)
 
     # ---------- 3e. the kernels' triangle builds vs plain (the mesh slice)
     def mesh_check(sc, label, persist_budget=None):
@@ -808,9 +844,24 @@ def main() -> int:
     _, f_rays = ti.bounce_loop(Vec3(*f_planes[:3]), Vec3(*f_planes[3:]), f_px.long(),
                                f_py.long(), 0, f_st, f_cfg, return_stats=True)
     sph_rays = float(f_rays) * (s_cfg.width * s_cfg.height) / (f_cfg.width * f_cfg.height)
-    # one regeneration launch timed alone, K = 100, Morton lanes
-    sph_regen_ms, _ = cuda_span(lambda: ci.regen_radiance(
-        s_st, s_cfg, 0, SPHERES["iterations"], s_tb, r._lane_perm))
+    # one regeneration launch timed alone, K = 100, Morton lanes: the new
+    # kernel, and the earlier design (the regen_parent build's grid over
+    # tables without packed records), in turns: new, parent, parent, new
+    s_args = ci.regen_args(s_st, s_cfg, 0, SPHERES["iterations"], r._lane_perm)
+    s_unpacked = s_tb.unpacked()
+    sph_turns = {"new": [], "parent": []}
+    for key in ("new", "parent", "parent", "new"):
+        fn = (lambda: mk.run_regen(*s_args, s_tb)) if key == "new" else (
+            lambda: mk.run_regen_variant("regen_parent", *s_args, s_unpacked))
+        t_ms, out = cuda_span(fn)
+        sph_turns[key].append(t_ms)
+        if key == "new":
+            sph_new = out
+        else:
+            assert torch.equal(out, sph_new), "spheres1000 cuda_regen: parent design differs"
+    del s_args, sph_new, out
+    sph_regen_ms = sum(sph_turns["new"]) / 2
+    sph_regen_parent_ms = sum(sph_turns["parent"]) / 2
     s_planes, s_px, s_py = ci.primary_lanes(s_st, s_cfg, 0)
     sph_mono_ms, _ = cuda_ms(lambda: mk.run_mono(*s_planes, s_px, s_py, 0, s_tb), 3)
     emit(phase="spheres_main_path",
@@ -820,7 +871,8 @@ def main() -> int:
          seconds_per_frame=sph_s_per_frame, launches=counts,
          rays_per_frame_plain_f0_scaled_from_256x192=sph_rays,
          mrays_lambda_per_s=sph_rays * s_cfg.n_samples / sph_s_per_frame / 1e6,
-         regen_k100_morton_launch_ms=sph_regen_ms, mono_ms=sph_mono_ms,
+         regen_k100_morton_launch_ms=sph_regen_ms, regen_k100_turns_ms=sph_turns,
+         mono_ms=sph_mono_ms,
          mean_rgb=float(img[..., :3].mean()), card=card)
 
     # ------------------------------ 7. the phased path on the 1000-sphere field
@@ -853,22 +905,42 @@ def main() -> int:
                                  mean_rel_vs_regen=mean_rel, mean_limit=0.02)
     assert mean_rel <= 0.02 and counts["cuda_seg"] > 0, phased["cascade_2_4"]
     # cuda_seg alone at the full shape: [0, 2) on the whole wavefront, then
-    # [2, 8) on the compacted live lanes; the first against its plain version
-    wf = ci.frame_wavefront(s_st, s_cfg, 0)
-    seg_ms, _ = cuda_span(lambda: mk.run_seg(wf, 0, 2, 0, s_tb))
+    # [2, 8) on the compacted live lanes (ascending, as the cascade takes
+    # them); the first against its plain version. The new walk (packed
+    # records) and the earlier one (tables without records) in turns:
+    # new, parent, parent, new
+    seg_turns = {"new": [], "parent": []}
+    tail_turns = {"new": [], "parent": []}
+    for key in ("new", "parent", "parent", "new"):
+        tb_k = s_tb if key == "new" else s_unpacked
+        wf = ci.frame_wavefront(s_st, s_cfg, 0)
+        t_ms, _ = cuda_span(lambda: mk.run_seg(wf, 0, 2, 0, tb_k))
+        seg_turns[key].append(t_ms)
+        cwf = ci._gather(wf, torch.nonzero(wf.alive > 0)[:, 0])
+        t_ms, _ = cuda_span(lambda: mk.run_seg(cwf, 2, SPHERES["bounces"], 0, tb_k))
+        tail_turns[key].append(t_ms)
+        if key == "new":
+            seg_new, tail_new = wf, cwf
+        else:
+            assert same_state(wf, seg_new) and same_state(cwf, tail_new), (
+                "cuda_seg: the earlier walk changed a lane")
+    seg_ms = sum(seg_turns["new"]) / 2
+    seg_parent_ms = sum(seg_turns["parent"]) / 2
+    seg_tail_ms = sum(tail_turns["new"]) / 2
+    seg_tail_parent_ms = sum(tail_turns["parent"]) / 2
+    wf = seg_new
     pwf = ci.frame_wavefront(s_st, s_cfg, 0)
     seg_plain_ms, _ = cuda_span(lambda: mk.run_seg_plain(pwf, 0, 2, 0, s_tb))
     seg_err = float((wf.rad - pwf.rad).abs().max())
     seg_exact = same_state(wf, pwf)
     assert seg_exact, "cuda_seg [0, 2) at 1024x768 differs from its plain version"
-    del pwf
+    del pwf, seg_new, tail_new, cwf
     live2 = int((wf.alive > 0).sum())
-    cwf = ci._gather(wf, torch.nonzero(wf.alive > 0)[:, 0])
-    seg_tail_ms, _ = cuda_span(lambda: mk.run_seg(cwf, 2, SPHERES["bounces"], 0, s_tb))
     emit(phase="spheres_phased", runs=phased, regen_mean=regen_mean,
          seg_0_2_full_ms=seg_ms, seg_0_2_full_plain_ms=seg_plain_ms,
          seg_0_2_bit_identical=seg_exact, live_after_bounce_2=live2,
-         seg_2_8_compacted_ms=seg_tail_ms, seconds=round(time.monotonic() - t0, 3),
+         seg_2_8_compacted_ms=seg_tail_ms, seg_0_2_turns_ms=seg_turns,
+         seg_2_8_turns_ms=tail_turns, seconds=round(time.monotonic() - t0, 3),
          card=card)
 
     # ------------------------- 8. the mesh presets through the main path
@@ -909,7 +981,9 @@ def main() -> int:
         plain_ms128, want = cuda_span(lambda: mk.run_regen_plain(*args))
         regen128 = dict(case=f"{name} 128x128 S=32 b30 K=3 Morton lanes", ms=ms128,
                         plain_ms=plain_ms128, bit_identical=bool(torch.equal(got, want)),
-                        max_abs=float((got - want).abs().max()))
+                        max_abs=float((got - want).abs().max()),
+                        vs_sum_of_mono_max_rel=regen_mono_sum_err(
+                            got, small, 0, 3, morton_layout(128, 128, dev)[0]))
         assert regen128["bit_identical"], regen128
         del args, got, want
         m_regen_ms, _ = cuda_span(lambda: ci.regen_radiance(
@@ -1017,8 +1091,7 @@ def main() -> int:
     bounds = {
         "cuda_mono": flops.bound_ms(iters_f0 * opi, n_main * (lane_in + s32)),
         "cuda_cost": flops.bound_ms(iters_f0 * opi, n_main * (lane_in + s32 + 4)),
-        "cuda_regen": flops.bound_ms(
-            iters_regen * opi, n_main * (lane_in + 12 * (k_main - 1) + s32)),
+        "cuda_regen": flops.bound_ms(iters_regen * opi, n_main * (8 + s32)),
         "cuda_persist": flops.bound_ms(
             persist_iters * opi, 2 * n_main * (4 * 13 + 2 * s32)),
     }
@@ -1091,6 +1164,21 @@ def main() -> int:
         "cuda_seg": dict(cases=[t["case"] for t in tri if "seg" in t["bit_identical"]],
                          bit_identical=all(t["bit_identical"].get("seg", True) for t in tri)),
     }
+    # the redesigned kernels beside the earlier design, timed in this run in
+    # turns (new, parent, parent, new; the means of each)
+    parent_design = {
+        "cuda_regen": dict(
+            design="the regen_parent build: one lane per pixel, ceil(n / 128) blocks; "
+                   "at spheres1000 over tables without packed records",
+            cornell512_k100=dict(ms=regen_ms, parent_design_ms=regen_parent_ms),
+            spheres1000_k100_morton=dict(ms=sph_regen_ms,
+                                          parent_design_ms=sph_regen_parent_ms)),
+        "cuda_seg": dict(
+            design="tables without packed records (the earlier walk)",
+            spheres1000_0_2=dict(ms=seg_ms, parent_design_ms=seg_parent_ms),
+            spheres1000_2_8_compacted=dict(ms=seg_tail_ms,
+                                           parent_design_ms=seg_tail_parent_ms)),
+    }
     kernels = []
     for name, (replaces, err, ms, plain_ms) in timings.items():
         b_ms, b_by = bounds[name]
@@ -1101,6 +1189,8 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library)
         if name in many_object:
             entry.update(many_object=many_object[name], triangles=triangles[name])
+        if name in parent_design:
+            entry.update(parent_design=parent_design[name])
         kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

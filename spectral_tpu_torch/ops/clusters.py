@@ -22,12 +22,15 @@ from __future__ import annotations
 
 import numpy as np
 
+from spectral_tpu_torch.scene.flatten import OBJ_SPHERE, OBJ_TRIANGLE
+
 # the Renderer's policy: clusters above this many objects, of this size
 CLUSTER_ABOVE = 64
 CLUSTER_SIZE = 64
 
 # csrc/megakernel.cuh: the columns of a run row
-RUN_MIN, RUN_MAX, RUN_START, RUN_STOP, RUN_CULL, RUN_TYPE, RUN_COLS = 0, 3, 6, 7, 8, 9, 10
+RUN_MIN, RUN_MAX, RUN_START, RUN_STOP, RUN_CULL, RUN_TYPE, RUN_PACK, RUN_COLS = (
+    0, 3, 6, 7, 8, 9, 10, 11)
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -144,6 +147,7 @@ def run_tables(np_fields: dict, n_objects: int, plan) -> tuple[np.ndarray, np.nd
         runs[0, RUN_MAX:RUN_MAX + 3] = np.inf
         runs[0, RUN_STOP] = n_objects
         runs[0, RUN_TYPE] = -1
+        runs[0, RUN_PACK] = -1
         return np.arange(n_objects, dtype=np.int32), runs
     sigma, plan_runs = plan
     bounds = pack_cluster_bounds(np_fields["aabb_min"], np_fields["aabb_max"],
@@ -155,4 +159,42 @@ def run_tables(np_fields: dict, n_objects: int, plan) -> tuple[np.ndarray, np.nd
         runs[r, RUN_STOP] = stop
         runs[r, RUN_CULL] = 1.0 if clustered else 0.0
         runs[r, RUN_TYPE] = tag
+        runs[r, RUN_PACK] = -1  # set by the packer (megakernel.pack_walk)
     return np.asarray(sigma, np.int32), runs
+
+
+def pack_walk(np_fields: dict, order: np.ndarray, runs: np.ndarray) -> np.ndarray:
+    """The walk's packed records (``csrc/megakernel.cuh``: packed): for
+    every sphere run, one ``(centre, radius)`` row per member, and for
+    every triangle run three rows per member, ``(v0, 0)``, ``(e1, 0)``,
+    ``(e2, 0)``, each run's members in visit order (``order``). Sets each
+    run's ``RUN_PACK`` column in ``runs`` (in place) to its first record,
+    -1 for runs without records (boxes, the mixed run of an unclustered
+    walk). Returns float32 ``[n_records, 4]``; the values are the 47-row
+    table's, bit for bit."""
+    def field(name, width):
+        return np.asarray(np_fields[name], np.float32).reshape(-1, width)
+
+    centre, radius = field("sphere_pos", 3), field("radius", 1)
+    v0, e1, e2 = field("shift", 3), field("slab_min", 3), field("slab_max", 3)
+    pad = np.zeros((len(order), 1), np.float32)
+    sphere = np.concatenate([centre, radius], axis=1)
+    tri = np.stack([np.concatenate([v, pad[:len(v)]], axis=1) for v in (v0, e1, e2)], axis=1)
+    records = []
+    at = 0
+    for r in range(runs.shape[0]):
+        members = order[int(runs[r, RUN_START]):int(runs[r, RUN_STOP])]
+        tag = int(runs[r, RUN_TYPE])
+        if tag == OBJ_SPHERE:
+            rec = sphere[members]
+        elif tag == OBJ_TRIANGLE:
+            rec = tri[members].reshape(-1, 4)
+        else:
+            runs[r, RUN_PACK] = -1
+            continue
+        runs[r, RUN_PACK] = at
+        records.append(rec)
+        at += len(rec)
+    if not records:
+        return np.zeros((0, 4), np.float32)
+    return np.ascontiguousarray(np.concatenate(records), np.float32)

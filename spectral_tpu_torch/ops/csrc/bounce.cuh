@@ -14,9 +14,17 @@
 // over its objects in index order, geometry in shared memory. A
 // many-object scene (MANY = true) walks runs of objects (megakernel.cuh:
 // order, runs), the Morton-sorted, front-to-back cluster plan of
-// ops/clusters.py, with its geometry in global memory. Two instantiations
-// and not a runtime branch: one kernel with both loops spilled registers
-// and ran 17% slower on cornell512 than the small-scene loop alone.
+// ops/clusters.py. Two instantiations and not a runtime branch: one
+// kernel with both loops spilled registers and ran 17% slower on
+// cornell512 than the small-scene loop alone.
+//
+// The many-object walk reads what bounds it the way the card reads best:
+// a sphere run's members as one 16-byte record each and a triangle run's
+// as three (megakernel.cuh: packed), laid out in visit order, in shared
+// memory where they fit (spheres1000's 16 KB, mesh's 16 KB) and else
+// streamed from global memory (mesh5k's 300 KB); no order[] load comes
+// before a member test, and the 47-row table in global memory serves the
+// winner's shading, box runs and an unclustered mixed run.
 //
 // Exactness. A cluster is skipped only when the ray cannot enter its
 // union AABB at or before its current best hit (`<=`, not `<`: a member
@@ -36,20 +44,21 @@
 // (`_cluster_segments`, megakernel.py:235) and compacts its geometry rows
 // to fit SMEM (`geom_layout`, :105-163). A CUDA loop over a cluster
 // table needs neither: its code size does not grow with the scene, and
-// geometry of more than SMEM_OBJECTS objects is read from global memory
-// through L1 (a warp's lanes all read the same object: a broadcast).
+// records that do not fit shared memory are read from global memory
+// through L1 (a warp's lanes all read the same record: a broadcast).
 //
 // Triangles (mesh faces; `_tri_t` :759, `_tri_normal` :793) are a third
 // instantiation flag, TRI, and not a runtime branch of the existing
 // builds: a kernel built without it has no triangle code at all, and the
 // host never hands it a triangle scene. With TRI, a cluster plan's
 // triangle run (runs hold one type) walks a loop of Moller-Trumbore
-// tests alone, other runs dispatch per object, and the triangle normal
-// is the stored winding normal, or, for a mesh with vertex normals, the
-// interpolated one at barycentrics recomputed for the winner (the jnp
-// form, spectral_tpu/ops/geometry.py:364-382). Möller-Trumbore rejects a
-// degenerate triangle through inf/NaN barycentrics, which needs IEEE
-// division and no FMA: the same build flags as the rest.
+// tests over its records alone, other runs dispatch per object, and the
+// triangle normal is the stored winding normal, or, for a mesh with
+// vertex normals, the interpolated one at barycentrics recomputed for
+// the winner (the jnp form, spectral_tpu/ops/geometry.py:364-382).
+// Möller-Trumbore rejects a degenerate triangle through inf/NaN
+// barycentrics, which needs IEEE division and no FMA: the same build
+// flags as the rest.
 //
 // Numerics. The arithmetic follows the torch-eager bounce loop
 // (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
@@ -88,11 +97,14 @@ struct TableArgs {
   const float* runs;        // [n_runs][RUN_COLS]
   const float* lpos;        // [n_lights][4]
   const float* lspec;       // [n_lights][S]
+  const float4* packed;     // [n_packed]: the packed walk records
   int n_obj;
   int n_mat;
   int n_runs;
   int n_lights;
   int tri;                  // 0: no triangles, 1: flat meshes, 2: vertex normals
+  int n_packed;
+  int packed_shared;        // 1: the block copies `packed` to shared memory
 };
 
 struct Tables {
@@ -100,6 +112,7 @@ struct Tables {
   const float* mat_albedo;  // shared
   const int* order;         // shared (MANY only)
   const float* runs;        // shared (MANY only)
+  const float4* packed;     // shared or global (MANY only)
   const float* lpos;        // shared
   const float* lspec;       // shared
   float* scale;             // [n_lights][BLOCK] this thread's NEE scales
@@ -149,22 +162,21 @@ __device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
   rz = (float)z * kInv2_32;
 }
 
-// Moller-Trumbore for triangle o in the eager trace's op order
-// (ops/geometry.py:triangle_t): two-sided, no epsilon; returns valid with
-// t >= 0 (the caller applies t > 0) and the barycentrics u, v.
-__device__ __forceinline__ bool tri_t(const Tables& tb, int o, float ox,
-                                      float oy, float oz, float dx, float dy,
-                                      float dz, float& t, float& u, float& v) {
-  const float e1x = G(tb, G_SLAB_MIN, o), e1y = G(tb, G_SLAB_MIN + 1, o),
-              e1z = G(tb, G_SLAB_MIN + 2, o);
-  const float e2x = G(tb, G_SLAB_MAX, o), e2y = G(tb, G_SLAB_MAX + 1, o),
-              e2z = G(tb, G_SLAB_MAX + 2, o);
+// Moller-Trumbore in the eager trace's op order (ops/geometry.py:
+// triangle_t) on the triangle's v0, e1 = v1 - v0 and e2 = v2 - v0:
+// two-sided, no epsilon; returns valid with t >= 0 (the caller applies
+// t > 0) and the barycentrics u, v.
+__device__ __forceinline__ bool tri_t(float v0x, float v0y, float v0z,
+                                      float e1x, float e1y, float e1z,
+                                      float e2x, float e2y, float e2z,
+                                      float ox, float oy, float oz, float dx,
+                                      float dy, float dz, float& t, float& u,
+                                      float& v) {
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
   const float pz = dx * e2y - dy * e2x;
   const float inv_det = 1.0f / dot3(e1x, e1y, e1z, px, py, pz);
-  const float sx = ox - G(tb, G_SHIFT, o), sy = oy - G(tb, G_SHIFT + 1, o),
-              sz = oz - G(tb, G_SHIFT + 2, o);
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
   u = dot3(sx, sy, sz, px, py, pz) * inv_det;
   const float qx = sy * e1z - sz * e1y;
   const float qy = sz * e1x - sx * e1z;
@@ -172,6 +184,37 @@ __device__ __forceinline__ bool tri_t(const Tables& tb, int o, float ox,
   v = dot3(dx, dy, dz, qx, qy, qz) * inv_det;
   t = dot3(e2x, e2y, e2z, qx, qy, qz) * inv_det;
   return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f);
+}
+
+// tri_t for triangle o of the 47-row table (megakernel.cuh: v0 in
+// G_SHIFT, e1 in G_SLAB_MIN, e2 in G_SLAB_MAX)
+__device__ __forceinline__ bool tri_t(const Tables& tb, int o, float ox,
+                                      float oy, float oz, float dx, float dy,
+                                      float dz, float& t, float& u, float& v) {
+  return tri_t(G(tb, G_SHIFT, o), G(tb, G_SHIFT + 1, o), G(tb, G_SHIFT + 2, o),
+               G(tb, G_SLAB_MIN, o), G(tb, G_SLAB_MIN + 1, o),
+               G(tb, G_SLAB_MIN + 2, o), G(tb, G_SLAB_MAX, o),
+               G(tb, G_SLAB_MAX + 1, o), G(tb, G_SLAB_MAX + 2, o), ox, oy, oz,
+               dx, dy, dz, t, u, v);
+}
+
+// The quadratic of the sphere (centre c, radius r) in the eager trace's
+// division form: valid (disc >= 0 and t >= 0) with the nearer root that
+// is >= 0 (the caller applies t > 0).
+__device__ __forceinline__ bool sphere_t(float cx, float cy, float cz,
+                                         float r, float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float& t) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
+  const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
+  const float disc = b * b - 4.0f * a * c;
+  const float sq = sqrtf(max0(disc));
+  const float t1 = (-b - sq) / (2.0f * a);
+  const float t2 = (-b + sq) / (2.0f * a);
+  t = t1 >= 0.0f ? t1 : t2;
+  return (disc >= 0.0f) && (t >= 0.0f);
 }
 
 // Candidate hit of object o (reference src/shader.rs:508-560): valid and
@@ -188,19 +231,9 @@ __device__ __forceinline__ bool candidate_t(const Tables& tb, int o, float ox,
     float u, v;
     valid = tri_t(tb, o, ox, oy, oz, dx, dy, dz, t, u, v);
   } else if (type == OBJ_SPHERE) {
-    const float ocx = ox - G(tb, G_SPHERE_POS, o);
-    const float ocy = oy - G(tb, G_SPHERE_POS + 1, o);
-    const float ocz = oz - G(tb, G_SPHERE_POS + 2, o);
-    const float r = G(tb, G_RADIUS, o);
-    const float a = dot3(dx, dy, dz, dx, dy, dz);
-    const float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
-    const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
-    const float disc = b * b - 4.0f * a * c;
-    const float sq = sqrtf(max0(disc));
-    const float t1 = (-b - sq) / (2.0f * a);
-    const float t2 = (-b + sq) / (2.0f * a);
-    t = t1 >= 0.0f ? t1 : t2;
-    valid = (disc >= 0.0f) && (t >= 0.0f);
+    valid = sphere_t(G(tb, G_SPHERE_POS, o), G(tb, G_SPHERE_POS + 1, o),
+                     G(tb, G_SPHERE_POS + 2, o), G(tb, G_RADIUS, o), ox, oy,
+                     oz, dx, dy, dz, t);
   } else {
     // both box types: into the object frame (identity for plain boxes),
     // then the slab test with NaN-ignoring min/max
@@ -255,11 +288,55 @@ __device__ __forceinline__ bool run_reachable(const float* R, float ox,
   return (t_max > t_min) && (t_max >= 0.0f) && (t_min <= limit);
 }
 
-// Does run R hold triangles only (a cluster plan's triangle run)?
-template <bool TRI>
-__device__ __forceinline__ bool triangle_run(const float* R) {
-  return TRI && (int)R[RUN_TYPE] == OBJ_TRIANGLE;
+// The walk over a run's members reads its packed records (megakernel.cuh:
+// RUN_PACK) when it has them: a sphere run one float4 per member, a
+// triangle run three, in visit order, so the members stream through
+// 16-byte loads without the order[] indirection; order[] gives the
+// original index only where a hit ties or beats t_best. Any other run
+// (boxes, an unclustered mixed run) dispatches each member of the 47-row
+// table on its type tag. Both read the same values in the same op order:
+// the winner and its t are the same bits either way.
+__device__ __forceinline__ int packed_kind(const float* R) {
+  if (!(R[RUN_PACK] >= 0.0f)) return -1;
+  return (int)R[RUN_TYPE];
 }
+
+#ifdef SPECTRAL_STATS
+// The diagnostic build's walk counters (tools/lane_stats.py), per thread
+// in shared memory, flushed by the kernel at its end. For the nearest
+// trace (base 0) and the shadow rays (base WALK_SHADOW): the traces, the
+// culled runs the lane needs and those its warp visits (any of its
+// active lanes needs them), the member tests the lane needs and those
+// its warp runs.
+constexpr int WALK_TRACES = 0, WALK_RUNS_NEED = 1, WALK_RUNS_VISIT = 2,
+              WALK_MEMB_NEED = 3, WALK_MEMB_VISIT = 4, WALK_SHADOW = 5,
+              WALK_STATS = 10;
+
+__device__ __forceinline__ unsigned* walk_slots() {
+  __shared__ unsigned slots[WALK_STATS * BLOCK];
+  return slots;
+}
+
+__device__ __forceinline__ void walk_count(int base, int what, unsigned v) {
+  walk_slots()[(base + what) * BLOCK + threadIdx.x] += v;
+}
+
+__device__ __forceinline__ void walk_run(int base, const float* R, bool reach) {
+  const bool any = __ballot_sync(__activemask(), reach) != 0u;
+  const unsigned size = (unsigned)((int)R[RUN_STOP] - (int)R[RUN_START]);
+  if (R[RUN_CULL] > 0.0f) {
+    walk_count(base, WALK_RUNS_NEED, reach ? 1u : 0u);
+    walk_count(base, WALK_RUNS_VISIT, any ? 1u : 0u);
+  }
+  walk_count(base, WALK_MEMB_NEED, reach ? size : 0u);
+  walk_count(base, WALK_MEMB_VISIT, any ? size : 0u);
+}
+#define SPECTRAL_WALK_TRACE(base) walk_count(base, WALK_TRACES, 1u)
+#define SPECTRAL_WALK_RUN(base, R, reach) walk_run(base, R, reach)
+#else
+#define SPECTRAL_WALK_TRACE(base) ((void)0)
+#define SPECTRAL_WALK_RUN(base, R, reach) ((void)0)
+#endif
 
 // Nearest positive hit: returns the winner's original index (-1: miss).
 // A small scene loops over its objects in index order, where strict <
@@ -281,24 +358,50 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
     }
     return win;
   }
+  SPECTRAL_WALK_TRACE(0);
   const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
   for (int r = 0; r < tb.n_runs; ++r) {
     const float* R = tb.runs + r * RUN_COLS;
-    if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, t_best)) continue;
-    const int stop = (int)R[RUN_STOP];
-    if (triangle_run<TRI>(R)) {  // one type: no per-object dispatch
-      for (int k = (int)R[RUN_START]; k < stop; ++k) {
-        const int o = tb.order[k];
-        float t, u, v;
-        if (tri_t(tb, o, ox, oy, oz, dx, dy, dz, t, u, v) && t > 0.0f &&
-            (t < t_best || (t == t_best && o < win))) {
-          t_best = t;
-          win = o;
+    const bool reach = run_reachable(R, ox, oy, oz, ivx, ivy, ivz, t_best);
+    SPECTRAL_WALK_RUN(0, R, reach);
+    if (!reach) continue;
+    const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
+    const int kind = packed_kind(R);
+    if (kind == OBJ_SPHERE) {
+      const int at = (int)R[RUN_PACK] - start;  // record of slot k: at + k
+      for (int k = start; k < stop; ++k) {
+        const float4 c = tb.packed[at + k];
+        float t;
+        if (sphere_t(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz, t) &&
+            t > 0.0f && t <= t_best) {
+          const int o = tb.order[k];  // ties: the lowest original index wins
+          if (t < t_best || o < win) {
+            t_best = t;
+            win = o;
+          }
         }
       }
       continue;
     }
-    for (int k = (int)R[RUN_START]; k < stop; ++k) {
+    if (TRI && kind == OBJ_TRIANGLE) {
+      const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
+      for (int k = start; k < stop; ++k) {
+        const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
+                   c = tb.packed[at + 3 * k + 2];
+        float t, u, v;
+        if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz,
+                  dx, dy, dz, t, u, v) &&
+            t > 0.0f && t <= t_best) {
+          const int o = tb.order[k];
+          if (t < t_best || o < win) {
+            t_best = t;
+            win = o;
+          }
+        }
+      }
+      continue;
+    }
+    for (int k = start; k < stop; ++k) {
       const int o = tb.order[k];
       float t;
       if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) &&
@@ -327,22 +430,42 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
     }
     return false;
   }
+  SPECTRAL_WALK_TRACE(WALK_SHADOW);
   const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
   for (int r = 0; r < tb.n_runs; ++r) {
     const float* R = tb.runs + r * RUN_COLS;
-    if (!run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist)) continue;
-    const int stop = (int)R[RUN_STOP];
-    if (triangle_run<TRI>(R)) {
-      for (int k = (int)R[RUN_START]; k < stop; ++k) {
-        float t, u, v;
-        if (tri_t(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t, u, v) &&
+    const bool reach = run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist);
+    SPECTRAL_WALK_RUN(WALK_SHADOW, R, reach);
+    if (!reach) continue;
+    const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
+    const int kind = packed_kind(R);
+    if (kind == OBJ_SPHERE) {
+      const int at = (int)R[RUN_PACK] - start;  // record of slot k: at + k
+      for (int k = start; k < stop; ++k) {
+        const float4 c = tb.packed[at + k];
+        float t;
+        if (sphere_t(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz, t) &&
             t > 0.0f && t <= max_dist && t < INFINITY) {
           return true;
         }
       }
       continue;
     }
-    for (int k = (int)R[RUN_START]; k < stop; ++k) {
+    if (TRI && kind == OBJ_TRIANGLE) {
+      const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
+      for (int k = start; k < stop; ++k) {
+        const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
+                   c = tb.packed[at + 3 * k + 2];
+        float t, u, v;
+        if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz,
+                  dx, dy, dz, t, u, v) &&
+            t > 0.0f && t <= max_dist && t < INFINITY) {
+          return true;
+        }
+      }
+      continue;
+    }
+    for (int k = start; k < stop; ++k) {
       float t;
       if (candidate_t<TRI>(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t) &&
           t <= max_dist && t < INFINITY) {
@@ -651,16 +774,23 @@ inline bool many_objects(const TableArgs& a) {
   return a.n_obj > SMEM_OBJECTS || a.n_runs > 1;
 }
 
-// Bytes of dynamic shared memory a block takes for these tables.
+// Bytes of dynamic shared memory a block takes for these tables: the
+// packed walk records first (16-byte aligned) when the host put them
+// there, then the walk tables or the small scene's geometry, the albedo,
+// the lights and the NEE scales.
 inline size_t smem_bytes(const TableArgs& a, int S) {
-  const size_t walk = many_objects(a) ? (size_t)a.n_obj + (size_t)a.n_runs * RUN_COLS
+  const bool many = many_objects(a);
+  const size_t walk = many ? (size_t)a.n_obj + (size_t)a.n_runs * RUN_COLS
                            : (size_t)GEOM_ROWS * a.n_obj;
-  return sizeof(float) * (walk + (size_t)a.n_mat * S + 4 * (size_t)a.n_lights +
-                          (size_t)a.n_lights * S + (size_t)a.n_lights * BLOCK);
+  const size_t packed = many && a.packed_shared ? 4 * (size_t)a.n_packed : 0;
+  return sizeof(float) * (packed + walk + (size_t)a.n_mat * S +
+                          4 * (size_t)a.n_lights + (size_t)a.n_lights * S +
+                          (size_t)a.n_lights * BLOCK);
 }
 
 // The block's cooperative copy of the tables into shared memory: the
-// geometry of a small scene, the walk tables of a many-object one.
+// geometry of a small scene, the walk tables (and the packed records,
+// where they fit) of a many-object one.
 template <bool MANY>
 __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
                                               int S) {
@@ -668,6 +798,13 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   float* p = smem;
   if constexpr (MANY) {
     tb.geom = a.geom;
+    tb.packed = a.packed;
+    if (a.packed_shared) {
+      float4* s_packed = reinterpret_cast<float4*>(p);
+      for (int i = threadIdx.x; i < a.n_packed; i += blockDim.x) s_packed[i] = a.packed[i];
+      tb.packed = s_packed;
+      p += 4 * a.n_packed;
+    }
     int* s_order = reinterpret_cast<int*>(p);
     for (int i = threadIdx.x; i < a.n_obj; i += blockDim.x) s_order[i] = a.order[i];
     p += a.n_obj;
@@ -680,6 +817,7 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
     tb.geom = p;
     tb.order = nullptr;
     tb.runs = nullptr;
+    tb.packed = nullptr;
     p += GEOM_ROWS * a.n_obj;
   }
   float* s_alb = p;
@@ -691,6 +829,9 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_alb[i] = a.mat_albedo[i];
   for (int i = threadIdx.x; i < 4 * a.n_lights; i += blockDim.x) s_lpos[i] = a.lpos[i];
   for (int i = threadIdx.x; i < a.n_lights * S; i += blockDim.x) s_lspec[i] = a.lspec[i];
+#ifdef SPECTRAL_STATS
+  for (int i = 0; i < WALK_STATS; ++i) walk_slots()[i * BLOCK + threadIdx.x] = 0u;
+#endif
   __syncthreads();
   tb.mat_albedo = s_alb;
   tb.lpos = s_lpos;
@@ -703,12 +844,59 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   return tb;
 }
 
+#ifdef SPECTRAL_STATS
+// The diagnostic build's per-thread record (tools/lane_stats.py binds
+// the buffers with spectral_stats_bind): each thread's live bounce
+// iterations, pixels finished, start and end time (globaltimer, ns) and
+// walk counters, and each block's SM. Threads are numbered blockIdx.x *
+// BLOCK + threadIdx.x.
+struct StatsBuf {
+  unsigned* iters;
+  unsigned* pixels;
+  unsigned long long* t0;
+  unsigned long long* t1;
+  unsigned* smid;
+  unsigned* walk;  // [WALK_STATS][threads]
+  int threads;
+};
+__device__ StatsBuf g_stats;
+
+__device__ __forceinline__ unsigned long long stats_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void stats_begin() {
+  const int tid = blockIdx.x * BLOCK + threadIdx.x;
+  if (tid >= g_stats.threads) return;
+  g_stats.t0[tid] = stats_clock();
+  if (threadIdx.x == 0) {
+    unsigned id;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+    g_stats.smid[blockIdx.x] = id;
+  }
+}
+
+__device__ __forceinline__ void stats_end(unsigned iters, unsigned pixels) {
+  const int tid = blockIdx.x * BLOCK + threadIdx.x;
+  if (tid >= g_stats.threads) return;
+  g_stats.t1[tid] = stats_clock();
+  g_stats.iters[tid] = iters;
+  g_stats.pixels[tid] = pixels;
+  for (int i = 0; i < WALK_STATS; ++i) {
+    g_stats.walk[(size_t)i * g_stats.threads + tid] = walk_slots()[i * BLOCK + threadIdx.x];
+  }
+}
+#endif
+
 // Checks every launch shares: the table sizes, and the shared memory the
 // tables take (raised above 48 KB for the kernel when needed).
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
   if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 || a.n_mat > MAX_MATERIALS ||
-      a.n_lights < 0 || a.tri < 0 || a.tri > 2) {
+      a.n_lights < 0 || a.tri < 0 || a.tri > 2 || a.n_packed < 0 ||
+      (a.n_packed > 0 && a.packed == nullptr)) {
     return cudaErrorInvalidValue;
   }
   smem = smem_bytes(a, S);
@@ -745,13 +933,48 @@ cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
 
 // The table arguments every C entry point takes, in this order.
 #define SPECTRAL_TABLE_PARAMS                                               \
-  int n_obj, int n_mat, int n_runs, int n_lights, int tri,                 \
-      const void *geom, const void *mat_albedo, const void *order,         \
-      const void *runs, const void *lpos, const void *lspec
+  int n_obj, int n_mat, int n_runs, int n_lights, int tri, int n_packed,   \
+      int packed_shared, const void *geom, const void *mat_albedo,         \
+      const void *order, const void *runs, const void *lpos,               \
+      const void *lspec, const void *packed
 #define SPECTRAL_TABLE_ARGS                                                 \
   spectral::TableArgs {                                                     \
     static_cast<const float*>(geom), static_cast<const float*>(mat_albedo), \
         static_cast<const int*>(order), static_cast<const float*>(runs),    \
         static_cast<const float*>(lpos), static_cast<const float*>(lspec),  \
-        n_obj, n_mat, n_runs, n_lights, tri                                 \
+        static_cast<const float4*>(packed), n_obj, n_mat, n_runs, n_lights, \
+        tri, n_packed, packed_shared                                        \
   }
+
+#ifdef SPECTRAL_STATS
+// Binds the diagnostic build's per-thread buffers (StatsBuf order) for
+// the next launches of this library's kernels.
+extern "C" int spectral_stats_bind(void* iters, void* pixels, void* t0,
+                                   void* t1, void* smid, void* walk,
+                                   int threads) {
+  const spectral::StatsBuf b{
+      static_cast<unsigned*>(iters), static_cast<unsigned*>(pixels),
+      static_cast<unsigned long long*>(t0), static_cast<unsigned long long*>(t1),
+      static_cast<unsigned*>(smid), static_cast<unsigned*>(walk), threads};
+  return (int)cudaMemcpyToSymbol(spectral::g_stats, &b, sizeof(b));
+}
+#endif
+
+// Registers, local memory and resident blocks per SM of one kernel
+// instantiation at `smem` bytes of dynamic shared memory:
+// out = {blocks per SM, registers per thread, local bytes per thread}.
+template <typename Kernel>
+cudaError_t spectral_kernel_info(Kernel kernel, int smem, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, spectral::BLOCK,
+                                                      (size_t)smem);
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return err;
+}

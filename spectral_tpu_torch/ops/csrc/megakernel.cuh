@@ -53,7 +53,17 @@ constexpr int RUN_START = 6;  // first member slot in order[], as float
 constexpr int RUN_STOP = 7;   // one past the last member slot, as float
 constexpr int RUN_CULL = 8;   // 1.0: a cluster (pre-tested), 0.0: always visited
 constexpr int RUN_TYPE = 9;   // the members' object type, as float; -1: mixed
-constexpr int RUN_COLS = 10;
+constexpr int RUN_PACK = 10;  // first packed record of the run, as float; -1: none
+constexpr int RUN_COLS = 11;
+
+// packed: float4 [n_packed], the intersection fields of the members of
+// every sphere and triangle run, in visit order (ops/megakernel.py:
+// pack_walk): a sphere as (centre, radius), a triangle as (v0, 0),
+// (e1, 0), (e2, 0); run R's member at slot k is record RUN_PACK + (k -
+// RUN_START) (times three for triangles). Boxes and an unclustered mixed
+// run have none and read the 47-row table. The host puts the records in
+// shared memory when they fit (packed_shared), else the walk reads them
+// from global memory, 16 bytes a load.
 
 // The free-running persist kernel's camera basis, float32 [CAM_BASIS]
 // (the TPU kernel's pack_camera_basis columns; packed by

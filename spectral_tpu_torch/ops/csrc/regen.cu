@@ -6,87 +6,182 @@
 //                 its pixel's next frame, and the output is the SUM of the
 //                 K frames' radiance.
 //
-// Design: cuda_mono's (mono.cu), with the restart inside the lane's own
-// loop, so no lane waits for its block. Frame j > 0 starts from the camera
-// and the host-precomputed direction plane j-1 (re-deriving raygen in the
-// kernel would flip the un-offset diffuse self-hit coin against the host
-// raygen of the mono frames). What bounds it on the H100: the same FP32
-// ALU work and register pressure; it reads 3*(K-1) direction planes and
-// writes [S, n] once, a few ms of HBM time beside K frames of bounces.
+// What bounds it on the H100: the FP32 ALU work of the bounce step (the
+// bound of PERF.md counts this launch's live path iterations), in a lane
+// loop whose lanes do unequal work: a pixel's K paths take a few hundred
+// to a few thousand iterations, and the block that holds a pixel holds
+// its SM slot until its slowest lane is done. Its bytes (the pixel
+// coordinates in, [S, n] radiance out once) are noise.
+//
+// Design.
+// - Primaries in the kernel. Frame j's primary at the lane's pixel is
+//   computed here from the camera table and the frame's Hammersley
+//   offsets (primary_direction), in the op order and bits of the host
+//   raygen (render/camera.py:generate_primary_rays): IEEE division, no
+//   FMA. The host builds no direction planes and calls no raygen per
+//   frame. (restart_direction, the free-running persist kernel's, takes
+//   reciprocal products and lands ulps away: not used here.)
+// - A resident grid with dynamic pixels. The grid is as many blocks as
+//   fit the card at once (the occupancy API), and a lane that has summed
+//   its pixel's K frames takes the next pixel (lane index, in the host's
+//   lane order: Morton for clustered scenes) from a global counter, one
+//   atomic per warp for the lanes that ask together. No lane idles while
+//   another of its warp is busy, except at the very end, and no block
+//   waits for a wave. Each pixel's K frames stay in one lane and are
+//   summed in frame order, so the result is the plain version's bit for
+//   bit whatever lane takes a pixel.
+// Built with -DSPECTRAL_PARENT_DESIGN (a diagnostic library, never the
+// main path's), the grid is the earlier design's instead: one lane per
+// pixel, ceil(n / BLOCK) blocks, so that the two can be timed in one run.
+
+#include <cooperative_groups.h>
 
 #include "bounce.cuh"
 
 namespace spectral {
 namespace {
 
+// Frame j's primary direction at pixel (px, py) from the camera table
+// (megakernel.cuh CB_*) and the frame's offsets off = (off_x, off_y):
+// the op order of generate_primary_rays, normalized twice like it.
+__device__ __forceinline__ void primary_direction(const float* cb,
+                                                  const float* off,
+                                                  uint32_t px, uint32_t py,
+                                                  float& x, float& y,
+                                                  float& z) {
+  const float focal = cb[CB_FOCAL], aspect = cb[CB_ASPECT];
+  const float y_ndc = -((((float)py + off[1]) / cb[CB_HEIGHT]) * 2.0f - 1.0f);
+  const float x_ndc = ((((float)px + off[0]) / cb[CB_WIDTH]) * 2.0f - 1.0f) * aspect;
+  x = cb[CB_FWD] * focal - cb[CB_RIGHT] * x_ndc + cb[CB_UP] * y_ndc;
+  y = cb[CB_FWD + 1] * focal - cb[CB_RIGHT + 1] * x_ndc + cb[CB_UP + 1] * y_ndc;
+  z = cb[CB_FWD + 2] * focal - cb[CB_RIGHT + 2] * x_ndc + cb[CB_UP + 2] * y_ndc;
+  normalize3(x, y, z);  // the reference normalizes in raygen AND in Ray::new
+  normalize3(x, y, z);
+}
+
+// Frame j's first trace: the primary at the lane's pixel, from the camera.
+template <int S>
+__device__ __forceinline__ void start_frame(Lane<S>& L, const float* cb,
+                                            const float* off, int j,
+                                            uint32_t ux, uint32_t uy,
+                                            uint32_t first_frame,
+                                            int max_bounces) {
+  float dx, dy, dz;
+  primary_direction(cb, off + 2 * j, ux, uy, dx, dy, dz);
+  start_path(L, cb[CB_POS], cb[CB_POS + 1], cb[CB_POS + 2], dx, dy, dz,
+             first_frame + (uint32_t)j, max_bounces);
+}
+
+// The next lane index for every calling thread: one atomicAdd per group of
+// threads that ask together, each taking its rank's index.
+__device__ __forceinline__ int next_lane(unsigned* counter, int first) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group g = cg::coalesced_threads();
+  const unsigned rank = (unsigned)g.thread_rank();
+  unsigned base = 0;
+  if (rank == 0) base = atomicAdd(counter, (unsigned)g.size());
+  base = g.shfl(base, 0);
+  return first + (int)(base + rank);
+}
+
 template <int S, bool MANY, bool TRI>
 __global__ void __launch_bounds__(BLOCK)
 regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
-             int k, const float* __restrict__ ox,
-             const float* __restrict__ oy, const float* __restrict__ oz,
-             const float* __restrict__ dx, const float* __restrict__ dy,
-             const float* __restrict__ dz, const int* __restrict__ px,
-             const int* __restrict__ py, const float* __restrict__ cam,
-             const float* __restrict__ dirx, const float* __restrict__ diry,
-             const float* __restrict__ dirz, float* __restrict__ out) {
+             int k, const int* __restrict__ px, const int* __restrict__ py,
+             const float* __restrict__ cam, const float* __restrict__ off,
+             float* __restrict__ out, unsigned* __restrict__ counter) {
   extern __shared__ float smem[];
-  const Tables tb = load_tables<MANY>(smem, ta, S);
-  const int gidx = blockIdx.x * BLOCK + threadIdx.x;
-  if (gidx >= n) return;
-  const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
-  Lane<S> L;
-  start_path(L, ox[gidx], oy[gidx], oz[gidx], dx[gidx], dy[gidx], dz[gidx],
-             first_frame, max_bounces);
+  __shared__ float s_cam[CAM_BASIS];
+  if (threadIdx.x < CAM_BASIS) s_cam[threadIdx.x] = cam[threadIdx.x];
+  const Tables tb = load_tables<MANY>(smem, ta, S);  // its __syncthreads publishes s_cam
+#ifdef SPECTRAL_STATS
+  stats_begin();
+  unsigned stat_iters = 0, stat_pixels = 0;
+#endif
+  int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane < n) {
+    uint32_t ux = (uint32_t)px[lane], uy = (uint32_t)py[lane];
+    Lane<S> L;
 #pragma unroll
-  for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
-  // frame 0 from the given primaries; when a path ends, frame j starts
-  // from the camera origin and the host-precomputed direction plane j-1;
-  // the K radiances are summed in frame order
-  for (int j = 1;;) {
-    if (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
-    if (j == k) break;
-    const size_t at = (size_t)(j - 1) * n + gidx;
-    start_path(L, cam[0], cam[1], cam[2], dirx[at], diry[at], dirz[at],
-               first_frame + (uint32_t)j, max_bounces);
-    ++j;
+    for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
+    int j = 0;  // the frame in flight, 0..k-1
+    start_frame(L, s_cam, off, j, ux, uy, first_frame, max_bounces);
+    for (;;) {
+#ifdef SPECTRAL_STATS
+      ++stat_iters;
+#endif
+      if (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
+      if (++j == k) {
+        // the pixel's K frames are summed: store them, take the next pixel
+#pragma unroll
+        for (int s = 0; s < S; ++s) out[(size_t)s * n + lane] = L.rad[s];
+#ifdef SPECTRAL_STATS
+        ++stat_pixels;
+#endif
+#ifdef SPECTRAL_PARENT_DESIGN
+        break;
+#else
+        lane = next_lane(counter, gridDim.x * BLOCK);
+        if (lane >= n) break;
+        ux = (uint32_t)px[lane];
+        uy = (uint32_t)py[lane];
+#pragma unroll
+        for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
+        j = 0;
+#endif
+      }
+      start_frame(L, s_cam, off, j, ux, uy, first_frame, max_bounces);
+    }
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
+#ifdef SPECTRAL_STATS
+  stats_end(stat_iters, stat_pixels);
+#endif
 }
 
 template <int S, bool MANY, bool TRI>
 cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
-                         uint32_t first_frame, int k, const float* ox,
-                         const float* oy, const float* oz, const float* dx,
-                         const float* dy, const float* dz, const int* px,
-                         const int* py, const float* cam, const float* dirx,
-                         const float* diry, const float* dirz, float* out,
-                         cudaStream_t stream) {
+                         uint32_t first_frame, int k, const int* px,
+                         const int* py, const float* cam, const float* off,
+                         float* out, unsigned* counter, cudaStream_t stream) {
+  const auto kernel = regen_kernel<S, MANY, TRI>;
   size_t smem;
-  cudaError_t err = prepare(regen_kernel<S, MANY, TRI>, ta, S, smem);
+  cudaError_t err = prepare(kernel, ta, S, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + BLOCK - 1) / BLOCK;
-  regen_kernel<S, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
-      n, ta, max_bounces, first_frame, k, ox, oy, oz, dx, dy, dz, px, py,
-      cam, dirx, diry, dirz, out);
+  int blocks = (n + BLOCK - 1) / BLOCK;
+#ifndef SPECTRAL_PARENT_DESIGN
+  // the resident grid: every block the card holds at once, no more than
+  // the lanes need; the counter hands out lanes from gridDim.x * BLOCK on
+  int device, sms, per_sm;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = blocks < per_sm * sms ? blocks : per_sm * sms;
+  if ((err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream)) != cudaSuccess) return err;
+#endif
+  kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, first_frame, k,
+                                          px, py, cam, off, out, counter);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace spectral
 
-#define SPECTRAL_FLOAT(p) static_cast<const float*>(p)
-
 // C interface, bound with ctypes: every pointer and the stream are void*;
-// returns the cudaError_t of the launch (0 on success).
+// returns the cudaError_t of the launch (0 on success). `counter` is one
+// unsigned of device scratch, which the launch zeroes on its stream.
 extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
                               unsigned int first_frame, int k,
-                              SPECTRAL_TABLE_PARAMS, const void* ox,
-                              const void* oy, const void* oz, const void* dx,
-                              const void* dy, const void* dz, const void* px,
+                              SPECTRAL_TABLE_PARAMS, const void* px,
                               const void* py, const void* cam,
-                              const void* dirx, const void* diry,
-                              const void* dirz, void* out, void* stream) {
+                              const void* off, void* out, void* counter,
+                              void* stream) {
   if (n <= 0) return 0;
   if (k < 1) return (int)cudaErrorInvalidValue;
   const spectral::TableArgs ta = SPECTRAL_TABLE_ARGS;
@@ -95,12 +190,10 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
   return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) {     \
     return spectral::launch_regen<S, decltype(many)::value,                   \
                                   decltype(tri)::value>(                      \
-        n, ta, max_bounces, first_frame, k, SPECTRAL_FLOAT(ox),               \
-        SPECTRAL_FLOAT(oy), SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx),           \
-        SPECTRAL_FLOAT(dy), SPECTRAL_FLOAT(dz), static_cast<const int*>(px),  \
-        static_cast<const int*>(py), SPECTRAL_FLOAT(cam), SPECTRAL_FLOAT(dirx), \
-        SPECTRAL_FLOAT(diry), SPECTRAL_FLOAT(dirz), static_cast<float*>(out), \
-        st);                                                                  \
+        n, ta, max_bounces, first_frame, k, static_cast<const int*>(px),      \
+        static_cast<const int*>(py), static_cast<const float*>(cam),          \
+        static_cast<const float*>(off), static_cast<float*>(out),             \
+        static_cast<unsigned*>(counter), st);                                 \
   })
   switch (n_samples) {
     case 8: SPECTRAL_REGEN(8);
@@ -110,4 +203,29 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_REGEN
+}
+
+// The registers, local bytes and resident blocks per SM of the regen
+// instantiation that tables of this kind take (spectral_kernel_info's
+// out), for the measurement tools.
+extern "C" int spectral_regen_info(int n_samples, int many, int tri, int smem,
+                                   int* out) {
+  spectral::TableArgs ta{};
+  ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
+  ta.n_runs = 1;
+  ta.tri = tri;
+#define SPECTRAL_REGEN_INFO(S)                                                 \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
+    return spectral_kernel_info(                                              \
+        spectral::regen_kernel<S, decltype(m)::value, decltype(t)::value>,    \
+        smem, out);                                                           \
+  })
+  switch (n_samples) {
+    case 8: SPECTRAL_REGEN_INFO(8);
+    case 16: SPECTRAL_REGEN_INFO(16);
+    case 32: SPECTRAL_REGEN_INFO(32);
+    case 64: SPECTRAL_REGEN_INFO(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_REGEN_INFO
 }

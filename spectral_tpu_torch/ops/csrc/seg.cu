@@ -16,12 +16,22 @@
 // lanes among them) reads and writes nothing after its alive flag.
 //
 // What bounds it on the H100: the FP32 ALU work of the bounce step, like
-// the others (mono.cu). The state round trip is (9 + 2S) * 4 B per live
-// lane per launch, noise beside a bounce of a 1001-object scene. The
-// segment split exists to keep the wavefront dense: a compacted
-// wavefront puts the survivors of the first bounces (about 3% of lanes
-// entering bounce 2 in the 1000-sphere scene, pallas_integrator.py:1579)
-// into few, full warps instead of leaving them scattered across all.
+// the others (mono.cu), and on the many-object scenes it serves, the
+// cluster walk inside it: a trace of the 1000-sphere field tests about
+// 120-240 members (PERF.md §6). The state round trip is (9 + 2S) * 4 B
+// per live lane per launch, noise beside that. The segment split exists
+// to keep the wavefront dense: a compacted wavefront puts the survivors
+// of the first bounces (about 3% of lanes entering bounce 2 in the
+// 1000-sphere scene, pallas_integrator.py:1579) into few, full warps
+// instead of leaving them scattered across all.
+//
+// Design for the walk (bounce.cuh): the members of a sphere or triangle
+// run are read as packed 16-byte records in visit order, from shared
+// memory where they fit, with no order[] load before a test; the
+// earlier walk read five or nine scalars of the 47-row global table
+// behind each order[] load. The survivors stay in ascending lane order:
+// grouping them by ray (direction octant, then origin cell) raised the
+// walk's SIMT efficiency but unbalanced the blocks and ran slower.
 
 #include "bounce.cuh"
 
@@ -53,6 +63,14 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   extern __shared__ float smem[];
   const Tables tb = load_tables<MANY>(smem, ta, S);
   const int gidx = blockIdx.x * BLOCK + threadIdx.x;
+#ifdef SPECTRAL_STATS
+  stats_begin();
+  unsigned stat_iters = 0;
+  if (gidx >= n || !(a.alive[gidx] > 0.0f)) {
+    stats_end(0u, 0u);
+    return;
+  }
+#endif
   if (gidx >= n || !(a.alive[gidx] > 0.0f)) return;
 
   Lane<S> L;
@@ -74,8 +92,14 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   }
   const uint32_t ux = (uint32_t)a.px[gidx], uy = (uint32_t)a.py[gidx];
   for (int b = b_start; b < b_stop; ++b) {
+#ifdef SPECTRAL_STATS
+    ++stat_iters;
+#endif
     if (!bounce_step<S, MANY, TRI>(tb, L, ux, uy)) break;
   }
+#ifdef SPECTRAL_STATS
+  stats_end(stat_iters, 1u);
+#endif
 
   const int gq = opaque(gidx);
   const size_t nq = (size_t)opaque(n);
@@ -146,4 +170,29 @@ extern "C" int spectral_seg(int n, int n_samples, int max_bounces,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_SEG
+}
+
+// The registers, local bytes and resident blocks per SM of the segment
+// instantiation that tables of this kind take (spectral_kernel_info's
+// out), for the measurement tools.
+extern "C" int spectral_seg_info(int n_samples, int many, int tri, int smem,
+                                 int* out) {
+  spectral::TableArgs ta{};
+  ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
+  ta.n_runs = 1;
+  ta.tri = tri;
+#define SPECTRAL_SEG_INFO(S)                                                   \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
+    return spectral_kernel_info(                                              \
+        spectral::seg_kernel<S, decltype(m)::value, decltype(t)::value>,      \
+        smem, out);                                                           \
+  })
+  switch (n_samples) {
+    case 8: SPECTRAL_SEG_INFO(8);
+    case 16: SPECTRAL_SEG_INFO(16);
+    case 32: SPECTRAL_SEG_INFO(32);
+    case 64: SPECTRAL_SEG_INFO(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_SEG_INFO
 }

@@ -14,7 +14,9 @@ The counterpart of the reference package's
   launches (``.launches`` on each wrapper);
 * ``run_mono_plain`` / ``run_regen_plain`` / ``run_persist_plain`` /
   ``run_cost_plain`` / ``run_seg_plain`` take the same arguments and run
-  the eager PyTorch bounce loop (``render.integrator``).
+  the eager PyTorch bounce loop (``render.integrator``);
+* ``run_regen_variant`` / ``run_seg_variant`` launch a diagnostic build
+  of a kernel (``runtime.build.VARIANTS``) for the measurement tools.
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; there is no fallback.
@@ -31,7 +33,7 @@ import torch
 
 from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops.vecmath import Vec3
-from spectral_tpu_torch.render.camera import CAM_BASIS
+from spectral_tpu_torch.render.camera import CAM_BASIS, primary_directions
 from spectral_tpu_torch.render.integrator import (
     MAX_MATERIALS,
     PersistState,
@@ -60,6 +62,10 @@ OBJECT_TYPES = (OBJ_PLAIN_BOX, OBJ_SPHERE, OBJ_ROTATED_BOX, OBJ_TRIANGLE)
 BLOCK = 128  # threads (pixel-lanes) per block, csrc/megakernel.cuh
 SMEM_OBJECTS = 64  # geometry in shared memory up to this many objects
 MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+# the packed walk records stay in shared memory while a block's tables
+# take at most this much: 4 blocks of 128 lanes (the register limit of
+# the S = 32 kernels) then still fit an SM's 228 KB
+PACKED_SMEM_LIMIT = 56 * 1024
 
 # geom rows, mirroring csrc/megakernel.cuh: (field, first row, width)
 GEOM_LAYOUT = (
@@ -95,10 +101,12 @@ class KernelTables:
     lpos: torch.Tensor  # f32 [L, 4]
     lspec: torch.Tensor  # f32 [L, S]
     cam: torch.Tensor  # f32 [4]: camera position, pad
+    packed: torch.Tensor  # f32 [P, 4]: the walk's packed records
     scene: SceneTensors
     config: RenderConfig
     clusters: tuple | None = None
     triangles: int = 0
+    packed_shared: bool = False  # the records go to shared memory
 
     def many_objects(self) -> bool:
         """Whether the kernels take their many-object instantiation
@@ -106,12 +114,22 @@ class KernelTables:
         the run walk, instead of shared geometry in index order."""
         return self.config.n_objects > SMEM_OBJECTS or self.runs.shape[0] > 1
 
+    def unpacked(self) -> "KernelTables":
+        """These tables without packed walk records: every run reads the
+        47-row table through ``order``, the walk of the kernels before
+        the records (for measurements against it)."""
+        runs = self.runs.clone()
+        runs[:, cl.RUN_PACK] = -1.0
+        return dataclasses.replace(self, runs=runs, packed=self.packed[:0])
+
     def smem_bytes(self) -> int:
         """The kernels' dynamic shared memory for these tables
         (``csrc/bounce.cuh:smem_bytes``)."""
         o, s = self.config.n_objects, self.config.n_samples
         n_l = self.config.n_lights
         walk = o + self.runs.numel() if self.many_objects() else GEOM_ROWS * o
+        if self.many_objects() and self.packed_shared:
+            walk += self.packed.numel()
         return 4 * (walk + self.mat_albedo.shape[0] * s + 4 * n_l + n_l * s
                     + n_l * BLOCK)
 
@@ -138,6 +156,7 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     cam[:3] = f["cam_pos"]
     plan = cl.renderer_plan(f, n_obj, accel)
     order, runs = cl.run_tables(f, n_obj, plan)
+    packed = cl.pack_walk(f, order, runs)
     dev = scene.device
 
     def t(a, dtype=np.float32):
@@ -146,9 +165,13 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     tables = KernelTables(
         geom=t(geom), mat_albedo=t(f["mat_albedo"]), order=t(order, np.int32),
         runs=t(runs), lpos=t(lpos), lspec=t(f["light_spec"]), cam=t(cam),
-        scene=scene, config=config, clusters=plan,
+        packed=t(packed), scene=scene, config=config, clusters=plan,
         triangles=(2 if scene.smooth_tri else 1) if scene.has_triangles else 0,
     )
+    # the packed records go to shared memory where the block then still
+    # fits PACKED_SMEM_LIMIT, else the walk streams them from global memory
+    tables.packed_shared = True
+    tables.packed_shared = tables.smem_bytes() <= PACKED_SMEM_LIMIT
     if n_obj and tables.smem_bytes() > MAX_SMEM:
         raise NotImplementedError(
             f"the scene's kernel tables take {tables.smem_bytes()} bytes of "
@@ -171,23 +194,23 @@ def run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     return rad.T.contiguous()
 
 
-def run_regen_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
-                    dirx, diry, dirz, tables: KernelTables) -> torch.Tensor:
-    """The SUM of K frames' radiance ``[S, n]``: frame 0 from the given
-    primaries, frame j from the camera and direction plane j-1. One
-    radiance accumulator is carried through the K frames, bounce by
-    bounce, in the kernel's order, so the sum is ``run_regen``'s bit for
-    bit (a sum of K separate frames differs in the last bits)."""
-    n = ox.shape[0]
-    cam = tables.cam
+def run_regen_plain(px, py, first_frame: int, camera, offsets,
+                    tables: KernelTables) -> torch.Tensor:
+    """The SUM of K frames' radiance ``[S, n]``: frame j traces from the
+    camera along ``camera.primary_directions`` at the lane's pixel with
+    offsets row j. One radiance accumulator is carried through the K
+    frames, bounce by bounce, in the kernel's order, so the sum is
+    ``run_regen``'s bit for bit (a sum of K separate frames differs in the
+    last bits)."""
+    n = px.shape[0]
+    pos = camera[:3]
+    origin = Vec3(pos[0].expand(n), pos[1].expand(n), pos[2].expand(n))
     px, py = px.long(), py.long()
-    rad = bounce_loop(Vec3(ox, oy, oz), Vec3(dx, dy, dz), px, py, first_frame,
-                      tables.scene, tables.config)
-    origin = Vec3(cam[0].expand(n), cam[1].expand(n), cam[2].expand(n))
-    for j in range(1, dirx.shape[0] + 1):
-        rad = bounce_loop(origin, Vec3(dirx[j - 1], diry[j - 1], dirz[j - 1]),
-                          px, py, first_frame + j, tables.scene, tables.config,
-                          radiance=rad)
+    rad = None
+    for j in range(offsets.shape[0]):
+        d = primary_directions(px, py, camera, offsets[j, 0], offsets[j, 1])
+        rad = bounce_loop(origin, d, px, py, first_frame + j, tables.scene,
+                          tables.config, radiance=rad)
     return rad.T.contiguous()
 
 
@@ -260,6 +283,15 @@ def _check_spectral(state, n: int, s: int) -> None:
             raise ValueError(f"{name} must be contiguous float32 [{s}, {n}]")
 
 
+def _check_camera(camera, offsets, dev) -> None:
+    for name, t, shape in (("camera", camera, (CAM_BASIS,)),
+                           ("offsets", offsets, (offsets.shape[0], 2))):
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous float32 {list(shape)} "
+                             "table on the lanes' device")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
@@ -269,39 +301,41 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 # the table arguments of every C entry point (csrc/bounce.cuh:
-# SPECTRAL_TABLE_PARAMS): 5 ints, 6 pointers
-_TABLE_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+# SPECTRAL_TABLE_PARAMS): 7 ints, 7 pointers
+_TABLE_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
 
 
 def _table_args(tables: KernelTables) -> tuple:
     cfg = tables.config
     return (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
-            cfg.n_lights, tables.triangles,
+            cfg.n_lights, tables.triangles, tables.packed.shape[0],
+            int(tables.packed_shared),
             *map(_ptr, (tables.geom, tables.mat_albedo, tables.order,
-                        tables.runs, tables.lpos, tables.lspec)))
+                        tables.runs, tables.lpos, tables.lspec, tables.packed)))
+
+
+_SIGNATURES = {  # entry point: (source, argument types after the tables' split)
+    "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 10)),
+    "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
+    "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 7)),
+    "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
+                                     + [ctypes.c_int], 21)),
+    "spectral_seg": ("seg", ([ctypes.c_int] * 5 + [ctypes.c_uint], 13)),
+}
 
 
 @functools.cache
-def _lib() -> dict:
-    """The built kernel libraries (one per csrc source, built together)
-    with their C signatures declared, by entry point."""
-    build.build_all()
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    tab = _TABLE_ARGTYPES
-    sigs = {
-        "spectral_mono": ("mono", [ci, ci, ci, cu] + tab + [vp] * 10),
-        "spectral_cost": ("mono", [ci, ci, ci, cu] + tab + [vp] * 11),
-        "spectral_regen": ("regen", [ci, ci, ci, cu, ci] + tab + [vp] * 14),
-        "spectral_persist": ("persist", [ci, ci, ci, ci, cu, cu, ci] + tab + [vp] * 21),
-        "spectral_seg": ("seg", [ci, ci, ci, ci, ci, cu] + tab + [vp] * 13),
-    }
-    fns = {}
-    for fn, (src, argtypes) in sigs.items():
-        f = getattr(build.load(src), fn)
-        f.argtypes = argtypes
-        f.restype = ci
-        fns[fn] = f
-    return fns
+def _entry(fn: str, library: str | None = None):
+    """Entry point ``fn`` of its source's library (or of the diagnostic
+    ``library`` built from that source, ``build.VARIANTS``), with its C
+    signature declared. The first call builds every main library
+    together."""
+    src, (head, n_ptrs) = _SIGNATURES[fn]
+    build.build_all(build.SOURCES + ((library,) if library else ()))
+    f = getattr(build.load(library or src), fn)
+    f.argtypes = head + _TABLE_ARGTYPES + [ctypes.c_void_p] * n_ptrs
+    f.restype = ctypes.c_int
+    return f
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -325,7 +359,7 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
                  dict(px=px, py=py), tables, n)
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _lib()["spectral_mono"](
+    err = _entry("spectral_mono")(
         n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
         *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out)), _stream(ox),
@@ -338,36 +372,47 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
 run_mono.launches = 0
 
 
-def run_regen(ox, oy, oz, dx, dy, dz, px, py, first_frame: int,
-              dirx, diry, dirz, tables: KernelTables) -> torch.Tensor:
-    """The SUM of K progressive frames' radiance ``[S, n]`` in one launch
-    (K = ``dirx.shape[0] + 1`` >= 2; ``dir*`` are the ``[K-1, n]``
-    primary directions of frames 1..K-1, whose origin is the camera).
-    Launches ``cuda_regen`` for CUDA tensors, runs the plain version for
-    CPU ones."""
-    k = dirx.shape[0] + 1
-    if k < 2:
+def run_regen(px, py, first_frame: int, camera, offsets,
+              tables: KernelTables) -> torch.Tensor:
+    """The SUM of K progressive frames' radiance ``[S, n]`` in one launch.
+    Lane ``i`` traces pixel ``(px[i], py[i])`` (int32 ``[n]``); frame j
+    (``first_frame + j``) starts from the camera along the direction the
+    kernel computes from ``camera`` (``camera.camera_basis_table``, f32
+    ``[20]``) and row j of ``offsets`` (``camera.hammersley_table``, f32
+    ``[K, 2]``, K >= 2). Launches ``cuda_regen`` for CUDA tensors, runs
+    the plain version for CPU ones."""
+    if offsets.shape[0] < 2:
         raise ValueError("regen wants k >= 2 (use run_mono)")
-    if not _on_cuda(ox):
-        return run_regen_plain(ox, oy, oz, dx, dy, dz, px, py, first_frame,
-                               dirx, diry, dirz, tables)
-    n = ox.shape[0]
-    _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
-                      dirx=dirx, diry=diry, dirz=dirz),
-                 dict(px=px, py=py), tables, n)
-    for name, t in (("diry", diry), ("dirz", dirz)):
-        if t.shape != dirx.shape:
-            raise ValueError(f"{name} is {tuple(t.shape)}, dirx {tuple(dirx.shape)}")
+    if not _on_cuda(px):
+        return run_regen_plain(px, py, first_frame, camera, offsets, tables)
+    out = _launch_regen(_entry("spectral_regen"), px, py, first_frame, camera,
+                        offsets, tables)
+    run_regen.launches += 1
+    return out
+
+
+def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets,
+                      tables: KernelTables) -> torch.Tensor:
+    """``run_regen`` through a diagnostic build of ``regen.cu``
+    (``build.VARIANTS``: the earlier design's grid, the stats build), for
+    the measurement tools. CUDA tensors only; not counted."""
+    return _launch_regen(_entry("spectral_regen", library), px, py, first_frame,
+                         camera, offsets, tables)
+
+
+def _launch_regen(fn, px, py, first_frame, camera, offsets, tables):
+    n = px.shape[0]
+    _check_lanes({}, dict(px=px, py=py), tables, n)
+    _check_camera(camera, offsets, px.device)
     cfg = tables.config
-    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _lib()["spectral_regen"](
-        n, cfg.n_samples, cfg.max_bounces, int(first_frame) & 0xFFFFFFFF, k,
-        *_table_args(tables),
-        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, tables.cam, dirx, diry,
-                    dirz, out)), _stream(ox),
+    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=px.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=px.device)  # zeroed by the launch
+    err = fn(
+        n, cfg.n_samples, cfg.max_bounces, int(first_frame) & 0xFFFFFFFF,
+        offsets.shape[0], *_table_args(tables),
+        *map(_ptr, (px, py, camera, offsets, out, counter)), _stream(px),
     )
     _raise_on(err, "cuda_regen")
-    run_regen.launches += 1
     return out
 
 
@@ -389,7 +434,7 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
     cost = torch.empty((n,), dtype=torch.float32, device=ox.device)
-    err = _lib()["spectral_cost"](
+    err = _entry("spectral_cost")(
         n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
         *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out, cost)), _stream(ox),
@@ -450,7 +495,7 @@ def run_persist(state: PersistState, lead: int, end: int,
     carried = [getattr(state, k) for k in (
         "ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero", "bl", "fid",
         "px", "py")]
-    err = _lib()["spectral_persist"](
+    err = _entry("spectral_persist")(
         n, cfg.n_samples, cfg.max_bounces, int(budget),
         int(lead) & 0xFFFFFFFF, int(end) & 0xFFFFFFFF, ring_w,
         *_table_args(tables),
@@ -479,19 +524,33 @@ def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
                          f"[0, {cfg.max_bounces})")
     if not _on_cuda(wf.ox):
         return run_seg_plain(wf, b_start, b_stop, frame_id, tables)
+    _launch_seg(_entry("spectral_seg"), wf, b_start, b_stop, frame_id, tables)
+    run_seg.launches += 1
+
+
+def run_seg_variant(library: str, wf: Wavefront, b_start: int, b_stop: int,
+                    frame_id: int, tables: KernelTables) -> None:
+    """``run_seg`` through a diagnostic build of ``seg.cu``
+    (``build.VARIANTS``), for the measurement tools. CUDA tensors only;
+    not counted."""
+    _launch_seg(_entry("spectral_seg", library), wf, int(b_start), int(b_stop),
+                frame_id, tables)
+
+
+def _launch_seg(fn, wf, b_start, b_stop, frame_id, tables):
+    cfg = tables.config
     n = wf.ox.shape[0]
     planes = {k: v for k, v in wf.planes().items() if k not in ("thr", "rad")}
     ints = {k: planes.pop(k) for k in ("px", "py")}
     _check_lanes(planes, ints, tables, n)
     _check_spectral(wf, n, cfg.n_samples)
-    err = _lib()["spectral_seg"](
+    err = fn(
         n, cfg.n_samples, cfg.max_bounces, b_start, b_stop,
         int(frame_id) & 0xFFFFFFFF, *_table_args(tables),
         *map(_ptr, (wf.ox, wf.oy, wf.oz, wf.dx, wf.dy, wf.dz, wf.alive,
                     wf.gate, wf.px, wf.py, wf.thr, wf.rad)), _stream(wf.ox),
     )
     _raise_on(err, "cuda_seg")
-    run_seg.launches += 1
 
 
 run_seg.launches = 0

@@ -110,6 +110,32 @@ def camera_basis_table(scene, config) -> torch.Tensor:
     ])
 
 
+def hammersley_table(first_frame: int, k: int, intended_frames: int,
+                     device=None) -> torch.Tensor:
+    """``[k, 2]`` float32 ``(off_x, off_y)`` of frames ``first_frame`` ..
+    ``first_frame + k - 1``: ``hammersley`` on the host, one copy to
+    ``device``. The regeneration kernel's per-frame sub-pixel offsets."""
+    off_x, off_y = hammersley(torch.arange(first_frame, first_frame + k), intended_frames)
+    return torch.stack([off_x, off_y], dim=1).to(device)
+
+
+def primary_directions(px, py, table: torch.Tensor, off_x, off_y) -> Vec3:
+    """Primary directions at pixels ``(px, py)`` from the camera table
+    (``camera_basis_table``) and one frame's Hammersley offsets: the plain
+    twin of the regeneration kernel's in-kernel raygen
+    (``csrc/regen.cu:primary_direction``), in the op order of
+    ``generate_primary_rays``, whose bits it gives (divisions, not the
+    reciprocal products of ``restart_directions``)."""
+    focal, aspect, w, h = table[12], table[13], table[14], table[15]
+    y_ndc = -(((py.to(torch.float32) + off_y) / h) * 2.0 - 1.0)
+    x_ndc = (((px.to(torch.float32) + off_x) / w) * 2.0 - 1.0) * aspect
+    forward = Vec3(table[3], table[4], table[5])
+    right = Vec3(table[6], table[7], table[8])
+    true_up = Vec3(table[9], table[10], table[11])
+    d = forward * focal - right * x_ndc + true_up * y_ndc
+    return d.normalize().normalize()
+
+
 def restart_directions(px, py, nf, table: torch.Tensor) -> Vec3:
     """Primary directions of frames ``nf`` at pixels ``(px, py)`` from the
     camera table: the plain twin of the free-running persist kernel's

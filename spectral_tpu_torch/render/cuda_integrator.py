@@ -1,11 +1,12 @@
 """Frame integration through the CUDA bounce kernels (the twin of the
 reference package's ``spectral_tpu.render.pallas_integrator``).
 
-Primary rays come from the port's own raygen for every frame, including
-the K-1 later frames of a regeneration launch, which are precomputed here
-as direction planes (the reference does the same: re-deriving raygen
-inside the kernel flips the un-offset diffuse self-hit coin). On CPU
-tensors the kernel wrappers run their plain versions.
+Primary rays come from the port's own raygen (``generate_primary_rays``)
+for every frame, except in a regeneration launch, whose kernel generates
+each frame's primaries itself from the camera table and the frames'
+Hammersley offsets, in the host raygen's op order and bits (re-deriving
+them in another order would flip the un-offset diffuse self-hit coin).
+On CPU tensors the kernel wrappers run their plain versions.
 
 ``render_persistent`` is the persistent lane-asynchronous render
 (``run_persist``): every lane walks its own frame stream with its state
@@ -30,7 +31,12 @@ import torch
 
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops.rng import MASK32
-from spectral_tpu_torch.render.camera import camera_basis_table, generate_primary_rays
+from spectral_tpu_torch.render.camera import (
+    camera_basis_table,
+    generate_primary_rays,
+    hammersley_table,
+    pixel_coords,
+)
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.render.integrator import (
     PersistState,
@@ -75,32 +81,29 @@ def integrate_frame_cuda(
     return _to_rgb(rad, scene, config)
 
 
+def regen_args(scene: SceneTensors, config: RenderConfig, first_frame_id: int,
+               k: int, lane_perm: torch.Tensor | None = None) -> tuple:
+    """``run_regen``'s lane arguments for K frames from ``first_frame_id``:
+    ``(px, py, first_frame_id, camera table, Hammersley table)``, lane
+    ``p`` on pixel ``lane_perm[p]`` (row-major without one)."""
+    px, py = pixel_coords(config.width, config.height, scene.device)
+    if lane_perm is not None:
+        px, py = px[lane_perm], py[lane_perm]
+    offsets = hammersley_table(first_frame_id, k, config.intended_frames, scene.device)
+    return (px.to(torch.int32), py.to(torch.int32), first_frame_id,
+            camera_basis_table(scene, config), offsets)
+
+
 def regen_radiance(
     scene: SceneTensors, config: RenderConfig, first_frame_id: int, k: int,
     tables: mk.KernelTables, lane_perm: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The SUM of K frames' radiance ``[S, n]`` in one ``run_regen``
-    launch, in lane order: lane ``p`` traces pixel ``lane_perm[p]`` (the
-    primaries and direction planes are permuted; raygen is elementwise,
-    so each lane's paths are bit-identical to the unpermuted launch's)."""
-    planes, px, py = primary_lanes(scene, config, first_frame_id)
-    later = [
-        generate_primary_rays(
-            scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
-            config.width, config.height, first_frame_id + j,
-            config.intended_frames,
-        )[1]
-        for j in range(1, k)
-    ]
-    dirx = torch.stack([d.x for d in later])
-    diry = torch.stack([d.y for d in later])
-    dirz = torch.stack([d.z for d in later])
-    del later
-    if lane_perm is not None:
-        planes = tuple(p[lane_perm] for p in planes)
-        px, py = px[lane_perm], py[lane_perm]
-        dirx, diry, dirz = (d[:, lane_perm].contiguous() for d in (dirx, diry, dirz))
-    return mk.run_regen(*planes, px, py, first_frame_id, dirx, diry, dirz, tables)
+    launch, in lane order: lane ``p`` traces pixel ``lane_perm[p]``. The
+    kernel generates every frame's primaries itself, elementwise in the
+    lane's pixel, so each lane's paths are bit-identical to the
+    unpermuted launch's and to host raygen's."""
+    return mk.run_regen(*regen_args(scene, config, first_frame_id, k, lane_perm), tables)
 
 
 def integrate_frames_cuda_regen(
@@ -223,6 +226,29 @@ def stage_capacities(stages: tuple, n: int) -> list[int]:
     return [-(-min(int(c), n_pad) // mk.BLOCK) * mk.BLOCK for _, c in stages]
 
 
+def compact_live(wf: Wavefront, ncap: int):
+    """The live lanes of ``wf`` in a fresh ``ncap``-lane wavefront, with
+    zero radiance: ``(wavefront, idx, count)``. ``idx[i]`` is the lane of
+    ``wf`` that lane ``i`` carries on; ``count`` (a device scalar) the
+    live lanes, of which the first ``ncap`` are kept. The live lanes are
+    taken in ascending order (a cumsum of the alive mask and one scatter
+    into a capacity-sized index buffer: no host synchronisation); fill
+    entries point at lane 0 and stay dead."""
+    dev = wf.ox.device
+    cap = wf.ox.shape[0]
+    live = wf.alive > 0.0
+    count = live.sum()
+    pos = torch.cumsum(live, 0) - 1
+    dest = torch.where(live & (pos < ncap), pos, ncap)  # slot ncap: discarded
+    idx = torch.zeros((ncap + 1,), dtype=torch.int64, device=dev)
+    idx.scatter_(0, dest, torch.arange(cap, device=dev))
+    idx = idx[:ncap]
+    out = _gather(wf, idx)
+    out.alive = (torch.arange(ncap, device=dev) < count).to(torch.float32)
+    out.rad = torch.zeros_like(out.rad)
+    return out, idx, count
+
+
 def integrate_frame_cascade(
     scene: SceneTensors, config: RenderConfig, frame_id: int, stages: tuple,
     tables: mk.KernelTables | None = None, return_chains: bool = False,
@@ -233,9 +259,8 @@ def integrate_frame_cascade(
     ``stages`` is ``((split, capacity_lanes), ...)`` with strictly
     increasing splits: bounces ``[0, s0)`` run on the full wavefront,
     ``[s0, s1)`` on a ``cap0``-lane wavefront of the lanes still alive,
-    and so on. Each extraction takes the live lanes in ascending order
-    (a cumsum of the alive mask and one scatter into a capacity-sized
-    index buffer; fill entries point at lane 0 and stay dead): no host
+    and so on. Each extraction (``compact_live``) takes the live lanes in
+    ascending order; fill entries point at lane 0 and stay dead: no host
     synchronisation, the live count and the overflow flag stay on the
     device. Only the throughput and the ray state move; every segment
     starts from zero radiance, which is added back to the full-image
@@ -273,19 +298,8 @@ def integrate_frame_cascade(
             rad_t.index_add_(0, chain, wf.rad.T)
         if i == len(bounds) - 2:
             break
-        cap = wf.ox.shape[0]
-        ncap = caps[i]
-        live = wf.alive > 0.0
-        count = live.sum()
-        overflow = overflow | (count > ncap)
-        pos = torch.cumsum(live, 0) - 1
-        dest = torch.where(live & (pos < ncap), pos, ncap)  # slot ncap: discarded
-        idx = torch.zeros((ncap + 1,), dtype=torch.int64, device=dev)
-        idx.scatter_(0, dest, torch.arange(cap, device=dev))
-        idx = idx[:ncap]
-        wf = _gather(wf, idx)
-        wf.alive = (torch.arange(ncap, device=dev) < count).to(torch.float32)
-        wf.rad = torch.zeros_like(wf.rad)
+        wf, idx, count = compact_live(wf, caps[i])
+        overflow = overflow | (count > caps[i])
         chain = idx if chain is None else chain[idx]
         chains.append((chain, count))
     rgb = spectra_to_rgb(rad_t, scene.xyz_weights, scene.xyz_to_rgb)

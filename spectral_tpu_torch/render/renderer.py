@@ -50,8 +50,10 @@ from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.scene.flatten import FIELDS, RenderConfig, SceneTensors, flatten_scene
 from spectral_tpu_torch.scene.schema import Scene
 
-# HBM budget for the K-1 direction planes of one regeneration launch
-# (3 f32 planes per frame: 12*(K-1)*W*H bytes)
+# The cap on K from the memory of the K-1 direction planes that the
+# regeneration kernel took until it generated its primaries itself
+# (12*(K-1)*W*H bytes). It no longer has a cause; it stays so that the
+# default chunking, and with it the images, are what they were.
 REGEN_DIRECTION_BUDGET = 2 * 1024**3
 
 
@@ -171,7 +173,7 @@ def choose_stages(
 
 def auto_regen_frames(width: int, height: int, n_samples: int, intended: int) -> int:
     """Default K: 100 frames per launch (64 above 64 wavelengths), bounded
-    by the direction planes' memory budget and the frames asked for."""
+    by ``REGEN_DIRECTION_BUDGET`` and the frames asked for."""
     cap = 100 if n_samples <= 64 else 64
     cap = min(cap, 1 + REGEN_DIRECTION_BUDGET // (12 * width * height))
     return max(1, min(intended, cap))

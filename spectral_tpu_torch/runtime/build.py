@@ -66,18 +66,33 @@ def build_log(name: str) -> str:
 
 # the kernel sources under ops/csrc, one library each
 SOURCES = ("mono", "regen", "persist", "seg", "probe")
+# diagnostic libraries, never loaded by the render paths: a source built
+# with extra defines (its source note says what each changes). The
+# measurement tools and chip_smoke.py build them beside the main ones.
+VARIANTS = {
+    "regen_parent": ("regen", ("-DSPECTRAL_PARENT_DESIGN",)),
+    "regen_stats": ("regen", ("-DSPECTRAL_STATS",)),
+    "regen_parent_stats": ("regen", ("-DSPECTRAL_PARENT_DESIGN", "-DSPECTRAL_STATS")),
+    "seg_stats": ("seg", ("-DSPECTRAL_STATS",)),
+}
+
+
+def _source(name: str) -> tuple[Path, tuple]:
+    src, defines = VARIANTS.get(name, (name, ()))
+    return CSRC_DIR / f"{src}.cu", defines
 
 
 def _stale(name: str) -> bool:
-    src = CSRC_DIR / f"{name}.cu"
+    src, _ = _source(name)
     lib = library_path(name)
     newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build_all(names=SOURCES, force: bool = False) -> list[Path]:
-    """Compile every out-of-date ``ops/csrc/<name>.cu`` (all of them with
-    ``force``), one ``nvcc`` per source, started together."""
+    """Compile every out-of-date library of ``names`` (sources of
+    ``ops/csrc`` or ``VARIANTS``; all of them with ``force``), one
+    ``nvcc`` per library, started together."""
     jobs = []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path() if force or any(map(_stale, names)) else None
@@ -85,10 +100,10 @@ def build_all(names=SOURCES, force: bool = False) -> list[Path]:
         for name in names:
             if not (force or _stale(name)):
                 continue
-            src = CSRC_DIR / f"{name}.cu"
+            src, defines = _source(name)
             lib = library_path(name)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
             try:
                 proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
@@ -119,7 +134,7 @@ def build_all(names=SOURCES, force: bool = False) -> list[Path]:
 
 
 def build(name: str) -> Path:
-    """Compile ``ops/csrc/<name>.cu`` unless the library is up to date."""
+    """Compile library ``name`` unless it is up to date."""
     return build_all((name,))[0]
 
 

@@ -31,6 +31,8 @@ terms' magnitudes, the rest as the plain version) and 98% of hits within
 float32's error.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -97,9 +99,7 @@ def test_cuda_regen_matches_sum_of_mono(cuda, name):
     assert mk.run_regen.launches == before + 1
     want = sum(ci.integrate_frame_cuda(port, cfg, f, tb) for f in range(3))
     # and the kernel's radiance sum against the plain version's
-    planes, px, py = ci.primary_lanes(port, cfg, 0)
-    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (1, 2)]
-    args = (*planes, px, py, 0, *(torch.stack([d[i] for d in dirs]) for i in range(3)), tb)
+    args = (*ci.regen_args(port, cfg, 0, 3), tb)
     rad_kernel, rad_plain = mk.run_regen(*args), mk.run_regen_plain(*args)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-4
@@ -251,8 +251,7 @@ def test_cuda_many_object_kernels_match_plain(cuda, bounces):
     rad, cost = mk.run_cost(*planes, px, py, 1, tb)
     prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
     assert torch.equal(rad, mono) and torch.equal(cost, pcost)
-    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (2, 3)]
-    args = (*planes, px, py, 1, *(torch.stack([d[i] for d in dirs]) for i in range(3)), tb)
+    args = (*ci.regen_args(port, cfg, 1, 3), tb)
     assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
     got, *_ = _drive(_field(32, 16, bounces, iters=4), cuda, 5)
     want, *_ = _drive(_field(32, 16, bounces, iters=4), cuda, 5, plain=True)
@@ -267,10 +266,7 @@ def test_cuda_many_object_regen_on_morton_lanes(cuda):
     tb = mk.pack_tables(port, cfg)
     assert tb.clusters is not None
     perm, _ = morton_layout(cfg.width, cfg.height, cuda)
-    planes, px, py = ci.primary_lanes(port, cfg, 0)
-    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (1, 2)]
-    args = (*(p[perm] for p in (*planes, px, py)), 0,
-            *(torch.stack([d[i] for d in dirs])[:, perm].contiguous() for i in range(3)), tb)
+    args = (*ci.regen_args(port, cfg, 0, 3, perm), tb)
     assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
     torch.cuda.synchronize()
 
@@ -344,8 +340,7 @@ def test_cuda_triangle_kernels_match_plain(cuda, kind, bounces, samples):
     rad, cost = mk.run_cost(*planes, px, py, 1, tb)
     prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
     assert torch.equal(rad, mono) and torch.equal(cost, pcost)
-    dirs = [ci.primary_lanes(port, cfg, j)[0][3:] for j in (2, 3)]
-    args = (*planes, px, py, 1, *(torch.stack([d[i] for d in dirs]) for i in range(3)), tb)
+    args = (*ci.regen_args(port, cfg, 1, 3), tb)
     assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
     got, want = ci.frame_wavefront(port, cfg, 1), ci.frame_wavefront(port, cfg, 1)
     for b0, b1 in ((0, 1), (1, bounces)):
@@ -421,3 +416,65 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
             with pytest.raises(ValueError, match="shared memory"):
                 tp.cuda_probe_mma(*args)
     assert tp.cuda_probe_mma.launches == before + 1
+
+
+# ------------------------------------- the redesigned regen and the packed walk
+
+
+@pytest.mark.parametrize("kind", ["cornell", "field", "mesh", "mesh5k"])
+def test_cuda_regen_equals_plain_and_sum_of_mono_frames(cuda, kind):
+    """``cuda_regen``, whose kernel generates every frame's primaries, bit
+    for bit to its plain version, and to the sum of its K frames as
+    ``cuda_mono`` traces them from host raygen (every path the same: only
+    the summation order differs, 1e-5 of the scale); many-object scenes on
+    the Renderer's Morton lanes, S = 32."""
+    if kind == "cornell":
+        scene, morton = _scene("cornell", 64, 32, 30, samples=32, iters=3), False
+    elif kind == "field":
+        scene, morton = _field(64, 48, 8, samples=32, iters=3), True
+    else:
+        scene = torch_scenes.preset(presets, kind, 32, 32, 30, 3, 32)
+        morton = True
+    port, cfg = flatten_scene(scene, cuda)
+    tb = mk.pack_tables(port, cfg)
+    perm = morton_layout(cfg.width, cfg.height, cuda)[0] if morton else None
+    args = (*ci.regen_args(port, cfg, 0, 3, perm), tb)
+    got = mk.run_regen(*args)
+    assert torch.equal(got, mk.run_regen_plain(*args))
+    mono = 0.0
+    for j in range(3):
+        planes, px, py = ci.primary_lanes(port, cfg, j)
+        if perm is not None:
+            planes, px, py = tuple(p[perm] for p in planes), px[perm], py[perm]
+        mono = mono + mk.run_mono(*planes, px, py, j, tb)
+    torch.cuda.synchronize()
+    assert float((got - mono).abs().max()) <= 1e-5 * max(1.0, float(mono.abs().max()))
+
+
+def test_cuda_regen_resident_grid_hands_out_pixels(cuda):
+    """More lanes than the card holds at once (132 SMs x 4 blocks x 128
+    lanes = 67,584): lanes take further pixels from the counter. The image
+    is the plain version's bit for bit, and the earlier design's grid (the
+    ``regen_parent`` diagnostic build, one lane per pixel) gives the same
+    bits."""
+    port, cfg = flatten_scene(_scene("cornell", 384, 256, 3, samples=8, iters=3), cuda)
+    tb = mk.pack_tables(port, cfg)
+    args = (*ci.regen_args(port, cfg, 0, 3), tb)
+    got = mk.run_regen(*args)
+    assert torch.equal(got, mk.run_regen_plain(*args))
+    assert torch.equal(got, mk.run_regen_variant("regen_parent", *args))
+
+
+def test_cuda_packed_walk_from_global_memory(cuda):
+    """The packed records read from global memory (as mesh5k's, which do
+    not fit shared memory) give the same bits as from shared memory, and
+    tables without records (every run through the 47-row table) too."""
+    port, cfg = flatten_scene(_mesh("mesh", 32, 16, 3, samples=8), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.packed_shared and tb.packed.shape[0] > 0
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    want = mk.run_mono(*planes, px, py, 1, tb)
+    for t in (dataclasses.replace(tb, packed_shared=False), tb.unpacked()):
+        assert torch.equal(mk.run_mono(*planes, px, py, 1, t), want)
+    mesh5k = torch_scenes.preset(presets, "mesh5k", 8, 8, 1, 1, 8)
+    assert not mk.pack_tables(*flatten_scene(mesh5k, cuda)).packed_shared

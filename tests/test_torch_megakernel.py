@@ -174,17 +174,16 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
     got = mk.run_mono(*planes, px, py, 0, tb)
     assert torch.equal(got, mk.run_mono_plain(*planes, px, py, 0, tb))
     assert got.shape == (8, 32)
-    dirs = torch.stack([planes[3], planes[3]]), torch.stack([planes[4]] * 2), torch.stack([planes[5]] * 2)
-    got = mk.run_regen(*planes, px, py, 0, *dirs, tb)
-    assert torch.equal(got, mk.run_regen_plain(*planes, px, py, 0, *dirs, tb))
+    args = ci.regen_args(tb.scene, tb.config, 0, 2)
+    got = mk.run_regen(*args, tb)
+    assert torch.equal(got, mk.run_regen_plain(*args, tb))
     assert (mk.run_mono.launches, mk.run_regen.launches) == (mono0, regen0)
 
 
 def test_regen_wants_two_frames_and_known_devices():
     planes, px, py, tb = _lanes(_scene("cornell", 8, 4, bounces=1))
-    empty = torch.empty((0, 32))
     with pytest.raises(ValueError, match="k >= 2"):
-        mk.run_regen(*planes, px, py, 0, empty, empty, empty, tb)
+        mk.run_regen(*ci.regen_args(tb.scene, tb.config, 0, 1), tb)
     meta = [p.to("meta") for p in planes]
     with pytest.raises(ValueError, match="no bounce kernel"):
         mk.run_mono(*meta, px, py, 0, tb)

@@ -1,0 +1,150 @@
+"""The many-object walk's packed records (``ops/clusters.py:pack_walk``)
+on the CPU.
+
+The packed table holds, at each visit slot of every sphere and triangle
+run, the 47-row table's own values for the object ``order`` names there
+(exact: copies of float32 values). A plain walk over the packed table,
+the kernel's (``csrc/bounce.cuh: trace_nearest``: each cluster culled
+against its union AABB at ``<=`` the best hit, members read from their
+records, ties to the lowest original index), equals the flat loop
+(``ops/geometry.py:trace``, every object in index order) on
+``sphere_field(80)`` and on the mesh preset: winners exact, t bit for
+bit, with duplicated objects so that exact ties occur, in the planner's
+visit order and with every run's members reversed.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from spectral_tpu_torch.ops import clusters as cl
+from spectral_tpu_torch.ops import geometry as tgeom
+from spectral_tpu_torch.ops import megakernel as mk
+from spectral_tpu_torch.ops.vecmath import Vec3
+from spectral_tpu_torch.render import cuda_integrator as ci
+from spectral_tpu_torch.scene import presets
+from spectral_tpu_torch.scene.flatten import OBJ_SPHERE, OBJ_TRIANGLE, flatten_scene
+from tests import torch_scenes as ts
+
+torch.set_num_threads(1)
+
+
+def _scene(kind, dup=False):
+    """sphere_field(80) or the mesh preset at 16x12, 3 bounces; ``dup``
+    appends copies of some objects (exact ties for every ray that hits
+    them)."""
+    if kind == "field":
+        scene = ts.sphere_field(presets, 80, 16, 12, 3)
+        copies = [scene.objects[i] for i in (5, 17, 40)]
+    else:
+        scene = ts.preset(presets, "mesh", 16, 12, 3)
+        copies = [scene.objects[6]]  # the 20-face icosahedron
+    if dup:
+        scene.objects.extend(copy.copy(o) for o in copies)
+    return scene
+
+
+def _tables(kind, dup=False):
+    st, cfg = flatten_scene(_scene(kind, dup), "cpu")
+    return st, cfg, mk.pack_tables(st, cfg)
+
+
+@pytest.mark.parametrize("kind", ["field", "mesh"])
+def test_packed_records_equal_the_table_at_each_visit_slot(kind):
+    st, cfg, tb = _tables(kind)
+    geom, order, runs = tb.geom.numpy(), tb.order.numpy(), tb.runs.numpy()
+    packed = tb.packed.numpy()
+    assert sorted(order.tolist()) == list(range(cfg.n_objects))
+    used = 0
+    for start, stop, tag, at in runs[:, [cl.RUN_START, cl.RUN_STOP, cl.RUN_TYPE, cl.RUN_PACK]]:
+        start, stop, tag, at = int(start), int(stop), int(tag), int(at)
+        if tag not in (OBJ_SPHERE, OBJ_TRIANGLE):
+            assert at == -1
+            continue
+        assert at == used
+        for k in range(start, stop):
+            o = order[k]
+            assert int(geom[0, o]) == tag  # the run holds its own type only
+            if tag == OBJ_SPHERE:
+                np.testing.assert_array_equal(packed[at + k - start], geom[40:44, o])
+            else:
+                rec = packed[at + 3 * (k - start):at + 3 * (k - start) + 3]
+                for row, first in zip(rec, (7, 1, 4)):  # v0, e1, e2
+                    np.testing.assert_array_equal(row, np.append(geom[first:first + 3, o], 0.0))
+        used += (stop - start) * (3 if tag == OBJ_TRIANGLE else 1)
+    assert used == len(packed) > 0
+    flat = mk.pack_tables(st, cfg, accel="none")
+    assert flat.packed.shape == (0, 4) and int(flat.runs[0, cl.RUN_PACK]) == -1
+
+
+def _rays(st, cfg, n_random=512, seed=0):
+    """The frame-1 primaries and random rays from inside the scene."""
+    planes, _, _ = ci.primary_lanes(st, cfg, 1)
+    rng = np.random.default_rng(seed)
+    lo = st.np_fields["aabb_min"].min(axis=0)
+    hi = st.np_fields["aabb_max"].max(axis=0)
+    o = rng.uniform(lo, hi, (n_random, 3)).astype(np.float32)
+    d = rng.normal(size=(n_random, 3)).astype(np.float32)
+    origin = Vec3(*(torch.cat([planes[i], torch.from_numpy(o[:, i])]) for i in range(3)))
+    direction = Vec3(*(torch.cat([planes[3 + i], torch.from_numpy(d[:, i])]) for i in range(3)))
+    return origin, direction.normalize()
+
+
+def _walk_packed(st, order, runs, packed, origin, direction):
+    """The kernel's nearest-hit walk over the run table and the packed
+    records, vectorized over rays; boxes (no records) take the flat
+    loop's candidate t of their object."""
+    dense = tgeom.candidates(origin, direction, st)
+    n = origin.x.shape[0]
+    t_best = torch.full((n,), float("inf"))
+    win = torch.full((n,), -1, dtype=torch.int64)
+    P = torch.from_numpy(packed)
+    for row in runs:
+        start, stop = int(row[cl.RUN_START]), int(row[cl.RUN_STOP])
+        tag, at = int(row[cl.RUN_TYPE]), int(row[cl.RUN_PACK])
+        reach = torch.ones((n,), dtype=torch.bool)
+        if row[cl.RUN_CULL] > 0:
+            box = [Vec3(*(torch.tensor(float(v)) for v in row[i:i + 3])) for i in (0, 3)]
+            t_min, _, hit = tgeom.ray_slabs(origin, direction, *box)
+            reach = hit & (t_min <= t_best)
+        for k in range(start, stop):
+            o = int(order[k])
+            if at >= 0 and tag == OBJ_SPHERE:
+                c = P[at + k - start]
+                t, valid = tgeom.sphere_nearest_t(origin - Vec3(c[0], c[1], c[2]),
+                                                  direction, c[3])
+            elif at >= 0 and tag == OBJ_TRIANGLE:
+                v0, e1, e2 = (Vec3(*r[:3]) for r in P[at + 3 * (k - start):][:3])
+                t, valid, _, _ = tgeom.triangle_t(origin, direction, v0, e1, e2)
+            else:
+                t = dense[:, o]
+                valid = torch.isfinite(t)
+            take = (reach & valid & (t > 0.0) & (t <= t_best)
+                    & ((t < t_best) | (o < win)))
+            t_best = torch.where(take, t, t_best)
+            win = torch.where(take, o, win)
+    return t_best, win
+
+
+@pytest.mark.parametrize("visit", ["planned", "reversed"])
+@pytest.mark.parametrize("kind", ["field", "mesh"])
+def test_plain_packed_walk_equals_the_flat_loop(kind, visit):
+    st, cfg, tb = _tables(kind, dup=True)
+    assert tb.clusters is not None
+    order, runs = tb.order.numpy().copy(), tb.runs.numpy().copy()
+    if visit == "reversed":  # the tie rule must not depend on the visit order
+        for start, stop in runs[:, [cl.RUN_START, cl.RUN_STOP]].astype(int):
+            order[start:stop] = order[start:stop][::-1].copy()
+    packed = cl.pack_walk(st.np_fields, order, runs)
+    origin, direction = _rays(st, cfg)
+    t, win = _walk_packed(st, order, runs, packed, origin, direction)
+    want = tgeom.trace(origin, direction, st)
+    hit = want.hit
+    assert 0.2 < float(hit.float().mean()) < 1.0
+    assert torch.equal(win, torch.where(hit, want.obj_idx, -1))
+    assert torch.equal(t[hit], want.t[hit]) and bool(torch.isinf(t[~hit]).all())
+    # the duplicates tie: each loses to its original, the lower index
+    dups = range(cfg.n_objects - (3 if kind == "field" else 20), cfg.n_objects)
+    assert not bool(np.isin(win.numpy(), list(dups)).any())
