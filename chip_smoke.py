@@ -20,6 +20,12 @@ iterations; ``mesh5k``, 6,405 objects, iterations cut to 10) the triangle
 builds of the kernels through the same main path and the persist path,
 and those builds against their plain versions at 128x128 (frame 0, and
 three regeneration frames on Morton lanes);
+the feature builds of the kernels (``-DSPECTRAL_FX``: sky, checker
+texture, emission, the dielectric with the hero wavelength) against
+their plain versions on the prism, a sky scene, a checker scene and
+glass meshes, and the prism preset (``presets.prism()``: 800x600, 64
+wavelengths, 8 bounces, 200 iterations) through the main path
+(regeneration), the persist path and the phased path;
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
@@ -53,6 +59,11 @@ SPHERES = dict(n_spheres=1000, width=1024, height=768, n_samples=32, bounces=8,
 # bench.py's mesh configs: 512x512, 32 lambda, 30 bounces, 100 iterations;
 # mesh5k's iterations are cut to 10 here (one 10-frame regeneration launch)
 MESHES = (("mesh", 100), ("mesh5k", 10))
+# BASELINE config 3 (bench.py:84-87): the prism, uncut
+PRISM = dict(width=800, height=600, n_samples=64, bounces=8, iterations=200)
+# the prism with no Cauchy term must read a red/blue split under half the
+# dispersive limit (0.2 px) on the same measure
+CONTROL_LIMIT_PX = 0.1
 
 
 def emit(**fields) -> None:
@@ -83,6 +94,7 @@ def main() -> int:
         from spectral_tpu_torch.scene import mesh as tmesh
         from spectral_tpu_torch.scene.flatten import flatten_scene
         from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
+        from spectral_tpu_torch.tools.measure_persist import busy_ms
         from spectral_tpu_torch.tools.measure_persist import card as read_card
         from spectral_tpu_torch.utils import flops
         from tests import torch_scenes as ts
@@ -104,15 +116,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2. build
     t0 = time.monotonic()
-    # from source, one nvcc per library, in parallel: the main ones and the
-    # earlier regen grid (regen_parent), timed beside the new one below
-    build.build_all(build.SOURCES + ("regen_parent",), force=True)
+    # from source, one nvcc per library, in parallel: the main ones, their
+    # feature builds, and the earlier regen grid (regen_parent), timed
+    # beside the new one below
+    fx_libs = tuple(build.FEATURE_LIBRARIES)
+    build.build_all(build.SOURCES + fx_libs + ("regen_parent",), force=True)
     build_s = time.monotonic() - t0
-    ptxas = [f"{name}: {ln.strip()}" for name in build.SOURCES
-             for ln in build.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    resources = {name: build.kernel_resources(name) for name in build.SOURCES + fx_libs}
     emit(phase="build", seconds=round(build_s, 3), sources=list(build.SOURCES),
-         ptxas=ptxas, card=card)
+         feature_libraries=list(fx_libs),
+         kernels=resources, card=card)
 
     def scene_of(maker, w, h, s, bounces, iters):
         sc = maker(n_samples=s)
@@ -645,6 +658,48 @@ def main() -> int:
     emit(phase="kernels_triangles_small", seconds=round(time.monotonic() - t0, 3),
          checks=tri, card=card)
 
+    # ------ 3f. the feature builds vs plain (sky, checker, emission, glass)
+    def timed_into(times):
+        """A ``timed`` hook for ``feature_kernel_checks``: each launch
+        alone between two CUDA events, its ms appended under its key."""
+        def timed(key, fn):
+            ms, out = cuda_span(fn)
+            times.setdefault(key, []).append(ms)
+            return out
+        return timed
+
+    def feature_check(sc, label):
+        """Each bounce kernel's feature build from frame 1, bit for bit to
+        its plain version (``torch_scenes.feature_kernel_checks``: mono,
+        cost, regen K = 3, seg [0, 2) and its compacted tail, lane-stop
+        persist over two launches), after one untimed pass that loads
+        each kernel; every launch timed alone."""
+        f_tb = mk.pack_tables(*flatten_scene(sc, dev))
+        ts.feature_kernel_checks(f_tb)
+        times = {}
+        checks, info = ts.feature_kernel_checks(f_tb, timed=timed_into(times))
+        out = dict(case=label, features=f_tb.features, many_objects=f_tb.many_objects(),
+                   triangles=f_tb.triangles, **info, ms=times, bit_identical=checks)
+        assert all(checks.values()), out
+        return out
+
+    t0 = time.monotonic()
+    feats = []
+    for s in (8, 64):
+        feats.append(feature_check(scene_of(presets.prism, 64, 48, s, 8, 3),
+                                   f"prism 64x48 S={s} b8"))
+        assert feats[-1]["survivors_with_hero"] > 0 and feats[-1]["persist_heroes"] > 0, feats[-1]
+    feats.append(feature_check(ts.open_sky(schema, 16, 3, 64, 48, iters=3),
+                               "open sphere under a sky 64x48 S=16 b3"))
+    feats.append(feature_check(ts.textured(schema, presets, 8, 3, 64, 48, iters=3),
+                               "default scene, checker floor, 64x48 S=8 b3"))
+    feats.append(feature_check(ts.glass_meshes(schema, presets, "mesh", 64, 64, 4,
+                                               samples=32, iters=3),
+                               "mesh, glass meshes (transmission 0.9), 64x64 S=32 b4"))
+    assert feats[-1]["many_objects"] and feats[-1]["triangles"]
+    emit(phase="kernels_features_small", seconds=round(time.monotonic() - t0, 3),
+         checks=feats, card=card)
+
     # ------------------------------------------- 4. the main path at full size
     wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
                 "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost,
@@ -1016,6 +1071,140 @@ def main() -> int:
                           mean_rel_vs_regen=mean_rel, mean_limit=0.02),
              phase_seconds=round(time.monotonic() - t0, 3), card=card)
 
+    # --------- 8b. the prism preset (BASELINE config 3) through the main path
+    t0 = time.monotonic()
+    prism = scene_of(presets.prism, PRISM["width"], PRISM["height"], PRISM["n_samples"],
+                     PRISM["bounces"], PRISM["iterations"])
+    r, img, dt, counts = main_path_run(prism)
+    p_st, p_cfg, p_tb = r.scene_tensors, r.config, r.tables
+    assert p_tb.features and r.regen_frames == 100, (p_tb.features, r.regen_frames)
+    assert counts["cuda_regen"] == 2 and counts["cuda_mono"] == 0, counts
+    check_image(img, PRISM["width"], PRISM["height"])
+    prism_img = img
+    p_s_per_frame = dt / r.next_frame
+    # rays per frame from the plain frame 0 at 200x150, the same camera,
+    # times 16 (rays per pixel is a per-lane statistic)
+    small = scene_of(presets.prism, 200, 150, PRISM["n_samples"], PRISM["bounces"],
+                     PRISM["iterations"])
+    sp_st, sp_cfg = flatten_scene(small, dev)
+    sp, spx, spy = ci.primary_lanes(sp_st, sp_cfg, 0)
+    _, p_rays = ti.bounce_loop(Vec3(*sp[:3]), Vec3(*sp[3:]), spx.long(), spy.long(), 0,
+                               sp_st, sp_cfg, return_stats=True)
+    p_rays = float(p_rays) * 16
+    # one regeneration launch alone (K = 100) and the live path iterations
+    # of its frames (cuda_cost), for the bound
+    p_regen_ms, _ = cuda_span(lambda: ci.regen_radiance(p_st, p_cfg, 0, 100, p_tb))
+    p_iters = 0.0
+    for j in range(100):
+        j_planes, j_px, j_py = ci.primary_lanes(p_st, p_cfg, j)
+        p_iters += float(mk.run_cost(*j_planes, j_px, j_py, j, p_tb)[1].sum())
+    # the device-busy share of one more regen render under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    r_prof = Renderer(prism, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        r_prof.render()
+        torch.cuda.synchronize()
+        p_wall_ms = (time.monotonic() - t) * 1e3
+    p_busy_ms, _ = busy_ms([e for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA])
+    del r_prof, prof
+    # persist and phased "auto" on the same scene: the image means within 2%
+    regen_mean = float(img[..., :3].mean())
+    p_paths = {}
+    for label, kw in (("persist", dict(persist=True)), ("phased_auto", dict(phase_split="auto"))):
+        rr, pimg, pdt, pcounts = main_path_run(prism, **kw)
+        check_image(pimg, PRISM["width"], PRISM["height"])
+        mean_rel = abs(float(pimg[..., :3].mean()) - regen_mean) / regen_mean
+        p_paths[label] = dict(seconds=pdt, seconds_per_frame=pdt / PRISM["iterations"],
+                              launches=pcounts, mean_rgb=float(pimg[..., :3].mean()),
+                              mean_rel_vs_regen=mean_rel, mean_limit=0.02)
+        if label == "persist":
+            p_paths[label]["budget"] = rr.persist_info["budget"]
+            assert pcounts["cuda_persist"] > 0 and pcounts["cuda_cost"] == 1, pcounts
+        else:
+            p_paths[label].update(stages=rr.phase_stages, overflow_frames=rr.overflow_frames)
+            assert rr.phase_stages is None or pcounts["cuda_seg"] > 0, pcounts
+        assert mean_rel <= 0.02, (label, p_paths[label])
+    # each feature build against its plain version at this shape, on the
+    # Renderer's lanes: cuda_mono and cuda_cost frame 0, cuda_regen K = 3
+    # (its resident grid hands a lane several pixels here), cuda_seg
+    # [0, 2) and its compacted tail, one free-running persist launch at
+    # the persist path's budget
+    p_times = {}
+    p_checks, p_info = ts.feature_kernel_checks(
+        p_tb, frame=0, lane_perm=r._lane_perm, persist_launches=1,
+        persist_budget=p_paths["persist"]["budget"], persist_stop=0,
+        timed=timed_into(p_times))
+    prism_kernels = dict(
+        case=f"prism 800x600 S=64 b8, {r.lane_layout} lanes: frame 0; regen K=3; seg [0, 2) "
+             f"and the compacted [2, 8); one free-running persist launch at budget "
+             f"{p_paths['persist']['budget']}", **p_info, ms=p_times, bit_identical=p_checks)
+    assert all(p_checks.values()), prism_kernels
+    emit(phase="kernels_features_main_shape", **prism_kernels, card=card)
+
+    # the strip's image disperses: the red and blue centroids along x of
+    # its middle rows (tests/test_dispersion.py:189-198), background
+    # masked. The slab shows the strip twice, dispersed in opposite
+    # directions, so one centroid over the whole band cancels: each image
+    # (a run of lit columns) is measured on its own, the two holding the
+    # most light. The control, the same glass with no Cauchy term
+    # (cauchy_b = 0), must read achromatic on the same measure
+    def strip_split(image):
+        h0, h1 = PRISM["height"] // 4, 3 * PRISM["height"] // 4
+        band = image[h0:h1, :, :3].copy()
+        band[band < 0.1 * band.max()] = 0.0
+        lit = band.sum(axis=(0, 2)) > 0
+        found, x = [], 0
+        while x < len(lit):
+            if not lit[x]:
+                x += 1
+                continue
+            x1 = x
+            while x1 < len(lit) and lit[x1]:
+                x1 += 1
+            seg, xs = band[:, x:x1], np.arange(x, x1)
+            w_r, w_b = seg[..., 0].sum(axis=0), seg[..., 2].sum(axis=0)
+            if float(w_r.sum()) > 0.0 and float(w_b.sum()) > 0.0:
+                found.append(dict(
+                    columns=[x, x1], light=float(seg.sum()),
+                    red_minus_blue_px=float((xs * w_r).sum() / w_r.sum()
+                                            - (xs * w_b).sum() / w_b.sum())))
+            x = x1
+        found = sorted(found, key=lambda im: -im["light"])[:2]
+        return found, max((abs(im["red_minus_blue_px"]) for im in found), default=0.0)
+
+    strip_images, split_px = strip_split(prism_img)
+    assert split_px > 0.2, ("no chromatic separation", strip_images)
+    achromatic = scene_of(presets.prism, PRISM["width"], PRISM["height"], PRISM["n_samples"],
+                          PRISM["bounces"], PRISM["iterations"])
+    for obj in achromatic.objects:
+        if obj.material.transmission > 0.0:
+            obj.material.cauchy_b_um2 = 0.0
+    _, c_img, _, c_counts = main_path_run(achromatic)
+    check_image(c_img, PRISM["width"], PRISM["height"])
+    control_images, control_px = strip_split(c_img)
+    assert control_images and control_px < CONTROL_LIMIT_PX, (
+        "the achromatic control reads a split", control_images)
+    s64 = {k: [e for e in v if e["entry"].split("<")[1].startswith("64,")]
+           for k, v in resources.items() if k in fx_libs}
+    emit(phase="prism_main_path",
+         config="presets.prism(): 4 objects, 800x600, 64 lambda, 8 bounces, 200 iterations",
+         features=p_tb.features, regen_frames=r.regen_frames, frames=r.next_frame, seconds=dt,
+         seconds_per_frame=p_s_per_frame, ms_per_frame=1e3 * p_s_per_frame, launches=counts,
+         rays_per_frame_plain_f0_scaled_from_200x150=p_rays,
+         mrays_lambda_per_s=p_rays * p_cfg.n_samples / p_s_per_frame / 1e6,
+         regen_k100_launch_ms=p_regen_ms, live_iterations_k100=p_iters,
+         profiled_wall_ms=p_wall_ms, device_busy_ms=p_busy_ms,
+         device_busy_share=p_busy_ms / p_wall_ms, mean_rgb=regen_mean, paths=p_paths,
+         strip_images=strip_images, split_px=split_px, split_limit_px=0.2,
+         control_cauchy_b_0=dict(strip_images=control_images, split_px=control_px,
+                                 limit_px=CONTROL_LIMIT_PX, launches=c_counts),
+         build_seconds_all=build_s, feature_kernels_s64=s64,
+         phase_seconds=round(time.monotonic() - t0, 3), card=card)
+
     # ------------- 9. the trace probe at full shape, then through its tool
     t0 = time.monotonic()
     p_in = tp.make_inputs(0)
@@ -1077,7 +1266,8 @@ def main() -> int:
         return flops.kernel_ops(
             b_cfg, b_st.obj_types, b_cfg.n_materials, clusters=b_tb.clusters,
             visited_fraction=1.0 / n_clustered if n_clustered else 1.0,
-            visited_fraction_shadow=0.0 if n_clustered else None).per_lane_bounce
+            visited_fraction_shadow=0.0 if n_clustered else None,
+            **b_tb.feature_gates()).per_lane_bounce
 
     s32 = 4 * cfg.n_samples  # bytes of one lane's [S] plane
     n_main = cfg.width * cfg.height
@@ -1179,6 +1369,28 @@ def main() -> int:
             spheres1000_2_8_compacted=dict(ms=seg_tail_ms,
                                            parent_design_ms=seg_tail_parent_ms)),
     }
+    # each bounce kernel's feature build against its plain version, and
+    # at the prism's main shape its launch beside its bound
+    s_prism = 4 * p_cfg.n_samples
+    n_prism = p_cfg.width * p_cfg.height
+    prism_regen_bound = flops.bound_ms(p_iters * ops_per_iteration(p_st, p_cfg, p_tb),
+                                       n_prism * (8 + s_prism))
+    feature_cases = [f["case"] for f in feats]
+    features = {}
+    for name, key in (("cuda_mono", "mono"), ("cuda_cost", "cost"), ("cuda_regen", "regen"),
+                      ("cuda_seg", "seg"), ("cuda_persist", "persist")):
+        features[name] = dict(
+            cases=feature_cases, bit_identical=all(f["bit_identical"][key] for f in feats),
+            ms={f["case"]: f["ms"][key] for f in feats},
+            plain_ms={f["case"]: f["ms"][f"{key}_plain"] for f in feats},
+            prism_800x600=dict(case=prism_kernels["case"], bit_identical=p_checks[key],
+                               ms=p_times[key], plain_ms=p_times[f"{key}_plain"]))
+        if key == "seg":
+            features[name]["prism_800x600"].update(
+                tail_ms=p_times["seg_tail"], tail_plain_ms=p_times["seg_tail_plain"])
+    features["cuda_regen"]["prism_800x600_k100"] = dict(
+        ms=p_regen_ms, bound_ms=prism_regen_bound[0], bound_by=prism_regen_bound[1],
+        live_iterations=p_iters)
     kernels = []
     for name, (replaces, err, ms, plain_ms) in timings.items():
         b_ms, b_by = bounds[name]
@@ -1188,7 +1400,8 @@ def main() -> int:
             replaces=replaces, launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library)
         if name in many_object:
-            entry.update(many_object=many_object[name], triangles=triangles[name])
+            entry.update(many_object=many_object[name], triangles=triangles[name],
+                         features=features[name])
         if name in parent_design:
             entry.update(parent_design=parent_design[name])
         kernels.append(entry)

@@ -12,6 +12,7 @@ package's ``spectral_tpu.cli`` render command, same flag names):
         --out spheres_phased.png
     python -m spectral_tpu_torch render --preset mesh5k --width 512 \\
         --height 512 --bounces 30 --iterations 100 --out mesh5k.png
+    python -m spectral_tpu_torch render --preset prism --out prism.png
 
 The first Ctrl-C finishes the current chunk (persist: launch), saves the
 image and a resumable checkpoint (``--checkpoint``, else
@@ -25,10 +26,13 @@ import signal
 import sys
 import time
 
+from spectral_tpu_torch.scene.presets import PRESETS as _PRESET_MAKERS
 from spectral_tpu_torch.utils.text_resources import HELP
 
-# the presets the port's slices render
-PRESETS = ("default", "cornell", "spheres", "mesh", "mesh5k")
+# every preset renders through the port
+PRESETS = tuple(_PRESET_MAKERS)
+# image formats the port writes (render/image.py: .exr is not ported)
+UNWRITABLE = (".exr",)
 
 
 def _parse_phase(value, allow_auto: bool = True):
@@ -69,6 +73,11 @@ def _load_scene(args):
 def cmd_render(args) -> int:
     from spectral_tpu_torch.render.renderer import Renderer
 
+    if args.out.lower().endswith(UNWRITABLE):
+        # refused before the render, not after it
+        print(f"--out {args.out}: .exr output is not in the PyTorch/CUDA port "
+              "yet (ROADMAP.md queue 1); save .png/.jpg/.bmp/.tiff", file=sys.stderr)
+        return 2
     adaptive = None
     if args.adaptive is not None:
         if not args.persist:
@@ -172,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--iterations", type=int, help=HELP["iterations"])
     pr.add_argument("--bounces", type=int, help=HELP["max_bounces"])
     pr.add_argument("--samples", type=int, help=HELP["spectrum_samples"])
-    pr.add_argument("--out", default="render.png", help="output image (png/jpg/bmp/tiff/exr)")
+    pr.add_argument("--out", default="render.png", help="output image (png/jpg/bmp/tiff)")
     pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu their "
                          "plain PyTorch versions")

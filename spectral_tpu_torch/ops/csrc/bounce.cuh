@@ -60,6 +60,20 @@
 // barycentrics, which needs IEEE division and no FMA: the same build
 // flags as the rest.
 //
+// Scene features (the reference's beyond-reference branches of
+// `make_body`, gated there on has_transmission, has_emission, has_texture
+// and has_sky, megakernel.py:1365-1653): the sky on the alive -> miss
+// transition, the checker factor on the albedo, emissive surfaces, and
+// the dielectric with the hero-wavelength collapse and the Cauchy index
+// at the hero bin. They are compiled only with -DSPECTRAL_FX, into
+// libraries of their own (runtime/build.py: mono_fx, regen_fx,
+// persist_fx, seg_fx), which take the feature tables (megakernel.cuh:
+// FX_*, MF_*) and refuse a scene without features; inside them each
+// feature is a branch on the scene's feature mask, uniform across the
+// launch. The builds without the flag have none of this code, so the
+// reference-style scenes keep their registers and bits (the reference's
+// static gates: "reference-style scenes pay nothing").
+//
 // Numerics. The arithmetic follows the torch-eager bounce loop
 // (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
 // division form of the quadratic and slabs, normalize as v * (1 /
@@ -105,6 +119,13 @@ struct TableArgs {
   int tri;                  // 0: no triangles, 1: flat meshes, 2: vertex normals
   int n_packed;
   int packed_shared;        // 1: the block copies `packed` to shared memory
+#ifdef SPECTRAL_FX
+  int features;             // FX_* bits, never 0 in a feature build
+  const float* mat_fx;      // [n_mat][MAT_FX_COLS]
+  const float* mat_emission;  // [n_mat][S]
+  const float* lambda;      // [S] wavelengths, nm
+  const float* sky;         // [S]
+#endif
 };
 
 struct Tables {
@@ -120,6 +141,13 @@ struct Tables {
   int n_runs;
   int n_lights;
   bool smooth;              // interpolate triangle normals (tri == 2)
+#ifdef SPECTRAL_FX
+  int features;             // FX_* bits
+  const float* mat_fx;      // shared
+  const float* mat_emission;  // shared
+  const float* lambda;      // shared
+  const float* sky;         // shared
+#endif
 };
 
 __device__ __forceinline__ float G(const Tables& tb, int row, int o) {
@@ -606,6 +634,60 @@ __device__ __forceinline__ void cosine_hemisphere(float rx, float ry, float nx,
   z = xz * lx + yz * ly + zz * lz;
 }
 
+#ifdef SPECTRAL_FX
+constexpr float kDLine = 587.6f;  // nm: the IOR's wavelength without a hero bin
+
+// World-space checker albedo factor (integrator.checker_factor's op
+// order): cells of side `scale` alternate 1 and `low` by the parity of
+// the floored coordinates; scale == 0 is untextured.
+__device__ __forceinline__ float checker_factor(float x, float y, float z,
+                                                float scale, float low) {
+  const float inv = 1.0f / scale;  // scale == 0: inf, masked below
+  const float p = floorf(x * inv) + floorf(y * inv) + floorf(z * inv);
+  const bool odd = (p - 2.0f * floorf(p * 0.5f)) != 0.0f;
+  return scale > 0.0f ? (odd ? low : 1.0f) : 1.0f;
+}
+
+// The dielectric (ops/sampling.py:refract_or_reflect, op for op): Snell
+// refraction of d at the outward normal n and index n_lam, the Schlick
+// reflectance with its fifth power as products, and total internal
+// reflection. rf in [0, 1) picks reflection with the reflectance's
+// probability. Out: the (unnormalized) direction, whether it reflects,
+// and the normal oriented against d.
+__device__ __forceinline__ void refract_or_reflect(
+    float dx, float dy, float dz, float nx, float ny, float nz, float n_lam,
+    float rf, float& x, float& y, float& z, float& nox, float& noy,
+    float& noz, bool& reflects) {
+  const float cosi_signed = -(dx * nx + dy * ny + dz * nz);
+  const bool entering = cosi_signed > 0.0f;
+  const float sgn = entering ? 1.0f : -1.0f;
+  nox = nx * sgn;
+  noy = ny * sgn;
+  noz = nz * sgn;
+  const float cosi = fabsf(cosi_signed);
+  const float eta = entering ? 1.0f / n_lam : n_lam;
+  const float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
+  const float cos_t = sqrtf(max0(k));
+  const float q = (n_lam - 1.0f) / (n_lam + 1.0f);
+  const float r0 = q * q;
+  const float m = 1.0f - (entering ? cosi : cos_t);
+  const float m2 = m * m;
+  const float fresnel = r0 + (1.0f - r0) * (m2 * m2 * m);
+  reflects = (k < 0.0f) || (rf < fresnel);
+  if (reflects) {  // the mirror about the oriented normal
+    const float k2 = 2.0f * (nox * dx + noy * dy + noz * dz);
+    x = dx - nox * k2;
+    y = dy - noy * k2;
+    z = dz - noz * k2;
+  } else {
+    const float c = eta * cosi - cos_t;
+    x = dx * eta + nox * c;
+    y = dy * eta + noy * c;
+    z = dz * eta + noz * c;
+  }
+}
+#endif
+
 // The carried lane state of `make_body.bounce` (megakernel.py:1928-1935,
 // :2001-2006): the ray, the flags, the count-down bounce budget, the frame
 // of the path in flight, and the spectral throughput and radiance. Every
@@ -648,13 +730,26 @@ __device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
 // hit's direct light to rad, and either set up the continuation ray
 // (returns true) or end the path (returns false with alive cleared; the
 // ray, gate, bl and thr stay as they were, like the reference's
-// where(cont, ...)).
+// where(cont, ...)). The feature build adds, in the reference's order:
+// the sky of a miss, the checker factor, the hero collapse, emission
+// (added before the direct light: its lanes and the sky's are disjoint
+// from each other, so the order of the three sums is the jnp one), and
+// the dielectric continuation; a lane whose hero collapses keeps the
+// collapsed thr even when its path ends, as the reference's does.
 template <int S, bool MANY, bool TRI>
 __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
                                             uint32_t px, uint32_t py) {
   float t;
   const int win =
       trace_nearest<MANY, TRI>(tb, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, t);
+#ifdef SPECTRAL_FX
+  if (win < 0 && (tb.features & FX_SKY)) {
+    // the escaping ray collects thr * sky (t is inf on a miss, so the
+    // gate holds: a gated-out short hit collects none)
+#pragma unroll
+    for (int s = 0; s < S; ++s) L.rad[s] = L.rad[s] + L.thr[s] * tb.sky[s];
+  }
+#endif
   if (win < 0 || (L.gate && !(t > kSpecMin))) {  // miss or gated out
     L.alive = false;
     return false;
@@ -668,14 +763,36 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
   const float rough = G(tb, G_ROUGH, win);
   // the material's albedo row: the winner's per-object albedo bit for bit
   const float* alb = tb.mat_albedo + (int)G(tb, G_MATID, win) * S;
+#ifdef SPECTRAL_FX
+  // the material's feature row and emission, read like the albedo
+  const int mat = (int)G(tb, G_MATID, win);
+  const float* mf = tb.mat_fx + mat * MAT_FX_COLS;
+  const float* emis = tb.mat_emission + mat * S;
+  const bool textured = (tb.features & FX_TEXTURE) != 0;
+  const float texf =
+      textured ? checker_factor(ipx, ipy, ipz, mf[MF_TEX_SCALE], mf[MF_TEX_LOW])
+               : 1.0f;
+#endif
 
   float rx, ry, rz;
   pcg3d(px, py, L.fid + (uint32_t)L.bl, rx, ry, rz);
   const bool spec = rz < metal;
+#ifdef SPECTRAL_FX
+  const bool trans = !spec && (tb.features & FX_TRANSMISSION) &&
+                     rz < metal + mf[MF_TRANSMISSION];
+  // the first dispersive refraction commits the path to one uniformly
+  // chosen wavelength bin, with an S-fold weight on it
+  const bool needs_hero = trans && mf[MF_CAUCHY] > 0.0f && L.hero < 0.0f;
+  if (needs_hero) L.hero = (float)min((int)(ry * (float)S), S - 1);
+  const int hero = (int)L.hero;
+  const bool diffuse = !spec && !trans;
+#else
+  const bool diffuse = !spec;
+#endif
   const float offx = ipx + nx * kOffset, offy = ipy + ny * kOffset,
               offz = ipz + nz * kOffset;
 
-  if (!spec) {
+  if (diffuse) {
     // next-event estimation: per-light occlusion and scale
     const float cos_out = max0((-dx) * nx + (-dy) * ny + (-dz) * nz);
     for (int l = 0; l < tb.n_lights; ++l) {
@@ -698,15 +815,26 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
   const bool cont = L.bl > 1;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
+#ifdef SPECTRAL_FX
+    float thr_s = L.thr[s];
+    if (tb.features & FX_EMISSION) L.rad[s] = L.rad[s] + thr_s * emis[s];
+    if (needs_hero) thr_s = (thr_s * (s == hero ? 1.0f : 0.0f)) * (float)S;
+    const float ta = thr_s * (textured ? alb[s] * texf : alb[s]);
+#else
     const float ta = L.thr[s] * alb[s];
-    if (!spec) {
+#endif
+    if (diffuse) {
       float direct = 0.0f;
       for (int l = 0; l < tb.n_lights; ++l) {
         direct = direct + tb.lspec[l * S + s] * tb.scale[l * BLOCK + threadIdx.x];
       }
       L.rad[s] = L.rad[s] + ta * direct;
     }
+#ifdef SPECTRAL_FX
+    L.thr[s] = cont ? ta : thr_s;
+#else
     if (cont) L.thr[s] = ta;
+#endif
   }
   if (!cont) {
     L.alive = false;
@@ -724,6 +852,28 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
     L.ox = offx;
     L.oy = offy;
     L.oz = offz;
+#ifdef SPECTRAL_FX
+  } else if (trans) {
+    // the Cauchy index at the hero wavelength, from the scene's grid
+    const float lam_um = (hero >= 0 ? tb.lambda[hero] : kDLine) * 1e-3f;
+    const float n_lam = mf[MF_IOR] + mf[MF_CAUCHY] / (lam_um * lam_um);
+    float nox, noy, noz;
+    bool reflects;
+    refract_or_reflect(dx, dy, dz, nx, ny, nz, n_lam, rx, ndx, ndy, ndz, nox,
+                       noy, noz, reflects);
+    // the child leaves on the side it goes to
+    const float ox = nox * kOffset, oy = noy * kOffset, oz = noz * kOffset;
+    L.ox = reflects ? ipx + ox : ipx - ox;
+    L.oy = reflects ? ipy + oy : ipy - oy;
+    L.oz = reflects ? ipz + oz : ipz - oz;
+  } else if (tb.features & FX_SKY) {
+    // sky scenes offset the diffuse child too: a self-hit there would
+    // trade the sky for a bounce on one ulp
+    cosine_hemisphere(rx, ry, nx, ny, nz, ndx, ndy, ndz);
+    L.ox = offx;
+    L.oy = offy;
+    L.oz = offz;
+#endif
   } else {
     cosine_hemisphere(rx, ry, nx, ny, nz, ndx, ndy, ndz);
     L.ox = ipx;  // the diffuse continuation starts UN-offset
@@ -783,9 +933,14 @@ inline size_t smem_bytes(const TableArgs& a, int S) {
   const size_t walk = many ? (size_t)a.n_obj + (size_t)a.n_runs * RUN_COLS
                            : (size_t)GEOM_ROWS * a.n_obj;
   const size_t packed = many && a.packed_shared ? 4 * (size_t)a.n_packed : 0;
+#ifdef SPECTRAL_FX
+  const size_t fx = (size_t)a.n_mat * (MAT_FX_COLS + S) + 2 * (size_t)S;
+#else
+  const size_t fx = 0;
+#endif
   return sizeof(float) * (packed + walk + (size_t)a.n_mat * S +
                           4 * (size_t)a.n_lights + (size_t)a.n_lights * S +
-                          (size_t)a.n_lights * BLOCK);
+                          fx + (size_t)a.n_lights * BLOCK);
 }
 
 // The block's cooperative copy of the tables into shared memory: the
@@ -829,6 +984,27 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_alb[i] = a.mat_albedo[i];
   for (int i = threadIdx.x; i < 4 * a.n_lights; i += blockDim.x) s_lpos[i] = a.lpos[i];
   for (int i = threadIdx.x; i < a.n_lights * S; i += blockDim.x) s_lspec[i] = a.lspec[i];
+#ifdef SPECTRAL_FX
+  float* s_fx = p;
+  p += a.n_mat * MAT_FX_COLS;
+  float* s_emis = p;
+  p += a.n_mat * S;
+  float* s_lambda = p;
+  p += S;
+  float* s_sky = p;
+  p += S;
+  for (int i = threadIdx.x; i < a.n_mat * MAT_FX_COLS; i += blockDim.x) s_fx[i] = a.mat_fx[i];
+  for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_emis[i] = a.mat_emission[i];
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    s_lambda[i] = a.lambda[i];
+    s_sky[i] = a.sky[i];
+  }
+  tb.features = a.features;
+  tb.mat_fx = s_fx;
+  tb.mat_emission = s_emis;
+  tb.lambda = s_lambda;
+  tb.sky = s_sky;
+#endif
 #ifdef SPECTRAL_STATS
   for (int i = 0; i < WALK_STATS; ++i) walk_slots()[i * BLOCK + threadIdx.x] = 0u;
 #endif
@@ -899,6 +1075,15 @@ cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
       (a.n_packed > 0 && a.packed == nullptr)) {
     return cudaErrorInvalidValue;
   }
+#ifdef SPECTRAL_FX
+  // a feature build takes feature scenes only (the host loads the build
+  // without features for the others)
+  if (a.features <= 0 || a.features > (FX_TRANSMISSION | FX_EMISSION | FX_TEXTURE | FX_SKY) ||
+      a.mat_fx == nullptr || a.mat_emission == nullptr || a.lambda == nullptr ||
+      a.sky == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+#endif
   smem = smem_bytes(a, S);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -931,19 +1116,32 @@ cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
 }  // namespace
 }  // namespace spectral
 
-// The table arguments every C entry point takes, in this order.
+// The table arguments every C entry point takes, in this order; a
+// feature build takes the feature mask and tables after them.
+#ifdef SPECTRAL_FX
+#define SPECTRAL_FX_PARAMS                                                  \
+  , int features, const void *mat_fx, const void *mat_emission,             \
+      const void *lambda, const void *sky
+#define SPECTRAL_FX_ARGS                                                    \
+  , features, static_cast<const float*>(mat_fx),                            \
+      static_cast<const float*>(mat_emission),                              \
+      static_cast<const float*>(lambda), static_cast<const float*>(sky)
+#else
+#define SPECTRAL_FX_PARAMS
+#define SPECTRAL_FX_ARGS
+#endif
 #define SPECTRAL_TABLE_PARAMS                                               \
   int n_obj, int n_mat, int n_runs, int n_lights, int tri, int n_packed,   \
       int packed_shared, const void *geom, const void *mat_albedo,         \
       const void *order, const void *runs, const void *lpos,               \
-      const void *lspec, const void *packed
+      const void *lspec, const void *packed SPECTRAL_FX_PARAMS
 #define SPECTRAL_TABLE_ARGS                                                 \
   spectral::TableArgs {                                                     \
     static_cast<const float*>(geom), static_cast<const float*>(mat_albedo), \
         static_cast<const int*>(order), static_cast<const float*>(runs),    \
         static_cast<const float*>(lpos), static_cast<const float*>(lspec),  \
         static_cast<const float4*>(packed), n_obj, n_mat, n_runs, n_lights, \
-        tri, n_packed, packed_shared                                        \
+        tri, n_packed, packed_shared SPECTRAL_FX_ARGS                       \
   }
 
 #ifdef SPECTRAL_STATS

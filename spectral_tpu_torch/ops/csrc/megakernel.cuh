@@ -65,6 +65,24 @@ constexpr int RUN_COLS = 11;
 // shared memory when they fit (packed_shared), else the walk reads them
 // from global memory, 16 bytes a load.
 
+// The scene-feature tables, read only by the feature builds (bounce.cuh:
+// SPECTRAL_FX): features, a mask of the FX_* bits the scene uses (the
+// reference's static gates has_transmission, has_emission,
+// textured_static and sky); mat_fx: float32 [n_mat][MAT_FX_COLS], read
+// through the winner's material id as mat_albedo is; mat_emission:
+// float32 [n_mat][S]; lambda: float32 [S], the wavelength grid in nm;
+// sky: float32 [S] (zeros without FX_SKY).
+constexpr int FX_TRANSMISSION = 1;
+constexpr int FX_EMISSION = 2;
+constexpr int FX_TEXTURE = 4;
+constexpr int FX_SKY = 8;
+constexpr int MF_TRANSMISSION = 0;  // probability of the dielectric branch
+constexpr int MF_IOR = 1;           // base index of refraction
+constexpr int MF_CAUCHY = 2;        // Cauchy B in um^2 (> 0: dispersive)
+constexpr int MF_TEX_SCALE = 3;     // checker cell side (0: untextured)
+constexpr int MF_TEX_LOW = 4;       // checker factor of the odd cells
+constexpr int MAT_FX_COLS = 5;
+
 // The free-running persist kernel's camera basis, float32 [CAM_BASIS]
 // (the TPU kernel's pack_camera_basis columns; packed by
 // spectral_tpu_torch/render/camera.py:camera_basis_table).

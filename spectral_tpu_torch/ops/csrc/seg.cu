@@ -10,7 +10,7 @@
 // Design: another loop around the same `bounce_step` (bounce.cuh). A live
 // lane enters with bounces_left = max_bounces - b_start (megakernel.py:
 // :2104), the frame id of the whole wavefront, and its carried ray,
-// gate, throughput and radiance; it runs until its path ends or the
+// gate, hero bin, throughput and radiance; it runs until its path ends or the
 // segment does. The state is updated in place, where the TPU kernel
 // writes eleven fresh outputs: a dead lane (a compacted wavefront's fill
 // lanes among them) reads and writes nothing after its alive flag.
@@ -51,7 +51,7 @@ __device__ __forceinline__ int opaque(int x) {
 }
 
 struct SegArgs {
-  float *ox, *oy, *oz, *dx, *dy, *dz, *alive, *gate;
+  float *ox, *oy, *oz, *dx, *dy, *dz, *alive, *gate, *hero;
   const int *px, *py;
   float *thr, *rad;
 };
@@ -82,7 +82,11 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   L.dz = a.dz[gidx];
   L.alive = true;
   L.gate = a.gate[gidx] > 0.0f;
-  L.hero = -1.0f;  // no dispersion in the port's slice: hero stays as it is
+#ifdef SPECTRAL_FX
+  L.hero = a.hero[gidx];
+#else
+  L.hero = -1.0f;  // a build without features never sets a hero bin
+#endif
   L.bl = max_bounces - b_start;
   L.fid = frame_id;
 #pragma unroll
@@ -111,6 +115,9 @@ seg_kernel(int n, TableArgs ta, int max_bounces, int b_start, int b_stop,
   a.dz[gq] = L.dz;
   a.alive[gq] = L.alive ? 1.0f : 0.0f;
   a.gate[gq] = L.gate ? 1.0f : 0.0f;
+#ifdef SPECTRAL_FX
+  a.hero[gq] = L.hero;
+#endif
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     a.thr[(size_t)s * nq + gq] = L.thr[s];
@@ -136,12 +143,13 @@ cudaError_t launch_seg(int n, const TableArgs& ta, int max_bounces,
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
 // returns the cudaError_t of the launch (0 on success). The state planes
-// update in place; hero is not touched (the slice has no dispersion).
+// update in place; a build without features leaves hero as it is (it
+// never sets a hero bin).
 extern "C" int spectral_seg(int n, int n_samples, int max_bounces,
                             int b_start, int b_stop, unsigned int frame_id,
                             SPECTRAL_TABLE_PARAMS, void* ox, void* oy,
                             void* oz, void* dx, void* dy, void* dz,
-                            void* alive, void* gate, const void* px,
+                            void* alive, void* gate, void* hero, const void* px,
                             const void* py, void* thr, void* rad,
                             void* stream) {
   if (n <= 0 || b_stop <= b_start) return 0;
@@ -153,6 +161,7 @@ extern "C" int spectral_seg(int n, int n_samples, int max_bounces,
       static_cast<float*>(oz),    static_cast<float*>(dx),
       static_cast<float*>(dy),    static_cast<float*>(dz),
       static_cast<float*>(alive), static_cast<float*>(gate),
+      static_cast<float*>(hero),
       static_cast<const int*>(px), static_cast<const int*>(py),
       static_cast<float*>(thr),   static_cast<float*>(rad)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

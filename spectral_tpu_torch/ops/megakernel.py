@@ -7,8 +7,9 @@ The counterpart of the reference package's
 
 * ``pack_tables`` packs the scene into the kernels' own struct-of-arrays
   layout (the ``pack_geometry``/``pack_camera`` counterparts; rows listed
-  in ``csrc/megakernel.cuh``), with the material albedo table and the
-  object walk of the cluster plan (``ops/clusters.py``);
+  in ``csrc/megakernel.cuh``), with the material albedo table, the object
+  walk of the cluster plan (``ops/clusters.py``) and the scene-feature
+  tables;
 * ``run_mono`` / ``run_regen`` / ``run_persist`` / ``run_cost`` /
   ``run_seg`` launch the CUDA kernels on CUDA tensors and count their
   launches (``.launches`` on each wrapper);
@@ -19,7 +20,11 @@ The counterpart of the reference package's
   of a kernel (``runtime.build.VARIANTS``) for the measurement tools.
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
-tensors they launch the kernel or raise; there is no fallback.
+tensors they launch the kernel or raise; there is no fallback. A scene
+with a feature (``integrator.scene_features``: sky, checker texture,
+emission, dielectric) launches the feature build of its kernel
+(``runtime.build.FEATURE_LIBRARIES``), any other the build without
+features; a launch of the other build is refused.
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops.vecmath import Vec3
 from spectral_tpu_torch.render.camera import CAM_BASIS, primary_directions
 from spectral_tpu_torch.render.integrator import (
+    FX_EMISSION,
+    FX_SKY,
+    FX_TEXTURE,
+    FX_TRANSMISSION,
     MAX_MATERIALS,
     PersistState,
     Wavefront,
@@ -42,6 +51,7 @@ from spectral_tpu_torch.render.integrator import (
     bounce_loop_cost,
     persist_iterations,
     require_slice,
+    scene_features,
     segment_iterations,
 )
 from spectral_tpu_torch.runtime import build
@@ -86,6 +96,10 @@ GEOM_LAYOUT = (
     ("mat_id", 46, 1),
 )
 GEOM_ROWS = 47
+# mat_fx columns (csrc/megakernel.cuh MF_*): the mat_scalars columns
+# transmission, ior, cauchy_b, tex_scale, tex_low
+MAT_FX_SCALARS = slice(2, 7)
+MAT_FX_COLS = 5
 
 
 @dataclasses.dataclass
@@ -102,11 +116,16 @@ class KernelTables:
     lspec: torch.Tensor  # f32 [L, S]
     cam: torch.Tensor  # f32 [4]: camera position, pad
     packed: torch.Tensor  # f32 [P, 4]: the walk's packed records
+    mat_fx: torch.Tensor  # f32 [M, MAT_FX_COLS]: the feature scalars
+    mat_emission: torch.Tensor  # f32 [M, S]
+    lam: torch.Tensor  # f32 [S]: the wavelength grid, nm
+    sky: torch.Tensor  # f32 [S]: zeros without a sky
     scene: SceneTensors
     config: RenderConfig
     clusters: tuple | None = None
     triangles: int = 0
     packed_shared: bool = False  # the records go to shared memory
+    features: int = 0  # integrator.FX_* bits; nonzero: the feature builds
 
     def many_objects(self) -> bool:
         """Whether the kernels take their many-object instantiation
@@ -130,8 +149,16 @@ class KernelTables:
         walk = o + self.runs.numel() if self.many_objects() else GEOM_ROWS * o
         if self.many_objects() and self.packed_shared:
             walk += self.packed.numel()
-        return 4 * (walk + self.mat_albedo.shape[0] * s + 4 * n_l + n_l * s
-                    + n_l * BLOCK)
+        n_mat = self.mat_albedo.shape[0]
+        fx = n_mat * (MAT_FX_COLS + s) + 2 * s if self.features else 0
+        return 4 * (walk + n_mat * s + 4 * n_l + n_l * s + fx + n_l * BLOCK)
+
+    def feature_gates(self) -> dict:
+        """The features as ``flops.kernel_ops``' gates."""
+        return dict(has_transmission=bool(self.features & FX_TRANSMISSION),
+                    has_emission=bool(self.features & FX_EMISSION),
+                    has_texture=bool(self.features & FX_TEXTURE),
+                    has_sky=bool(self.features & FX_SKY))
 
 
 def pack_tables(scene: SceneTensors, config: RenderConfig,
@@ -162,11 +189,15 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     def t(a, dtype=np.float32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
+    sky = f["sky"] if f["sky"] is not None else np.zeros(config.n_samples, np.float32)
     tables = KernelTables(
         geom=t(geom), mat_albedo=t(f["mat_albedo"]), order=t(order, np.int32),
         runs=t(runs), lpos=t(lpos), lspec=t(f["light_spec"]), cam=t(cam),
-        packed=t(packed), scene=scene, config=config, clusters=plan,
+        packed=t(packed), mat_fx=t(f["mat_scalars"][:, MAT_FX_SCALARS]),
+        mat_emission=t(f["mat_emission"]), lam=t(f["lambda_grid"]), sky=t(sky),
+        scene=scene, config=config, clusters=plan,
         triangles=(2 if scene.smooth_tri else 1) if scene.has_triangles else 0,
+        features=scene_features(scene),
     )
     # the packed records go to shared memory where the block then still
     # fits PACKED_SMEM_LIMIT, else the walk streams them from global memory
@@ -301,17 +332,23 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 # the table arguments of every C entry point (csrc/bounce.cuh:
-# SPECTRAL_TABLE_PARAMS): 7 ints, 7 pointers
+# SPECTRAL_TABLE_PARAMS): 7 ints, 7 pointers, and in a feature build the
+# feature mask and 4 pointers
 _TABLE_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
+_FEATURE_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def _table_args(tables: KernelTables) -> tuple:
     cfg = tables.config
-    return (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
+    args = (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
             cfg.n_lights, tables.triangles, tables.packed.shape[0],
             int(tables.packed_shared),
             *map(_ptr, (tables.geom, tables.mat_albedo, tables.order,
                         tables.runs, tables.lpos, tables.lspec, tables.packed)))
+    if tables.features:
+        args += (tables.features, *map(_ptr, (tables.mat_fx, tables.mat_emission,
+                                              tables.lam, tables.sky)))
+    return args
 
 
 _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
@@ -320,20 +357,41 @@ _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
     "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 7)),
     "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
                                      + [ctypes.c_int], 21)),
-    "spectral_seg": ("seg", ([ctypes.c_int] * 5 + [ctypes.c_uint], 13)),
+    "spectral_seg": ("seg", ([ctypes.c_int] * 5 + [ctypes.c_uint], 14)),
 }
 
 
+def _entry(fn: str, tables: KernelTables, library: str | None = None):
+    """Entry point ``fn`` for ``tables``: of its source's library, or its
+    feature build for a scene with features, or the diagnostic
+    ``library`` built from that source (``build.VARIANTS``). Raises when
+    ``library`` and the tables disagree on features."""
+    src = _SIGNATURES[fn][0]
+    if library is None:
+        library = f"{src}_fx" if tables.features else src
+    if build.has_features(library) != bool(tables.features):
+        raise ValueError(
+            f"library {library} is {'' if build.has_features(library) else 'not '}"
+            f"a feature build, and the scene has features {tables.features}: "
+            "a feature scene runs on the feature builds only, and the reverse"
+        )
+    return _load_entry(fn, library)
+
+
 @functools.cache
-def _entry(fn: str, library: str | None = None):
-    """Entry point ``fn`` of its source's library (or of the diagnostic
-    ``library`` built from that source, ``build.VARIANTS``), with its C
-    signature declared. The first call builds every main library
-    together."""
-    src, (head, n_ptrs) = _SIGNATURES[fn]
-    build.build_all(build.SOURCES + ((library,) if library else ()))
-    f = getattr(build.load(library or src), fn)
-    f.argtypes = head + _TABLE_ARGTYPES + [ctypes.c_void_p] * n_ptrs
+def _load_entry(fn: str, library: str):
+    """Entry point ``fn`` of ``library`` with its C signature declared.
+    The first call builds every main library together; the first call
+    into a feature build builds the feature libraries together."""
+    _src, (head, n_ptrs) = _SIGNATURES[fn]
+    if build.has_features(library):
+        build.build_all(tuple(build.FEATURE_LIBRARIES) + (library,))
+    else:
+        build.build_all(build.SOURCES + (library,))
+    f = getattr(build.load(library), fn)
+    f.argtypes = (head + _TABLE_ARGTYPES
+                  + (_FEATURE_ARGTYPES if build.has_features(library) else [])
+                  + [ctypes.c_void_p] * n_ptrs)
     f.restype = ctypes.c_int
     return f
 
@@ -359,7 +417,7 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
                  dict(px=px, py=py), tables, n)
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _entry("spectral_mono")(
+    err = _entry("spectral_mono", tables)(
         n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
         *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out)), _stream(ox),
@@ -385,7 +443,7 @@ def run_regen(px, py, first_frame: int, camera, offsets,
         raise ValueError("regen wants k >= 2 (use run_mono)")
     if not _on_cuda(px):
         return run_regen_plain(px, py, first_frame, camera, offsets, tables)
-    out = _launch_regen(_entry("spectral_regen"), px, py, first_frame, camera,
+    out = _launch_regen(_entry("spectral_regen", tables), px, py, first_frame, camera,
                         offsets, tables)
     run_regen.launches += 1
     return out
@@ -396,7 +454,7 @@ def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets,
     """``run_regen`` through a diagnostic build of ``regen.cu``
     (``build.VARIANTS``: the earlier design's grid, the stats build), for
     the measurement tools. CUDA tensors only; not counted."""
-    return _launch_regen(_entry("spectral_regen", library), px, py, first_frame,
+    return _launch_regen(_entry("spectral_regen", tables, library), px, py, first_frame,
                          camera, offsets, tables)
 
 
@@ -434,7 +492,7 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
     cost = torch.empty((n,), dtype=torch.float32, device=ox.device)
-    err = _entry("spectral_cost")(
+    err = _entry("spectral_cost", tables)(
         n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
         *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out, cost)), _stream(ox),
@@ -495,7 +553,7 @@ def run_persist(state: PersistState, lead: int, end: int,
     carried = [getattr(state, k) for k in (
         "ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero", "bl", "fid",
         "px", "py")]
-    err = _entry("spectral_persist")(
+    err = _entry("spectral_persist", tables)(
         n, cfg.n_samples, cfg.max_bounces, int(budget),
         int(lead) & 0xFFFFFFFF, int(end) & 0xFFFFFFFF, ring_w,
         *_table_args(tables),
@@ -524,7 +582,7 @@ def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
                          f"[0, {cfg.max_bounces})")
     if not _on_cuda(wf.ox):
         return run_seg_plain(wf, b_start, b_stop, frame_id, tables)
-    _launch_seg(_entry("spectral_seg"), wf, b_start, b_stop, frame_id, tables)
+    _launch_seg(_entry("spectral_seg", tables), wf, b_start, b_stop, frame_id, tables)
     run_seg.launches += 1
 
 
@@ -533,7 +591,7 @@ def run_seg_variant(library: str, wf: Wavefront, b_start: int, b_stop: int,
     """``run_seg`` through a diagnostic build of ``seg.cu``
     (``build.VARIANTS``), for the measurement tools. CUDA tensors only;
     not counted."""
-    _launch_seg(_entry("spectral_seg", library), wf, int(b_start), int(b_stop),
+    _launch_seg(_entry("spectral_seg", tables, library), wf, int(b_start), int(b_stop),
                 frame_id, tables)
 
 
@@ -548,7 +606,7 @@ def _launch_seg(fn, wf, b_start, b_stop, frame_id, tables):
         n, cfg.n_samples, cfg.max_bounces, b_start, b_stop,
         int(frame_id) & 0xFFFFFFFF, *_table_args(tables),
         *map(_ptr, (wf.ox, wf.oy, wf.oz, wf.dx, wf.dy, wf.dz, wf.alive,
-                    wf.gate, wf.px, wf.py, wf.thr, wf.rad)), _stream(wf.ox),
+                    wf.gate, wf.hero, wf.px, wf.py, wf.thr, wf.rad)), _stream(wf.ox),
     )
     _raise_on(err, "cuda_seg")
 

@@ -41,8 +41,11 @@ def refract_or_reflect(d: Vec3, normal: Vec3, n_lambda, random_fresnel):
     """Dielectric interaction: Snell refraction, Schlick-Fresnel
     reflectance and total internal reflection. Returns
     ``(direction, reflected_mask, oriented_normal)``; the oriented normal
-    faces against the incident ray. (The render path reaches it with the
-    dielectric slice; it is ported here with the other samplers.)"""
+    faces against the incident ray. The reference's integer powers are
+    products in jnp (``x ** 5`` is ``x * ((x*x) * (x*x))``), which
+    ``torch.pow`` does not round alike, so they are written out here, as
+    in the kernels (``csrc/bounce.cuh:refract_or_reflect``): one ulp of
+    the reflectance decides the branch."""
     cosi_signed = -d.dot(normal)
     entering = cosi_signed > 0.0
     sgn = torch.where(entering, 1.0, -1.0)

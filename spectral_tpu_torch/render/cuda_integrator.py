@@ -68,13 +68,26 @@ def _to_rgb(rad: torch.Tensor, scene: SceneTensors, config: RenderConfig,
     return rgb.reshape(config.height, config.width, 3)
 
 
+def empty_frame(scene: SceneTensors, config: RenderConfig, frames: int = 1) -> torch.Tensor:
+    """The linear RGB ``[H, W, 3]`` of a scene without objects (the sum of
+    ``frames`` frames): every ray escapes, so each pixel is the sky colour,
+    black without a sky (the reference's ``integrate_frame``). No kernel
+    runs: the kernels need an object."""
+    if scene.sky is None:
+        return torch.zeros((config.height, config.width, 3), device=scene.device)
+    n = config.width * config.height
+    rad = scene.sky[None, :].expand(n, -1)
+    rgb = spectra_to_rgb(rad, scene.xyz_weights, scene.xyz_to_rgb)
+    return (rgb * float(frames)).reshape(config.height, config.width, 3)
+
+
 def integrate_frame_cuda(
     scene: SceneTensors, config: RenderConfig, frame_id: int,
     tables: mk.KernelTables | None = None,
 ) -> torch.Tensor:
     """One progressive frame -> linear RGB ``[H, W, 3]`` via ``run_mono``."""
     if config.n_objects == 0:
-        return torch.zeros((config.height, config.width, 3), device=scene.device)
+        return empty_frame(scene, config)
     tables = tables or mk.pack_tables(scene, config)
     planes, px, py = primary_lanes(scene, config, frame_id)
     rad = mk.run_mono(*planes, px, py, frame_id, tables)
@@ -124,7 +137,7 @@ def integrate_frames_cuda_regen(
     if (lane_perm is None) != (lane_inv is None):
         raise ValueError("lane_perm and lane_inv must be passed together")
     if config.n_objects == 0:
-        return torch.zeros((config.height, config.width, 3), device=scene.device)
+        return empty_frame(scene, config, k)
     tables = tables or mk.pack_tables(scene, config)
     rad = regen_radiance(scene, config, first_frame_id, k, tables, lane_perm)
     return _to_rgb(rad, scene, config, lane_inv)
@@ -207,7 +220,7 @@ def integrate_frame_split(
     for bit. Returns linear RGB ``[H, W, 3]``."""
     check_splits((int(split),), config)
     if config.n_objects == 0:
-        return torch.zeros((config.height, config.width, 3), device=scene.device)
+        return empty_frame(scene, config)
     tables = tables or mk.pack_tables(scene, config)
     wf = frame_wavefront(scene, config, frame_id)
     mk.run_seg(wf, 0, split, frame_id, tables)
@@ -278,8 +291,7 @@ def integrate_frame_cascade(
     check_splits(splits, config)
     dev = scene.device
     if config.n_objects == 0:
-        rgb = torch.zeros((config.height, config.width, 3), device=dev)
-        out = (rgb, torch.zeros((), dtype=torch.bool, device=dev))
+        out = (empty_frame(scene, config), torch.zeros((), dtype=torch.bool, device=dev))
         return out + ([],) if return_chains else out
     tables = tables or mk.pack_tables(scene, config)
     n = config.width * config.height
@@ -600,7 +612,7 @@ def render_persistent(
                 mean_counts=float(n_frames), compactions=0,
                 counts=np.full(n, n_frames, np.int64), adaptive=tuple(adaptive),
             )
-        return torch.zeros((config.height, config.width, 3), device=dev), info
+        return empty_frame(scene, config), info
     ring_slots = ring_slots or 0
     if ring_slots and (ring_slots < 2 or ring_slots & (ring_slots - 1)):
         raise ValueError(f"ring_slots must be 0 or a power of two >= 2, got {ring_slots}")

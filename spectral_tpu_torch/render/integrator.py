@@ -15,6 +15,14 @@ offset shadow/specular origins but **un-offset** diffuse continuation,
 the outgoing-cosine factor on direct light, and the stochastic
 specular/diffuse branch on ``rz < metallicness``.
 
+The reference's beyond-reference scene features are here too, each
+behind the reference's own static gate (``scene_features``): the sky on
+the alive -> miss transition, checker textures on the albedo, emissive
+surfaces, and the dielectric (Snell, Schlick-Fresnel, total internal
+reflection) with the hero-wavelength collapse and the Cauchy index at the
+first dispersive refraction. A scene without a feature computes none of
+its arithmetic, exactly as the reference's gates compile none of it.
+
 ``bounce_loop`` runs that loop over lane planes; it is also the plain
 version of the CUDA kernels (``spectral_tpu_torch.ops.megakernel``), so
 there is one bounce implementation in torch. Scene features outside the
@@ -33,6 +41,7 @@ from spectral_tpu_torch.ops.rng import MASK32, as_u32, random_pcg3d
 from spectral_tpu_torch.ops.sampling import (
     cosine_hemisphere_bounce,
     reflect_vec,
+    refract_or_reflect,
     sample_in_cone,
 )
 from spectral_tpu_torch.ops.vecmath import Vec3
@@ -46,21 +55,43 @@ SPECULAR_MIN_RAY_DISTANCE = 1e-4
 # the kernels read albedo through the material id (csrc/megakernel.cuh);
 # the reference's many-object loop has the same limit
 MAX_MATERIALS = 256
+# the Fraunhofer d line, the wavelength of a lane without a hero bin
+# (irrelevant where cauchy_b == 0)
+D_LINE_NM = 587.6
+
+# scene feature bits (csrc/megakernel.cuh FX_*): the reference's static
+# gates has_transmission, has_emission, textured_static and sky
+FX_TRANSMISSION = 1
+FX_EMISSION = 2
+FX_TEXTURE = 4
+FX_SKY = 8
+
+
+def scene_features(scene: SceneTensors) -> int:
+    """The ``FX_*`` bits of the features the scene uses; 0 for a scene the
+    reference renders without any of them."""
+    f = scene.np_fields
+    return ((FX_TRANSMISSION if f["transmission"].any() else 0)
+            | (FX_EMISSION if f["emission"].any() else 0)
+            | (FX_TEXTURE if f["tex_scale"].any() else 0)
+            | (FX_SKY if f["sky"] is not None else 0))
+
+
+def checker_factor(ipx, ipy, ipz, scale, low):
+    """World-space checker albedo factor (the reference's
+    ``integrator.checker_factor``, same op order): cells of side ``scale``
+    alternate 1 and ``low`` by the parity of the floored coordinates;
+    ``scale == 0`` is untextured (factor 1)."""
+    inv = 1.0 / scale  # scale == 0 -> inf, masked by the outer where
+    p = torch.floor(ipx * inv) + torch.floor(ipy * inv) + torch.floor(ipz * inv)
+    odd = (p - 2.0 * torch.floor(p * 0.5)) != 0.0
+    return torch.where(scale > 0.0, torch.where(odd, low, 1.0), 1.0)
 
 
 def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
     """Raise ``NotImplementedError`` for scene features the port does not
     render yet, naming the slice that will bring each. Never falls back."""
-    f = scene.np_fields
     later = []
-    if f["transmission"].any() or f["cauchy_b"].any():
-        later.append("transmission/dispersion (dielectric slice)")
-    if f["emission"].any():
-        later.append("emissive surfaces (emission slice)")
-    if f["sky"] is not None:
-        later.append("sky emission (sky slice)")
-    if f["tex_scale"].any():
-        later.append("checker textures (texture slice)")
     if config.has_dof:
         later.append("depth of field (DoF slice)")
     if config.n_materials > MAX_MATERIALS:
@@ -84,6 +115,8 @@ class BounceState(NamedTuple):
     alive: torch.Tensor  # [N] bool
     pending_gate: torch.Tensor  # [N] bool: the parent bounce was specular
     ray_count: torch.Tensor  # [] f32: reference-equivalent rays submitted
+    hero: torch.Tensor  # [N] int64: hero wavelength bin, -1 until a
+    # dispersive refraction
 
 
 def _direct_lighting(
@@ -124,29 +157,50 @@ def _bounce(
     """One bounce iteration of every lane. ``bounces_left`` and
     ``frame_id`` are per-lane int64 ``[N]`` (uint32 bit patterns; callers
     with one value broadcast it); they seed the RNG and end a path whose
-    budget is spent. The returned ``alive`` is the lanes that continue."""
-    o, d, throughput, radiance, alive, pending_gate, ray_count = state
+    budget is spent. The returned ``alive`` is the lanes that continue.
+    The reference's ``_bounce``, op for op, with its feature branches
+    behind ``scene_features``."""
+    o, d, throughput, radiance, alive, pending_gate, ray_count, hero = state
+    fx = scene_features(scene)
     # one submit_ray per live lane
     ray_count = ray_count + alive.sum(dtype=torch.float32)
 
     res = trace(o, d, scene)
     gate_ok = (~pending_gate) | (res.t > SPECULAR_MIN_RAY_DISTANCE)
+    if fx & FX_SKY:
+        # an escaping live ray collects throughput * sky (t is inf on a
+        # miss, so gate_ok holds there: a gated-out short hit gets none)
+        sky_mask = alive & gate_ok & ~res.hit
+        radiance = radiance + torch.where(
+            sky_mask[:, None], throughput * scene.sky[None, :], 0.0
+        )
     alive = alive & res.hit & gate_ok
 
+    obj = res.obj_idx
     t_safe = torch.where(alive, res.t, 0.0)
     ip = o + d * t_safe
-    normal = surface_normal(ip, res.obj_idx, scene, origin=o, direction=d)
-    m_metal = scene.metallicness[res.obj_idx]
-    m_rough = scene.roughness[res.obj_idx]
-    m_albedo = scene.albedo[res.obj_idx]  # [N, S]
+    normal = surface_normal(ip, obj, scene, origin=o, direction=d)
+    m_metal = scene.metallicness[obj]
+    m_rough = scene.roughness[obj]
+    m_albedo = scene.albedo[obj]  # [N, S]
+    if fx & FX_TEXTURE:
+        texf = checker_factor(ip.x, ip.y, ip.z, scene.tex_scale[obj], scene.tex_low[obj])
+        m_albedo = m_albedo * texf[:, None]
 
     seed = (frame_id + bounces_left) & MASK32
     rx, ry, rz = random_pcg3d(px, py, seed)
     spec = rz < m_metal
+    trans = torch.zeros_like(spec)
+    if fx & FX_TRANSMISSION:
+        trans = (~spec) & (rz < m_metal + scene.transmission[obj])
+    if fx & FX_EMISSION:
+        radiance = radiance + torch.where(
+            alive[:, None], throughput * scene.emission[obj], 0.0
+        )
 
     offset_pos = ip + normal * NEW_RAY_POSITION_OFFSET_DISTANCE
     direct = _direct_lighting(offset_pos, normal, d, scene, config)
-    diffuse = alive & ~spec
+    diffuse = alive & ~spec & ~trans
     # one shadow ray per light per live diffuse lane
     ray_count = ray_count + float(config.n_lights) * diffuse.sum(dtype=torch.float32)
     radiance = radiance + torch.where(
@@ -158,16 +212,42 @@ def _bounce(
     cone = sample_in_cone(refl, m_rough, rx, ry)
     spec_dir = cone.where(m_rough >= 0.001, refl)
     diff_dir = cosine_hemisphere_bounce(rx, ry, normal)
-    new_dir = spec_dir.where(spec, diff_dir).normalize()  # Ray::new normalizes
-    # the diffuse continuation starts at the UN-offset hit point
-    new_origin = offset_pos.where(spec, ip)
+    # the diffuse continuation starts at the UN-offset hit point, except in
+    # sky scenes, where the self-hit coin would pay throughput * sky
+    diff_origin = offset_pos if fx & FX_SKY else ip
+    new_dir = spec_dir.where(spec, diff_dir)
+    new_origin = offset_pos.where(spec, diff_origin)
+    if fx & FX_TRANSMISSION:
+        # the first dispersive refraction commits the path to one
+        # uniformly chosen wavelength bin with an S-fold weight
+        s = throughput.shape[1]
+        needs_hero = alive & trans & (scene.cauchy_b[obj] > 0.0) & (hero < 0)
+        h_new = torch.clamp_max((ry * s).long(), s - 1)
+        bins = torch.arange(s, device=hero.device)
+        onehot = (bins[None, :] == h_new[:, None]).to(torch.float32)
+        throughput = torch.where(
+            needs_hero[:, None], throughput * onehot * float(s), throughput
+        )
+        hero = torch.where(needs_hero, h_new, hero)
+        # the Cauchy index at the hero wavelength
+        lam_nm = torch.where(hero >= 0, scene.lambda_grid[torch.clamp_min(hero, 0)],
+                             D_LINE_NM)
+        lam_um = lam_nm * 1e-3
+        n_lam = scene.ior[obj] + scene.cauchy_b[obj] / (lam_um * lam_um)
+        trans_dir, reflects, n_or = refract_or_reflect(d, normal, n_lam, rx)
+        # the child leaves on the side it goes to
+        off = n_or * NEW_RAY_POSITION_OFFSET_DISTANCE
+        trans_origin = (ip + off).where(reflects, ip - off)
+        new_dir = spec_dir.where(spec, trans_dir.where(trans, diff_dir))
+        new_origin = offset_pos.where(spec, trans_origin.where(trans, diff_origin))
+    new_dir = new_dir.normalize()  # Ray::new normalizes
 
     cont = alive & (bounces_left > 1)
     o = new_origin.where(cont, o)
     d = new_dir.where(cont, d)
     throughput = torch.where(cont[:, None], throughput * m_albedo, throughput)
     pending_gate = torch.where(cont, spec, pending_gate)
-    return BounceState(o, d, throughput, radiance, cont, pending_gate, ray_count)
+    return BounceState(o, d, throughput, radiance, cont, pending_gate, ray_count, hero)
 
 
 def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
@@ -192,10 +272,14 @@ def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
         alive=torch.ones((n,), dtype=torch.bool, device=dev),
         pending_gate=torch.zeros((n,), dtype=torch.bool, device=dev),
         ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+        hero=torch.full((n,), -1, dtype=torch.int64, device=dev),
     )
     bl = torch.full((n,), config.max_bounces, dtype=torch.int64, device=dev)
     fid = as_u32(frame_id, dev).expand(n)
     px, py = px.long(), py.long()
+    if config.n_objects == 0 and scene.sky is not None:
+        # every primary ray escapes: the frame is the sky colour
+        state = state._replace(radiance=state.radiance + scene.sky[None, :])
     if config.n_objects > 0:
         for b in range(config.max_bounces):
             if occupancy is not None:
@@ -319,8 +403,8 @@ def persist_iterations(
         alive=st.alive > 0.0,
         pending_gate=st.gate > 0.0,
         ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+        hero=st.hero.long(),
     )
-    hero = st.hero
     held = torch.zeros((n,), dtype=torch.bool, device=dev)
     if stop is not None:
         held = stop > 0.0
@@ -359,8 +443,8 @@ def persist_iterations(
             alive=cont | new_path,
             pending_gate=state.pending_gate & ~new_path,
             ray_count=state.ray_count,
+            hero=torch.where(new_path, -1, state.hero),
         )
-        hero = torch.where(new_path, -1.0, hero)
         fid = torch.where(new_path, nf, fid)
 
     st.ox.copy_(state.origin.x)
@@ -371,7 +455,7 @@ def persist_iterations(
     st.dz.copy_(state.direction.z)
     st.alive.copy_(state.alive.to(torch.float32))
     st.gate.copy_(state.pending_gate.to(torch.float32))
-    st.hero.copy_(hero)
+    st.hero.copy_(state.hero.to(torch.float32))
     st.bl.copy_(bl)
     st.fid.copy_(fid)
     st.thr.copy_(state.throughput.T)
@@ -423,6 +507,7 @@ def segment_iterations(wf: Wavefront, b_start: int, b_stop: int, frame_id,
         alive=wf.alive > 0.0,
         pending_gate=wf.gate > 0.0,
         ray_count=torch.zeros((), dtype=torch.float32, device=dev),
+        hero=wf.hero.long(),
     )
     bl = torch.full((n,), config.max_bounces - int(b_start), dtype=torch.int64,
                     device=dev)
@@ -442,6 +527,7 @@ def segment_iterations(wf: Wavefront, b_start: int, b_stop: int, frame_id,
     wf.dz.copy_(state.direction.z)
     wf.alive.copy_(state.alive.to(torch.float32))
     wf.gate.copy_(state.pending_gate.to(torch.float32))
+    wf.hero.copy_(state.hero.to(torch.float32))
     wf.thr.copy_(state.throughput.T)
     wf.rad.copy_(state.radiance.T)
 

@@ -13,8 +13,9 @@ variance-adaptive. ``phase_split`` renders each frame as bounce segments
 (``run_seg``) with the live lanes compacted between them. Scenes of more
 than 64 objects walk a cluster plan (``ops/clusters.py``), and their
 regeneration lanes take the Morton layout (``render/layout.py``). All
-kinds checkpoint and resume. On ``device="cpu"`` the same calls run the
-kernels' plain versions.
+kinds checkpoint and resume. A scene with a sky, checker textures,
+emissive surfaces or a dielectric runs the kernels' feature builds. On
+``device="cpu"`` the same calls run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -74,6 +75,16 @@ class RenderProgress:
     @property
     def seconds_per_frame(self) -> float:
         return self.elapsed_s / max(1, self.frame_id + 1)
+
+    @property
+    def mpaths_per_s(self) -> float:
+        """Camera paths per second (millions)."""
+        return self.pixels / max(self.seconds_per_frame, 1e-9) / 1e6
+
+    @property
+    def eta_s(self) -> float:
+        done = self.fraction
+        return self.elapsed_s / done * (1.0 - done) if done > 0 else float("inf")
 
 
 def scene_digest(scene: SceneTensors, config: RenderConfig) -> str:
@@ -212,10 +223,12 @@ class Renderer:
     pixels in Morton order, row-major otherwise (``lane_layout``; pure
     relabeling, bit-identical per pixel).
     Triangle meshes render on every path (the kernels' triangle builds
-    are for 8 and 32 wavelengths; the plain versions take any count).
-    The reference renderer's ``sharding`` is refused with
-    ``NotImplementedError`` until its slice lands; scenes with more than
-    256 materials are refused by the table packer.
+    are for 8 and 32 wavelengths; the plain versions take any count), and
+    so do the scene features (sky, checker, emission, the dielectric with
+    dispersion; ``integrator.scene_features``) through the kernels'
+    feature builds. The reference renderer's ``sharding`` is refused with
+    ``NotImplementedError`` until its slice lands; depth of field and
+    scenes with more than 256 materials are refused by the table packer.
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",
@@ -518,7 +531,7 @@ class Renderer:
             resume_state=resume, return_state=True,
         )
         if not (info["aborted"] or self.persist_keep_state):
-            del info["resume_state"]  # nothing left to resume: free the planes
+            info.pop("resume_state", None)  # nothing left to resume: free the planes
         self.persist_info = info
         self._set_rgb(rgb)
         self.next_frame = total if not info["aborted"] else info["frames_done"]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -66,6 +67,16 @@ def build_log(name: str) -> str:
 
 # the kernel sources under ops/csrc, one library each
 SOURCES = ("mono", "regen", "persist", "seg", "probe")
+# the feature builds: each bounce kernel's source with the scene-feature
+# branches (-DSPECTRAL_FX, ops/csrc/bounce.cuh), the same instantiations.
+# The render paths load them for a scene that uses a feature (sky,
+# checker texture, emission, dielectric), and the others without
+# features, so that a feature-free scene keeps the code, registers and
+# bits of the builds without them. Built together at the first launch
+# for such a scene.
+FEATURE_DEFINES = ("-DSPECTRAL_FX",)
+FEATURE_LIBRARIES = {f"{src}_fx": (src, FEATURE_DEFINES)
+                     for src in ("mono", "regen", "persist", "seg")}
 # diagnostic libraries, never loaded by the render paths: a source built
 # with extra defines (its source note says what each changes). The
 # measurement tools and chip_smoke.py build them beside the main ones.
@@ -78,8 +89,39 @@ VARIANTS = {
 
 
 def _source(name: str) -> tuple[Path, tuple]:
-    src, defines = VARIANTS.get(name, (name, ()))
+    src, defines = {**FEATURE_LIBRARIES, **VARIANTS}.get(name, (name, ()))
     return CSRC_DIR / f"{src}.cu", defines
+
+
+def has_features(name: str) -> bool:
+    """Whether library ``name`` is built with the scene-feature branches."""
+    return FEATURE_DEFINES[0] in _source(name)[1]
+
+
+def kernel_resources(name: str) -> list[dict]:
+    """Each kernel instantiation of library ``name`` as ``nvcc -Xptxas
+    -v`` reported it at its last build here: the kernel with its template
+    arguments (``regen_kernel<64,0,0>``: S, then the flags in source
+    order), registers, and spill stores and loads in bytes."""
+    out, entry = [], None
+    for ln in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"([a-z]+_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
+            plain = re.search(r"([a-z]+_kernel)E", m.group(1))
+            entry = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
+                     if k else plain.group(1) if plain else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append(dict(entry=entry, registers=int(m.group(1)),
+                            spill_stores=spills[0], spill_loads=spills[1]))
+            entry = None
+    return out
 
 
 def _stale(name: str) -> bool:
@@ -91,8 +133,9 @@ def _stale(name: str) -> bool:
 
 def build_all(names=SOURCES, force: bool = False) -> list[Path]:
     """Compile every out-of-date library of ``names`` (sources of
-    ``ops/csrc`` or ``VARIANTS``; all of them with ``force``), one
-    ``nvcc`` per library, started together."""
+    ``ops/csrc``, ``FEATURE_LIBRARIES`` or ``VARIANTS``; all of them with
+    ``force``), one ``nvcc`` per library, started together."""
+    names = tuple(dict.fromkeys(names))  # one nvcc per library, however often named
     jobs = []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path() if force or any(map(_stale, names)) else None

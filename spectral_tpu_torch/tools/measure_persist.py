@@ -57,7 +57,7 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _busy_ms(events) -> tuple[float, float]:
+def busy_ms(events) -> tuple[float, float]:
     """Union of the device events' spans, and the traced span, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
@@ -253,12 +253,12 @@ def main(argv=None) -> int:
             wall_ms = (time.monotonic() - t) * 1e3
         dev_events = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms, span_ms = _busy_ms(dev_events)
+        busy, span_ms = busy_ms(dev_events)
         top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:8]
         print(json.dumps(dict(
             part=f"profile_{key}", seconds_per_frame_unprofiled=unprofiled,
-            wall_ms=wall_ms, device_busy_ms=busy_ms,
-            traced_span_ms=span_ms, busy_share_of_wall=busy_ms / wall_ms,
+            wall_ms=wall_ms, device_busy_ms=busy,
+            traced_span_ms=span_ms, busy_share_of_wall=busy / wall_ms,
             top=[(k.key[:60], k.device_time_total / 1e3, k.count) for k in top],
             card=gpu)), flush=True)
         if args.trace_dir:

@@ -44,7 +44,7 @@ from spectral_tpu_torch.render.camera import camera_basis_table
 from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.render.renderer import Renderer
 from spectral_tpu_torch.scene import mesh as tmesh
-from spectral_tpu_torch.scene import presets
+from spectral_tpu_torch.scene import presets, schema
 from spectral_tpu_torch.scene.flatten import flatten_scene
 from tests import torch_scenes
 
@@ -478,3 +478,77 @@ def test_cuda_packed_walk_from_global_memory(cuda):
         assert torch.equal(mk.run_mono(*planes, px, py, 1, t), want)
     mesh5k = torch_scenes.preset(presets, "mesh5k", 8, 8, 1, 1, 8)
     assert not mk.pack_tables(*flatten_scene(mesh5k, cuda)).packed_shared
+
+
+# ------------------------------------------------------- scene features
+
+
+def _feature_scene(kind, samples=8):
+    """The feature cases: the prism (dielectric, dispersion, emission), the
+    open sphere under a sky, the checker floor, the emissive panel, and the
+    mesh preset with glass meshes (the triangle builds' dielectric)."""
+    if kind == "prism":
+        return _scene("prism", 32, 24, 8, samples=samples, iters=3)
+    if kind == "sky":
+        return torch_scenes.open_sky(schema, samples, 3, iters=3)
+    if kind == "checker":
+        return torch_scenes.textured(schema, presets, samples, 3, iters=3)
+    if kind == "panel":
+        return torch_scenes.emissive_panel(schema, samples)
+    return torch_scenes.glass_meshes(schema, presets, "mesh", 32, 16, 4, samples=samples,
+                                     iters=3)
+
+
+@pytest.mark.parametrize("kind,samples", [("prism", 8), ("prism", 64), ("sky", 16),
+                                          ("checker", 8), ("panel", 16), ("glass_mesh", 32)])
+def test_cuda_feature_kernels_match_plain(cuda, kind, samples):
+    """Every bounce kernel's feature build, bit for bit to its plain
+    version (``torch_scenes.feature_kernel_checks``): mono, cost, regen
+    (K = 3), seg [0, 2) and the compacted [2, B) with the hero bin
+    carried, and persist lane-stop over two launches."""
+    tb = mk.pack_tables(*flatten_scene(_feature_scene(kind, samples), cuda))
+    checks, info = torch_scenes.feature_kernel_checks(tb)
+    assert all(checks.values()), (checks, info)
+    if kind == "prism":
+        assert info["survivors_with_hero"] > 0 and info["persist_heroes"] > 0, info
+
+
+def test_cuda_feature_scenes_load_feature_builds_only(cuda, monkeypatch):
+    """A feature scene launches the feature builds and never the others;
+    a feature-free scene the reverse."""
+    loaded = []
+    real = mk._load_entry
+    monkeypatch.setattr(mk, "_load_entry", lambda fn, lib: loaded.append(lib) or real(fn, lib))
+    mk.run_regen.launches = mk.run_mono.launches = 0
+    img = Renderer(_scene("prism", 32, 24, 8, iters=5), device="cuda", regen_frames=4).render()
+    assert (mk.run_regen.launches, mk.run_mono.launches) == (1, 1)
+    assert np.isfinite(img).all() and set(loaded) == {"regen_fx", "mono_fx"}
+    loaded.clear()
+    Renderer(_scene("cornell", 16, 8, 3, iters=5), device="cuda", regen_frames=4).render()
+    assert set(loaded) == {"regen", "mono"}
+    prism = mk.pack_tables(*flatten_scene(_scene("prism", 8, 8, 2), cuda))
+    with pytest.raises(ValueError, match="feature"):
+        mk.run_regen_variant("regen_parent", *ci.regen_args(prism.scene, prism.config, 0, 2),
+                             prism)
+
+
+def test_cuda_cli_refuses_exr_before_any_launch(cuda, tmp_path):
+    from spectral_tpu_torch import cli
+
+    wrappers = (mk.run_mono, mk.run_regen, mk.run_persist, mk.run_cost, mk.run_seg)
+    for w in wrappers:
+        w.launches = 0
+    rc = cli.main(["render", "--preset", "prism", "--width", "16", "--height", "12",
+                   "--iterations", "2", "--out", str(tmp_path / "x.exr"), "--quiet"])
+    assert rc == 2 and [w.launches for w in wrappers] == [0] * 5
+
+
+def test_cuda_prism_paths_agree(cuda):
+    """The prism through regen, persist and phased: image means within 2%."""
+    sc = _scene("prism", 64, 48, 8, samples=16, iters=8)
+    means = {}
+    for kind, kw in (("regen", {}), ("persist", dict(persist=True)),
+                     ("phased", dict(phase_split=2))):
+        means[kind] = float(Renderer(sc, device="cuda", **kw).render()[..., :3].mean())
+    for kind in ("persist", "phased"):
+        assert abs(means[kind] / means["regen"] - 1.0) <= 0.02, means

@@ -80,3 +80,28 @@ def test_euler_rotation_bitwise():
             tflat.euler_to_rotation_matrix(roll, pitch, yaw),
             jflat.euler_to_rotation_matrix(roll, pitch, yaw),
         )
+
+
+@pytest.mark.parametrize("name", ["sky", "checker", "panel", "glass_mesh"])
+def test_feature_scene_tables_bitwise_equal(name):
+    """The feature tables (sky, tex_*, emission, transmission and their
+    material rows) of scenes built by each package, bitwise equal."""
+    from spectral_tpu.scene import schema as jschema
+    from spectral_tpu_torch.scene import schema as tschema
+    from tests import torch_scenes as ts
+
+    def build(schema, pre):
+        return {"sky": lambda: ts.open_sky(schema, 16),
+                "checker": lambda: ts.textured(schema, pre),
+                "panel": lambda: ts.emissive_panel(schema, 16),
+                "glass_mesh": lambda: ts.glass_meshes(schema, pre, "mesh", 8, 8, 2)}[name]()
+
+    arrays, config = jflat.flatten_scene(build(jschema, presets))
+    want = arrays.host.np_fields
+    got, got_config = tflat.flatten_numpy(build(tschema, tpresets))
+    for key in tflat.FIELDS:
+        assert _same_bits(got[key], want[key]), key
+    assert dataclasses.asdict(got_config) == dataclasses.asdict(config)
+    feature = {"sky": "sky", "checker": "tex_scale", "panel": "mat_emission",
+               "glass_mesh": "transmission"}[name]
+    assert np.asarray(got[feature]).any()

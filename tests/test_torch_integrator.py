@@ -145,11 +145,20 @@ def test_render_frame_step_blends():
 @pytest.mark.parametrize("name,feature", [
     ("prism", "transmission"), ("measured_sun", None), ("spheres", None),
     pytest.param("mesh", None, id="mesh-triangle"),  # triangles render now
+    pytest.param("cornell", "depth of field", id="cornell-dof"),
 ])
 def test_out_of_slice_features_raise(name, feature):
-    port, cfg = flatten_scene(presets.PRESETS[name](n_samples=8), "cpu")
-    if feature is None:  # inside the slice: renders
-        tint.require_slice(port, cfg)
+    """Every preset is inside the port's slices, the prism's dielectric,
+    dispersion and emission too (it renders a frame here); depth of field
+    is not, and still raises."""
+    scene = _scene(name, 8, 6, bounces=3, samples=8)
+    if feature == "depth of field":
+        scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
+        with pytest.raises(NotImplementedError, match=feature):
+            tint.require_slice(*flatten_scene(scene, "cpu"))
         return
-    with pytest.raises(NotImplementedError, match=feature):
-        tint.require_slice(port, cfg)
+    port, cfg = flatten_scene(scene, "cpu")
+    tint.require_slice(port, cfg)
+    if feature is not None:
+        rgb = tint.integrate_frame(port, cfg, 0)
+        assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())

@@ -36,7 +36,7 @@ from spectral_tpu_torch.render import integrator as tint
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.scene import flatten as tflat
 from spectral_tpu_torch.scene import mesh as tmesh
-from spectral_tpu_torch.scene import presets
+from spectral_tpu_torch.scene import presets, schema
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
 from tests import torch_scenes as ts
 
@@ -326,11 +326,15 @@ def test_pack_tables_mesh_runs_and_shared_memory():
 
 
 def test_require_slice_takes_triangles_refuses_the_dielectric():
+    """Triangles are inside the slices, the dielectric too since the
+    feature slice (glass meshes, the prism); depth of field is refused."""
     port, cfg = flatten_scene(presets.mesh_demo(n_samples=8), "cpu")
     tint.require_slice(port, cfg)
-    port, cfg = flatten_scene(presets.prism(n_samples=8), "cpu")
-    with pytest.raises(NotImplementedError, match="transmission"):
-        tint.require_slice(port, cfg)
+    tint.require_slice(*flatten_scene(ts.glass_meshes(schema, presets, "mesh", 8, 8, 1), "cpu"))
+    scene = presets.mesh_demo(n_samples=8)
+    scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
+    with pytest.raises(NotImplementedError, match="depth of field"):
+        tint.require_slice(*flatten_scene(scene, "cpu"))
 
 
 def test_unknown_object_type_is_refused():

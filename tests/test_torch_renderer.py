@@ -22,6 +22,7 @@ import torch
 from spectral_tpu.render.renderer import Renderer as JaxRenderer
 from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu_torch import cli
+from spectral_tpu_torch.render import integrator as tint
 from spectral_tpu_torch.render import renderer as trender
 from spectral_tpu_torch.scene import presets
 from spectral_tpu_torch.scene import schema
@@ -126,16 +127,24 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])
 def test_out_of_slice_scene_raises(name):
-    """The dielectric is outside the port's slices: the prism, and the mesh
-    presets with glass on their meshes (triangles render since the mesh
-    slice; the other gates stay)."""
-    scene = presets.PRESETS[name](n_samples=8)
-    for obj in scene.objects:
-        if isinstance(obj.object_type, schema.Mesh):
-            obj.material.transmission = 0.9
+    """Depth of field is outside the port's slices: the glass presets with
+    an aperture on their camera refuse to build a Renderer."""
+    scene = torch_scenes.glass_meshes(schema, presets, name, 8, 6, 3, samples=8, iters=1)
+    scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
     with pytest.raises(NotImplementedError,
-                       match="not in the PyTorch/CUDA port yet: transmission"):
+                       match="not in the PyTorch/CUDA port yet: depth of field"):
         trender.Renderer(scene, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])
+def test_glass_presets_build_and_render_on_cpu(name):
+    """The prism, and the mesh presets with glass on their meshes, build a
+    Renderer with the feature tables and render a frame on the CPU."""
+    scene = torch_scenes.glass_meshes(schema, presets, name, 8, 6, 3, samples=8, iters=1)
+    r = trender.Renderer(scene, device="cpu")
+    assert r.tables.features & tint.FX_TRANSMISSION
+    img = r.render()
+    assert img.shape == (6, 8, 4) and np.isfinite(img).all()
 
 
 @pytest.mark.parametrize("name", ["mesh5k", "mesh"])

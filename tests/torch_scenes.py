@@ -4,7 +4,8 @@ Each builder takes the scene modules it builds with: the JAX package's
 (``spectral_tpu.scene.schema`` / ``presets``) or the port's own copies
 (``spectral_tpu_torch.scene.schema`` / ``presets``), so that a test that
 compares the two packages builds the same scene in each. This module
-imports neither package, so the jax-free card tests can use it.
+imports neither package at import time, so the jax-free card tests can
+use it; ``feature_kernel_checks`` imports the port when called.
 """
 
 from __future__ import annotations
@@ -88,3 +89,149 @@ def smooth_mesh(presets, mesh, w, h, bounces, subdivisions=1, iters=2, samples=8
     scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
     scene.validate()
     return scene
+
+
+def open_sky(schema, n=16, bounces=3, w=24, h=16, iters=2, with_sky=True,
+             metallic=0.0):
+    """tests/test_sky.py's ``_open_scene``: a lone grey sphere before the
+    camera, one lamp, and a 6500 K sky behind (``with_sky``)."""
+    S = schema
+    sky = S.SceneSpectrum.new("sky", S.Temperature(6500.0, 0.8),
+                              S.SpectrumEffectType.EMISSIVE, n=n)
+    grey = S.SceneSpectrum.new("grey", S.PlainReflective(0.6),
+                               S.SpectrumEffectType.REFLECTIVE, n=n)
+    lamp = S.SceneSpectrum.new("lamp", S.Temperature(5000.0, 3.0),
+                               S.SpectrumEffectType.EMISSIVE, n=n)
+    mat = S.Material(metallic, 0.1, grey, "grey mat")
+    scene = S.Scene(
+        width=w, height=h, nbr_of_iterations=iters, nbr_of_ray_bounces=bounces,
+        camera=S.Camera(position=(0.0, 0.0, -4.0)),
+        lights=[S.Light((3.0, 4.0, -3.0), lamp, "lamp")],
+        objects=[S.SceneObject((0.0, 0.0, 2.0), S.Sphere(1.2), mat, "ball")],
+        spectra=[sky, grey, lamp], materials=[mat], spectrum_number_of_samples=n,
+    )
+    if with_sky:
+        scene.sky = sky
+    return scene
+
+
+def textured(schema, presets, samples=8, bounces=1, w=24, h=16, iters=2):
+    """tests/test_texture.py's ``_textured_scene``: the default scene with
+    a checker (cells of 0.7, odd cells at 0.2) on its floor."""
+    scene = presets.default_scene(n_samples=samples)
+    scene.width, scene.height = w, h
+    scene.nbr_of_ray_bounces, scene.nbr_of_iterations = bounces, iters
+    floor = next(o for o in scene.objects if o.name == "Floor")
+    floor.material.texture = schema.Checker(scale=0.7, low=0.2)
+    return scene
+
+
+def emissive_panel(schema, n=16, bounces=1):
+    """tests/test_dispersion.py's ``_emissive_panel_scene``: a black
+    5000 K emissive panel filling the view, no lights."""
+    S = schema
+    emis = S.SceneSpectrum.new("emit", S.Temperature(5000.0, 2.0),
+                               S.SpectrumEffectType.EMISSIVE, n=n)
+    black = S.SceneSpectrum.new("black", S.PlainReflective(0.0),
+                                S.SpectrumEffectType.REFLECTIVE, n=n)
+    panel = S.Material(0.0, 0.0, black, "panel", emission=emis)
+    return S.Scene(
+        width=8, height=6, nbr_of_iterations=2, nbr_of_ray_bounces=bounces,
+        camera=S.Camera(position=(0.0, 0.0, -2.0)), lights=[],
+        objects=[S.SceneObject((0.0, 0.0, 2.0), S.PlainBox(8.0, 8.0, 1.0), panel, "panel")],
+        spectra=[emis, black], materials=[panel], spectrum_number_of_samples=n,
+    )
+
+
+def glass_meshes(schema, presets, name, w, h, bounces, samples=8, iters=2,
+                 transmission=0.9):
+    """A mesh preset with ``transmission`` on its meshes' materials: the
+    triangle builds' dielectric."""
+    scene = preset(presets, name, w, h, bounces, iters, samples)
+    for obj in scene.objects:
+        if isinstance(obj.object_type, schema.Mesh):
+            obj.material.transmission = transmission
+    return scene
+
+
+def feature_kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
+                          persist_launches=2, persist_budget=7, persist_stop=3,
+                          timed=None):
+    """Each bounce kernel's feature build against its plain version on the
+    card, bit for bit (``torch.equal``), on the scene of ``tables``:
+
+    - ``mono`` and ``cost`` on frame ``frame``'s primaries (the cost
+      kernel's radiance also equal to the mono frame's);
+    - ``regen``: K = ``regen_k`` frames from ``frame``, lanes in the order
+      ``lane_perm`` (the Renderer's layout; None: row-major);
+    - ``seg``: bounces [0, ``split``) on the whole wavefront, then [split,
+      B) on its compacted survivors with the hero bins they carry, as the
+      cascade runs them; scattered back, the frame equals the mono frame;
+    - ``persist``: ``persist_launches`` launches of ``persist_budget``
+      iterations, lane-stop with every ``persist_stop``-th lane stopped,
+      or free-running (``persist_stop=0``, as ``Renderer(persist=True)``
+      launches it).
+
+    ``timed(key, fn)``, if given, runs each launch (kernel ``key``, its
+    plain version ``key + "_plain"``) and returns fn's result: the caller's
+    timer. Returns ``(checks, info)``: a bool per kernel, and the
+    survivor and hero counts."""
+    import torch
+
+    from spectral_tpu_torch.ops import megakernel as mk
+    from spectral_tpu_torch.render import cuda_integrator as ci
+    from spectral_tpu_torch.render.camera import camera_basis_table
+
+    port, cfg = tables.scene, tables.config
+    assert tables.features, "not a feature scene"
+
+    def run(key, fn):
+        return timed(key, fn) if timed else fn()
+
+    def same(a, b):
+        return all(torch.equal(x, getattr(b, k)) for k, x in a.planes().items())
+
+    planes, px, py = ci.primary_lanes(port, cfg, frame)
+    mono = run("mono", lambda: mk.run_mono(*planes, px, py, frame, tables))
+    plain = run("mono_plain", lambda: mk.run_mono_plain(*planes, px, py, frame, tables))
+    checks = dict(mono=torch.equal(mono, plain))
+    del plain
+    rad, cost = run("cost", lambda: mk.run_cost(*planes, px, py, frame, tables))
+    prad, pcost = run("cost_plain", lambda: mk.run_cost_plain(*planes, px, py, frame, tables))
+    checks["cost"] = (torch.equal(rad, mono) and torch.equal(rad, prad)
+                      and torch.equal(cost, pcost))
+    del rad, prad, planes
+    args = (*ci.regen_args(port, cfg, frame, regen_k, lane_perm), tables)
+    got = run("regen", lambda: mk.run_regen(*args))
+    checks["regen"] = torch.equal(got, run("regen_plain", lambda: mk.run_regen_plain(*args)))
+    del got, args
+    split = min(split, cfg.max_bounces)
+    wf, pwf = ci.frame_wavefront(port, cfg, frame), ci.frame_wavefront(port, cfg, frame)
+    run("seg", lambda: mk.run_seg(wf, 0, split, frame, tables))
+    run("seg_plain", lambda: mk.run_seg_plain(pwf, 0, split, frame, tables))
+    seg_ok = same(wf, pwf)
+    live = torch.nonzero(wf.alive > 0)[:, 0]
+    cwf, cpwf = ci._gather(wf, live), ci._gather(pwf, live)
+    info = dict(survivors=int(live.numel()), survivors_with_hero=int((cwf.hero >= 0).sum()))
+    if split < cfg.max_bounces:
+        run("seg_tail", lambda: mk.run_seg(cwf, split, cfg.max_bounces, frame, tables))
+        run("seg_tail_plain",
+            lambda: mk.run_seg_plain(cpwf, split, cfg.max_bounces, frame, tables))
+    wf.rad[..., live] = cwf.rad
+    checks["seg"] = seg_ok and same(cwf, cpwf) and torch.equal(wf.rad, mono)
+    del wf, pwf, cwf, cpwf, mono
+    n = cfg.width * cfg.height
+    stop = ((torch.arange(n, device=px.device) % persist_stop == 0).float()
+            if persist_stop else None)
+    cam = camera_basis_table(port, cfg)
+    a, b = ci.persist_init(port, cfg), ci.persist_init(port, cfg)
+    frames = cfg.intended_frames
+    for _ in range(persist_launches):
+        run("persist", lambda: mk.run_persist(a, frames, frames, tables, cam, stop=stop,
+                                              budget=persist_budget))
+        run("persist_plain", lambda: mk.run_persist_plain(b, frames, frames, tables, cam,
+                                                          stop=stop, budget=persist_budget))
+    checks["persist"] = same(a, b)
+    info["persist_heroes"] = int((a.hero >= 0).sum())
+    torch.cuda.synchronize()
+    return {k: bool(v) for k, v in checks.items()}, info
