@@ -26,6 +26,14 @@ their plain versions on the prism, a sky scene, a checker scene and
 glass meshes, and the prism preset (``presets.prism()``: 800x600, 64
 wavelengths, 8 bounces, 200 iterations) through the main path
 (regeneration), the persist path and the phased path;
+the Cornell box at the main path's size with a thin lens (aperture
+0.05, focus 2.0: depth of field) on regeneration, frame by frame and
+phased, each lens kernel path against its plain version and the blur of
+the right front box's near edge against the pinhole image; the mesh at
+64 wavelengths (the triangle builds at S = 16 and 64) on regeneration
+and persist; the opt-in shadow interval (the ``mono_si``/``regen_si``
+builds) against its plain version and, on the 1000-sphere field, timed
+in turns with the default shadow test;
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
@@ -56,11 +64,23 @@ MAIN = dict(width=512, height=512, n_samples=32, bounces=30, iterations=100)
 # BASELINE config 4 (bench.py): the 1000-sphere field
 SPHERES = dict(n_spheres=1000, width=1024, height=768, n_samples=32, bounces=8,
                iterations=100)
-# bench.py's mesh configs: 512x512, 32 lambda, 30 bounces, 100 iterations;
-# mesh5k's iterations are cut to 10 here (one 10-frame regeneration launch)
-MESHES = (("mesh", 100), ("mesh5k", 10))
+# bench.py's mesh configs: 512x512, 30 bounces, 100 iterations; mesh5k's
+# iterations cut to 10 here (one 10-frame regeneration launch); the mesh
+# also at 64 wavelengths, the prism's (the triangle builds at S = 64)
+MESHES = (("mesh", "mesh", 100, 32), ("mesh5k", "mesh5k", 10, 32), ("mesh64", "mesh", 100, 64))
 # BASELINE config 3 (bench.py:84-87): the prism, uncut
 PRISM = dict(width=800, height=600, n_samples=64, bounces=8, iterations=200)
+# the thin lens of the depth-of-field render: the left back box's front
+# face near focus, the right front box about 1.15-1.6 from the camera
+LENS = dict(aperture=0.05, focus=2.0)
+# edges of the right front box in the 512x512 Cornell image, as
+# (rows, first column, last column + 1) of the window the profile is
+# averaged over: its nearest vertical edge (the corner about 1.15 from
+# the camera, between its lit and its shadowed front face; the lens's
+# circle of confusion there is about 16 px) and its left silhouette
+# against the floor (about 1.58 away, about 6 px)
+EDGES = {"near_edge": ((456, 512), 380, 470), "left_silhouette": ((440, 512), 260, 340)}
+BLUR_MIN_PX = 4.0  # the near edge's rise with the lens over the pinhole's
 # the prism with no Cauchy term must read a red/blue split under half the
 # dispersive limit (0.2 px) on the same measure
 CONTROL_LIMIT_PX = 0.1
@@ -68,6 +88,40 @@ CONTROL_LIMIT_PX = 0.1
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
+
+
+def rise_widths(pinhole, image):
+    """Each of ``EDGES``' 10-90% rise width in px, in the pinhole image
+    and in ``image``: the window's rows averaged into one profile across
+    the columns; the edge at the pinhole profile's steepest step (a 3-tap
+    smoothing); the profile scaled to 0 and 1 at the medians 10-18 px
+    either side of the edge; each level's crossing the one nearest the
+    edge, interpolated linearly between the two columns it falls
+    between."""
+    import numpy as np
+
+    def profile(img, rows, x0, x1):
+        return img[rows[0]:rows[1], x0:x1, :3].mean(axis=(0, 2)).astype(np.float64)
+
+    def width(prof, c):
+        a, b = np.median(prof[c - 18:c - 10]), np.median(prof[c + 11:c + 19])
+        t = (prof - a) / (b - a)
+
+        def crossing(level):
+            ks = np.nonzero((t[:-1] < level) != (t[1:] < level))[0]
+            k = int(ks[np.argmin(np.abs(ks - c))])
+            return k + (level - t[k]) / (t[k + 1] - t[k])
+
+        return float(abs(crossing(0.9) - crossing(0.1)))
+
+    out = {}
+    for name, (rows, x0, x1) in EDGES.items():
+        pin = profile(pinhole, rows, x0, x1)
+        smooth = np.convolve(pin, np.ones(3) / 3, mode="same")
+        c = int(np.argmax(np.abs(np.diff(smooth[1:-1])))) + 1
+        out[name] = dict(column=x0 + c, pinhole_px=width(pin, c),
+                         lens_px=width(profile(image, rows, x0, x1), c))
+    return out
 
 
 def main() -> int:
@@ -94,6 +148,7 @@ def main() -> int:
         from spectral_tpu_torch.scene import mesh as tmesh
         from spectral_tpu_torch.scene.flatten import flatten_scene
         from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
+        from spectral_tpu_torch.tools import shadow_interval_bench as si_bench
         from spectral_tpu_torch.tools.measure_persist import busy_ms
         from spectral_tpu_torch.tools.measure_persist import card as read_card
         from spectral_tpu_torch.utils import flops
@@ -116,15 +171,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2. build
     t0 = time.monotonic()
-    # from source, one nvcc per library, in parallel: the main ones, their
-    # feature builds, and the earlier regen grid (regen_parent), timed
-    # beside the new one below
+    # from source, one nvcc per library, in parallel: every library a
+    # render path loads (the main ones; the feature, wide-triangle, lens
+    # and shadow-interval builds) and the earlier regen grid
+    # (regen_parent), timed beside the new one below
     fx_libs = tuple(build.FEATURE_LIBRARIES)
-    build.build_all(build.SOURCES + fx_libs + ("regen_parent",), force=True)
+    build.build_all(build.RENDER_LIBRARIES + ("regen_parent",), force=True)
     build_s = time.monotonic() - t0
-    resources = {name: build.kernel_resources(name) for name in build.SOURCES + fx_libs}
-    emit(phase="build", seconds=round(build_s, 3), sources=list(build.SOURCES),
-         feature_libraries=list(fx_libs),
+    resources = {name: build.kernel_resources(name) for name in build.RENDER_LIBRARIES}
+    emit(phase="build", seconds=round(build_s, 3), libraries=list(build.RENDER_LIBRARIES),
+         library_seconds={n: build.build_seconds(n) for n in build.RENDER_LIBRARIES},
          kernels=resources, card=card)
 
     def scene_of(maker, w, h, s, bounces, iters):
@@ -594,6 +650,31 @@ def main() -> int:
          spheres_256x192_regen_k4_morton_bit_identical=sph256_regen_exact,
          spheres_256x192_regen_k4_vs_sum_of_mono_max_rel=sph256_regen_vs_mono, card=card)
 
+    # the feature builds' and the lens's checks, shared by 3e-3g
+    def timed_into(times):
+        """A ``timed`` hook for ``feature_kernel_checks``: each launch
+        alone between two CUDA events, its ms appended under its key."""
+        def timed(key, fn):
+            ms, out = cuda_span(fn)
+            times.setdefault(key, []).append(ms)
+            return out
+        return timed
+
+    def feature_check(sc, label):
+        """Each bounce kernel's feature build from frame 1, bit for bit to
+        its plain version (``torch_scenes.feature_kernel_checks``: mono,
+        cost, regen K = 3, seg [0, 2) and its compacted tail, lane-stop
+        persist over two launches), after one untimed pass that loads
+        each kernel; every launch timed alone."""
+        f_tb = mk.pack_tables(*flatten_scene(sc, dev))
+        ts.feature_kernel_checks(f_tb)
+        times = {}
+        checks, info = ts.feature_kernel_checks(f_tb, timed=timed_into(times))
+        out = dict(case=label, features=f_tb.features, many_objects=f_tb.many_objects(),
+                   triangles=f_tb.triangles, **info, ms=times, bit_identical=checks)
+        assert all(checks.values()), out
+        return out
+
     # ---------- 3e. the kernels' triangle builds vs plain (the mesh slice)
     def mesh_check(sc, label, persist_budget=None):
         """mono, cost and regen (K = 3) from frame 1, bit for bit to their
@@ -645,44 +726,25 @@ def main() -> int:
 
     t0 = time.monotonic()
     tri = []
-    for s in (8, 32):
+    for s in (8, 16, 32, 64):  # every S has its triangle builds
         for bounces in (1, 3):
             tri.append(mesh_check(scene_of(presets.mesh_demo, 128, 128, s, bounces, 4),
                                   f"mesh 128x128 S={s} b{bounces}",
-                                  persist_budget=5 if s == 32 else None))
+                                  persist_budget=5 if s in (32, 64) else None))
     for sub in (0, 1):  # a smooth icosphere: the small-scene and the many-object build
         for bounces in (1, 3):
             sc = ts.smooth_mesh(presets, tmesh, 64, 64, bounces, sub, iters=4)
             tri.append(mesh_check(sc, f"smooth icosphere({sub}) 64x64 S=8 b{bounces}",
                                   persist_budget=5))
+    # the feature builds' triangles at S = 16 and 64: glass meshes
+    tri_fx = [feature_check(ts.glass_meshes(schema, presets, "mesh", 64, 64, 4, samples=s,
+                                            iters=3),
+                            f"mesh, glass meshes (transmission 0.9), 64x64 S={s} b4")
+              for s in (16, 64)]
     emit(phase="kernels_triangles_small", seconds=round(time.monotonic() - t0, 3),
-         checks=tri, card=card)
+         checks=tri, feature_checks=tri_fx, card=card)
 
     # ------ 3f. the feature builds vs plain (sky, checker, emission, glass)
-    def timed_into(times):
-        """A ``timed`` hook for ``feature_kernel_checks``: each launch
-        alone between two CUDA events, its ms appended under its key."""
-        def timed(key, fn):
-            ms, out = cuda_span(fn)
-            times.setdefault(key, []).append(ms)
-            return out
-        return timed
-
-    def feature_check(sc, label):
-        """Each bounce kernel's feature build from frame 1, bit for bit to
-        its plain version (``torch_scenes.feature_kernel_checks``: mono,
-        cost, regen K = 3, seg [0, 2) and its compacted tail, lane-stop
-        persist over two launches), after one untimed pass that loads
-        each kernel; every launch timed alone."""
-        f_tb = mk.pack_tables(*flatten_scene(sc, dev))
-        ts.feature_kernel_checks(f_tb)
-        times = {}
-        checks, info = ts.feature_kernel_checks(f_tb, timed=timed_into(times))
-        out = dict(case=label, features=f_tb.features, many_objects=f_tb.many_objects(),
-                   triangles=f_tb.triangles, **info, ms=times, bit_identical=checks)
-        assert all(checks.values()), out
-        return out
-
     t0 = time.monotonic()
     feats = []
     for s in (8, 64):
@@ -699,6 +761,50 @@ def main() -> int:
     assert feats[-1]["many_objects"] and feats[-1]["triangles"]
     emit(phase="kernels_features_small", seconds=round(time.monotonic() - t0, 3),
          checks=feats, card=card)
+
+    # ------------- 3g. depth of field: each lens kernel path vs plain
+    def lens_of(sc):
+        return ts.with_lens(sc, **LENS)
+
+    t0 = time.monotonic()
+    dof_small = []
+    for label, sc in (("cornell 32x16 S=8 b4", scene_of(presets.cornell_box, 32, 16, 8, 4, 4)),
+                      ("sphere_field(100) 32x16 S=8 b3", field_of(100, 32, 16, 8, 3, 4)),
+                      ("mesh 32x16 S=64 b3", scene_of(presets.mesh_demo, 32, 16, 64, 3, 4)),
+                      ("prism 32x24 S=16 b8", scene_of(presets.prism, 32, 24, 16, 8, 4))):
+        lens_of(sc)
+        d_st, d_cfg = flatten_scene(sc, dev)
+        d_tb = mk.pack_tables(d_st, d_cfg)
+        perm = (morton_layout(sc.width, sc.height, dev)[0] if d_tb.clusters is not None
+                else None)
+        # mono, cost and seg on host raygen's lens rays, regen (K = 3) on
+        # its lens table, from frame 1
+        checks, info = ts.kernel_checks(d_tb, lane_perm=perm, persist_launches=0)
+        rad = mk.run_regen(*ci.regen_args(d_st, d_cfg, 0, 3, perm), d_tb)
+        dof_small.append(dict(case=f"{label}, lens {LENS}", features=d_tb.features,
+                              many_objects=d_tb.many_objects(), triangles=d_tb.triangles,
+                              bit_identical=checks, **info,
+                              regen_k3_vs_sum_of_mono_max_rel=regen_mono_sum_err(
+                                  rad, sc, 0, 3, perm)))
+        assert all(checks.values()), dof_small[-1]
+    emit(phase="kernels_dof_small", seconds=round(time.monotonic() - t0, 3),
+         checks=dof_small, card=card)
+
+    # the lens at the main path's shape (cornell 512^2, S = 32, 30 bounces),
+    # frame 0: mono, cost, regen K = 3, seg [0, 2) and its compacted tail
+    t0 = time.monotonic()
+    full_dof = lens_of(scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], k_main))
+    fd_st, fd_cfg = flatten_scene(full_dof, dev)
+    fd_tb = mk.pack_tables(fd_st, fd_cfg)
+    dof_times = {}
+    dof_checks, dof_info = ts.kernel_checks(fd_tb, frame=0, persist_launches=0,
+                                            timed=timed_into(dof_times))
+    dof_main_shape = dict(case=f"cornell 512x512 S=32 b30, lens {LENS}: frame 0; regen K=3; "
+                               "seg [0, 2) and the compacted [2, 30)",
+                          **dof_info, ms=dof_times, bit_identical=dof_checks)
+    assert all(dof_checks.values()), dof_main_shape
+    emit(phase="kernels_dof_main_shape", seconds=round(time.monotonic() - t0, 3),
+         **dof_main_shape, card=card)
 
     # ------------------------------------------- 4. the main path at full size
     wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
@@ -719,6 +825,22 @@ def main() -> int:
         for key in launches:
             launches[key] += counts[key]
         return r, img, dt, counts
+
+    def profiled_render(sc, **kw):
+        """One more render of ``sc`` under the profiler: (wall ms, the
+        device-busy ms of its kernel spans)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        r_prof = Renderer(sc, device="cuda", **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            r_prof.render()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t) * 1e3
+        busy, _ = busy_ms([e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA])
+        return wall_ms, busy
 
     def check_image(img, w, h):
         assert img.shape == (h, w, 4), img.shape
@@ -851,6 +973,61 @@ def main() -> int:
          checkpoint_bytes=ckpt_bytes, resume_bit_identical=resume_identical,
          regen_sort_image_max_rel=sort_rel, regen_sort_limit=1e-6,
          regen_sort_radiance_bit_identical=sort_rad_identical, card=card)
+
+    # ---- 4c. depth of field at full size: regen, frame by frame, phased
+    t0 = time.monotonic()
+    dof_runs = {}
+    r, dof_img, dt, counts = main_path_run(full_dof)
+    assert r.regen_frames == k_main and counts["cuda_regen"] == 1, (r.regen_frames, counts)
+    check_image(dof_img, 512, 512)
+    dof_mean = float(dof_img[..., :3].mean())
+    dof_runs["regen"] = dict(seconds=dt, seconds_per_frame=dt / k_main, launches=counts,
+                             mean_rgb=dof_mean)
+    for label, kw in (("mono", dict(regen=1)), ("phased_auto", dict(phase_split="auto"))):
+        rr, img, dt, counts = main_path_run(full_dof, **kw)
+        check_image(img, 512, 512)
+        mean_rel = abs(float(img[..., :3].mean()) - dof_mean) / dof_mean
+        dof_runs[label] = dict(seconds=dt, seconds_per_frame=dt / k_main, launches=counts,
+                               mean_rgb=float(img[..., :3].mean()),
+                               mean_rel_vs_regen=mean_rel, mean_limit=0.02)
+        if label == "mono":
+            assert counts["cuda_mono"] == k_main and counts["cuda_regen"] == 0, counts
+        else:
+            dof_runs[label].update(stages=rr.phase_stages, overflow_frames=rr.overflow_frames)
+            assert rr.phase_stages is None or counts["cuda_seg"] > 0, counts
+        assert mean_rel <= 0.02, (label, dof_runs[label])
+    try:
+        Renderer(full_dof, device="cuda", persist=True)
+        persist_refused = None
+    except ValueError as e:
+        persist_refused = str(e)
+    assert persist_refused and "persist" in persist_refused, persist_refused
+    # rays per frame from the plain frame 0 with the lens, at 512^2 itself
+    lp, lpx, lpy = ci.primary_lanes(fd_st, fd_cfg, 0)
+    _, d_rays = ti.bounce_loop(Vec3(*lp[:3]), Vec3(*lp[3:]), lpx.long(), lpy.long(), 0,
+                               fd_st, fd_cfg, return_stats=True)
+    d_rays = float(d_rays)
+    # one regeneration launch alone (K = 100, its lens table), and the
+    # device-busy share of one more regen render under the profiler
+    d_args = ci.regen_args(fd_st, fd_cfg, 0, k_main)
+    d_regen_ms, _ = cuda_span(lambda: mk.run_regen(*d_args, fd_tb))
+    del d_args
+    d_wall_ms, d_busy_ms = profiled_render(full_dof)
+    # the lens changed the image, and blurred the right front box
+    assert not np.array_equal(dof_img, regen_img), "the lens image is the pinhole image"
+    blur = rise_widths(regen_img, dof_img)
+    near = blur["near_edge"]
+    assert near["lens_px"] - near["pinhole_px"] >= BLUR_MIN_PX, blur
+    d_spf = dof_runs["regen"]["seconds_per_frame"]
+    emit(phase="dof_main_path",
+         config=f"cornell 512x512, 32 lambda, 30 bounces, 100 iterations, lens {LENS}",
+         runs=dof_runs, persist_refused=persist_refused,
+         rays_per_frame_plain_f0=d_rays,
+         mrays_lambda_per_s=d_rays * fd_cfg.n_samples / d_spf / 1e6,
+         regen_k100_launch_ms=d_regen_ms, profiled_wall_ms=d_wall_ms,
+         device_busy_ms=d_busy_ms, device_busy_share=d_busy_ms / d_wall_ms,
+         pinhole_mean_rgb=float(regen_img[..., :3].mean()), rise_widths=blur,
+         blur_min_px=BLUR_MIN_PX, seconds=round(time.monotonic() - t0, 3), card=card)
 
     # ------------------------ 5. ragged tail and single iteration (main path)
     t0 = time.monotonic()
@@ -998,11 +1175,46 @@ def main() -> int:
          seg_2_8_turns_ms=tail_turns, seconds=round(time.monotonic() - t0, 3),
          card=card)
 
+    # --------- 7b. the opt-in shadow interval (mono_si, regen_si) vs plain
+    t0 = time.monotonic()
+    si_checks = []
+    for label, sc, k_si in (("sphere_field(100) 32x16 S=8 b3", field_of(100, 32, 16, 8, 3, 4), 3),
+                            ("mesh 64x64 S=16 b3", scene_of(presets.mesh_demo, 64, 64, 16, 3, 4),
+                             3),
+                            ("sphere_field(1000) 256x192 S=32 b8", sph256, 4)):
+        si_st, si_cfg = flatten_scene(sc, dev)
+        si_tb = mk.with_shadow_interval(mk.pack_tables(si_st, si_cfg))
+        planes_, px_, py_ = ci.primary_lanes(si_st, si_cfg, 1)
+        mono_ms_, mono_ = cuda_ms(lambda: mk.run_mono(*planes_, px_, py_, 1, si_tb), 2)
+        mono_plain_ms_, plain_ = cuda_span(lambda: mk.run_mono_plain(*planes_, px_, py_, 1,
+                                                                      si_tb))
+        rad_, cost_ = mk.run_cost(*planes_, px_, py_, 1, si_tb)
+        prad_, pcost_ = mk.run_cost_plain(*planes_, px_, py_, 1, si_tb)
+        args_ = (*ci.regen_args(si_st, si_cfg, 1, k_si,
+                                morton_layout(sc.width, sc.height, dev)[0]), si_tb)
+        regen_ms_, regen_ = cuda_ms(lambda: mk.run_regen(*args_), 2)
+        regen_plain_ms_, rplain_ = cuda_span(lambda: mk.run_regen_plain(*args_))
+        checks = dict(mono=bool(torch.equal(mono_, plain_)),
+                      cost=bool(torch.equal(rad_, mono_) and torch.equal(rad_, prad_)
+                                and torch.equal(cost_, pcost_)),
+                      regen=bool(torch.equal(regen_, rplain_)))
+        si_checks.append(dict(case=f"{label}, regen K={k_si} Morton lanes", objects=si_cfg.n_objects,
+                              triangles=si_tb.triangles, bit_identical=checks,
+                              mono_ms=mono_ms_, mono_plain_ms=mono_plain_ms_,
+                              regen_ms=regen_ms_, regen_plain_ms=regen_plain_ms_))
+        assert all(checks.values()), si_checks[-1]
+    del mono_, plain_, regen_, rplain_, args_
+    # the 1000-sphere field with and without the option, in turns
+    si_timing = si_bench.bench(SPHERES["n_spheres"], SPHERES["iterations"], launches=2)
+    assert si_timing["mean_rel"] <= 0.02, si_timing
+    emit(phase="shadow_interval", seconds=round(time.monotonic() - t0, 3), checks=si_checks,
+         spheres1000_regen_turns=si_timing, mean_limit=0.02, card=card)
+
     # ------------------------- 8. the mesh presets through the main path
     mesh_runs = {}
-    for name, iters in MESHES:
+    for label, name, iters, n_s in MESHES:
         t0 = time.monotonic()
-        sc = scene_of(presets.PRESETS[name], 512, 512, 32, 30, iters)
+        sc = scene_of(presets.PRESETS[name], 512, 512, n_s, 30, iters)
         r, img, dt, counts = main_path_run(sc)
         assert r.regen_frames == iters and r.lane_layout == "morton", (
             r.regen_frames, r.lane_layout)
@@ -1014,27 +1226,27 @@ def main() -> int:
         m_s_per_frame = dt / m_frames
         # rays per frame from the plain frame 0 at 128x128, the same
         # camera, times 16 (rays per pixel is a per-lane statistic)
-        small = scene_of(presets.PRESETS[name], 128, 128, 32, 30, iters)
+        small = scene_of(presets.PRESETS[name], 128, 128, n_s, 30, iters)
         small_st, small_cfg = flatten_scene(small, dev)
         sp, spx, spy = ci.primary_lanes(small_st, small_cfg, 0)
         _, m_rays = ti.bounce_loop(Vec3(*sp[:3]), Vec3(*sp[3:]), spx.long(), spy.long(), 0,
                                    small_st, small_cfg, return_stats=True)
         m_rays = float(m_rays) * 16
-        # the triangle kernels as this path runs them (clustered, S = 32,
+        # the triangle kernels as this path runs them (clustered, its S,
         # 30 bounces, Morton lanes for regen), cut to 128x128, against
         # their plain versions bit for bit: cuda_mono frame 0, cuda_regen K = 3
         small_tb = mk.pack_tables(small_st, small_cfg)
         assert small_tb.triangles == 1 and small_tb.clusters is not None, name
         ms128, got = cuda_ms(lambda: mk.run_mono(*sp, spx, spy, 0, small_tb), 2)
         plain_ms128, want = cuda_span(lambda: mk.run_mono_plain(*sp, spx, spy, 0, small_tb))
-        mono128 = dict(case=f"{name} 128x128 S=32 b30 frame 0", ms=ms128, plain_ms=plain_ms128,
+        mono128 = dict(case=f"{label} 128x128 S={n_s} b30 frame 0", ms=ms128, plain_ms=plain_ms128,
                        bit_identical=bool(torch.equal(got, want)),
                        max_abs=float((got - want).abs().max()))
         assert mono128["bit_identical"], mono128
         args, _ = morton_regen_inputs(small, 3)
         ms128, got = cuda_ms(lambda: mk.run_regen(*args), 2)
         plain_ms128, want = cuda_span(lambda: mk.run_regen_plain(*args))
-        regen128 = dict(case=f"{name} 128x128 S=32 b30 K=3 Morton lanes", ms=ms128,
+        regen128 = dict(case=f"{label} 128x128 S={n_s} b30 K=3 Morton lanes", ms=ms128,
                         plain_ms=plain_ms128, bit_identical=bool(torch.equal(got, want)),
                         max_abs=float((got - want).abs().max()),
                         vs_sum_of_mono_max_rel=regen_mono_sum_err(
@@ -1052,13 +1264,13 @@ def main() -> int:
         regen_mean = float(img[..., :3].mean())
         persist_mean = float(pimg[..., :3].mean())
         mean_rel = abs(persist_mean - regen_mean) / regen_mean
-        assert mean_rel <= 0.02, (name, persist_mean, regen_mean)
-        mesh_runs[name] = dict(regen_k_launch_ms=m_regen_ms, mono_ms=m_mono_ms,
+        assert mean_rel <= 0.02, (label, persist_mean, regen_mean)
+        mesh_runs[label] = dict(regen_k_launch_ms=m_regen_ms, mono_ms=m_mono_ms,
                                seconds_per_frame=m_s_per_frame, mono_128=mono128,
                                regen_128=regen128)
-        emit(phase=f"{name}_main_path",
+        emit(phase=f"{label}_main_path",
              config=f"presets.{presets.PRESETS[name].__name__}: {m_cfg.n_objects} objects, "
-                    f"512x512, 32 lambda, 30 bounces, {iters} iterations",
+                    f"512x512, {n_s} lambda, 30 bounces, {iters} iterations",
              clusters=len(r.clusters[1]), lane_layout=r.lane_layout,
              regen_frames=r.regen_frames, frames=m_frames, seconds=dt,
              seconds_per_frame=m_s_per_frame, launches=counts,
@@ -1099,18 +1311,7 @@ def main() -> int:
         j_planes, j_px, j_py = ci.primary_lanes(p_st, p_cfg, j)
         p_iters += float(mk.run_cost(*j_planes, j_px, j_py, j, p_tb)[1].sum())
     # the device-busy share of one more regen render under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    r_prof = Renderer(prism, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.monotonic()
-        r_prof.render()
-        torch.cuda.synchronize()
-        p_wall_ms = (time.monotonic() - t) * 1e3
-    p_busy_ms, _ = busy_ms([e for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA])
-    del r_prof, prof
+    p_wall_ms, p_busy_ms = profiled_render(prism)
     # persist and phased "auto" on the same scene: the image means within 2%
     regen_mean = float(img[..., :3].mean())
     p_paths = {}
@@ -1354,6 +1555,11 @@ def main() -> int:
         "cuda_seg": dict(cases=[t["case"] for t in tri if "seg" in t["bit_identical"]],
                          bit_identical=all(t["bit_identical"].get("seg", True) for t in tri)),
     }
+    for name, key in (("cuda_mono", "mono"), ("cuda_cost", "cost"), ("cuda_regen", "regen"),
+                      ("cuda_seg", "seg"), ("cuda_persist", "persist")):
+        triangles[name]["feature_builds_s16_s64"] = dict(
+            cases=[t["case"] for t in tri_fx],
+            bit_identical=all(t["bit_identical"][key] for t in tri_fx))
     # the redesigned kernels beside the earlier design, timed in this run in
     # turns (new, parent, parent, new; the means of each)
     parent_design = {
@@ -1391,6 +1597,30 @@ def main() -> int:
     features["cuda_regen"]["prism_800x600_k100"] = dict(
         ms=p_regen_ms, bound_ms=prism_regen_bound[0], bound_by=prism_regen_bound[1],
         live_iterations=p_iters)
+    # each bounce kernel with the lens (its host raygen's lens rays; regen
+    # its lens table) against its plain version, and at cornell512's shape
+    lens = {}
+    for name, key in (("cuda_mono", "mono"), ("cuda_cost", "cost"), ("cuda_regen", "regen"),
+                      ("cuda_seg", "seg")):
+        lens[name] = dict(
+            cases=[d["case"] for d in dof_small],
+            bit_identical=all(d["bit_identical"][key] for d in dof_small),
+            cornell512=dict(case=dof_main_shape["case"], bit_identical=dof_checks[key],
+                            ms=dof_times[key], plain_ms=dof_times[f"{key}_plain"]))
+    lens["cuda_regen"]["cornell512_k100_launch_ms"] = d_regen_ms
+    lens["cuda_persist"] = dict(refused=persist_refused)
+    # the shadow-interval builds against the plain path with the option
+    shadow_interval = {
+        "cuda_mono": dict(library="mono_si", checks=[
+            dict(case=c["case"], bit_identical=c["bit_identical"]["mono"], ms=c["mono_ms"],
+                 plain_ms=c["mono_plain_ms"]) for c in si_checks]),
+        "cuda_cost": dict(library="mono_si", bit_identical=all(
+            c["bit_identical"]["cost"] for c in si_checks)),
+        "cuda_regen": dict(library="regen_si", checks=[
+            dict(case=c["case"], bit_identical=c["bit_identical"]["regen"], ms=c["regen_ms"],
+                 plain_ms=c["regen_plain_ms"]) for c in si_checks],
+            spheres1000_k100_turns=si_timing),
+    }
     kernels = []
     for name, (replaces, err, ms, plain_ms) in timings.items():
         b_ms, b_by = bounds[name]
@@ -1404,6 +1634,10 @@ def main() -> int:
                          features=features[name])
         if name in parent_design:
             entry.update(parent_design=parent_design[name])
+        if name in lens:
+            entry.update(lens=lens[name])
+        if name in shadow_interval:
+            entry.update(shadow_interval=shadow_interval[name])
         kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,8 @@ package's ``spectral_tpu.cli`` render command, same flag names):
     python -m spectral_tpu_torch render --preset mesh5k --width 512 \\
         --height 512 --bounces 30 --iterations 100 --out mesh5k.png
     python -m spectral_tpu_torch render --preset prism --out prism.png
+    python -m spectral_tpu_torch render --preset cornell --aperture 0.05 \
+        --focus-distance 2.0 --out cornell_dof.png
 
 The first Ctrl-C finishes the current chunk (persist: launch), saves the
 image and a resumable checkpoint (``--checkpoint``, else
@@ -67,6 +69,11 @@ def _load_scene(args):
     if args.samples is not None:
         scene.spectrum_number_of_samples = args.samples
         scene.update_all_spectrum_sample_sizes()
+    # "is not None": an explicit 0 must reach Scene.validate()
+    if args.aperture is not None:
+        scene.camera.aperture_radius = args.aperture
+    if args.focus_distance is not None:
+        scene.camera.focus_distance = args.focus_distance
     return scene
 
 
@@ -181,6 +188,12 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--iterations", type=int, help=HELP["iterations"])
     pr.add_argument("--bounces", type=int, help=HELP["max_bounces"])
     pr.add_argument("--samples", type=int, help=HELP["spectrum_samples"])
+    pr.add_argument("--aperture", type=float,
+                    help="thin-lens aperture radius (world units); 0 = "
+                         "pinhole (depth of field, beyond the reference)")
+    pr.add_argument("--focus-distance", type=float,
+                    help="focus-plane distance along the view axis "
+                         "(with --aperture > 0)")
     pr.add_argument("--out", default="render.png", help="output image (png/jpg/bmp/tiff)")
     pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu their "

@@ -50,7 +50,8 @@
 // Triangles (mesh faces; `_tri_t` :759, `_tri_normal` :793) are a third
 // instantiation flag, TRI, and not a runtime branch of the existing
 // builds: a kernel built without it has no triangle code at all, and the
-// host never hands it a triangle scene. With TRI, a cluster plan's
+// host never hands it a triangle scene. The default libraries build TRI
+// at S = 8 and 32, libraries of their own at 16 and 64 (tri_built). With TRI, a cluster plan's
 // triangle run (runs hold one type) walks a loop of Moller-Trumbore
 // tests over its records alone, other runs dispatch per object, and the
 // triangle normal is the stored winding normal, or, for a mesh with
@@ -73,6 +74,17 @@
 // launch. The builds without the flag have none of this code, so the
 // reference-style scenes keep their registers and bits (the reference's
 // static gates: "reference-style scenes pay nothing").
+//
+// The shadow interval (the reference's opt-in `shadow_interval`,
+// megakernel.py:390-411, body :1148-1172): built with
+// -DSPECTRAL_SHADOW_INTERVAL, into libraries of their own (runtime/
+// build.py: mono_si, regen_si) that hold the many-object loop only
+// (dispatch_tables), the
+// many-object shadow loop decides whether a sphere's chosen root lies in
+// (0, maxd] by sign tests on its quadratic, without the root
+// (sphere_interval_blocked); boxes and triangles keep their t <= maxd
+// test. It is not bit-identical to the root test, so it is never a
+// default, and the default libraries have none of its code.
 //
 // Numerics. The arithmetic follows the torch-eager bounce loop
 // (spectral_tpu_torch/render/integrator.py) op for op: the reference-exact
@@ -244,6 +256,29 @@ __device__ __forceinline__ bool sphere_t(float cx, float cy, float cz,
   t = t1 >= 0.0f ? t1 : t2;
   return (disc >= 0.0f) && (t >= 0.0f);
 }
+
+#ifdef SPECTRAL_SHADOW_INTERVAL
+// Does the chosen root of the sphere (centre c, radius r) lie in
+// (0, maxd]? Sign tests on f(t) = a t^2 + b t + c, with the light's
+// invariants foura = 4a, g0 = 2 a maxd and amax2 = a maxd^2, in the op
+// order of the plain twin (ops/geometry.py:sphere_interval_blocked): t1
+// iff b < 0, c > 0 and (the vertex -b / 2a <= maxd or f(maxd) <= 0); t2
+// (t1 < 0) iff c < 0, the vertex test and f(maxd) >= 0; both need disc >= 0.
+__device__ __forceinline__ bool sphere_interval_blocked(
+    float cx, float cy, float cz, float r, float ox, float oy, float oz,
+    float dx, float dy, float dz, float maxd, float foura, float g0,
+    float amax2) {
+  const float rx = ox - cx, ry = oy - cy, rz = oz - cz;
+  const float b = 2.0f * dot3(rx, ry, rz, dx, dy, dz);
+  const float c = dot3(rx, ry, rz, rx, ry, rz) - r * r;
+  const float disc = b * b - foura * c;
+  const float fm = amax2 + b * maxd + c;
+  const bool v_ok = b + g0 >= 0.0f;
+  const bool near = (b < 0.0f) && (c > 0.0f) && (v_ok || fm <= 0.0f);
+  const bool far = (c < 0.0f) && v_ok && (fm >= 0.0f);
+  return (disc >= 0.0f) && (near || far);
+}
+#endif
 
 // Candidate hit of object o (reference src/shader.rs:508-560): valid and
 // t > 0. One definition for the nearest-hit trace and the shadow test.
@@ -460,6 +495,11 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
   }
   SPECTRAL_WALK_TRACE(WALK_SHADOW);
   const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
+#ifdef SPECTRAL_SHADOW_INTERVAL
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float foura = 4.0f * a, g0 = 2.0f * a * max_dist,
+              amax2 = a * max_dist * max_dist;
+#endif
   for (int r = 0; r < tb.n_runs; ++r) {
     const float* R = tb.runs + r * RUN_COLS;
     const bool reach = run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist);
@@ -471,11 +511,18 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
       const int at = (int)R[RUN_PACK] - start;  // record of slot k: at + k
       for (int k = start; k < stop; ++k) {
         const float4 c = tb.packed[at + k];
+#ifdef SPECTRAL_SHADOW_INTERVAL
+        if (sphere_interval_blocked(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz,
+                                    max_dist, foura, g0, amax2)) {
+          return true;
+        }
+#else
         float t;
         if (sphere_t(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz, t) &&
             t > 0.0f && t <= max_dist && t < INFINITY) {
           return true;
         }
+#endif
       }
       continue;
     }
@@ -494,8 +541,20 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
       continue;
     }
     for (int k = start; k < stop; ++k) {
+      const int o = tb.order[k];
+#ifdef SPECTRAL_SHADOW_INTERVAL
+      if ((int)G(tb, G_TYPE, o) == OBJ_SPHERE) {
+        if (sphere_interval_blocked(G(tb, G_SPHERE_POS, o), G(tb, G_SPHERE_POS + 1, o),
+                                    G(tb, G_SPHERE_POS + 2, o), G(tb, G_RADIUS, o),
+                                    ox, oy, oz, dx, dy, dz, max_dist, foura, g0,
+                                    amax2)) {
+          return true;
+        }
+        continue;
+      }
+#endif
       float t;
-      if (candidate_t<TRI>(tb, tb.order[k], ox, oy, oz, dx, dy, dz, t) &&
+      if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) &&
           t <= max_dist && t < INFINITY) {
         return true;
       }
@@ -1093,24 +1152,57 @@ cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
   return cudaSuccess;
 }
 
+// The S a library builds with triangles (runtime/build.py): 8 and 32 in
+// the default libraries, 16 and 64 in the -DSPECTRAL_TRI_WIDE ones (which
+// hold nothing else), every S in the opt-in lens and shadow-interval ones
+// (-DSPECTRAL_TRI_ALL).
+template <int S>
+constexpr bool tri_built() {
+#if defined(SPECTRAL_TRI_ALL)
+  return true;
+#elif defined(SPECTRAL_TRI_WIDE)
+  return S == 16 || S == 64;
+#else
+  return S == 8 || S == 32;
+#endif
+}
+
+// The many-object loop alone: a shadow-interval library (the host
+// refuses the option for a small scene).
+#ifdef SPECTRAL_SHADOW_INTERVAL
+constexpr bool kSmallLoopBuilt = false;
+#else
+constexpr bool kSmallLoopBuilt = true;
+#endif
+
 // The instantiation the tables take, as
 // launch(std::bool_constant<MANY>{}, std::bool_constant<TRI>{}): MANY
-// from many_objects, TRI when the scene has triangles. Triangle builds
-// exist for S in {8, 32} only (the host refuses a triangle scene at
-// another S); a triangle scene never reaches a build without TRI.
+// from many_objects, TRI when the scene has triangles; tables this
+// library has no instantiation for (a triangle scene at an S it does not
+// build, any scene without triangles in a wide triangle library, a small
+// scene in a shadow-interval library) are refused, never run on another.
 template <int S, typename Launch>
 cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
   const bool many = many_objects(ta);
+  if (!many && !kSmallLoopBuilt) return cudaErrorInvalidValue;
   if (ta.tri != 0) {
-    if constexpr (S == 8 || S == 32) {
-      return many ? launch(std::true_type{}, std::true_type{})
-                  : launch(std::false_type{}, std::true_type{});
+    if constexpr (tri_built<S>()) {
+      if constexpr (kSmallLoopBuilt) {
+        if (!many) return launch(std::false_type{}, std::true_type{});
+      }
+      return launch(std::true_type{}, std::true_type{});
     } else {
       return cudaErrorInvalidValue;
     }
   }
-  return many ? launch(std::true_type{}, std::false_type{})
-              : launch(std::false_type{}, std::false_type{});
+#ifdef SPECTRAL_TRI_WIDE
+  return cudaErrorInvalidValue;
+#else
+  if constexpr (kSmallLoopBuilt) {
+    if (!many) return launch(std::false_type{}, std::false_type{});
+  }
+  return launch(std::true_type{}, std::false_type{});
+#endif
 }
 
 }  // namespace

@@ -83,9 +83,12 @@ constexpr int MF_TEX_SCALE = 3;     // checker cell side (0: untextured)
 constexpr int MF_TEX_LOW = 4;       // checker factor of the odd cells
 constexpr int MAT_FX_COLS = 5;
 
-// The free-running persist kernel's camera basis, float32 [CAM_BASIS]
-// (the TPU kernel's pack_camera_basis columns; packed by
-// spectral_tpu_torch/render/camera.py:camera_basis_table).
+// The camera basis of the regeneration kernel and the free-running
+// persist kernel, float32 [CAM_BASIS] (the TPU kernel's pack_camera_basis
+// columns; packed by spectral_tpu_torch/render/camera.py:
+// camera_basis_table). With depth of field the regeneration kernel also
+// takes a [K][4] table of per-frame lens shifts (x, y, z, pad;
+// camera.py:lens_table).
 constexpr int CB_POS = 0;      // 0-2: camera position
 constexpr int CB_FWD = 3;      // 3-5: forward
 constexpr int CB_RIGHT = 6;    // 6-8: right
@@ -95,7 +98,8 @@ constexpr int CB_ASPECT = 13;  // aspect ratio
 constexpr int CB_WIDTH = 14;   // image width, as float
 constexpr int CB_HEIGHT = 15;  // image height, as float
 constexpr int CB_FRAMES = 16;  // intended frames (Hammersley N), as float
-constexpr int CAM_BASIS = 20;  // 17-19: pad
+constexpr int CB_FOCUS = 17;   // focus distance with depth of field (else 0)
+constexpr int CAM_BASIS = 20;  // 18-19: pad
 
 // scenes of up to SMEM_OBJECTS objects keep geom in shared memory; larger
 // ones read it from global memory through L1 (every lane of a warp reads

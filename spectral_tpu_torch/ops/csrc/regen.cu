@@ -21,6 +21,17 @@
 //   FMA. The host builds no direction planes and calls no raygen per
 //   frame. (restart_direction, the free-running persist kernel's, takes
 //   reciprocal products and lands ulps away: not used here.)
+// - Depth of field (the TPU kernel's per-frame lens origins, :1733-1746,
+//   pack_camera_frames :2508-2542). One lens point per frame: the host
+//   computes each frame's shift once (camera.py:lens_point) and ships the
+//   [K][4] table; a path's start moves the origin by its frame's shift and
+//   re-aims the pinhole direction at the focus plane in the host raygen's
+//   op order (camera.py:refocus). The lens code is compiled only with
+//   -DSPECTRAL_LENS, into libraries of their own (runtime/build.py:
+//   regen_lens, regen_fx_lens; and the shadow-interval regen_si), which
+//   the host loads for a lens scene: a uniform branch once per path start
+//   in the default libraries moved the registers and spills of several
+//   pinhole instantiations. A library without it refuses a lens table.
 // - A resident grid with dynamic pixels. The grid is as many blocks as
 //   fit the card at once (the occupancy API), and a lane that has summed
 //   its pixel's K frames takes the next pixel (lane index, in the host's
@@ -59,17 +70,36 @@ __device__ __forceinline__ void primary_direction(const float* cb,
   normalize3(x, y, z);
 }
 
-// Frame j's first trace: the primary at the lane's pixel, from the camera.
+// Frame j's first trace: the primary at the lane's pixel, from the camera;
+// with a lens table, from the camera moved by frame j's shift, through the
+// pinhole ray's point on the focus plane: normalize(normalize(d * t_f -
+// shift)) with t_f = focus / d.forward.
 template <int S>
 __device__ __forceinline__ void start_frame(Lane<S>& L, const float* cb,
-                                            const float* off, int j,
+                                            const float* off,
+                                            const float* lens, int j,
                                             uint32_t ux, uint32_t uy,
                                             uint32_t first_frame,
                                             int max_bounces) {
   float dx, dy, dz;
   primary_direction(cb, off + 2 * j, ux, uy, dx, dy, dz);
-  start_path(L, cb[CB_POS], cb[CB_POS + 1], cb[CB_POS + 2], dx, dy, dz,
-             first_frame + (uint32_t)j, max_bounces);
+  float ox = cb[CB_POS], oy = cb[CB_POS + 1], oz = cb[CB_POS + 2];
+#ifdef SPECTRAL_LENS
+  if (lens != nullptr) {
+    const float* sh = lens + 4 * j;
+    const float t_f =
+        cb[CB_FOCUS] / dot3(dx, dy, dz, cb[CB_FWD], cb[CB_FWD + 1], cb[CB_FWD + 2]);
+    dx = dx * t_f - sh[0];
+    dy = dy * t_f - sh[1];
+    dz = dz * t_f - sh[2];
+    normalize3(dx, dy, dz);
+    normalize3(dx, dy, dz);
+    ox = ox + sh[0];
+    oy = oy + sh[1];
+    oz = oz + sh[2];
+  }
+#endif
+  start_path(L, ox, oy, oz, dx, dy, dz, first_frame + (uint32_t)j, max_bounces);
 }
 
 // The next lane index for every calling thread: one atomicAdd per group of
@@ -89,7 +119,8 @@ __global__ void __launch_bounds__(BLOCK)
 regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
              int k, const int* __restrict__ px, const int* __restrict__ py,
              const float* __restrict__ cam, const float* __restrict__ off,
-             float* __restrict__ out, unsigned* __restrict__ counter) {
+             const float* __restrict__ lens, float* __restrict__ out,
+             unsigned* __restrict__ counter) {
   extern __shared__ float smem[];
   __shared__ float s_cam[CAM_BASIS];
   if (threadIdx.x < CAM_BASIS) s_cam[threadIdx.x] = cam[threadIdx.x];
@@ -105,7 +136,7 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
 #pragma unroll
     for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
     int j = 0;  // the frame in flight, 0..k-1
-    start_frame(L, s_cam, off, j, ux, uy, first_frame, max_bounces);
+    start_frame(L, s_cam, off, lens, j, ux, uy, first_frame, max_bounces);
     for (;;) {
 #ifdef SPECTRAL_STATS
       ++stat_iters;
@@ -130,7 +161,7 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
         j = 0;
 #endif
       }
-      start_frame(L, s_cam, off, j, ux, uy, first_frame, max_bounces);
+      start_frame(L, s_cam, off, lens, j, ux, uy, first_frame, max_bounces);
     }
   }
 #ifdef SPECTRAL_STATS
@@ -142,7 +173,8 @@ template <int S, bool MANY, bool TRI>
 cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
                          uint32_t first_frame, int k, const int* px,
                          const int* py, const float* cam, const float* off,
-                         float* out, unsigned* counter, cudaStream_t stream) {
+                         const float* lens, float* out, unsigned* counter,
+                         cudaStream_t stream) {
   const auto kernel = regen_kernel<S, MANY, TRI>;
   size_t smem;
   cudaError_t err = prepare(kernel, ta, S, smem);
@@ -166,7 +198,8 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
   if ((err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream)) != cudaSuccess) return err;
 #endif
   kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, first_frame, k,
-                                          px, py, cam, off, out, counter);
+                                          px, py, cam, off, lens, out,
+                                          counter);
   return cudaGetLastError();
 }
 
@@ -174,16 +207,21 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
 }  // namespace spectral
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
-// returns the cudaError_t of the launch (0 on success). `counter` is one
+// returns the cudaError_t of the launch (0 on success). `lens` is the
+// [k][4] lens table with depth of field, NULL for a pinhole camera;
+// a library built without the lens refuses one. `counter` is one
 // unsigned of device scratch, which the launch zeroes on its stream.
 extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
                               unsigned int first_frame, int k,
                               SPECTRAL_TABLE_PARAMS, const void* px,
                               const void* py, const void* cam,
-                              const void* off, void* out, void* counter,
-                              void* stream) {
+                              const void* off, const void* lens, void* out,
+                              void* counter, void* stream) {
   if (n <= 0) return 0;
   if (k < 1) return (int)cudaErrorInvalidValue;
+#ifndef SPECTRAL_LENS
+  if (lens != nullptr) return (int)cudaErrorInvalidValue;  // a lens library's table
+#endif
   const spectral::TableArgs ta = SPECTRAL_TABLE_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SPECTRAL_REGEN(S)                                                      \
@@ -192,8 +230,8 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
                                   decltype(tri)::value>(                      \
         n, ta, max_bounces, first_frame, k, static_cast<const int*>(px),      \
         static_cast<const int*>(py), static_cast<const float*>(cam),          \
-        static_cast<const float*>(off), static_cast<float*>(out),             \
-        static_cast<unsigned*>(counter), st);                                 \
+        static_cast<const float*>(off), static_cast<const float*>(lens),      \
+        static_cast<float*>(out), static_cast<unsigned*>(counter), st);       \
   })
   switch (n_samples) {
     case 8: SPECTRAL_REGEN(8);

@@ -216,12 +216,68 @@ def _trace_dense(origin: Vec3, direction: Vec3, scene: SceneTensors) -> TraceRes
 
 
 def trace_shadow(
-    origin: Vec3, direction: Vec3, max_distance: torch.Tensor, scene: SceneTensors
+    origin: Vec3, direction: Vec3, max_distance: torch.Tensor, scene: SceneTensors,
+    interval: bool = False,
 ) -> torch.Tensor:
     """Occlusion: true iff the nearest positive hit lies within
-    ``max_distance`` (reference ``src/shader.rs:484-489``)."""
-    res = trace(origin, direction, scene)
-    return res.hit & (res.t <= max_distance)
+    ``max_distance`` (reference ``src/shader.rs:484-489``). With
+    ``interval``, a sphere occludes by ``sphere_interval_blocked`` and
+    every other object by its hit ``t <= max_distance`` (the reference's
+    opt-in ``shadow_interval``, the plain twin of the kernels'
+    ``-DSPECTRAL_SHADOW_INTERVAL`` builds)."""
+    if not interval:
+        res = trace(origin, direction, scene)
+        return res.hit & (res.t <= max_distance)
+    n = origin.x.shape[0]
+    n_obj = scene.obj_type.shape[0]
+    if n_obj == 0:
+        return torch.zeros((n,), dtype=torch.bool, device=origin.x.device)
+    chunk = n if n * n_obj <= BROADCAST_BUDGET else max(128, BROADCAST_BUDGET // n_obj)
+    parts = [
+        _shadow_interval_dense(Vec3(*(c[lo:lo + chunk] for c in origin)),
+                               Vec3(*(c[lo:lo + chunk] for c in direction)),
+                               max_distance[lo:lo + chunk], scene)
+        for lo in range(0, n, chunk)
+    ]
+    return torch.cat(parts)
+
+
+def sphere_interval_blocked(oc: Vec3, d: Vec3, r, maxd) -> torch.Tensor:
+    """Whether the reference's chosen sphere root (``t1`` if ``t1 >= 0``,
+    else ``t2``) lies in ``(0, maxd]``, without a root: sign tests on
+    ``f(t) = a t^2 + b t + c`` (``oc`` = origin - centre), in the op order
+    of the reference's ``shadow_interval`` body (``megakernel.py:
+    1148-1172``): ``t1`` in range iff ``b < 0``, ``c > 0`` and (the vertex
+    ``-b / 2a <= maxd`` or ``f(maxd) <= 0``); ``t2`` (``t1 < 0``) iff
+    ``c < 0``, the vertex test and ``f(maxd) >= 0``; both need ``disc >=
+    0``. Within rounding of ``t = 0`` or ``t = maxd`` it can differ from
+    the root test."""
+    a = d.dot(d)
+    foura = 4.0 * a
+    g0 = 2.0 * a * maxd
+    amax2 = a * maxd * maxd
+    b = 2.0 * oc.dot(d)
+    c = oc.dot(oc) - r * r
+    disc = b * b - foura * c
+    fm = amax2 + b * maxd + c
+    v_ok = b + g0 >= 0.0
+    near = (b < 0.0) & (c > 0.0) & (v_ok | (fm <= 0.0))
+    far = (c < 0.0) & v_ok & (fm >= 0.0)
+    return (disc >= 0.0) & (near | far)
+
+
+def _shadow_interval_dense(origin: Vec3, direction: Vec3, max_distance: torch.Tensor,
+                           scene: SceneTensors) -> torch.Tensor:
+    origin = Vec3(*(c.contiguous() for c in origin))
+    direction = Vec3(*(c.contiguous() for c in direction))
+    maxd = _col(max_distance)
+    others = candidates(origin, direction, scene) <= maxd
+    sp = Vec3.from_array(scene.sphere_pos)
+    oc = Vec3(_col(origin.x) - _row(sp.x), _col(origin.y) - _row(sp.y),
+              _col(origin.z) - _row(sp.z))
+    d_b = Vec3(_col(direction.x), _col(direction.y), _col(direction.z))
+    spheres = sphere_interval_blocked(oc, d_b, _row(scene.radius), maxd)
+    return torch.where(_row(scene.obj_type == OBJ_SPHERE), spheres, others).any(dim=1)
 
 
 def _plain_box_normal(ip: Vec3, amin: Vec3, amax: Vec3) -> Vec3:

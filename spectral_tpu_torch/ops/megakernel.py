@@ -20,11 +20,13 @@ The counterpart of the reference package's
   of a kernel (``runtime.build.VARIANTS``) for the measurement tools.
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
-tensors they launch the kernel or raise; there is no fallback. A scene
-with a feature (``integrator.scene_features``: sky, checker texture,
-emission, dielectric) launches the feature build of its kernel
-(``runtime.build.FEATURE_LIBRARIES``), any other the build without
-features; a launch of the other build is refused.
+tensors they launch the kernel or raise; there is no fallback. Each
+launch takes the library of its kernel's source that its tables need
+(``library_for``): a scene with a feature (``integrator.scene_features``:
+sky, checker texture, emission, dielectric) the feature build, a lens
+scene's regeneration the lens build, triangles at S = 16 or 64 the wide
+triangle build, tables ``with_shadow_interval`` the shadow-interval
+build, any other the default; a launch of another kind is refused.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 
 from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops.vecmath import Vec3
-from spectral_tpu_torch.render.camera import CAM_BASIS, primary_directions
+from spectral_tpu_torch.render.camera import CAM_BASIS, primary_directions, primary_origin
 from spectral_tpu_torch.render.integrator import (
     FX_EMISSION,
     FX_SKY,
@@ -65,9 +67,6 @@ from spectral_tpu_torch.scene.flatten import (
 )
 
 SUPPORTED_SAMPLES = (8, 16, 32, 64)
-# the kernels' triangle builds (csrc/bounce.cuh: dispatch_tables): each
-# kernel is instantiated with triangles for these S only
-TRIANGLE_SAMPLES = (8, 32)
 OBJECT_TYPES = (OBJ_PLAIN_BOX, OBJ_SPHERE, OBJ_ROTATED_BOX, OBJ_TRIANGLE)
 BLOCK = 128  # threads (pixel-lanes) per block, csrc/megakernel.cuh
 SMEM_OBJECTS = 64  # geometry in shared memory up to this many objects
@@ -126,6 +125,7 @@ class KernelTables:
     triangles: int = 0
     packed_shared: bool = False  # the records go to shared memory
     features: int = 0  # integrator.FX_* bits; nonzero: the feature builds
+    shadow_interval: bool = False  # the sqrt-free sphere shadow test (with_shadow_interval)
 
     def many_objects(self) -> bool:
         """Whether the kernels take their many-object instantiation
@@ -211,6 +211,38 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     return tables
 
 
+def with_shadow_interval(tables: KernelTables) -> KernelTables:
+    """These tables with the opt-in sqrt-free sphere shadow test (the
+    reference's ``shadow_interval``, ``megakernel.py:390-411``): the
+    many-object loop's shadow rays decide "does the sphere's chosen root
+    lie in (0, maxd]" by sign tests on the quadratic, not by the root.
+    Not bit-identical to the root test (a blocker within rounding of t = 0
+    or t = maxd can flip), so it is never a default. It runs on
+    ``cuda_mono``, ``cuda_cost`` and ``cuda_regen`` (the ``mono_si`` and
+    ``regen_si`` libraries) and their plain versions. Raises
+    ``ValueError`` for a scene without the many-object loop, as the
+    reference refuses its unrolled loop, and for a scene with features,
+    which has no such build."""
+    if not tables.many_objects():
+        raise ValueError(
+            "shadow_interval is an option of the many-object loop (more than "
+            f"{SMEM_OBJECTS} objects or a cluster plan); the small-scene loop "
+            "keeps the division form"
+        )
+    if tables.features:
+        raise ValueError(
+            "shadow_interval has no feature build: a scene with a sky, checker "
+            "texture, emission or a dielectric renders without it"
+        )
+    return dataclasses.replace(tables, shadow_interval=True)
+
+
+def _refuse_shadow_interval(tables: KernelTables, kernel: str) -> None:
+    if tables.shadow_interval:
+        raise ValueError(f"shadow_interval runs on cuda_mono, cuda_cost and "
+                         f"cuda_regen only, not on {kernel}")
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -220,28 +252,30 @@ def run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     eager bounce loop on the same inputs as ``run_mono``."""
     rad = bounce_loop(
         Vec3(ox, oy, oz), Vec3(dx, dy, dz), px.long(), py.long(), frame_id,
-        tables.scene, tables.config,
+        tables.scene, tables.config, shadow_interval=tables.shadow_interval,
     )
     return rad.T.contiguous()
 
 
-def run_regen_plain(px, py, first_frame: int, camera, offsets,
+def run_regen_plain(px, py, first_frame: int, camera, offsets, lens,
                     tables: KernelTables) -> torch.Tensor:
     """The SUM of K frames' radiance ``[S, n]``: frame j traces from the
-    camera along ``camera.primary_directions`` at the lane's pixel with
-    offsets row j. One radiance accumulator is carried through the K
-    frames, bounce by bounce, in the kernel's order, so the sum is
-    ``run_regen``'s bit for bit (a sum of K separate frames differs in the
-    last bits)."""
+    camera (moved by row j of the lens table, if any) along
+    ``camera.primary_directions`` at the lane's pixel with offsets row j.
+    One radiance accumulator is carried through the K frames, bounce by
+    bounce, in the kernel's order, so the sum is ``run_regen``'s bit for
+    bit (a sum of K separate frames differs in the last bits)."""
     n = px.shape[0]
-    pos = camera[:3]
-    origin = Vec3(pos[0].expand(n), pos[1].expand(n), pos[2].expand(n))
     px, py = px.long(), py.long()
     rad = None
     for j in range(offsets.shape[0]):
-        d = primary_directions(px, py, camera, offsets[j, 0], offsets[j, 1])
+        row = None if lens is None else lens[j]
+        pos = primary_origin(camera, row)
+        origin = Vec3(pos.x.expand(n), pos.y.expand(n), pos.z.expand(n))
+        d = primary_directions(px, py, camera, offsets[j, 0], offsets[j, 1], row)
         rad = bounce_loop(origin, d, px, py, first_frame + j, tables.scene,
-                          tables.config, radiance=rad)
+                          tables.config, radiance=rad,
+                          shadow_interval=tables.shadow_interval)
     return rad.T.contiguous()
 
 
@@ -251,7 +285,7 @@ def run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     cost [n] f32)`` with ``cost = max_bounces + 1 - bounces_left``."""
     rad, cost = bounce_loop_cost(
         Vec3(ox, oy, oz), Vec3(dx, dy, dz), px.long(), py.long(), frame_id,
-        tables.scene, tables.config,
+        tables.scene, tables.config, shadow_interval=tables.shadow_interval,
     )
     return rad.T.contiguous(), cost
 
@@ -262,6 +296,7 @@ def run_persist_plain(state: PersistState, lead: int, end: int,
     """``budget`` bounce iterations over the carried lane state, updated
     IN PLACE (``integrator.persist_iterations``); same contract as
     ``run_persist``."""
+    _refuse_shadow_interval(tables, "cuda_persist")
     persist_iterations(state, lead, end, tables.scene, tables.config, cam,
                        ring=ring, stop=stop, budget=budget)
 
@@ -271,6 +306,7 @@ def run_seg_plain(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
     """Bounces ``[b_start, b_stop)`` of the wavefront's live lanes, IN
     PLACE (``integrator.segment_iterations``); same contract as
     ``run_seg``."""
+    _refuse_shadow_interval(tables, "cuda_seg")
     segment_iterations(wf, b_start, b_stop, frame_id, tables.scene, tables.config)
 
 
@@ -300,11 +336,6 @@ def _check_lanes(planes: dict, ints: dict, tables: KernelTables, n: int) -> None
         )
     if tables.config.n_objects < 1:
         raise ValueError("the CUDA kernels need at least one object")
-    if tables.triangles and s not in TRIANGLE_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA kernels' triangle builds are for S in {TRIANGLE_SAMPLES}, "
-            f"got {s}"
-        )
 
 
 def _check_spectral(state, n: int, s: int) -> None:
@@ -314,9 +345,12 @@ def _check_spectral(state, n: int, s: int) -> None:
             raise ValueError(f"{name} must be contiguous float32 [{s}, {n}]")
 
 
-def _check_camera(camera, offsets, dev) -> None:
-    for name, t, shape in (("camera", camera, (CAM_BASIS,)),
-                           ("offsets", offsets, (offsets.shape[0], 2))):
+def _check_camera(camera, offsets, lens, dev) -> None:
+    k = offsets.shape[0]
+    tabs = [("camera", camera, (CAM_BASIS,)), ("offsets", offsets, (k, 2))]
+    if lens is not None:
+        tabs.append(("lens", lens, (k, 4)))
+    for name, t, shape in tabs:
         if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} "
@@ -354,26 +388,58 @@ def _table_args(tables: KernelTables) -> tuple:
 _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
     "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 10)),
     "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
-    "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 7)),
+    "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 8)),
     "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
                                      + [ctypes.c_int], 21)),
     "spectral_seg": ("seg", ([ctypes.c_int] * 5 + [ctypes.c_uint], 14)),
 }
 
 
-def _entry(fn: str, tables: KernelTables, library: str | None = None):
-    """Entry point ``fn`` for ``tables``: of its source's library, or its
-    feature build for a scene with features, or the diagnostic
+# the S the default libraries build with triangles (csrc/bounce.cuh:
+# tri_built); the others are in the wide triangle libraries
+DEFAULT_TRIANGLE_SAMPLES = (8, 32)
+
+
+def library_for(src: str, tables: KernelTables, lens: bool = False) -> str:
+    """The library of bounce source ``src`` that ``tables`` launch
+    (``runtime/build.py``): the shadow-interval build for tables
+    ``with_shadow_interval``; else, with the scene-feature branches for a
+    scene with features (``_fx``), the lens build of ``regen`` for a lens
+    table (``_lens``), the wide triangle build for triangles at S = 16 or
+    64 (``_tri``), or the default."""
+    if tables.shadow_interval:
+        return f"{src}_si"
+    name = f"{src}_fx" if tables.features else src
+    if lens:
+        return f"{name}_lens"
+    if tables.triangles and tables.config.n_samples not in DEFAULT_TRIANGLE_SAMPLES:
+        return f"{name}_tri"
+    return name
+
+
+def _entry(fn: str, tables: KernelTables, library: str | None = None, lens: bool = False):
+    """Entry point ``fn`` for ``tables`` (``lens``: with a lens table):
+    of the library ``library_for`` picks, or of the diagnostic
     ``library`` built from that source (``build.VARIANTS``). Raises when
-    ``library`` and the tables disagree on features."""
+    ``library`` and the tables disagree on features, on the shadow test
+    or on the lens."""
     src = _SIGNATURES[fn][0]
     if library is None:
-        library = f"{src}_fx" if tables.features else src
+        library = library_for(src, tables, lens)
+    if lens and not build.has_lens(library):
+        raise ValueError(f"library {library} has no lens: a lens scene runs on "
+                         f"the lens builds only")
     if build.has_features(library) != bool(tables.features):
         raise ValueError(
             f"library {library} is {'' if build.has_features(library) else 'not '}"
             f"a feature build, and the scene has features {tables.features}: "
             "a feature scene runs on the feature builds only, and the reverse"
+        )
+    if build.has_shadow_interval(library) != tables.shadow_interval:
+        raise ValueError(
+            f"library {library} is {'' if build.has_shadow_interval(library) else 'not '}"
+            "a shadow-interval build, and the tables ask "
+            f"shadow_interval={tables.shadow_interval}"
         )
     return _load_entry(fn, library)
 
@@ -381,13 +447,11 @@ def _entry(fn: str, tables: KernelTables, library: str | None = None):
 @functools.cache
 def _load_entry(fn: str, library: str):
     """Entry point ``fn`` of ``library`` with its C signature declared.
-    The first call builds every main library together; the first call
-    into a feature build builds the feature libraries together."""
+    The first call into a library builds it with the others of its kind
+    (``build.kind_of``: the main libraries together, the feature builds
+    together, and so on)."""
     _src, (head, n_ptrs) = _SIGNATURES[fn]
-    if build.has_features(library):
-        build.build_all(tuple(build.FEATURE_LIBRARIES) + (library,))
-    else:
-        build.build_all(build.SOURCES + (library,))
+    build.build_all(build.kind_of(library) + (library,))
     f = getattr(build.load(library), fn)
     f.argtypes = (head + _TABLE_ARGTYPES
                   + (_FEATURE_ARGTYPES if build.has_features(library) else [])
@@ -430,45 +494,48 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
 run_mono.launches = 0
 
 
-def run_regen(px, py, first_frame: int, camera, offsets,
+def run_regen(px, py, first_frame: int, camera, offsets, lens,
               tables: KernelTables) -> torch.Tensor:
     """The SUM of K progressive frames' radiance ``[S, n]`` in one launch.
     Lane ``i`` traces pixel ``(px[i], py[i])`` (int32 ``[n]``); frame j
     (``first_frame + j``) starts from the camera along the direction the
     kernel computes from ``camera`` (``camera.camera_basis_table``, f32
     ``[20]``) and row j of ``offsets`` (``camera.hammersley_table``, f32
-    ``[K, 2]``, K >= 2). Launches ``cuda_regen`` for CUDA tensors, runs
-    the plain version for CPU ones."""
+    ``[K, 2]``, K >= 2); with depth of field, from the camera moved by row
+    j of ``lens`` (``camera.lens_table``, f32 ``[K, 4]``; None: the
+    pinhole) and re-aimed at the focus plane. Launches ``cuda_regen`` for
+    CUDA tensors, runs the plain version for CPU ones."""
     if offsets.shape[0] < 2:
         raise ValueError("regen wants k >= 2 (use run_mono)")
     if not _on_cuda(px):
-        return run_regen_plain(px, py, first_frame, camera, offsets, tables)
-    out = _launch_regen(_entry("spectral_regen", tables), px, py, first_frame, camera,
-                        offsets, tables)
+        return run_regen_plain(px, py, first_frame, camera, offsets, lens, tables)
+    out = _launch_regen(_entry("spectral_regen", tables, lens=lens is not None), px, py,
+                        first_frame, camera, offsets, lens, tables)
     run_regen.launches += 1
     return out
 
 
-def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets,
+def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets, lens,
                       tables: KernelTables) -> torch.Tensor:
     """``run_regen`` through a diagnostic build of ``regen.cu``
     (``build.VARIANTS``: the earlier design's grid, the stats build), for
     the measurement tools. CUDA tensors only; not counted."""
-    return _launch_regen(_entry("spectral_regen", tables, library), px, py, first_frame,
-                         camera, offsets, tables)
+    return _launch_regen(_entry("spectral_regen", tables, library, lens is not None), px, py,
+                         first_frame, camera, offsets, lens, tables)
 
 
-def _launch_regen(fn, px, py, first_frame, camera, offsets, tables):
+def _launch_regen(fn, px, py, first_frame, camera, offsets, lens, tables):
     n = px.shape[0]
     _check_lanes({}, dict(px=px, py=py), tables, n)
-    _check_camera(camera, offsets, px.device)
+    _check_camera(camera, offsets, lens, px.device)
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=px.device)
     counter = torch.empty((1,), dtype=torch.int32, device=px.device)  # zeroed by the launch
     err = fn(
         n, cfg.n_samples, cfg.max_bounces, int(first_frame) & 0xFFFFFFFF,
         offsets.shape[0], *_table_args(tables),
-        *map(_ptr, (px, py, camera, offsets, out, counter)), _stream(px),
+        *map(_ptr, (px, py, camera, offsets)), None if lens is None else _ptr(lens),
+        *map(_ptr, (out, counter)), _stream(px),
     )
     _raise_on(err, "cuda_regen")
     return out
@@ -523,6 +590,7 @@ def run_persist(state: PersistState, lead: int, end: int,
     if not _on_cuda(state.ox):
         return run_persist_plain(state, lead, end, tables, cam, ring=ring,
                                  stop=stop, budget=budget)
+    _refuse_shadow_interval(tables, "cuda_persist")
     n = state.ox.shape[0]
     cfg = tables.config
     planes = {k: v for k, v in state.planes().items() if k not in ("thr", "rad")}
@@ -582,6 +650,7 @@ def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
                          f"[0, {cfg.max_bounces})")
     if not _on_cuda(wf.ox):
         return run_seg_plain(wf, b_start, b_stop, frame_id, tables)
+    _refuse_shadow_interval(tables, "cuda_seg")
     _launch_seg(_entry("spectral_seg", tables), wf, b_start, b_stop, frame_id, tables)
     run_seg.launches += 1
 

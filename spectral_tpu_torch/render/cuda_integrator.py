@@ -35,7 +35,9 @@ from spectral_tpu_torch.render.camera import (
     camera_basis_table,
     generate_primary_rays,
     hammersley_table,
+    lens_table,
     pixel_coords,
+    scene_dof,
 )
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.render.integrator import (
@@ -54,6 +56,7 @@ def primary_lanes(scene: SceneTensors, config: RenderConfig, frame_id: int):
     origin, direction, px, py = generate_primary_rays(
         scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
         config.width, config.height, frame_id, config.intended_frames,
+        dof=scene_dof(scene, config),
     )
     planes = tuple(c.contiguous() for c in (*origin, *direction))
     return planes, px.to(torch.int32), py.to(torch.int32)
@@ -81,14 +84,24 @@ def empty_frame(scene: SceneTensors, config: RenderConfig, frames: int = 1) -> t
     return (rgb * float(frames)).reshape(config.height, config.width, 3)
 
 
+def _tables(scene: SceneTensors, config: RenderConfig,
+            tables: mk.KernelTables | None, shadow_interval: bool) -> mk.KernelTables:
+    """The given tables (packed when None), ``with_shadow_interval`` when
+    asked: raises for a scene without the many-object loop."""
+    tables = tables or mk.pack_tables(scene, config)
+    return mk.with_shadow_interval(tables) if shadow_interval else tables
+
+
 def integrate_frame_cuda(
     scene: SceneTensors, config: RenderConfig, frame_id: int,
-    tables: mk.KernelTables | None = None,
+    tables: mk.KernelTables | None = None, shadow_interval: bool = False,
 ) -> torch.Tensor:
-    """One progressive frame -> linear RGB ``[H, W, 3]`` via ``run_mono``."""
+    """One progressive frame -> linear RGB ``[H, W, 3]`` via ``run_mono``.
+    ``shadow_interval=True`` takes the opt-in sqrt-free sphere shadow test
+    (``megakernel.with_shadow_interval``: many-object scenes only)."""
+    tables = _tables(scene, config, tables, shadow_interval)
     if config.n_objects == 0:
         return empty_frame(scene, config)
-    tables = tables or mk.pack_tables(scene, config)
     planes, px, py = primary_lanes(scene, config, frame_id)
     rad = mk.run_mono(*planes, px, py, frame_id, tables)
     return _to_rgb(rad, scene, config)
@@ -97,14 +110,17 @@ def integrate_frame_cuda(
 def regen_args(scene: SceneTensors, config: RenderConfig, first_frame_id: int,
                k: int, lane_perm: torch.Tensor | None = None) -> tuple:
     """``run_regen``'s lane arguments for K frames from ``first_frame_id``:
-    ``(px, py, first_frame_id, camera table, Hammersley table)``, lane
-    ``p`` on pixel ``lane_perm[p]`` (row-major without one)."""
+    ``(px, py, first_frame_id, camera table, Hammersley table, lens
+    table)``, lane ``p`` on pixel ``lane_perm[p]`` (row-major without
+    one); the lens table (``camera.lens_table``) is None for a pinhole
+    camera."""
     px, py = pixel_coords(config.width, config.height, scene.device)
     if lane_perm is not None:
         px, py = px[lane_perm], py[lane_perm]
     offsets = hammersley_table(first_frame_id, k, config.intended_frames, scene.device)
     return (px.to(torch.int32), py.to(torch.int32), first_frame_id,
-            camera_basis_table(scene, config), offsets)
+            camera_basis_table(scene, config), offsets,
+            lens_table(scene, config, first_frame_id, k))
 
 
 def regen_radiance(
@@ -124,6 +140,7 @@ def integrate_frames_cuda_regen(
     tables: mk.KernelTables | None = None,
     lane_perm: torch.Tensor | None = None,
     lane_inv: torch.Tensor | None = None,
+    shadow_interval: bool = False,
 ) -> torch.Tensor:
     """K progressive frames in one ``run_regen`` launch -> the SUM of their
     linear-RGB frames ``[H, W, 3]``. Every path is the one its frame's
@@ -131,14 +148,15 @@ def integrate_frames_cuda_regen(
     ``lane_perm``/``lane_inv`` (``lane_inv = argsort(lane_perm)``) assign
     pixels to lanes (cost-sorted lane assignment): pure relabeling, and
     the RGB sum is put back in pixel order after the fold. Blend with
-    ``integrator.accumulate_frames``."""
+    ``integrator.accumulate_frames``. ``shadow_interval`` as in
+    ``integrate_frame_cuda``."""
     if k < 2:
         raise ValueError("regen wants k >= 2 (use integrate_frame_cuda)")
     if (lane_perm is None) != (lane_inv is None):
         raise ValueError("lane_perm and lane_inv must be passed together")
+    tables = _tables(scene, config, tables, shadow_interval)
     if config.n_objects == 0:
         return empty_frame(scene, config, k)
-    tables = tables or mk.pack_tables(scene, config)
     rad = regen_radiance(scene, config, first_frame_id, k, tables, lane_perm)
     return _to_rgb(rad, scene, config, lane_inv)
 
@@ -158,11 +176,12 @@ def render_frames_step_cuda_regen(
     first_frame_id: int, k: int, tables: mk.KernelTables | None = None,
     lane_perm: torch.Tensor | None = None,
     lane_inv: torch.Tensor | None = None,
+    shadow_interval: bool = False,
 ) -> torch.Tensor:
     """K progressive frames (one ``run_regen`` launch) blended into the
     accumulator."""
     rgb_sum = integrate_frames_cuda_regen(
-        scene, config, first_frame_id, k, tables, lane_perm, lane_inv)
+        scene, config, first_frame_id, k, tables, lane_perm, lane_inv, shadow_interval)
     return accumulate_frames(accum, rgb_sum, first_frame_id, k)
 
 
@@ -595,9 +614,10 @@ def render_persistent(
     """
     if config.has_dof:
         raise ValueError(
-            "the persist kernels restart frames from the frame-constant "
-            "camera, but depth of field shifts the origin per frame; render "
-            "DoF scenes without persist=True"
+            "persist cannot render depth of field: the persist kernels "
+            "restart frames from the frame-constant camera, but depth of "
+            "field shifts the origin per frame; render DoF scenes without "
+            "persist=True"
         )
     if n_frames < 1:
         raise ValueError("n_frames must be >= 1")

@@ -45,7 +45,11 @@ from spectral_tpu_torch.ops.sampling import (
     sample_in_cone,
 )
 from spectral_tpu_torch.ops.vecmath import Vec3
-from spectral_tpu_torch.render.camera import generate_primary_rays, restart_directions
+from spectral_tpu_torch.render.camera import (
+    generate_primary_rays,
+    restart_directions,
+    scene_dof,
+)
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
@@ -92,8 +96,6 @@ def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
     """Raise ``NotImplementedError`` for scene features the port does not
     render yet, naming the slice that will bring each. Never falls back."""
     later = []
-    if config.has_dof:
-        later.append("depth of field (DoF slice)")
     if config.n_materials > MAX_MATERIALS:
         later.append(
             f"more than {MAX_MATERIALS} materials (the kernels index a "
@@ -121,11 +123,12 @@ class BounceState(NamedTuple):
 
 def _direct_lighting(
     offset_pos: Vec3, normal: Vec3, incoming: Vec3, scene: SceneTensors,
-    config: RenderConfig,
+    config: RenderConfig, shadow_interval: bool = False,
 ) -> torch.Tensor:
     """Next-event estimation over all lights (reference
     ``src/shader.rs:420-439``): unoccluded lights contribute
-    ``spectrum / dist^2 * cos_in * cos_out``."""
+    ``spectrum / dist^2 * cos_in * cos_out``. ``shadow_interval`` takes
+    the sqrt-free sphere occlusion test (``geometry.trace_shadow``)."""
     n = offset_pos.x.shape[0]
     direct = torch.zeros((n, config.n_samples), dtype=torch.float32,
                          device=offset_pos.x.device)
@@ -136,7 +139,7 @@ def _direct_lighting(
         dist2 = ldir.dot(ldir)
         dist = ldir.magnitude()
         ldn = ldir.normalize()
-        blocked = trace_shadow(offset_pos, ldn, dist, scene)
+        blocked = trace_shadow(offset_pos, ldn, dist, scene, interval=shadow_interval)
         # the reference re-normalizes the already-normalized direction
         cos_in = torch.clamp_min(ldn.normalize().dot(normal), 0.0)
         scale = (cos_in * cos_out) / dist2
@@ -153,6 +156,7 @@ def _bounce(
     py: torch.Tensor,
     scene: SceneTensors,
     config: RenderConfig,
+    shadow_interval: bool = False,
 ) -> BounceState:
     """One bounce iteration of every lane. ``bounces_left`` and
     ``frame_id`` are per-lane int64 ``[N]`` (uint32 bit patterns; callers
@@ -199,7 +203,7 @@ def _bounce(
         )
 
     offset_pos = ip + normal * NEW_RAY_POSITION_OFFSET_DISTANCE
-    direct = _direct_lighting(offset_pos, normal, d, scene, config)
+    direct = _direct_lighting(offset_pos, normal, d, scene, config, shadow_interval)
     diffuse = alive & ~spec & ~trans
     # one shadow ray per light per live diffuse lane
     ray_count = ray_count + float(config.n_lights) * diffuse.sum(dtype=torch.float32)
@@ -251,13 +255,13 @@ def _bounce(
 
 
 def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
-                 radiance=None, occupancy=None):
+                 radiance=None, occupancy=None, shadow_interval=False):
     """The one-frame loop over lane planes; returns the final state and
     the per-lane bounces left (frozen when a path ends). The frame's
     radiance is added bounce by bounce to ``radiance`` (``[N, S]``, zeros
     if None), as the kernels add a K-frame sum. ``occupancy`` (f32
     ``[max_bounces]``) gets the count of lanes alive entering each
-    bounce."""
+    bounce; ``shadow_interval`` is ``_direct_lighting``'s."""
     require_slice(scene, config)
     n = origin.x.shape[0]
     s = config.n_samples
@@ -284,7 +288,7 @@ def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
         for b in range(config.max_bounces):
             if occupancy is not None:
                 occupancy[b] = state.alive.sum(dtype=torch.float32)
-            state = _bounce(state, bl, fid, px, py, scene, config)
+            state = _bounce(state, bl, fid, px, py, scene, config, shadow_interval)
             bl = torch.where(state.alive, bl - 1, bl)
             # a dead lane adds nothing, so an all-dead wavefront is done
             if not bool(state.alive.any()):
@@ -302,23 +306,27 @@ def bounce_loop(
     config: RenderConfig,
     return_stats: bool = False,
     radiance: torch.Tensor | None = None,
+    shadow_interval: bool = False,
 ):
     """Trace one frame's paths from the given primary lanes; returns the
     radiance ``[N, S]`` (and the reference-equivalent ray count). A given
-    ``radiance`` is carried: the frame is added to it bounce by bounce."""
+    ``radiance`` is carried: the frame is added to it bounce by bounce.
+    ``shadow_interval`` takes the sqrt-free sphere shadow test."""
     state, _ = _bounce_loop(origin, direction, px, py, frame_id, scene, config,
-                            radiance)
+                            radiance, shadow_interval=shadow_interval)
     if return_stats:
         return state.radiance, state.ray_count
     return state.radiance
 
 
-def bounce_loop_cost(origin, direction, px, py, frame_id, scene, config):
+def bounce_loop_cost(origin, direction, px, py, frame_id, scene, config,
+                     shadow_interval=False):
     """``bounce_loop`` plus each lane's live iteration count, the path
     cost ``max_bounces + 1 - bounces_left`` with the budget frozen at the
     path's end (the reference's ``kernel_cost``, ``megakernel.py:1887-1892``):
     returns ``(radiance [N, S], cost [N] f32)``."""
-    state, bl = _bounce_loop(origin, direction, px, py, frame_id, scene, config)
+    state, bl = _bounce_loop(origin, direction, px, py, frame_id, scene, config,
+                             shadow_interval=shadow_interval)
     top = torch.tensor(float(config.max_bounces + 1), device=bl.device)
     return state.radiance, top - bl.to(torch.float32)
 
@@ -546,6 +554,7 @@ def integrate_frame(
     origin, direction, px, py = generate_primary_rays(
         scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
         config.width, config.height, frame_id, config.intended_frames,
+        dof=scene_dof(scene, config),
     )
     hist = None
     if return_occupancy:

@@ -222,13 +222,15 @@ class Renderer:
     every object. The regeneration lanes of a clustered scene take
     pixels in Morton order, row-major otherwise (``lane_layout``; pure
     relabeling, bit-identical per pixel).
-    Triangle meshes render on every path (the kernels' triangle builds
-    are for 8 and 32 wavelengths; the plain versions take any count), and
-    so do the scene features (sky, checker, emission, the dielectric with
-    dispersion; ``integrator.scene_features``) through the kernels'
-    feature builds. The reference renderer's ``sharding`` is refused with
-    ``NotImplementedError`` until its slice lands; depth of field and
-    scenes with more than 256 materials are refused by the table packer.
+    Triangle meshes render on every path, and so do the scene features
+    (sky, checker, emission, the dielectric with dispersion;
+    ``integrator.scene_features``) through the kernels' feature builds.
+    Depth of field (a camera with ``aperture_radius > 0``) renders on
+    regeneration, frame by frame and phased; ``persist=True`` refuses it
+    with ``ValueError``, as the reference does. The reference renderer's
+    ``sharding`` is refused with ``NotImplementedError`` until its slice
+    lands; scenes with more than 256 materials are refused by the table
+    packer.
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",
@@ -264,6 +266,15 @@ class Renderer:
         torch.backends.cudnn.allow_tf32 = False
         self.device = device
         self.scene_tensors, self.config = flatten_scene(scene, device)
+        if self.config.has_dof and persist:
+            # one lens point per frame: regeneration ships the per-frame
+            # lens shifts, but the persist kernels restart every frame from
+            # the one camera origin (the reference's renderer.py:630-641)
+            raise ValueError(
+                "persist=True cannot render depth-of-field scenes (the "
+                "in-kernel frame restarts assume the pinhole camera); drop "
+                "persist or set aperture_radius=0"
+            )
         # raises outside the slices
         self.tables = pack_tables(self.scene_tensors, self.config, accel)
         self.clusters = self.tables.clusters

@@ -7,8 +7,8 @@ the library. ``build_all`` starts one ``nvcc`` per out-of-date source,
 all at once, and waits for them. The sources expose a plain C interface,
 so the build does not include PyTorch's headers and takes seconds.
 ``nvcc -Xptxas -v``'s report of registers, shared memory and spills is
-kept next to each library (``build_log``). Nothing here runs at import
-time.
+kept next to each library (``build_log``), with its compile seconds
+(``build_seconds``). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -65,18 +66,47 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def build_seconds(name: str) -> float | None:
+    """The seconds the last build of ``name`` here took, from the common
+    start of its build's compilers to its own end (``build_all``)."""
+    m = re.search(r"^build seconds: ([0-9.]+)$", build_log(name), re.M)
+    return float(m.group(1)) if m else None
+
+
 # the kernel sources under ops/csrc, one library each
 SOURCES = ("mono", "regen", "persist", "seg", "probe")
-# the feature builds: each bounce kernel's source with the scene-feature
-# branches (-DSPECTRAL_FX, ops/csrc/bounce.cuh), the same instantiations.
-# The render paths load them for a scene that uses a feature (sky,
-# checker texture, emission, dielectric), and the others without
-# features, so that a feature-free scene keeps the code, registers and
-# bits of the builds without them. Built together at the first launch
-# for such a scene.
+BOUNCE_SOURCES = ("mono", "regen", "persist", "seg")
+# The opt-in builds of the bounce sources, each a library of its own that
+# the render paths load only for the scenes that need it, so that the
+# others keep the code, registers and bits of the default libraries
+# (ops/csrc/bounce.cuh; the host picks one with megakernel.library_for):
+# - the feature builds (-DSPECTRAL_FX): the scene-feature branches (sky,
+#   checker texture, emission, dielectric), the same instantiations;
+# - the wide triangle builds (-DSPECTRAL_TRI_WIDE): the triangle
+#   instantiations at S = 16 and 64 and nothing else (the default
+#   libraries build triangles at S = 8 and 32; all four S in them made
+#   their longest build more than a quarter slower, PERF.md section 6);
+# - the lens builds of regen.cu (-DSPECTRAL_LENS): the per-frame lens
+#   table of depth of field, every instantiation, triangles at every S
+#   (-DSPECTRAL_TRI_ALL);
+# - the shadow-interval builds of mono.cu and regen.cu
+#   (-DSPECTRAL_SHADOW_INTERVAL): the sqrt-free sphere shadow test,
+#   many-object instantiations only, with the lens and triangles at
+#   every S.
+# A library of each kind is built together with the others of its kind
+# (the same defines) at the first launch that needs one.
 FEATURE_DEFINES = ("-DSPECTRAL_FX",)
-FEATURE_LIBRARIES = {f"{src}_fx": (src, FEATURE_DEFINES)
-                     for src in ("mono", "regen", "persist", "seg")}
+TRI_WIDE_DEFINES = ("-DSPECTRAL_TRI_WIDE",)
+LENS_DEFINES = ("-DSPECTRAL_LENS", "-DSPECTRAL_TRI_ALL")
+SHADOW_INTERVAL_DEFINES = ("-DSPECTRAL_SHADOW_INTERVAL",) + LENS_DEFINES
+FEATURE_LIBRARIES = {f"{src}_fx": (src, FEATURE_DEFINES) for src in BOUNCE_SOURCES}
+TRIANGLE_LIBRARIES = {f"{src}{fx}_tri": (src, defs + TRI_WIDE_DEFINES)
+                      for fx, defs in (("", ()), ("_fx", FEATURE_DEFINES))
+                      for src in BOUNCE_SOURCES}
+LENS_LIBRARIES = {"regen_lens": ("regen", LENS_DEFINES),
+                  "regen_fx_lens": ("regen", FEATURE_DEFINES + LENS_DEFINES)}
+SHADOW_INTERVAL_LIBRARIES = {f"{src}_si": (src, SHADOW_INTERVAL_DEFINES)
+                             for src in ("mono", "regen")}
 # diagnostic libraries, never loaded by the render paths: a source built
 # with extra defines (its source note says what each changes). The
 # measurement tools and chip_smoke.py build them beside the main ones.
@@ -86,11 +116,23 @@ VARIANTS = {
     "regen_parent_stats": ("regen", ("-DSPECTRAL_PARENT_DESIGN", "-DSPECTRAL_STATS")),
     "seg_stats": ("seg", ("-DSPECTRAL_STATS",)),
 }
+LIBRARIES = {**{src: (src, ()) for src in SOURCES}, **FEATURE_LIBRARIES,
+             **TRIANGLE_LIBRARIES, **LENS_LIBRARIES, **SHADOW_INTERVAL_LIBRARIES,
+             **VARIANTS}
+# every library a render path can load (chip_smoke.py builds them up front)
+RENDER_LIBRARIES = tuple(n for n in LIBRARIES if n not in VARIANTS)
 
 
 def _source(name: str) -> tuple[Path, tuple]:
-    src, defines = {**FEATURE_LIBRARIES, **VARIANTS}.get(name, (name, ()))
+    src, defines = LIBRARIES[name]
     return CSRC_DIR / f"{src}.cu", defines
+
+
+def kind_of(name: str) -> tuple[str, ...]:
+    """The render libraries built with ``name``'s defines: the ones a
+    first launch of ``name`` builds together."""
+    defines = _source(name)[1]
+    return tuple(n for n in RENDER_LIBRARIES if LIBRARIES[n][1] == defines) or (name,)
 
 
 def has_features(name: str) -> bool:
@@ -98,13 +140,28 @@ def has_features(name: str) -> bool:
     return FEATURE_DEFINES[0] in _source(name)[1]
 
 
+def has_shadow_interval(name: str) -> bool:
+    """Whether library ``name`` is built with the sqrt-free shadow test."""
+    return SHADOW_INTERVAL_DEFINES[0] in _source(name)[1]
+
+
+def has_lens(name: str) -> bool:
+    """Whether library ``name`` takes the regeneration kernel's lens table."""
+    return LENS_DEFINES[0] in _source(name)[1]
+
+
 def kernel_resources(name: str) -> list[dict]:
     """Each kernel instantiation of library ``name`` as ``nvcc -Xptxas
     -v`` reported it at its last build here: the kernel with its template
     arguments (``regen_kernel<64,0,0>``: S, then the flags in source
     order), registers, and spill stores and loads in bytes."""
+    return parse_resources(build_log(name))
+
+
+def parse_resources(log: str) -> list[dict]:
+    """``kernel_resources`` of one ``nvcc -Xptxas -v`` report."""
     out, entry = [], None
-    for ln in build_log(name).splitlines():
+    for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             k = re.search(r"([a-z]+_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
@@ -131,46 +188,68 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
-def build_all(names=SOURCES, force: bool = False) -> list[Path]:
-    """Compile every out-of-date library of ``names`` (sources of
-    ``ops/csrc``, ``FEATURE_LIBRARIES`` or ``VARIANTS``; all of them with
-    ``force``), one ``nvcc`` per library, started together."""
-    names = tuple(dict.fromkeys(names))  # one nvcc per library, however often named
-    jobs = []
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path() if force or any(map(_stale, names)) else None
+def compile_parallel(jobs: dict, timeout: float = 900) -> dict:
+    """Run one compiler command per entry of ``jobs`` (name: argv), all
+    started together, each one's output to a file. Returns name:
+    ``(returncode, output, seconds)``, the seconds from the common start
+    to that process's end. No process outlives the call."""
+    procs = {}
+    start = time.monotonic()
     try:
-        for name in names:
-            if not (force or _stale(name)):
-                continue
-            src, defines = _source(name)
-            lib = library_path(name)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
+        for name, cmd in jobs.items():
+            log = open(BUILD_DIR / f".{name}.{os.getpid()}.out", "w+")
             try:
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True)
+                procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log)
             except OSError as e:
+                log.close()
                 raise BuildError(f"nvcc failed to run: {e}") from e
-            jobs.append((name, src, lib, tmp, proc))
-        failed = []
-        for name, src, lib, tmp, proc in jobs:
-            try:
-                out, _ = proc.communicate(timeout=900)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                out, _ = proc.communicate()
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                failed.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}")
-                continue
-            (BUILD_DIR / f"lib{name}.log").write_text(out)
-            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        done = {}
+        while len(done) < len(procs):
+            for name, (proc, log) in procs.items():
+                if name in done:
+                    continue
+                if proc.poll() is None:
+                    if time.monotonic() - start <= timeout:
+                        continue
+                    proc.kill()
+                    proc.wait()
+                log.seek(0)
+                done[name] = (proc.returncode, log.read(), time.monotonic() - start)
+            time.sleep(0.05)
+        return done
     finally:
-        for *_, proc in jobs:  # no nvcc outlives the build
+        for proc, log in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            log.close()
+            Path(log.name).unlink(missing_ok=True)
+
+
+def build_all(names=SOURCES, force: bool = False) -> list[Path]:
+    """Compile every out-of-date library of ``names`` (of ``LIBRARIES``;
+    all of them with ``force``), one ``nvcc`` per library, started
+    together."""
+    names = tuple(dict.fromkeys(names))  # one nvcc per library, however often named
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [name for name in names if force or _stale(name)]
+    if not todo:
+        return [library_path(name) for name in names]
+    nvcc = nvcc_path()
+    tmp = {name: library_path(name).with_name(f"lib{name}.so.{os.getpid()}.tmp")
+           for name in todo}
+    jobs = {}
+    for name in todo:
+        src, defines = _source(name)
+        jobs[name] = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp[name]), str(src)]
+    failed = []
+    for name, (rc, out, seconds) in compile_parallel(jobs).items():
+        if rc != 0:
+            tmp[name].unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({rc}) on {_source(name)[0].name} for {name}:\n{out}")
+            continue
+        (BUILD_DIR / f"lib{name}.log").write_text(f"build seconds: {seconds:.3f}\n{out}")
+        os.replace(tmp[name], library_path(name))  # atomic: a concurrent loader never sees half a file
     if failed:
         raise BuildError("\n".join(failed))
     return [library_path(name) for name in names]

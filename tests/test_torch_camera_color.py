@@ -83,10 +83,23 @@ def test_camera_basis_matches():
 
 
 def test_depth_of_field_is_refused():
+    """Depth of field renders since the lens slice (it was refused): the
+    port's lens rays against the reference's on the Cornell camera,
+    origins within an ulp of the aperture, directions within the
+    pinhole's 2 ulp (tests/test_torch_dof.py has the derivation)."""
     arrays, port, _ = _pair(presets.cornell_box(n_samples=8))
-    with pytest.raises(NotImplementedError, match="depth of field"):
-        tcam.generate_primary_rays(port.cam_pos, port.cam_dir, port.cam_up,
-                                   port.fov_y_deg, 4, 4, 0, 1, dof=(0.1, 2.0))
+    dof = (np.float32(0.1), np.float32(2.0))
+    for frame in (0, 5):
+        jo, jd, _, _ = jcam.generate_primary_rays(
+            arrays.cam_pos, arrays.cam_dir, arrays.cam_up, arrays.fov_y_deg, 4, 4,
+            jnp.uint32(frame), 1, dof=tuple(jnp.float32(v) for v in dof))
+        to, td, _, _ = tcam.generate_primary_rays(
+            port.cam_pos, port.cam_dir, port.cam_up, port.fov_y_deg, 4, 4, frame, 1,
+            dof=tuple(torch.tensor(v) for v in dof))
+        for a, b in zip(to, jo):
+            assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= float(np.spacing(dof[0]))
+        for a, b in zip(td, jd):
+            assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= 2 * ULP1
 
 
 @pytest.mark.parametrize("s", [8, 32, 64])

@@ -21,7 +21,10 @@ to the mono frame; the cascade to the mono frame within 1e-6 of the
 image scale (it sums each segment's radiance separately). The triangle
 builds (the mesh preset, clustered and flat, and a smooth mesh in the
 small-scene and the many-object build) are held bit for bit to their
-plain versions. The trace probe: ``cuda_probe_fori`` bit for bit to its
+plain versions, at every S since the lens slice. Depth of field: each
+kernel on lens rays (regen on its lens table) bit for bit to its plain
+version. The shadow-interval builds bit for bit to the plain path with
+the option. The trace probe: ``cuda_probe_fori`` bit for bit to its
 plain version; ``cuda_probe_mma`` (3xTF32 products) with the same
 winners on 99.99% of rays and, against a float64 evaluation, every hit
 within its own first-order error bound (``trace_probe.error_bound``:
@@ -355,16 +358,26 @@ def test_cuda_triangle_kernels_match_plain(cuda, kind, bounces, samples):
     torch.cuda.synchronize()
 
 
-def test_cuda_triangles_need_a_triangle_build(cuda):
-    """Triangle builds exist for S in (8, 32): another S raises on the host
-    and never reaches a kernel without triangles."""
-    port, cfg = flatten_scene(_mesh("mesh", 16, 8, 1, samples=16), cuda)
+@pytest.mark.parametrize("samples", [16, 64])
+def test_cuda_triangles_need_a_triangle_build(cuda, samples):
+    """Triangle builds exist at every S since the lens slice (at S = 16
+    they were refused on the host): a mesh at 16 and 64 wavelengths
+    launches each bounce kernel's triangle build (mono, cost, regen K = 3
+    on Morton lanes, seg [0, 2) and its compacted tail), and with glass
+    meshes the feature build's (persist lane-stop too), bit for bit to
+    the plain versions."""
+    port, cfg = flatten_scene(_mesh("mesh", 32, 16, 3, samples=samples), cuda)
     tb = mk.pack_tables(port, cfg)
-    planes, px, py = ci.primary_lanes(port, cfg, 0)
+    assert tb.triangles == 1 and cfg.n_samples == samples
     before = mk.run_mono.launches
-    with pytest.raises(NotImplementedError, match="triangle"):
-        mk.run_mono(*planes, px, py, 0, tb)
-    assert mk.run_mono.launches == before
+    checks, info = torch_scenes.kernel_checks(tb, lane_perm=morton_layout(32, 16, cuda)[0],
+                                              persist_launches=0)
+    assert all(checks.values()), (checks, info)
+    assert mk.run_mono.launches == before + 1
+    glass = torch_scenes.glass_meshes(schema, presets, "mesh", 32, 16, 4, samples=samples)
+    checks, info = torch_scenes.feature_kernel_checks(
+        mk.pack_tables(*flatten_scene(glass, cuda)))
+    assert all(checks.values()), (checks, info)
 
 
 def test_cuda_renderer_mesh_counts_launches(cuda):
@@ -552,3 +565,78 @@ def test_cuda_prism_paths_agree(cuda):
         means[kind] = float(Renderer(sc, device="cuda", **kw).render()[..., :3].mean())
     for kind in ("persist", "phased"):
         assert abs(means[kind] / means["regen"] - 1.0) <= 0.02, means
+
+
+# ------------------------------------------------------------ depth of field
+
+
+def _lens_scene(kind):
+    """A lens on the Cornell box, the 101-object field and the mesh at 64
+    wavelengths (the regeneration kernel's lens table in its small-scene,
+    many-object and triangle builds)."""
+    if kind == "cornell":
+        sc = _scene("cornell", 32, 16, 4, iters=4)
+    elif kind == "field":
+        sc = _field(32, 16, 3, iters=4)
+    else:
+        sc = _mesh("mesh", 32, 16, 3, samples=64)
+    return torch_scenes.with_lens(sc, 0.05, 2.0)
+
+
+@pytest.mark.parametrize("kind", ["cornell", "field", "mesh64"])
+def test_cuda_lens_kernels_match_plain(cuda, kind):
+    """mono, cost and seg on host raygen's lens rays, and regen (K = 3) on
+    its lens table, bit for bit to their plain versions; the regeneration
+    sum equals the sum of its mono frames to float32 reassociation."""
+    port, cfg = flatten_scene(_lens_scene(kind), cuda)
+    assert cfg.has_dof
+    tb = mk.pack_tables(port, cfg)
+    perm = morton_layout(32, 16, cuda)[0] if tb.many_objects() else None
+    checks, info = torch_scenes.kernel_checks(tb, lane_perm=perm, persist_launches=0)
+    assert all(checks.values()), (checks, info)
+    regen = ci.integrate_frames_cuda_regen(port, cfg, 0, 3, tb)
+    mono = sum(ci.integrate_frame_cuda(port, cfg, f, tb) for f in range(3))
+    pin = ci.integrate_frames_cuda_regen(
+        *flatten_scene(torch_scenes.with_lens(_lens_scene(kind), 0.0), cuda), 0, 3)
+    torch.cuda.synchronize()
+    assert float((regen - mono).abs().max()) <= 1e-4 * max(1.0, float(mono.abs().max()))
+    assert not torch.equal(regen, pin)
+
+
+def test_cuda_lens_renderer_paths_agree(cuda):
+    """Regeneration, frame by frame and phased with a lens: image means
+    within 2%; persist refuses the lens."""
+    sc = torch_scenes.with_lens(_scene("cornell", 64, 48, 6, iters=8), 0.05, 2.0)
+    means = {}
+    for kind, kw in (("regen", {}), ("mono", dict(regen_frames=1)),
+                     ("phased", dict(phase_split=2))):
+        means[kind] = float(Renderer(sc, device="cuda", **kw).render()[..., :3].mean())
+    for kind in ("mono", "phased"):
+        assert abs(means[kind] / means["regen"] - 1.0) <= 0.02, means
+    with pytest.raises(ValueError, match="persist"):
+        Renderer(sc, device="cuda", persist=True)
+
+
+# ---------------------------------------------------------- shadow interval
+
+
+@pytest.mark.parametrize("kind", ["field", "mesh16"])
+def test_cuda_shadow_interval_matches_plain(cuda, kind, monkeypatch):
+    """The shadow-interval builds (mono_si, regen_si) bit for bit to the
+    plain path with the option, and loaded only for it."""
+    loaded = []
+    real = mk._load_entry
+    monkeypatch.setattr(mk, "_load_entry", lambda fn, lib: loaded.append(lib) or real(fn, lib))
+    sc = _field(32, 16, 3, iters=4) if kind == "field" else _mesh("mesh", 32, 16, 3, samples=16)
+    port, cfg = flatten_scene(sc, cuda)
+    si = mk.with_shadow_interval(mk.pack_tables(port, cfg))
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    mono = mk.run_mono(*planes, px, py, 1, si)
+    assert torch.equal(mono, mk.run_mono_plain(*planes, px, py, 1, si))
+    rad, cost = mk.run_cost(*planes, px, py, 1, si)
+    prad, pcost = mk.run_cost_plain(*planes, px, py, 1, si)
+    assert torch.equal(rad, mono) and torch.equal(rad, prad) and torch.equal(cost, pcost)
+    args = (*ci.regen_args(port, cfg, 1, 3, morton_layout(32, 16, cuda)[0]), si)
+    assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    torch.cuda.synchronize()
+    assert set(loaded) == {"mono_si", "regen_si"}

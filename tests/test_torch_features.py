@@ -23,6 +23,8 @@ times brighter than the rest, from moving the mean by percents. The
 render paths' image means on the prism agree within 2%.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -296,13 +298,19 @@ def test_library_and_features_must_agree():
 
 
 def test_require_slice_refuses_only_dof_and_material_count():
+    """Every feature scene is inside the slices, and depth of field too
+    since the lens slice (it was refused): the prism with a lens renders
+    a frame. Only the material count is refused."""
     for scene in (presets.prism(n_samples=8), ts.open_sky(schema, 8),
                   ts.textured(schema, presets), ts.emissive_panel(schema, 8)):
         tint.require_slice(*flatten_scene(scene, "cpu"))
-    scene = ts.preset(presets, "cornell", 8, 6, 1)
-    scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
-    with pytest.raises(NotImplementedError, match="depth of field"):
-        tint.require_slice(*flatten_scene(scene, "cpu"))
+    scene = ts.with_lens(ts.preset(presets, "prism", 8, 6, 2), 0.05, 3.0)
+    port, cfg = flatten_scene(scene, "cpu")
+    tint.require_slice(port, cfg)
+    rgb = tint.integrate_frame(port, cfg, 0)
+    assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())
+    with pytest.raises(NotImplementedError, match="materials"):
+        tint.require_slice(port, dataclasses.replace(cfg, n_materials=tint.MAX_MATERIALS + 1))
 
 
 @pytest.mark.parametrize("name", cli.PRESETS)
@@ -366,5 +374,6 @@ def test_build_runs_one_nvcc_per_library(tmp_path, monkeypatch):
     fx = [c for c in calls if "-DSPECTRAL_FX" in c]
     assert len(fx) == 1 and fx[0][-1].endswith("regen.cu")
     assert (tmp_path / "libregen_fx.log").exists()
+    assert build.build_seconds("regen_fx") >= 0.0
     assert build.has_features("seg_fx") and not build.has_features("seg")
     assert not build.has_features("regen_parent")

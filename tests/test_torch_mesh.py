@@ -327,14 +327,34 @@ def test_pack_tables_mesh_runs_and_shared_memory():
 
 def test_require_slice_takes_triangles_refuses_the_dielectric():
     """Triangles are inside the slices, the dielectric too since the
-    feature slice (glass meshes, the prism); depth of field is refused."""
+    feature slice (glass meshes, the prism), and depth of field since the
+    lens slice: a mesh with a lens renders a frame."""
     port, cfg = flatten_scene(presets.mesh_demo(n_samples=8), "cpu")
     tint.require_slice(port, cfg)
     tint.require_slice(*flatten_scene(ts.glass_meshes(schema, presets, "mesh", 8, 8, 1), "cpu"))
-    scene = presets.mesh_demo(n_samples=8)
-    scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
-    with pytest.raises(NotImplementedError, match="depth of field"):
-        tint.require_slice(*flatten_scene(scene, "cpu"))
+    scene = ts.with_lens(ts.preset(presets, "mesh", 8, 6, 1), 0.05, 3.0)
+    port, cfg = flatten_scene(scene, "cpu")
+    tint.require_slice(port, cfg)
+    rgb = tint.integrate_frame(port, cfg, 0)
+    assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())
+
+
+@pytest.mark.parametrize("samples", [16, 64])
+def test_triangle_tables_at_16_and_64_wavelengths(samples):
+    """The kernels build triangles at every S since the lens slice (S = 8
+    and 32 before): the host packs and passes a mesh at 16 and 64
+    wavelengths, and the plain path renders it like the jnp integrator
+    (direct-only, to 1e-5 of the image scale)."""
+    port, cfg = flatten_scene(ts.preset(presets, "mesh", 16, 12, 1, samples=samples), "cpu")
+    tb = mk.pack_tables(port, cfg)
+    assert tb.triangles == 1 and tb.many_objects() and cfg.n_samples == samples
+    planes, px, py = ci.primary_lanes(port, cfg, 0)
+    mk._check_lanes(dict(zip(("ox", "oy", "oz", "dx", "dy", "dz"), planes)),
+                    dict(px=px, py=py), tb, px.shape[0])
+    arrays, config = jax_flatten(ts.preset(jax_presets, "mesh", 16, 12, 1, samples=samples))
+    want = np.asarray(jint.integrate_frame(arrays, config, np.uint32(0)))
+    got = ci.integrate_frame_cuda(port, cfg, 0, tb).numpy()
+    assert float(np.abs(got - want).max()) <= 1e-5 * max(1.0, float(np.abs(want).max()))
 
 
 def test_unknown_object_type_is_refused():

@@ -127,13 +127,15 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])
 def test_out_of_slice_scene_raises(name):
-    """Depth of field is outside the port's slices: the glass presets with
-    an aperture on their camera refuse to build a Renderer."""
-    scene = torch_scenes.glass_meshes(schema, presets, name, 8, 6, 3, samples=8, iters=1)
-    scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
-    with pytest.raises(NotImplementedError,
-                       match="not in the PyTorch/CUDA port yet: depth of field"):
-        trender.Renderer(scene, device="cpu")
+    """Depth of field is inside the port's slices since the lens slice:
+    the glass presets with an aperture on their camera render on the
+    CPU; only persist raises, with ValueError, as the reference does."""
+    scene = torch_scenes.glass_meshes(schema, presets, name, 8, 6, 3, samples=8, iters=2)
+    torch_scenes.with_lens(scene, 0.05, 3.0)
+    img = trender.Renderer(scene, device="cpu").render()
+    assert img.shape == (6, 8, 4) and np.isfinite(img).all()
+    with pytest.raises(ValueError, match="persist"):
+        trender.Renderer(scene, device="cpu", persist=True)
 
 
 @pytest.mark.parametrize("name", ["prism", "mesh5k", "mesh"])

@@ -154,11 +154,25 @@ def glass_meshes(schema, presets, name, w, h, bounces, samples=8, iters=2,
     return scene
 
 
-def feature_kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
-                          persist_launches=2, persist_budget=7, persist_stop=3,
-                          timed=None):
-    """Each bounce kernel's feature build against its plain version on the
-    card, bit for bit (``torch.equal``), on the scene of ``tables``:
+def with_lens(scene, aperture=0.05, focus=2.0):
+    """``scene`` with a thin-lens camera (depth of field)."""
+    scene.camera.aperture_radius, scene.camera.focus_distance = aperture, focus
+    return scene
+
+
+def feature_kernel_checks(tables, **kw):
+    """``kernel_checks`` of a feature scene's tables: each bounce kernel's
+    feature build against its plain version."""
+    assert tables.features, "not a feature scene"
+    return kernel_checks(tables, **kw)
+
+
+def kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
+                  persist_launches=2, persist_budget=7, persist_stop=3,
+                  timed=None):
+    """Each bounce kernel against its plain version on the card, bit for
+    bit (``torch.equal``), on the scene of ``tables`` (with its features,
+    its lens, its triangles: the build those tables take):
 
     - ``mono`` and ``cost`` on frame ``frame``'s primaries (the cost
       kernel's radiance also equal to the mono frame's);
@@ -170,7 +184,8 @@ def feature_kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
     - ``persist``: ``persist_launches`` launches of ``persist_budget``
       iterations, lane-stop with every ``persist_stop``-th lane stopped,
       or free-running (``persist_stop=0``, as ``Renderer(persist=True)``
-      launches it).
+      launches it); none with ``persist_launches=0`` (a lens scene,
+      which persist refuses).
 
     ``timed(key, fn)``, if given, runs each launch (kernel ``key``, its
     plain version ``key + "_plain"``) and returns fn's result: the caller's
@@ -183,7 +198,6 @@ def feature_kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
     from spectral_tpu_torch.render.camera import camera_basis_table
 
     port, cfg = tables.scene, tables.config
-    assert tables.features, "not a feature scene"
 
     def run(key, fn):
         return timed(key, fn) if timed else fn()
@@ -220,6 +234,9 @@ def feature_kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
     wf.rad[..., live] = cwf.rad
     checks["seg"] = seg_ok and same(cwf, cpwf) and torch.equal(wf.rad, mono)
     del wf, pwf, cwf, cpwf, mono
+    if not persist_launches:
+        torch.cuda.synchronize()
+        return {k: bool(v) for k, v in checks.items()}, info
     n = cfg.width * cfg.height
     stop = ((torch.arange(n, device=px.device) % persist_stop == 0).float()
             if persist_stop else None)
