@@ -38,10 +38,17 @@ and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
 to the sum of its K frames as ``cuda_mono`` traces them from host
-raygen (its kernel generates the primaries itself), and the two
-redesigned kernels are timed in turns beside the earlier design (the
-``regen_parent`` build's one-lane-per-pixel grid; tables without packed
-walk records) at cornell512 and spheres1000. Prints one JSON line per
+raygen (its kernel generates the primaries itself), and the redesigned
+kernels are timed in turns beside their earlier designs, each held
+``torch.equal`` to it (``build.PARENT_LIBRARIES``): ``cuda_regen`` (the
+``regen_parent`` build's one-lane-per-pixel grid) at cornell512 and
+spheres1000, ``cuda_seg`` (tables without packed walk records) at
+spheres1000, ``cuda_mono`` and ``cuda_cost`` (``mono_parent``: one lane
+per pixel) at cornell512, and one ``cuda_persist`` launch (the
+register build ``persist_reg``: the spectral state in registers, the
+earlier design) at the persist path's budget on cornell512, mesh,
+mesh64 (``persist_tri_reg``), mesh5k and the prism (``persist_fx_reg``).
+Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine
@@ -52,6 +59,7 @@ schema and presets are the port's own copies.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import sys
@@ -173,10 +181,10 @@ def main() -> int:
     t0 = time.monotonic()
     # from source, one nvcc per library, in parallel: every library a
     # render path loads (the main ones; the feature, wide-triangle, lens
-    # and shadow-interval builds) and the earlier regen grid
-    # (regen_parent), timed beside the new one below
+    # and shadow-interval builds) and the earlier designs of the
+    # redesigned kernels (build.PARENT_LIBRARIES), timed beside them below
     fx_libs = tuple(build.FEATURE_LIBRARIES)
-    build.build_all(build.RENDER_LIBRARIES + ("regen_parent",), force=True)
+    build.build_all(build.RENDER_LIBRARIES + build.PARENT_LIBRARIES, force=True)
     build_s = time.monotonic() - t0
     resources = {name: build.kernel_resources(name) for name in build.RENDER_LIBRARIES}
     emit(phase="build", seconds=round(build_s, 3), libraries=list(build.RENDER_LIBRARIES),
@@ -230,6 +238,40 @@ def main() -> int:
     def rel_err(got_rgb, want_rgb):
         scale = max(1.0, float(want_rgb.abs().max()))
         return ((got_rgb - want_rgb).abs().amax(dim=-1) / scale)
+
+    def in_turns(what, new, parent, same):
+        """A redesigned kernel and its earlier design (each a timed run
+        returning (ms, output)) in turns, after one untimed run of each
+        (a library's first launch of a kernel loads it): new, parent,
+        parent, new. Every parent output is held to the first new one
+        with ``same``. Returns the new output and the turns with both
+        means."""
+        new(), parent()
+        turns, ref = {"new": [], "parent": []}, None
+        for key in ("new", "parent", "parent", "new"):
+            ms, out = (new if key == "new" else parent)()
+            turns[key].append(ms)
+            if ref is None:
+                ref = out
+            elif key == "parent":
+                assert same(out, ref), f"{what}: the earlier design differs from the new one"
+            del out
+        return ref, dict(ms=sum(turns["new"]) / 2, parent_design_ms=sum(turns["parent"]) / 2,
+                         turns_ms=turns)
+
+    def persist_turns(what, p_st, p_cfg, p_tb, budget, parent):
+        """One free-running persist launch from frame 0 at ``budget``: the
+        new design and the ``parent`` library in turns (``in_turns``)."""
+        p_cam, frames_ = camera_basis_table(p_st, p_cfg), p_cfg.intended_frames
+
+        def launch(run):
+            state = ci.persist_init(p_st, p_cfg)
+            ms, _ = cuda_span(lambda: run(state, frames_, frames_, p_tb, p_cam, budget=budget))
+            return ms, state
+
+        return in_turns(what, lambda: launch(mk.run_persist),
+                        lambda: launch(functools.partial(mk.run_persist_variant, parent)),
+                        same_state)[1]
 
     # ------------------------------- 3. kernels vs plain on the card, small size
     t0 = time.monotonic()
@@ -450,25 +492,23 @@ def main() -> int:
     st, cfg = flatten_scene(full, dev)
     tb = mk.pack_tables(st, cfg)
     planes, px, py = ci.primary_lanes(st, cfg, 0)
-    mono_ms, got = cuda_ms(lambda: mk.run_mono(*planes, px, py, 0, tb), 5)
+    # the resident grid and the earlier one (mono_parent: one lane per
+    # pixel) in turns, 5 launches a turn
+    got, mono_turns = in_turns(
+        "cuda_mono", lambda: cuda_ms(lambda: mk.run_mono(*planes, px, py, 0, tb), 5),
+        lambda: cuda_ms(lambda: mk.run_mono_variant("mono_parent", *planes, px, py, 0, tb), 5),
+        torch.equal)
+    mono_ms = mono_turns["ms"]
     mono_plain_ms, want = cuda_ms(lambda: mk.run_mono_plain(*planes, px, py, 0, tb), 2)
     mono_flips, mono_err = envelope(got, want, st)
     assert mono_flips <= 0.15, ("mono 512^2 b30 flipped", mono_flips)
     args, _ = regen_inputs(full, 0, k_main)
     # the redesigned kernel and the earlier design's grid (the regen_parent
-    # build: one lane per pixel), in turns: new, parent, parent, new
-    regen_turns = {"new": [], "parent": []}
-    for key in ("new", "parent", "parent", "new"):
-        fn = (lambda: mk.run_regen(*args)) if key == "new" else (
-            lambda: mk.run_regen_variant("regen_parent", *args))
-        t_ms, out = cuda_ms(fn, 2)
-        regen_turns[key].append(t_ms)
-        if key == "new":
-            got = out
-        else:
-            assert torch.equal(out, got), "cuda_regen: parent grid differs from the new one"
-    regen_ms = sum(regen_turns["new"]) / 2
-    regen_parent_ms = sum(regen_turns["parent"]) / 2
+    # build: one lane per pixel), in turns
+    got, regen_turns = in_turns(
+        "cuda_regen", lambda: cuda_ms(lambda: mk.run_regen(*args), 2),
+        lambda: cuda_ms(lambda: mk.run_regen_variant("regen_parent", *args), 2), torch.equal)
+    regen_ms, regen_parent_ms = regen_turns["ms"], regen_turns["parent_design_ms"]
     regen_plain_ms, want = cuda_ms(lambda: mk.run_regen_plain(*args), 1, warmup=False)
     regen_flips, regen_err = envelope(got, want, st)
     assert regen_flips <= 0.15, ("regen 512^2 b30 K=100 flipped", regen_flips)
@@ -479,7 +519,7 @@ def main() -> int:
          b1_limit=1e-5, b30_mono_flipped=mono_flips, b30_mono_max_abs=mono_err,
          b30_regen_k100_flipped=regen_flips, b30_regen_k100_max_abs=regen_err,
          b30_regen_k100_vs_sum_of_100_mono_max_rel=regen_vs_mono, sum_of_mono_limit=1e-5,
-         regen_k100_turns_ms=regen_turns,
+         regen_k100_turns_ms=regen_turns["turns_ms"], mono_turns=mono_turns,
          flipped_limit=0.15, mono_ms=mono_ms, mono_plain_ms=mono_plain_ms,
          regen_k100_ms=regen_ms, regen_k100_plain_ms=regen_plain_ms, card=card)
 
@@ -509,7 +549,13 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return sum(times) / reps, state
 
-    persist_ms, got = persist_once(mk.run_persist, 3)
+    # the spectral state in shared memory and the earlier design's in
+    # registers (persist_reg), in turns, 3 launches a turn
+    got, persist_main_turns = in_turns(
+        "cuda_persist", lambda: persist_once(mk.run_persist, 3),
+        lambda: persist_once(functools.partial(mk.run_persist_variant, "persist_reg"), 3),
+        same_state)
+    persist_ms = persist_main_turns["ms"]
     persist_plain_ms, want = persist_once(mk.run_persist_plain, 1)
     persist_flips, persist_err = envelope(got.rad, want.rad, st)
     assert persist_flips <= 0.15, ("persist 512^2 b30 flipped", persist_flips)
@@ -535,7 +581,11 @@ def main() -> int:
     assert checker_flips <= 0.15 and checker_held, (
         "lane-stop 512^2 b30, checkerboard", checker_flips, checker_held)
     del got, want, stop0, chk, chk_plain
-    cost_ms, (crad, cost) = cuda_ms(lambda: mk.run_cost(*planes, px, py, 0, tb), 5)
+    (crad, cost), cost_turns = in_turns(
+        "cuda_cost", lambda: cuda_ms(lambda: mk.run_cost(*planes, px, py, 0, tb), 5),
+        lambda: cuda_ms(lambda: mk.run_cost_variant("mono_parent", *planes, px, py, 0, tb), 5),
+        lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+    cost_ms = cost_turns["ms"]
     cost_plain_ms, (prad, pcost) = cuda_ms(
         lambda: mk.run_cost_plain(*planes, px, py, 0, tb), 1, warmup=False)
     mono_rad = mk.run_mono(*planes, px, py, 0, tb)
@@ -551,6 +601,8 @@ def main() -> int:
          budget=budget_main, b30_persist_flipped=persist_flips,
          b30_persist_max_abs=persist_err, flipped_limit=0.15,
          persist_ms=persist_ms, persist_plain_ms=persist_plain_ms,
+         persist_turns=persist_main_turns,
+         cost_turns=cost_turns,
          persist_mean_frames_per_launch=persist_frames_one_launch,
          lane_stop_zero_ms=stop0_ms, lane_stop_zero_bit_identical=stop0_identical,
          lane_stop_checker_ms=checker_ms, lane_stop_checker_plain_ms=checker_plain_ms,
@@ -1265,9 +1317,15 @@ def main() -> int:
         persist_mean = float(pimg[..., :3].mean())
         mean_rel = abs(persist_mean - regen_mean) / regen_mean
         assert mean_rel <= 0.02, (label, persist_mean, regen_mean)
+        # one persist launch at the path's budget beside the earlier design
+        # (the register build, with the wide triangles at S = 64)
+        m_persist = persist_turns(
+            f"cuda_persist ({label})", m_st, m_cfg, m_tb, pr.persist_info["budget"],
+            "persist_reg" if n_s in mk.DEFAULT_TRIANGLE_SAMPLES else "persist_tri_reg")
+        m_persist["library"] = mk.persist_library(m_tb)
         mesh_runs[label] = dict(regen_k_launch_ms=m_regen_ms, mono_ms=m_mono_ms,
                                seconds_per_frame=m_s_per_frame, mono_128=mono128,
-                               regen_128=regen128)
+                               regen_128=regen128, persist_launch=m_persist)
         emit(phase=f"{label}_main_path",
              config=f"presets.{presets.PRESETS[name].__name__}: {m_cfg.n_objects} objects, "
                     f"512x512, {n_s} lambda, 30 bounces, {iters} iterations",
@@ -1280,7 +1338,8 @@ def main() -> int:
              kernels_vs_plain_128=[mono128, regen128],
              persist=dict(seconds=pdt, seconds_per_frame=pdt / iters, launches=pcounts,
                           budget=pr.persist_info["budget"], mean_rgb=persist_mean,
-                          mean_rel_vs_regen=mean_rel, mean_limit=0.02),
+                          mean_rel_vs_regen=mean_rel, mean_limit=0.02,
+                          one_launch_turns=m_persist),
              phase_seconds=round(time.monotonic() - t0, 3), card=card)
 
     # --------- 8b. the prism preset (BASELINE config 3) through the main path
@@ -1344,6 +1403,11 @@ def main() -> int:
              f"and the compacted [2, 8); one free-running persist launch at budget "
              f"{p_paths['persist']['budget']}", **p_info, ms=p_times, bit_identical=p_checks)
     assert all(p_checks.values()), prism_kernels
+    # one persist launch at the path's budget beside the earlier design's
+    # feature build (persist_fx_reg)
+    prism_kernels["persist_launch_turns"] = persist_turns(
+        "cuda_persist (prism)", p_st, p_cfg, p_tb, p_paths["persist"]["budget"],
+        "persist_fx_reg")
     emit(phase="kernels_features_main_shape", **prism_kernels, card=card)
 
     # the strip's image disperses: the red and blue centroids along x of
@@ -1569,6 +1633,20 @@ def main() -> int:
             cornell512_k100=dict(ms=regen_ms, parent_design_ms=regen_parent_ms),
             spheres1000_k100_morton=dict(ms=sph_regen_ms,
                                           parent_design_ms=sph_regen_parent_ms)),
+        "cuda_persist": dict(
+            design="the persist_reg build: the spectral state in registers",
+            cornell512_budget=dict(budget=budget_main, **persist_main_turns),
+            mesh_budget=mesh_runs["mesh"]["persist_launch"],
+            mesh64_budget=dict(parent_library="persist_tri_reg",
+                               **mesh_runs["mesh64"]["persist_launch"]),
+            prism_budget=dict(parent_library="persist_fx_reg",
+                              **prism_kernels["persist_launch_turns"])),
+        "cuda_mono": dict(
+            design="the mono_parent build: one lane per pixel, ceil(n / 128) blocks",
+            cornell512_frame0=mono_turns),
+        "cuda_cost": dict(
+            design="the mono_parent build: one lane per pixel, ceil(n / 128) blocks",
+            cornell512_frame0=cost_turns),
         "cuda_seg": dict(
             design="tables without packed records (the earlier walk)",
             spheres1000_0_2=dict(ms=seg_ms, parent_design_ms=seg_parent_ms),

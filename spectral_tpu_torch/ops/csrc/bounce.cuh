@@ -97,6 +97,7 @@
 // plain version does not.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -747,28 +748,40 @@ __device__ __forceinline__ void refract_or_reflect(
 }
 #endif
 
+// A lane's S spectral bins in the block's shared memory, lane-minor: bin
+// s of thread t at base[s * BLOCK + t], so that a warp's 32 threads read
+// 32 consecutive words of one bin (no bank conflicts). Indexed like the
+// register array it stands in for.
+struct SharedBins {
+  float* p;  // this thread's bin 0
+  __device__ __forceinline__ float& operator[](int s) const { return p[s * BLOCK]; }
+};
+
 // The carried lane state of `make_body.bounce` (megakernel.py:1928-1935,
 // :2001-2006): the ray, the flags, the count-down bounce budget, the frame
 // of the path in flight, and the spectral throughput and radiance. Every
-// kernel runs its lanes through `bounce_step` on this one struct.
-template <int S>
+// kernel runs its lanes through `bounce_step` on this one struct. The
+// spectral state is S floats each of registers, or (SHARED) two rows of
+// the block's shared memory (persist.cu), the same arithmetic either way.
+template <int S, bool SHARED = false>
 struct Lane {
+  using Bins = std::conditional_t<SHARED, SharedBins, float[S]>;
   float ox, oy, oz, dx, dy, dz;
   bool alive;     // a path is in flight
   bool gate;      // the parent bounce was specular
   float hero;     // hero wavelength bin, -1 until a dispersive event
   int bl;         // bounces left: max_bounces at a path's first trace
   uint32_t fid;   // frame id of the path in flight
-  float thr[S];
-  float rad[S];
+  Bins thr;
+  Bins rad;
 };
 
 // A new path of frame `fid` from (o, d) at unit throughput; the radiance
 // sum is kept (the restart rule of megakernel.py:1549-1552, :1752-1769).
-template <int S>
-__device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, uint32_t fid,
+template <int S, bool SHARED>
+__device__ __forceinline__ void start_path(Lane<S, SHARED>& L, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, uint32_t fid,
                                            int max_bounces) {
   L.ox = ox;
   L.oy = oy;
@@ -795,8 +808,8 @@ __device__ __forceinline__ void start_path(Lane<S>& L, float ox, float oy,
 // from each other, so the order of the three sums is the jnp one), and
 // the dielectric continuation; a lane whose hero collapses keeps the
 // collapsed thr even when its path ends, as the reference's does.
-template <int S, bool MANY, bool TRI>
-__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S>& L,
+template <int S, bool MANY, bool TRI, bool SHARED>
+__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S, SHARED>& L,
                                             uint32_t px, uint32_t py) {
   float t;
   const int win =
@@ -1126,9 +1139,11 @@ __device__ __forceinline__ void stats_end(unsigned iters, unsigned pixels) {
 #endif
 
 // Checks every launch shares: the table sizes, and the shared memory the
-// tables take (raised above 48 KB for the kernel when needed).
+// tables take, plus `extra` bytes after them (persist.cu's spectral
+// state), raised above 48 KB for the kernel when needed.
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
+cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem,
+                    size_t extra = 0) {
   if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 || a.n_mat > MAX_MATERIALS ||
       a.n_lights < 0 || a.tri < 0 || a.tri > 2 || a.n_packed < 0 ||
       (a.n_packed > 0 && a.packed == nullptr)) {
@@ -1143,13 +1158,51 @@ cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem) {
     return cudaErrorInvalidValue;
   }
 #endif
-  smem = smem_bytes(a, S);
+  smem = smem_bytes(a, S) + extra;
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
   return cudaSuccess;
+}
+
+// The next lane index for every calling thread of a resident grid: one
+// atomicAdd per group of threads that ask together, each taking its
+// rank's index.
+__device__ __forceinline__ int next_lane(unsigned* counter, int first) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group g = cg::coalesced_threads();
+  const unsigned rank = (unsigned)g.thread_rank();
+  unsigned base = 0;
+  if (rank == 0) base = atomicAdd(counter, (unsigned)g.size());
+  base = g.shfl(base, 0);
+  return first + (int)(base + rank);
+}
+
+// The resident grid of `kernel` for n lanes at `smem` bytes: as many
+// blocks as the card holds at once (the occupancy API), no more than the
+// lanes need. Zeroes `counter` on the stream: the kernel's threads start
+// on lanes blockIdx.x * BLOCK + threadIdx.x and take the next ones from
+// gridDim.x * BLOCK on (next_lane).
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, size_t smem, int n, unsigned* counter,
+                          cudaStream_t stream, int& blocks) {
+  blocks = (n + BLOCK - 1) / BLOCK;
+  int device, sms, per_sm;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = blocks < per_sm * sms ? blocks : per_sm * sms;
+  return cudaMemsetAsync(counter, 0, sizeof(unsigned), stream);
 }
 
 // The S a library builds with triangles (runtime/build.py): 8 and 32 in

@@ -7,20 +7,33 @@
 //   cuda_cost <- `run_cost` -> `kernel_cost` (pallas_call at :2302, body
 //                :1868): cuda_mono plus each lane's live iteration count.
 //
-// Design. One thread per pixel-lane runs its own path, in a block of 128
-// threads, masked by gidx < n; a warp retires lanes on its own, so the TPU
-// kernel's fixed iteration count and tile-wide all-dead guards are not
-// needed. The tables go to shared memory at block start (bounce.cuh:
-// load_tables; geometry of more than 64 objects stays in global memory).
-// The spectral state thr[S] and rad[S] lives in registers, the kernels
-// templated on S in {8,16,32,64}.
+// What bounds it on the H100: the FP32 ALU work of the bounce step (per
+// bounce, the object loop for the nearest hit and again for each light's
+// shadow ray, plus S-wide shading; PERF.md counts this frame's live path
+// iterations), in a lane loop whose lanes do unequal work: a path ends
+// after 1 to max_bounces iterations. It reads the primary rays and writes
+// [S, n] radiance once, so HBM is not the limit.
 //
-// What bounds it on the H100: divergent FP32 ALU work per lane (per
-// bounce, the object loop twice, for the nearest hit and each light's
-// shadow ray, plus S-wide shading) and register pressure from the 2*S
-// floats of spectral state. It reads the primary rays and writes [S, n]
-// radiance once, so HBM is not the limit. Making it fast (occupancy
-// tuning, wavefront compaction, FMA) is later work, measured against this.
+// Design: regen.cu's resident grid and its flat lane loop. The grid is as
+// many blocks as fit the card at once (the occupancy API, resident_grid),
+// and a thread whose path ends stores it and takes the next lane index
+// from a global counter, one atomic per group of threads that ask
+// together (next_lane), in the same loop iteration: one loop whose every
+// iteration is a bounce, so no thread waits at a loop's end for the
+// longest path of its warp. Measured on the earlier grid (one thread per
+// lane, ceil(n / BLOCK) blocks; PERF.md section 6): the blocks held
+// 92% of the SM slot time, but the lane loop's warp SIMT efficiency was
+// 0.31, each warp waiting on its longest path; a resident grid with a
+// loop nested per path kept that 0.49 and gained 2%. Each lane's one path
+// runs in one thread from its primary ray to its end, so the radiance and
+// cost are the plain version's bit for bit whatever thread takes a lane.
+// The tables go to shared memory at block start (bounce.cuh: load_tables),
+// and the spectral state thr[S], rad[S] lives in registers, templated on S
+// in {8,16,32,64}.
+// Built with -DSPECTRAL_PARENT_DESIGN (a diagnostic library, never the
+// main path's), the grid is the earlier one instead, so that the two can
+// be timed in one run; -DSPECTRAL_STATS adds the per-thread counters of
+// tools/lane_stats.py.
 
 #include "bounce.cuh"
 
@@ -38,22 +51,51 @@ mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
             const float* __restrict__ oz, const float* __restrict__ dx,
             const float* __restrict__ dy, const float* __restrict__ dz,
             const int* __restrict__ px, const int* __restrict__ py,
-            float* __restrict__ out, float* __restrict__ cost) {
+            float* __restrict__ out, float* __restrict__ cost,
+            unsigned* __restrict__ counter) {
   extern __shared__ float smem[];
   const Tables tb = load_tables<MANY>(smem, ta, S);
-  const int gidx = blockIdx.x * BLOCK + threadIdx.x;
-  if (gidx >= n) return;
-  Lane<S> L;
-  start_path(L, ox[gidx], oy[gidx], oz[gidx], dx[gidx], dy[gidx], dz[gidx],
-             frame_id, max_bounces);
+#ifdef SPECTRAL_STATS
+  stats_begin();
+  unsigned stat_iters = 0, stat_pixels = 0;
+#endif
+  int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane < n) {
+    Lane<S> L;
+    uint32_t ux, uy;
+    // lane `lane`'s path from its primary ray, at zero radiance
+    const auto start = [&] {
+      start_path(L, ox[lane], oy[lane], oz[lane], dx[lane], dy[lane], dz[lane],
+                 frame_id, max_bounces);
 #pragma unroll
-  for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
-  const uint32_t ux = (uint32_t)px[gidx], uy = (uint32_t)py[gidx];
-  while (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) {
+      for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
+      ux = (uint32_t)px[lane];
+      uy = (uint32_t)py[lane];
+    };
+    start();
+    for (;;) {  // one bounce, or one path's end and the next path's start
+#ifdef SPECTRAL_STATS
+      ++stat_iters;
+#endif
+      if (bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
+#pragma unroll
+      for (int s = 0; s < S; ++s) out[(size_t)s * n + lane] = L.rad[s];
+      if constexpr (COST) cost[lane] = (float)(max_bounces + 1) - (float)L.bl;
+#ifdef SPECTRAL_STATS
+      ++stat_pixels;
+#endif
+#ifdef SPECTRAL_PARENT_DESIGN
+      break;  // the earlier grid: one lane per thread
+#else
+      lane = next_lane(counter, gridDim.x * BLOCK);
+      if (lane >= n) break;
+      start();
+#endif
+    }
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s) out[(size_t)s * n + gidx] = L.rad[s];
-  if constexpr (COST) cost[gidx] = (float)(max_bounces + 1) - (float)L.bl;
+#ifdef SPECTRAL_STATS
+  stats_end(stat_iters, stat_pixels);
+#endif
 }
 
 template <int S, bool COST, bool MANY, bool TRI>
@@ -61,13 +103,19 @@ cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
                         uint32_t frame_id, const float* ox, const float* oy,
                         const float* oz, const float* dx, const float* dy,
                         const float* dz, const int* px, const int* py,
-                        float* out, float* cost, cudaStream_t stream) {
+                        float* out, float* cost, unsigned* counter,
+                        cudaStream_t stream) {
+  const auto kernel = mono_kernel<S, COST, MANY, TRI>;
   size_t smem;
-  cudaError_t err = prepare(mono_kernel<S, COST, MANY, TRI>, ta, S, smem);
+  cudaError_t err = prepare(kernel, ta, S, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + BLOCK - 1) / BLOCK;
-  mono_kernel<S, COST, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
-      n, ta, max_bounces, frame_id, ox, oy, oz, dx, dy, dz, px, py, out, cost);
+  int blocks = (n + BLOCK - 1) / BLOCK;
+#ifndef SPECTRAL_PARENT_DESIGN
+  if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
+#endif
+  kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, frame_id, ox, oy,
+                                          oz, dx, dy, dz, px, py, out, cost,
+                                          counter);
   return cudaGetLastError();
 }
 
@@ -77,7 +125,8 @@ cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
 #define SPECTRAL_FLOAT(p) static_cast<const float*>(p)
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
-// returns the cudaError_t of the launch (0 on success).
+// returns the cudaError_t of the launch (0 on success). `counter` is one
+// unsigned of device scratch, which the launch zeroes on its stream.
 static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
                                  unsigned int frame_id,
                                  const spectral::TableArgs& ta,
@@ -85,7 +134,7 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
                                  const void* oz, const void* dx,
                                  const void* dy, const void* dz,
                                  const void* px, const void* py, void* out,
-                                 void* cost, void* stream) {
+                                 void* cost, void* counter, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SPECTRAL_MONO_L(COST)                                                 \
@@ -94,7 +143,7 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
       SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx), SPECTRAL_FLOAT(dy),             \
       SPECTRAL_FLOAT(dz), static_cast<const int*>(px),                        \
       static_cast<const int*>(py), static_cast<float*>(out),                  \
-      static_cast<float*>(cost), st)
+      static_cast<float*>(cost), static_cast<unsigned*>(counter), st)
 #define SPECTRAL_MONO_S(SS)                                                \
   {                                                                        \
     constexpr int S = SS;                                                  \
@@ -118,10 +167,10 @@ extern "C" int spectral_mono(int n, int n_samples, int max_bounces,
                              const void* ox, const void* oy, const void* oz,
                              const void* dx, const void* dy, const void* dz,
                              const void* px, const void* py, void* out,
-                             void* stream) {
+                             void* counter, void* stream) {
   return spectral_mono_or_cost(n, n_samples, max_bounces, frame_id,
                                SPECTRAL_TABLE_ARGS, ox, oy, oz, dx, dy, dz,
-                               px, py, out, nullptr, stream);
+                               px, py, out, nullptr, counter, stream);
 }
 
 extern "C" int spectral_cost(int n, int n_samples, int max_bounces,
@@ -129,9 +178,36 @@ extern "C" int spectral_cost(int n, int n_samples, int max_bounces,
                              const void* ox, const void* oy, const void* oz,
                              const void* dx, const void* dy, const void* dz,
                              const void* px, const void* py, void* out,
-                             void* cost, void* stream) {
+                             void* cost, void* counter, void* stream) {
   if (cost == nullptr) return (int)cudaErrorInvalidValue;
   return spectral_mono_or_cost(n, n_samples, max_bounces, frame_id,
                                SPECTRAL_TABLE_ARGS, ox, oy, oz, dx, dy, dz,
-                               px, py, out, cost, stream);
+                               px, py, out, cost, counter, stream);
+}
+
+// The registers, local bytes and resident blocks per SM of the mono
+// (cost = 0) or cost instantiation that tables of this kind take
+// (spectral_kernel_info's out), for the measurement tools.
+extern "C" int spectral_mono_info(int n_samples, int many, int tri, int cost,
+                                  int smem, int* out) {
+  spectral::TableArgs ta{};
+  ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
+  ta.n_runs = 1;
+  ta.tri = tri;
+#define SPECTRAL_MONO_INFO(S)                                                  \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
+    constexpr bool M = decltype(m)::value, T = decltype(t)::value;            \
+    return cost ? spectral_kernel_info(spectral::mono_kernel<S, true, M, T>,  \
+                                       smem, out)                             \
+                : spectral_kernel_info(spectral::mono_kernel<S, false, M, T>, \
+                                       smem, out);                            \
+  })
+  switch (n_samples) {
+    case 8: SPECTRAL_MONO_INFO(8);
+    case 16: SPECTRAL_MONO_INFO(16);
+    case 32: SPECTRAL_MONO_INFO(32);
+    case 64: SPECTRAL_MONO_INFO(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_MONO_INFO
 }

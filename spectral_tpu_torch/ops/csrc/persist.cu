@@ -9,15 +9,48 @@
 //                   free-running with a host stop mask (adaptive sampling).
 //
 // What bounds it on the H100: the FP32 ALU work of the bounce step, like
-// the others (mono.cu); its extra traffic is the state round trip,
-// (13 + 2S) * 4 B per lane per launch (about 80 MB at 512^2, S = 32),
-// noise beside the ~64 frames of bounce work a launch carries. Its
-// design: the state is loaded once into registers (the [S, n] planes are
-// lane-minor, so the loads coalesce) and stored once; a lane that is dead
-// and cannot restart leaves its loop, the exact per-thread form of the
-// TPU kernel's tile skip; a ring restart reads its direction plane by
-// slot, and a free-running one recomputes raygen from the basis table in
-// shared memory.
+// the others (mono.cu), at the occupancy its registers allow. Every lane
+// of a launch runs the same `budget` iterations, so the launch runs in
+// whole waves of blocks: the blocks the card holds at once set how many
+// waves a launch takes and how much of the last one idles. Its extra
+// traffic is the state round trip, (13 + 2S) * 4 B per lane per launch
+// (about 80 MB at 512^2, S = 32), noise beside the ~64 frames of bounce
+// work a launch carries.
+//
+// Design, measured first (PERF.md section 6). The scalar state is
+// loaded once into registers and stored once; the spectral state thr[S],
+// rad[S] lives in the block's shared memory, lane-minor ([2S][BLOCK]
+// after the tables: a warp reads 32 consecutive words of one bin, no bank
+// conflicts), loaded from and stored to the lane-minor [S, n] planes,
+// coalesced. In registers, as in the earlier design, those 2S floats gave
+// persist_kernel<32> 158-167 registers and 3 blocks of 128 per SM, and a
+// cornell512 launch ran 5.17 waves as 6; in shared memory it takes 64-94
+// registers, shared memory sets the blocks per SM (6 at cornell512, 4 at
+// mesh) and the launch ran 28% faster; the bounce step touches each bin a
+// few times a bounce against about a thousand operations of trace and
+// shadow. A lane that is dead and cannot restart leaves its loop, the
+// exact per-thread form of the TPU kernel's tile skip; a ring restart
+// reads its direction plane by slot, and a free-running one recomputes
+// raygen from the basis table in shared memory. The restart rule is the
+// earlier design's iteration for iteration, so the state after a launch
+// is the plain version's bit for bit.
+//
+// The register builds (-DSPECTRAL_PERSIST_REGISTERS: runtime/build.py
+// persist_reg, persist_fx_reg, persist_tri_reg,
+// persist_fx_tri_reg) keep the spectral state in registers, as the
+// earlier design did; they are that design, every instantiation, and the
+// earlier design's measurements run on them. The host loads them
+// (megakernel.persist_library) where the shared state loses:
+// - a many-object walk that streams its packed records from global
+//   memory (mesh5k's 300 KB): the shared state gains no block per SM
+//   there (3 either way at S = 32) and shrinks the L1 that caches the
+//   records (the two share an SM's 256 KB), and that launch ran 16%
+//   slower than in registers;
+// - tables that leave no room for the state under a block's shared
+//   memory (a small scene with some hundreds of lights);
+// - tables that leave the shared state fewer blocks per SM than the
+//   register build holds (the occupancy API's count for each).
+// -DSPECTRAL_STATS adds the per-thread counters of tools/lane_stats.py.
 
 #include "bounce.cuh"
 
@@ -32,6 +65,16 @@ struct PersistArgs {
   const float *stop, *cam, *ringx, *ringy, *ringz;
   float *thr, *rad;
 };
+
+// Bytes of the spectral state after the tables: [2S][BLOCK] floats, or
+// none in the register builds.
+constexpr size_t persist_state_bytes(int S) {
+#ifdef SPECTRAL_PERSIST_REGISTERS
+  return 0;
+#else
+  return sizeof(float) * 2 * (size_t)S * BLOCK;
+#endif
+}
 
 // Exactly `budget` bounce iterations over the carried lane state, updated
 // in place. A lane whose path ends (or that idles) starts its pixel's
@@ -49,10 +92,20 @@ persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
   constexpr int cam_len = RING ? 3 : CAM_BASIS;
   if (threadIdx.x < cam_len) s_cam[threadIdx.x] = a.cam[threadIdx.x];
   const Tables tb = load_tables<MANY>(smem, ta, S);  // its __syncthreads also publishes s_cam
+#ifdef SPECTRAL_STATS
+  stats_begin();
+  unsigned stat_iters = 0, stat_restarts = 0;
+#endif
   const int gidx = blockIdx.x * BLOCK + threadIdx.x;
   if (gidx >= n) return;
 
+#ifdef SPECTRAL_PERSIST_REGISTERS
   Lane<S> L;
+#else
+  Lane<S, true> L;  // the bins after the NEE scales, the last of the tables
+  L.thr.p = tb.scale + tb.n_lights * BLOCK + threadIdx.x;
+  L.rad.p = L.thr.p + S * BLOCK;
+#endif
   L.ox = a.ox[gidx];
   L.oy = a.oy[gidx];
   L.oz = a.oz[gidx];
@@ -73,9 +126,15 @@ persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
   const bool stopped = STOP && a.stop[gidx] > 0.0f;
 
   for (int it = 0; it < budget; ++it) {
+#ifdef SPECTRAL_STATS
+    stat_iters += L.alive ? 1u : 0u;
+#endif
     if (L.alive && bounce_step<S, MANY, TRI>(tb, L, ux, uy)) continue;
     const uint32_t nf = L.fid + 1u;
     if (!(nf < end) || (RING && !(nf < lead)) || stopped) break;
+#ifdef SPECTRAL_STATS
+    ++stat_restarts;
+#endif
     float rdx, rdy, rdz;
     if constexpr (RING) {
       const size_t at = (size_t)(nf & (uint32_t)(ring_w - 1)) * n + gidx;
@@ -89,6 +148,9 @@ persist_kernel(int n, TableArgs ta, int max_bounces, int budget,
                rdy, rdz, nf, max_bounces);
   }
 
+#ifdef SPECTRAL_STATS
+  stats_end(stat_iters, stat_restarts);
+#endif
   a.ox[gidx] = L.ox;
   a.oy[gidx] = L.oy;
   a.oz[gidx] = L.oz;
@@ -113,8 +175,8 @@ cudaError_t launch_persist(int n, const TableArgs& ta, int max_bounces,
                            int ring_w, const PersistArgs& a,
                            cudaStream_t stream) {
   size_t smem;
-  cudaError_t err =
-      prepare(persist_kernel<S, RING, STOP, MANY, TRI>, ta, S, smem);
+  cudaError_t err = prepare(persist_kernel<S, RING, STOP, MANY, TRI>, ta, S,
+                            smem, persist_state_bytes(S));
   if (err != cudaSuccess) return err;
   const int blocks = (n + BLOCK - 1) / BLOCK;
   persist_kernel<S, RING, STOP, MANY, TRI><<<blocks, BLOCK, smem, stream>>>(
@@ -188,4 +250,41 @@ extern "C" int spectral_persist(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_PERSIST
+}
+
+// The registers, local bytes and resident blocks per SM of the persist
+// instantiation that tables of this kind take, in the free-running
+// (variant 0), ring (1) or lane-stop (2) form, at `smem` bytes of tables
+// plus the spectral state (spectral_kernel_info's out): the host's
+// choice of build (megakernel.persist_library) and the measurement tools.
+extern "C" int spectral_persist_info(int n_samples, int many, int tri,
+                                     int variant, int smem, int* out) {
+  spectral::TableArgs ta{};
+  ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
+  ta.n_runs = 1;
+  ta.tri = tri;
+  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+#define SPECTRAL_PERSIST_INFO(S)                                               \
+  return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
+    constexpr bool M = decltype(m)::value, T = decltype(t)::value;            \
+    const int bytes = smem + (int)spectral::persist_state_bytes(S);           \
+    if (variant == 1) {                                                       \
+      return spectral_kernel_info(                                            \
+          spectral::persist_kernel<S, true, false, M, T>, bytes, out);        \
+    }                                                                         \
+    if (variant == 2) {                                                       \
+      return spectral_kernel_info(                                            \
+          spectral::persist_kernel<S, false, true, M, T>, bytes, out);        \
+    }                                                                         \
+    return spectral_kernel_info(spectral::persist_kernel<S, false, false, M, T>, \
+                                bytes, out);                                  \
+  })
+  switch (n_samples) {
+    case 8: SPECTRAL_PERSIST_INFO(8);
+    case 16: SPECTRAL_PERSIST_INFO(16);
+    case 32: SPECTRAL_PERSIST_INFO(32);
+    case 64: SPECTRAL_PERSIST_INFO(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_PERSIST_INFO
 }

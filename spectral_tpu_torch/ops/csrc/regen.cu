@@ -45,8 +45,6 @@
 // main path's), the grid is the earlier design's instead: one lane per
 // pixel, ceil(n / BLOCK) blocks, so that the two can be timed in one run.
 
-#include <cooperative_groups.h>
-
 #include "bounce.cuh"
 
 namespace spectral {
@@ -100,18 +98,6 @@ __device__ __forceinline__ void start_frame(Lane<S>& L, const float* cb,
   }
 #endif
   start_path(L, ox, oy, oz, dx, dy, dz, first_frame + (uint32_t)j, max_bounces);
-}
-
-// The next lane index for every calling thread: one atomicAdd per group of
-// threads that ask together, each taking its rank's index.
-__device__ __forceinline__ int next_lane(unsigned* counter, int first) {
-  namespace cg = cooperative_groups;
-  const cg::coalesced_group g = cg::coalesced_threads();
-  const unsigned rank = (unsigned)g.thread_rank();
-  unsigned base = 0;
-  if (rank == 0) base = atomicAdd(counter, (unsigned)g.size());
-  base = g.shfl(base, 0);
-  return first + (int)(base + rank);
 }
 
 template <int S, bool MANY, bool TRI>
@@ -181,21 +167,7 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
 #ifndef SPECTRAL_PARENT_DESIGN
-  // the resident grid: every block the card holds at once, no more than
-  // the lanes need; the counter hands out lanes from gridDim.x * BLOCK on
-  int device, sms, per_sm;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess) {
-    return err;
-  }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem)) !=
-      cudaSuccess) {
-    return err;
-  }
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  blocks = blocks < per_sm * sms ? blocks : per_sm * sms;
-  if ((err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream)) != cudaSuccess) return err;
+  if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
 #endif
   kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, first_frame, k,
                                           px, py, cam, off, lens, out,

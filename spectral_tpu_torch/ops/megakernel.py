@@ -16,8 +16,10 @@ The counterpart of the reference package's
 * ``run_mono_plain`` / ``run_regen_plain`` / ``run_persist_plain`` /
   ``run_cost_plain`` / ``run_seg_plain`` take the same arguments and run
   the eager PyTorch bounce loop (``render.integrator``);
-* ``run_regen_variant`` / ``run_seg_variant`` launch a diagnostic build
-  of a kernel (``runtime.build.VARIANTS``) for the measurement tools.
+* ``run_mono_variant`` / ``run_cost_variant`` / ``run_regen_variant`` /
+  ``run_persist_variant`` / ``run_seg_variant`` launch a diagnostic build
+  of a kernel (``runtime.build.VARIANTS``: the earlier design's grid, the
+  counters of ``tools/lane_stats.py``) for the measurement tools.
 
 The wrappers take the plain path only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; there is no fallback. Each
@@ -26,7 +28,9 @@ launch takes the library of its kernel's source that its tables need
 sky, checker texture, emission, dielectric) the feature build, a lens
 scene's regeneration the lens build, triangles at S = 16 or 64 the wide
 triangle build, tables ``with_shadow_interval`` the shadow-interval
-build, any other the default; a launch of another kind is refused.
+build, any other the default; a persist launch takes the register build
+of its library where the spectral state in shared memory loses
+(``persist_library``). A launch of another kind is refused.
 """
 
 from __future__ import annotations
@@ -386,8 +390,8 @@ def _table_args(tables: KernelTables) -> tuple:
 
 
 _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
-    "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 10)),
-    "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
+    "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
+    "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 12)),
     "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 8)),
     "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
                                      + [ctypes.c_int], 21)),
@@ -406,26 +410,78 @@ def library_for(src: str, tables: KernelTables, lens: bool = False) -> str:
     ``with_shadow_interval``; else, with the scene-feature branches for a
     scene with features (``_fx``), the lens build of ``regen`` for a lens
     table (``_lens``), the wide triangle build for triangles at S = 16 or
-    64 (``_tri``), or the default."""
+    64 (``_tri``), or the default; ``persist`` in its register build
+    (``_reg``: the spectral state in registers) for many-object tables
+    whose packed records stay in global memory, and for tables that leave
+    the state no room in a block's shared memory. ``persist_library``
+    may take the register build for other tables too."""
     if tables.shadow_interval:
         return f"{src}_si"
     name = f"{src}_fx" if tables.features else src
     if lens:
         return f"{name}_lens"
     if tables.triangles and tables.config.n_samples not in DEFAULT_TRIANGLE_SAMPLES:
-        return f"{name}_tri"
+        name = f"{name}_tri"
+    if src == "persist" and (
+            (tables.many_objects() and not tables.packed_shared)
+            or tables.smem_bytes() + persist_state_bytes(tables.config.n_samples) > MAX_SMEM):
+        name = f"{name}_reg"
     return name
+
+
+def persist_state_bytes(n_samples: int) -> int:
+    """Shared memory the spectral state takes after the tables in the
+    default persist builds (``csrc/persist.cu``): ``[2S][BLOCK]`` floats."""
+    return 4 * 2 * n_samples * BLOCK
+
+
+def persist_library(tables: KernelTables) -> str:
+    """The library a ``cuda_persist`` launch on the card takes:
+    ``library_for``'s, or its register build (``_reg``) where the tables
+    leave the spectral state in shared memory no more blocks per SM than
+    the register build holds (the occupancy API's count for each, in
+    the free-running form). Tables that cost the shared state no block
+    keep the default build without loading the other."""
+    name = library_for("persist", tables)
+    if name.endswith("_reg"):
+        return name
+    shared = _persist_blocks(name, tables, tables.smem_bytes())
+    if shared >= _persist_blocks(name, tables, 0):
+        return name
+    reg = f"{name}_reg"
+    return reg if _persist_blocks(reg, tables, tables.smem_bytes()) >= shared else name
+
+
+def _persist_blocks(library: str, tables: KernelTables, smem: int) -> int:
+    """Resident blocks per SM of the free-running persist instantiation
+    ``tables`` take in ``library`` at ``smem`` bytes of tables (plus the
+    library's spectral state)."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_persist_info(library)(tables.config.n_samples, int(tables.many_objects()),
+                                     int(tables.triangles), 0, smem, out),
+              f"spectral_persist_info of {library}")
+    return out[0]
+
+
+@functools.cache
+def _persist_info(library: str):
+    build.build_all(build.kind_of(library) + (library,))
+    f = build.load(library).spectral_persist_info
+    f.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
 
 
 def _entry(fn: str, tables: KernelTables, library: str | None = None, lens: bool = False):
     """Entry point ``fn`` for ``tables`` (``lens``: with a lens table):
-    of the library ``library_for`` picks, or of the diagnostic
+    of the library ``library_for`` picks (``persist_library`` for
+    ``cuda_persist``), or of the diagnostic
     ``library`` built from that source (``build.VARIANTS``). Raises when
     ``library`` and the tables disagree on features, on the shadow test
     or on the lens."""
     src = _SIGNATURES[fn][0]
     if library is None:
-        library = library_for(src, tables, lens)
+        library = persist_library(tables) if src == "persist" else library_for(src, tables, lens)
     if lens and not build.has_lens(library):
         raise ValueError(f"library {library} has no lens: a lens scene runs on "
                          f"the lens builds only")
@@ -476,19 +532,40 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     ``cuda_mono`` for CUDA tensors, runs the plain version for CPU ones."""
     if not _on_cuda(ox):
         return run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
+    out = _launch_mono(_entry("spectral_mono", tables), ox, oy, oz, dx, dy, dz, px, py,
+                       frame_id, tables)[0]
+    run_mono.launches += 1
+    return out
+
+
+def run_mono_variant(library: str, ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+                     tables: KernelTables) -> torch.Tensor:
+    """``run_mono`` through a diagnostic build of ``mono.cu``
+    (``build.VARIANTS``: the earlier design's grid, the stats build), for
+    the measurement tools. CUDA tensors only; not counted."""
+    return _launch_mono(_entry("spectral_mono", tables, library), ox, oy, oz, dx, dy, dz,
+                        px, py, frame_id, tables)[0]
+
+
+def _launch_mono(fn, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables, cost=False):
+    """One ``mono.cu`` launch: the radiance, and with ``cost`` the cost
+    plane (else None)."""
     n = ox.shape[0]
     _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz),
                  dict(px=px, py=py), tables, n)
     cfg = tables.config
     out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    err = _entry("spectral_mono", tables)(
+    planes = [out]
+    if cost:
+        planes.append(torch.empty((n,), dtype=torch.float32, device=ox.device))
+    counter = torch.empty((1,), dtype=torch.int32, device=ox.device)  # zeroed by the launch
+    err = fn(
         n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
         *_table_args(tables),
-        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out)), _stream(ox),
+        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, *planes, counter)), _stream(ox),
     )
-    _raise_on(err, "cuda_mono")
-    run_mono.launches += 1
-    return out
+    _raise_on(err, "cuda_cost" if cost else "cuda_mono")
+    return out, (planes[1] if cost else None)
 
 
 run_mono.launches = 0
@@ -553,20 +630,19 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     The radiance is ``run_mono``'s bit for bit."""
     if not _on_cuda(ox):
         return run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
-    n = ox.shape[0]
-    _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz),
-                 dict(px=px, py=py), tables, n)
-    cfg = tables.config
-    out = torch.empty((cfg.n_samples, n), dtype=torch.float32, device=ox.device)
-    cost = torch.empty((n,), dtype=torch.float32, device=ox.device)
-    err = _entry("spectral_cost", tables)(
-        n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
-        *_table_args(tables),
-        *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, out, cost)), _stream(ox),
-    )
-    _raise_on(err, "cuda_cost")
+    out = _launch_mono(_entry("spectral_cost", tables), ox, oy, oz, dx, dy, dz, px, py,
+                       frame_id, tables, cost=True)
     run_cost.launches += 1
-    return out, cost
+    return out
+
+
+def run_cost_variant(library: str, ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
+                     tables: KernelTables):
+    """``run_cost`` through a diagnostic build of ``mono.cu``
+    (``build.VARIANTS``), for the measurement tools. CUDA tensors only;
+    not counted."""
+    return _launch_mono(_entry("spectral_cost", tables, library), ox, oy, oz, dx, dy, dz,
+                        px, py, frame_id, tables, cost=True)
 
 
 run_cost.launches = 0
@@ -591,6 +667,23 @@ def run_persist(state: PersistState, lead: int, end: int,
         return run_persist_plain(state, lead, end, tables, cam, ring=ring,
                                  stop=stop, budget=budget)
     _refuse_shadow_interval(tables, "cuda_persist")
+    _launch_persist(_entry("spectral_persist", tables), state, lead, end, tables, cam,
+                    ring, stop, budget)
+    run_persist.launches += 1
+
+
+def run_persist_variant(library: str, state: PersistState, lead: int, end: int,
+                        tables: KernelTables, cam: torch.Tensor, ring=None,
+                        stop: torch.Tensor | None = None, budget: int = 1) -> None:
+    """``run_persist`` through a diagnostic build of ``persist.cu``
+    (``build.VARIANTS``: the earlier design's registers, the stats
+    build), for the measurement tools. CUDA tensors only; not counted."""
+    _refuse_shadow_interval(tables, "cuda_persist")
+    _launch_persist(_entry("spectral_persist", tables, library), state, lead, end, tables,
+                    cam, ring, stop, budget)
+
+
+def _launch_persist(fn, state, lead, end, tables, cam, ring, stop, budget):
     n = state.ox.shape[0]
     cfg = tables.config
     planes = {k: v for k, v in state.planes().items() if k not in ("thr", "rad")}
@@ -621,7 +714,7 @@ def run_persist(state: PersistState, lead: int, end: int,
     carried = [getattr(state, k) for k in (
         "ox", "oy", "oz", "dx", "dy", "dz", "alive", "gate", "hero", "bl", "fid",
         "px", "py")]
-    err = _entry("spectral_persist", tables)(
+    err = fn(
         n, cfg.n_samples, cfg.max_bounces, int(budget),
         int(lead) & 0xFFFFFFFF, int(end) & 0xFFFFFFFF, ring_w,
         *_table_args(tables),
@@ -629,7 +722,6 @@ def run_persist(state: PersistState, lead: int, end: int,
         *ring_ptrs, _ptr(state.thr), _ptr(state.rad), _stream(state.ox),
     )
     _raise_on(err, "cuda_persist")
-    run_persist.launches += 1
 
 
 run_persist.launches = 0

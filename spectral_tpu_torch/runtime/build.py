@@ -93,6 +93,12 @@ BOUNCE_SOURCES = ("mono", "regen", "persist", "seg")
 #   (-DSPECTRAL_SHADOW_INTERVAL): the sqrt-free sphere shadow test,
 #   many-object instantiations only, with the lens and triangles at
 #   every S.
+# - the register builds of persist.cu (-DSPECTRAL_PERSIST_REGISTERS): the
+#   spectral state in registers (the earlier design, every
+#   instantiation), for the tables where that holds more blocks per SM or
+#   the walk streams its records from global memory (persist.cu's source
+#   note; megakernel.persist_library), with and without features and
+#   wide triangles.
 # A library of each kind is built together with the others of its kind
 # (the same defines) at the first launch that needs one.
 FEATURE_DEFINES = ("-DSPECTRAL_FX",)
@@ -107,18 +113,26 @@ LENS_LIBRARIES = {"regen_lens": ("regen", LENS_DEFINES),
                   "regen_fx_lens": ("regen", FEATURE_DEFINES + LENS_DEFINES)}
 SHADOW_INTERVAL_LIBRARIES = {f"{src}_si": (src, SHADOW_INTERVAL_DEFINES)
                              for src in ("mono", "regen")}
+REGISTER_DEFINES = ("-DSPECTRAL_PERSIST_REGISTERS",)
+REGISTER_LIBRARIES = {f"persist{fx}{tri}_reg": ("persist", d1 + d2 + REGISTER_DEFINES)
+                    for fx, d1 in (("", ()), ("_fx", FEATURE_DEFINES))
+                    for tri, d2 in (("", ()), ("_tri", TRI_WIDE_DEFINES))}
 # diagnostic libraries, never loaded by the render paths: a source built
 # with extra defines (its source note says what each changes). The
 # measurement tools and chip_smoke.py build them beside the main ones.
 VARIANTS = {
-    "regen_parent": ("regen", ("-DSPECTRAL_PARENT_DESIGN",)),
-    "regen_stats": ("regen", ("-DSPECTRAL_STATS",)),
-    "regen_parent_stats": ("regen", ("-DSPECTRAL_PARENT_DESIGN", "-DSPECTRAL_STATS")),
-    "seg_stats": ("seg", ("-DSPECTRAL_STATS",)),
+    **{f"{src}_parent": (src, ("-DSPECTRAL_PARENT_DESIGN",)) for src in ("regen", "mono")},
+    **{f"{src}_stats": (src, ("-DSPECTRAL_STATS",)) for src in ("regen", "persist", "mono", "seg")},
+    **{f"{src}_parent_stats": (src, ("-DSPECTRAL_PARENT_DESIGN", "-DSPECTRAL_STATS"))
+       for src in ("regen", "mono")},
+    "persist_reg_stats": ("persist", REGISTER_DEFINES + ("-DSPECTRAL_STATS",)),
 }
+# the earlier designs that chip_smoke.py times in turns beside the main
+# ones (persist's are its register builds, render libraries)
+PARENT_LIBRARIES = ("regen_parent", "mono_parent")
 LIBRARIES = {**{src: (src, ()) for src in SOURCES}, **FEATURE_LIBRARIES,
              **TRIANGLE_LIBRARIES, **LENS_LIBRARIES, **SHADOW_INTERVAL_LIBRARIES,
-             **VARIANTS}
+             **REGISTER_LIBRARIES, **VARIANTS}
 # every library a render path can load (chip_smoke.py builds them up front)
 RENDER_LIBRARIES = tuple(n for n in LIBRARIES if n not in VARIANTS)
 

@@ -13,6 +13,7 @@ unsorted ones on the CPU.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from spectral_tpu.render.pallas_integrator import probe_path_cost as jax_probe
@@ -99,3 +100,19 @@ def test_regen_sort_is_pure_relabeling():
     port, cfg, tb = r1.scene_tensors, r1.config, r1.tables
     rad = ci.regen_radiance(port, cfg, 0, 4, tb, r1._lane_perm)
     assert torch.equal(rad[:, r1._lane_inv], ci.regen_radiance(port, cfg, 0, 4, tb))
+
+
+@pytest.mark.parametrize("bounces", [3, 6])
+def test_plain_cost_per_pixel_results_ignore_the_lane_order(bounces):
+    """``cuda_cost`` shares ``cuda_mono``'s resident grid: its radiance and
+    cost planes under a random pixel-to-lane permutation (numpy, seeded),
+    un-permuted, equal the identity layout's bit for bit."""
+    port, cfg = flatten_scene(_cornell(16, 8, bounces=bounces), "cpu")
+    tb = mk.pack_tables(port, cfg)
+    planes, px, py = ci.primary_lanes(port, cfg, 2)
+    perm = torch.from_numpy(np.random.default_rng(bounces).permutation(px.numel()))
+    inv = torch.argsort(perm)
+    want_rad, want_cost = mk.run_cost_plain(*planes, px, py, 2, tb)
+    rad, cost = mk.run_cost_plain(*(p[perm] for p in planes), px[perm], py[perm], 2, tb)
+    assert torch.equal(rad[:, inv], want_rad) and torch.equal(cost[inv], want_cost)
+    assert len(set(want_cost.tolist())) > 1  # paths of unequal length

@@ -640,3 +640,185 @@ def test_cuda_shadow_interval_matches_plain(cuda, kind, monkeypatch):
     assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
     torch.cuda.synchronize()
     assert set(loaded) == {"mono_si", "regen_si"}
+
+
+# --------------------------- the redesigned persist and mono kernels
+
+
+def _parent_cases(device):
+    """Tables each diagnostic parent build holds (no features, triangles
+    at S = 8 and 32 only): the Cornell box at 384x256 (98,304 lanes, more
+    than the resident grid holds at once, so threads take further lanes
+    from the counter), the clustered 101-object field, the mesh at S = 32
+    and a smooth icosphere at S = 8 (the small-scene triangle build)."""
+    scenes = {"cornell": _scene("cornell", 384, 256, 3, samples=8, iters=4),
+              "field": _field(32, 16, 3, samples=16, iters=4),
+              "mesh": _mesh("mesh", 64, 64, 3, samples=32),
+              "smooth0": _mesh("smooth0", 32, 16, 3, samples=8)}
+    return {k: mk.pack_tables(*flatten_scene(sc, device)) for k, sc in scenes.items()}
+
+
+@pytest.mark.parametrize("kind", ["cornell", "field", "mesh", "smooth0"])
+def test_cuda_mono_resident_grid_matches_parent_and_plain(cuda, kind):
+    """``cuda_mono`` and ``cuda_cost`` on the resident grid: bit for bit
+    the earlier grid's (``mono_parent``, one lane per pixel) and the plain
+    version's, the cost radiance the mono radiance."""
+    tb = _parent_cases(cuda)[kind]
+    planes, px, py = ci.primary_lanes(tb.scene, tb.config, 1)
+    args = (*planes, px, py, 1, tb)
+    mono = mk.run_mono(*args)
+    rad, cost = mk.run_cost(*args)
+    assert torch.equal(mono, mk.run_mono_variant("mono_parent", *args))
+    prad, pcost = mk.run_cost_variant("mono_parent", *args)
+    assert torch.equal(rad, mono) and torch.equal(rad, prad) and torch.equal(cost, pcost)
+    want, want_cost = mk.run_cost_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(mono, want) and torch.equal(cost, want_cost)
+
+
+@pytest.mark.parametrize("variant", ["free-running", "ring", "lane-stop"])
+@pytest.mark.parametrize("kind", ["cornell", "field", "mesh", "smooth0"])
+def test_cuda_persist_shared_state_matches_parent_and_plain(cuda, kind, variant):
+    """``cuda_persist`` with its spectral state in shared memory, two
+    launches in each variant: the state bit for bit the earlier design's
+    (the register build ``persist_reg``), the main path's (whichever of
+    the two ``persist_library`` takes) and, where every restart is host
+    raygen's (the ring) or the paths are the plain version's too, the
+    plain version's."""
+    tb = _parent_cases(cuda)[kind]
+    port, cfg = tb.scene, tb.config
+    n = cfg.width * cfg.height
+    ring = stop = None
+    lead, cam = cfg.intended_frames, camera_basis_table(port, cfg)
+    if variant == "ring":
+        ring = tuple(torch.zeros((4, n), device=cuda) for _ in range(3))
+        lead, cam = 4, tb.cam
+        for f in range(1, lead):
+            ci.ring_refill(ring, f, port, cfg)
+    if variant == "lane-stop":
+        stop = torch.from_numpy((np.random.default_rng(5).random(n) < 0.3)
+                                .astype(np.float32)).to(cuda)
+    got, parent, main, plain = (ci.persist_init(port, cfg) for _ in range(4))
+    assert mk.library_for("persist", tb) == "persist"
+    for _ in range(2):
+        kw = dict(ring=ring, stop=stop, budget=7)
+        mk.run_persist_variant("persist", got, lead, cfg.intended_frames, tb, cam, **kw)
+        mk.run_persist_variant("persist_reg", parent, lead, cfg.intended_frames, tb, cam, **kw)
+        mk.run_persist(main, lead, cfg.intended_frames, tb, cam, **kw)
+        mk.run_persist_plain(plain, lead, cfg.intended_frames, tb, cam, **kw)
+    torch.cuda.synchronize()
+    assert int(got.fid.max()) >= 1 and _equal(got, parent) and _equal(got, main)
+    if variant == "ring":
+        assert _equal(got, plain)
+    else:  # free-running restarts recompute raygen: the coin-flip envelope
+        err = (got.rad - plain.rad).abs().amax(0) / max(1.0, float(plain.rad.abs().max()))
+        assert float((err > 1e-5).float().mean()) <= 0.15
+
+
+def test_cuda_persist_abort_drain_matches_parent(cuda):
+    """The abort drain (``end = 0``: no lane restarts) after a launch,
+    on the Cornell box: the new design's state the earlier design's."""
+    tb = _parent_cases(cuda)["cornell"]
+    port, cfg = tb.scene, tb.config
+    cam = camera_basis_table(port, cfg)
+    got, parent = ci.persist_init(port, cfg), ci.persist_init(port, cfg)
+    for end in (cfg.intended_frames, 0, 0):
+        mk.run_persist(got, end, end, tb, cam, budget=2)
+        mk.run_persist_variant("persist_reg", parent, end, end, tb, cam, budget=2)
+    torch.cuda.synchronize()
+    assert _equal(got, parent)
+
+
+@pytest.mark.parametrize("kind", ["prism", "mesh64"])
+def test_cuda_redesigned_kernels_in_feature_and_wide_triangle_builds(cuda, kind):
+    """The feature builds (the prism at S = 64) and the wide triangle
+    builds (the mesh at S = 64), which have no parent library: mono, cost
+    and persist against their plain versions (``kernel_checks``)."""
+    if kind == "prism":
+        tb = mk.pack_tables(*flatten_scene(torch_scenes.preset(presets, "prism", 64, 48, 8, 3,
+                                                               64), cuda))
+    else:
+        tb = mk.pack_tables(*flatten_scene(_mesh("mesh", 32, 32, 3, samples=64), cuda))
+    checks, _ = torch_scenes.kernel_checks(tb)
+    assert all(checks[k] for k in ("mono", "cost", "persist")), checks
+
+
+def test_cuda_persist_info_and_mono_info(cuda):
+    """The measurement entries: the new persist kernel holds 4 blocks of
+    128 per SM at S = 32 where the earlier design holds fewer, and the
+    entries refuse an S without a kernel."""
+    import ctypes
+
+    from spectral_tpu_torch.runtime import build
+
+    def info(lib, fn, *head):
+        out = (ctypes.c_int * 3)()
+        err = getattr(build.load(lib), fn)(*head, 4096, out)
+        return err, tuple(out)
+
+    err, new = info("persist", "spectral_persist_info", 32, 0, 0, 0)
+    assert err == 0 and new[0] >= 4 and new[1] <= 128
+    err, parent = info("persist_reg", "spectral_persist_info", 32, 0, 0, 0)
+    assert err == 0 and parent[0] < new[0]
+    assert info("persist", "spectral_persist_info", 12, 0, 0, 0)[0] != 0
+    err, mono = info("mono", "spectral_mono_info", 32, 0, 0, 1)
+    assert err == 0 and mono[0] >= 1
+
+
+def test_cuda_persist_register_build_matches_shared_and_plain(cuda):
+    """mesh5k's packed records stay in global memory, so ``cuda_persist``
+    runs its register build (the spectral state in registers): its state
+    after two launches is the shared-state build's and the plain
+    version's bit for bit."""
+    tb = mk.pack_tables(*flatten_scene(torch_scenes.preset(presets, "mesh5k", 32, 16, 3, 4, 32),
+                                       cuda))
+    assert not tb.packed_shared and mk.library_for("persist", tb) == "persist_reg"
+    port, cfg = tb.scene, tb.config
+    cam = camera_basis_table(port, cfg)
+    stop = (torch.arange(32 * 16, device=cuda) % 3 == 0).float()
+    got, parent, plain = (ci.persist_init(port, cfg) for _ in range(3))
+    for _ in range(2):
+        mk.run_persist(got, 4, 4, tb, cam, stop=stop, budget=7)
+        mk.run_persist_variant("persist", parent, 4, 4, tb, cam, stop=stop, budget=7)
+        mk.run_persist_plain(plain, 4, 4, tb, cam, stop=stop, budget=7)
+    torch.cuda.synchronize()
+    assert int(got.fid.max()) >= 1 and _equal(got, parent) and _equal(got, plain)
+
+
+@pytest.mark.parametrize("name", ["cornell", "prism"])
+def test_cuda_persist_register_build_where_the_state_leaves_no_room(cuda, name):
+    """240 lights at S = 64: the tables fit a block's shared memory and
+    the spectral state after them does not, so ``cuda_persist`` runs the
+    register build's small-scene kernel; the state after two ring
+    launches is the plain version's bit for bit."""
+    sc = torch_scenes.many_lights(schema, presets, name, 240, 16, 8, 3, 64, 4)
+    tb = mk.pack_tables(*flatten_scene(sc, cuda))
+    fx = "_fx" if name == "prism" else ""
+    assert mk.persist_library(tb) == f"persist{fx}_reg"
+    port, cfg = tb.scene, tb.config
+    n = cfg.width * cfg.height
+    ring = tuple(torch.zeros((4, n), device=cuda) for _ in range(3))
+    for f in range(1, 4):
+        ci.ring_refill(ring, f, port, cfg)
+    got, plain = ci.persist_init(port, cfg), ci.persist_init(port, cfg)
+    for _ in range(2):
+        mk.run_persist(got, 4, 4, tb, tb.cam, ring=ring, budget=5)
+        mk.run_persist_plain(plain, 4, 4, tb, tb.cam, ring=ring, budget=5)
+    torch.cuda.synchronize()
+    assert int(got.fid.max()) >= 1 and _equal(got, plain)
+
+
+def test_cuda_persist_library_follows_blocks_per_sm(cuda):
+    """``persist_library`` keeps the shared state where the tables cost
+    it no block per SM (the Cornell box), and else takes whichever build
+    holds more blocks per SM, the register build on a tie."""
+    cornell = mk.pack_tables(*flatten_scene(_scene("cornell", 16, 8, 3, samples=32), cuda))
+    assert mk.persist_library(cornell) == "persist"
+    for n, samples in ((1000, 32), (1000, 64), (2400, 32), (2400, 64)):
+        sc = presets.sphere_field(n, n_samples=samples)
+        sc.width, sc.height = 16, 8
+        tb = mk.pack_tables(*flatten_scene(sc, cuda))
+        shared = mk._persist_blocks("persist", tb, tb.smem_bytes())
+        reg = mk._persist_blocks("persist_reg", tb, tb.smem_bytes())
+        assert mk.persist_library(tb) == ("persist" if shared > reg else "persist_reg"), (
+            n, samples, shared, reg)

@@ -1,0 +1,81 @@
+"""The summaries of ``tools/lane_stats.py`` on synthetic counter buffers
+(the per-thread record its stats builds write on the card): the lane
+loop's SIMT efficiency, the waves, the blocks seen at once on one SM,
+the slot time held and the tail, each against its value worked out by
+hand."""
+
+import numpy as np
+import pytest
+import torch
+
+from spectral_tpu_torch.tools import lane_stats
+
+
+def _buffers(iters, t0, t1, smid, pixels=None):
+    n = len(iters)
+    return dict(iters=torch.tensor(iters, dtype=torch.int32),
+                pixels=torch.tensor(pixels if pixels is not None else [1] * n,
+                                    dtype=torch.int32),
+                t0=torch.tensor(t0, dtype=torch.int64), t1=torch.tensor(t1, dtype=torch.int64),
+                smid=torch.tensor(smid, dtype=torch.int32),
+                walk=torch.zeros(10 * n, dtype=torch.int32))
+
+
+def test_summaries_of_four_blocks_on_two_sms():
+    """Four blocks of 128 threads, two slots: blocks 0 and 1 on SM 0 at
+    once ([0, 100) and [0, 50) ns), block 2 on SM 1 ([0, 100)), block 3
+    on SM 0 after block 1 ([50, 200)). Every thread runs 10 iterations
+    but one thread per warp, which runs 20; block 3's threads run none."""
+    iters = np.full(512, 10)
+    iters[::32] = 20
+    iters[384:] = 0
+    span = {0: (0, 100), 1: (0, 50), 2: (0, 100), 3: (50, 200)}
+    t0 = np.repeat([span[b][0] for b in range(4)], 128)
+    t1 = np.repeat([span[b][1] for b in range(4)], 128)
+    got = lane_stats.summarize(_buffers(iters, t0, t1, [0, 0, 1, 0]), 512, slots=2,
+                               n_culled=0)
+    loop, blocks = got["lane_loop"], got["blocks"]
+    live = 12 * 31 * 10 + 12 * 20  # 12 warps with work, each 31 x 10 + 20
+    assert loop["live_iterations"] == live
+    assert loop["simt_efficiency_warp"] == pytest.approx(live / (32 * 20 * 12))
+    assert loop["simt_efficiency_block"] == pytest.approx(live / (128 * 20 * 3))
+    assert loop["threads_live"] == 384
+    assert blocks["grid_blocks"] == 4 and blocks["waves"] == 2.0
+    assert blocks["blocks_per_sm_seen"] == 2  # SM 0: blocks 0 and 1 at once
+    assert blocks["sms_seen"] == 2
+    assert blocks["makespan_ms"] == pytest.approx(200 / 1e6)
+    # held: 100 + 50 + 100 + 150 ns of 2 slots x 200 ns
+    assert blocks["slot_time_held"] == pytest.approx(400 / 400)
+    assert blocks["block_ms_min"] == pytest.approx(50 / 1e6)
+    assert blocks["block_ms_max"] == pytest.approx(150 / 1e6)
+    # running blocks fall below 90% of 2 slots (to 1) at t = 100
+    assert blocks["tail_share"] == pytest.approx(0.5, abs=1e-3)
+    assert "walk_nearest" not in got
+
+
+def test_a_resident_grid_of_fewer_threads_than_lanes():
+    """A resident grid launches fewer threads than the buffers hold (the
+    lanes): the threads that never wrote are not counted, and a thread
+    that took three lanes reports them."""
+    n, ran = 1024, 256
+    iters = np.zeros(n, np.int64)
+    iters[:ran] = 30
+    t0 = np.zeros(n, np.int64)
+    t1 = np.zeros(n, np.int64)
+    t1[:ran] = 1000
+    pixels = np.zeros(n, np.int64)
+    pixels[:ran] = 3
+    smid = np.arange(n // 128)
+    got = lane_stats.summarize(_buffers(iters, t0, t1, smid, pixels), n, slots=2, n_culled=0)
+    assert got["blocks"]["grid_blocks"] == 2 and got["blocks"]["waves"] == 1.0
+    assert got["lane_loop"]["simt_efficiency_warp"] == 1.0
+    assert got["lane_loop"]["pixels_per_thread_max"] == 3
+    assert got["blocks"]["blocks_per_sm_seen"] == 1 and got["blocks"]["slot_time_held"] == 1.0
+
+
+def test_blocks_back_to_back_on_one_sm_are_not_at_once():
+    sm = np.array([5, 5, 5])
+    start = np.array([0, 10, 20])
+    end = np.array([10, 20, 30])
+    assert lane_stats._most_at_once(sm, start, end) == 1
+    assert lane_stats._most_at_once(sm, np.array([0, 5, 9]), end) == 3

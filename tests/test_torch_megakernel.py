@@ -15,6 +15,8 @@ The CUDA kernels themselves are held to these plain versions on the card
 by tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,8 +29,9 @@ from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
+from spectral_tpu_torch.runtime import build
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
-from spectral_tpu_torch.scene import presets
+from spectral_tpu_torch.scene import presets, schema
 from tests import torch_scenes
 from tests.test_pallas_megakernel import _periscope_scene, _regen_scene
 
@@ -187,3 +190,70 @@ def test_regen_wants_two_frames_and_known_devices():
     meta = [p.to("meta") for p in planes]
     with pytest.raises(ValueError, match="no bounce kernel"):
         mk.run_mono(*meta, px, py, 0, tb)
+
+
+def _lane_permutation(n, seed):
+    """A random lane order (numpy, seeded) and its inverse: lane j of the
+    permuted layout carries the identity layout's lane perm[j]."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n))
+    assert not torch.equal(perm, torch.arange(n))
+    return perm, torch.argsort(perm)
+
+
+@pytest.mark.parametrize("name,bounces", [("cornell", 3), ("default", 4)])
+def test_plain_mono_per_pixel_results_ignore_the_lane_order(name, bounces):
+    """What ``cuda_mono``'s resident grid relies on: a pixel's path is the
+    same bits whatever lane carries it, so lanes may take their pixels in
+    any order. The plain version under a random pixel-to-lane permutation,
+    un-permuted, equals the identity layout's."""
+    planes, px, py, tb = _lanes(_scene(name, 16, 8, bounces=bounces), frame=1)
+    perm, inv = _lane_permutation(px.numel(), seed=8)
+    want = mk.run_mono_plain(*planes, px, py, 1, tb)
+    got = mk.run_mono_plain(*(p[perm] for p in planes), px[perm], py[perm], 1, tb)
+    assert torch.equal(got[:, inv], want)
+
+
+def test_persist_streams_in_its_register_build_where_records_stay_in_global_memory():
+    """``cuda_persist`` keeps its spectral state in shared memory, except
+    on many-object tables whose packed records stay in global memory
+    (mesh5k's): there the register build, with the state in registers,
+    at every S and with features; the other kernels keep their library."""
+    mesh5k = {s: mk.pack_tables(*flatten_scene(torch_scenes.preset(presets, "mesh5k", 8, 8, 1,
+                                                                   1, s), "cpu"))
+              for s in (32, 64)}
+    mesh = mk.pack_tables(*flatten_scene(torch_scenes.preset(presets, "mesh", 8, 8, 1, 1, 32),
+                                         "cpu"))
+    assert not mesh5k[32].packed_shared and mesh.packed_shared and mesh.many_objects()
+    assert mk.library_for("persist", mesh5k[32]) == "persist_reg"
+    assert mk.library_for("persist", mesh5k[64]) == "persist_tri_reg"
+    glass = dataclasses.replace(mesh5k[64], features=1)  # the dielectric's feature bit
+    assert mk.library_for("persist", glass) == "persist_fx_tri_reg"
+    assert mk.library_for("mono", mesh5k[32]) == "mono"
+    assert mk.library_for("persist", mesh) == "persist"
+    small = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1), "cpu"))
+    assert mk.library_for("persist", dataclasses.replace(small, packed_shared=False)) == "persist"
+    assert build.kind_of("persist_reg") == ("persist_reg",)
+    assert set(build.REGISTER_LIBRARIES) <= set(build.RENDER_LIBRARIES)
+
+
+@pytest.mark.parametrize("name,samples,fits,crowded", [
+    ("cornell", 64, 200, 240), ("prism", 64, 200, 240), ("cornell", 32, 280, 320)])
+def test_persist_takes_its_register_build_where_the_state_leaves_no_room(
+        name, samples, fits, crowded):
+    """Small-scene tables that fit a block's shared memory but leave no
+    room for the spectral state after them (some hundreds of lights) take
+    the register build, with features too; a few lights fewer keep the
+    default build, and the other kernels keep theirs."""
+    def tables(n_lights):
+        sc = torch_scenes.many_lights(schema, presets, name, n_lights, 8, 4, 1, samples)
+        return mk.pack_tables(*flatten_scene(sc, "cpu"))
+
+    room, full = tables(fits), tables(crowded)
+    state = mk.persist_state_bytes(samples)
+    assert state == 2 * samples * mk.BLOCK * 4
+    assert not full.many_objects() and full.smem_bytes() <= mk.MAX_SMEM
+    assert full.smem_bytes() + state > mk.MAX_SMEM >= room.smem_bytes() + state
+    fx = "_fx" if name == "prism" else ""
+    assert mk.library_for("persist", full) == f"persist{fx}_reg"
+    assert mk.library_for("persist", room) == f"persist{fx}"
+    assert mk.library_for("mono", full) == f"mono{fx}"

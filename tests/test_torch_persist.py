@@ -254,3 +254,36 @@ def test_run_persist_on_cpu_runs_the_plain_version_in_place():
     meta.ox = meta.ox.to("meta")
     with pytest.raises(ValueError, match="no bounce kernel"):
         mk.run_persist(meta, 4, 4, tb, cam, budget=1)
+
+
+@pytest.mark.parametrize("variant", ["free-running", "ring", "lane-stop"])
+def test_plain_persist_per_pixel_state_ignores_the_lane_order(variant):
+    """What any regrouping of the persist lanes relies on: the carried
+    state of a pixel after two launches is the same bits whatever lane
+    carries it. The state, ring planes and stop mask under a random
+    pixel-to-lane permutation (numpy, seeded), un-permuted, equal the
+    identity layout's, in every variant."""
+    port, cfg, tb = _port(_cornell(16, 8, bounces=3, iters=6))
+    n = cfg.width * cfg.height
+    perm = torch.from_numpy(np.random.default_rng(7).permutation(n))
+    inv = torch.argsort(perm)
+    ring = stop = None
+    lead, cam = cfg.intended_frames, tcam.camera_basis_table(port, cfg)
+    if variant == "ring":
+        ring = tuple(torch.zeros((4, n)) for _ in range(3))
+        lead, cam = 4, tb.cam
+        for f in range(1, lead):
+            ci.ring_refill(ring, f, port, cfg)
+    if variant == "lane-stop":
+        stop = torch.from_numpy((np.random.default_rng(3).random(n) < 0.3).astype(np.float32))
+    want = ci.persist_init(port, cfg)
+    got = ci.persist_init(port, cfg, lane_perm=perm)
+    for _ in range(2):
+        mk.run_persist_plain(want, lead, cfg.intended_frames, tb, cam, ring=ring, stop=stop,
+                             budget=5)
+        mk.run_persist_plain(got, lead, cfg.intended_frames, tb, cam,
+                             ring=None if ring is None else tuple(r[:, perm] for r in ring),
+                             stop=None if stop is None else stop[perm], budget=5)
+    assert int(want.fid.max()) >= 1  # lanes restarted
+    for name, t in got.planes().items():
+        assert torch.equal(t[..., inv], getattr(want, name)), name

@@ -154,6 +154,17 @@ def glass_meshes(schema, presets, name, w, h, bounces, samples=8, iters=2,
     return scene
 
 
+def many_lights(schema, presets, name, n_lights, w, h, bounces, samples=8, iters=2):
+    """A preset with ``n_lights`` copies of its first light, each a little
+    lower than the one before: tables that fill a block's shared memory."""
+    scene = preset(presets, name, w, h, bounces, iters, samples)
+    first = scene.lights[0]
+    x, y, z = first.position
+    scene.lights = [schema.Light((x, y - 1e-3 * i, z), first.spectrum, f"lamp {i}")
+                    for i in range(n_lights)]
+    return scene
+
+
 def with_lens(scene, aperture=0.05, focus=2.0):
     """``scene`` with a thin-lens camera (depth of field)."""
     scene.camera.aperture_radius, scene.camera.focus_distance = aperture, focus
