@@ -47,8 +47,12 @@ spheres1000, ``cuda_mono`` and ``cuda_cost`` (``mono_parent``: one lane
 per pixel) at cornell512, and one ``cuda_persist`` launch (the
 register build ``persist_reg``: the spectral state in registers, the
 earlier design) at the persist path's budget on cornell512, mesh,
-mesh64 (``persist_tri_reg``), mesh5k and the prism (``persist_fx_reg``).
-Prints one JSON line per
+mesh64 (``persist_tri_reg``), mesh5k and the prism (``persist_fx_reg``),
+and the two probe kernels (``probe_parent``: one ray per thread and the
+root stage on every pair; its tensor-core kernel on ``mma.sync``) at the
+probe's full shape, in turns parent, new, new, parent, each turn held to
+the plain version (the loop kernels ``torch.equal``, the tensor-core
+kernels to ``trace_probe``'s ``MMA_*`` limits). Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine
@@ -1470,41 +1474,77 @@ def main() -> int:
          build_seconds_all=build_s, feature_kernels_s64=s64,
          phase_seconds=round(time.monotonic() - t0, 3), card=card)
 
-    # ------------- 9. the trace probe at full shape, then through its tool
+    # ------------- 9. the trace probe at full shape, in turns with its
+    # earlier design (the probe_parent build), then through its tool
     t0 = time.monotonic()
     p_in = tp.make_inputs(0)
     fori = tuple(torch.from_numpy(a).to(dev) for a in p_in["fori"])
     mma = tuple(torch.from_numpy(a).to(dev) for a in p_in["mma"])
-    fori_ms, (g_t, g_w) = cuda_ms(lambda: tp.cuda_probe_fori(*fori), 30)
     fori_plain_ms, (gp_t, gp_w) = cuda_ms(lambda: tp.probe_fori_plain(*fori), 1, warmup=False)
-    fori_exact = bool(torch.equal(g_t, gp_t) and torch.equal(g_w, gp_w))
-    fori_err = float(torch.where(torch.isfinite(gp_t), (g_t - gp_t).abs(), 0.0).max())
-    assert fori_exact, "cuda_probe_fori differs from its plain version"
-    mma_ms, (h_t, h_w) = cuda_ms(lambda: tp.cuda_probe_mma(*mma), 30)
     mma_plain_ms, (hp_t, hp_w) = cuda_ms(lambda: tp.probe_mma_plain(*mma), 1, warmup=False)
     ex_t, ex_w = tp.probe_exact(*mma)
-    mma_vs_plain = tp.compare(h_t, h_w, hp_t, hp_w)
-    mma_vs_exact = tp.compare(h_t, h_w, ex_t, ex_w,
-                              tp.error_bound(*mma, ex_w, tp.MMA_DOT_GAMMA))
+    mma_bound = tp.error_bound(*mma, ex_w, tp.MMA_DOT_GAMMA)
+
+    def probe_turns(new, parent, check):
+        """A probe kernel and its earlier design in turns: parent, new,
+        new, parent, 30 launches each after one of each; ``check`` holds
+        every output. Returns the new output and the turns."""
+        runs = {"new": new, "parent": parent}
+        turns, out = {"new": [], "parent": []}, None
+        for key in ("parent", "new", "new", "parent"):
+            ms, got = cuda_ms(runs[key], 30)
+            turns[key].append(ms)
+            check(key, got)
+            out = got if key == "new" else out
+        return out, dict(ms=sum(turns["new"]) / 2, parent_design_ms=sum(turns["parent"]) / 2,
+                         turns_ms=turns)
+
+    def fori_check(key, got):
+        assert torch.equal(got[0], gp_t) and torch.equal(got[1], gp_w), (
+            f"cuda_probe_fori ({key} design) differs from its plain version")
+
+    mma_checks = {}
+
+    def mma_check(key, got):
+        vs_plain = tp.compare(*got, hp_t, hp_w)
+        vs_exact = tp.compare(*got, ex_t, ex_w, mma_bound)
+        mma_checks[key] = dict(vs_plain=vs_plain, vs_float64=vs_exact)
+        assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, (key, mma_checks)
+        # the formula cancels (b = 2 (d.o - d.c)): t agrees with the plain
+        # version only to float32's error, so each hit is held to its own
+        # error bound against a float64 evaluation (trace_probe.error_bound)
+        assert vs_exact["max_err_over_bound"] <= 1.0, (key, mma_checks)
+        assert vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, (key, mma_checks)
+
+    (g_t, g_w), fori_turns = probe_turns(
+        lambda: tp.cuda_probe_fori(*fori),
+        lambda: tp.probe_fori_variant("probe_parent", *fori), fori_check)
+    (h_t, h_w), mma_turns = probe_turns(
+        lambda: tp.cuda_probe_mma(*mma),
+        lambda: tp.probe_mma_variant("probe_parent", *mma), mma_check)
+    fori_ms, mma_ms = fori_turns["ms"], mma_turns["ms"]
+    fori_err = float(torch.where(torch.isfinite(gp_t), (g_t - gp_t).abs(), 0.0).max())
     plain_vs_exact = tp.compare(hp_t, hp_w, ex_t, ex_w,
                                 tp.error_bound(*mma, ex_w, tp.PLAIN_DOT_GAMMA))
+    assert plain_vs_exact["max_err_over_bound"] <= 1.0, plain_vs_exact
     crosscheck = tp.compare(h_t, h_w, g_t.reshape(-1, 1), g_w.reshape(-1, 1))
     mma_err = float(torch.where(torch.isfinite(hp_t) & (h_w == hp_w),
                                 (h_t - hp_t).abs(), 0.0).max())
+    # the pairs that need the root stage, for the bounds below
+    root_pairs = dict(fori=tp.fori_root_pairs(*fori), mma=tp.mma_root_pairs(*mma))
     probe_out = dict(rays=fori[1].numel(), objects=tp.N_OBJ, fori_ms=fori_ms,
-                     fori_plain_ms=fori_plain_ms, fori_bit_identical=fori_exact,
-                     mma_ms=mma_ms, mma_plain_ms=mma_plain_ms, mma_vs_plain=mma_vs_plain,
-                     mma_vs_float64=mma_vs_exact, plain_vs_float64=plain_vs_exact,
-                     fori_vs_mma=crosscheck, winner_limit=tp.MMA_WINNERS_MIN,
+                     fori_parent_design_ms=fori_turns["parent_design_ms"],
+                     fori_turns_ms=fori_turns["turns_ms"], fori_plain_ms=fori_plain_ms,
+                     fori_bit_identical=True, mma_ms=mma_ms,
+                     mma_parent_design_ms=mma_turns["parent_design_ms"],
+                     mma_turns_ms=mma_turns["turns_ms"], mma_plain_ms=mma_plain_ms,
+                     mma_vs_plain=mma_checks["new"]["vs_plain"],
+                     mma_vs_float64=mma_checks["new"]["vs_float64"],
+                     mma_parent_design_vs_float64=mma_checks["parent"]["vs_float64"],
+                     plain_vs_float64=plain_vs_exact, fori_vs_mma=crosscheck,
+                     root_pairs=root_pairs, winner_limit=tp.MMA_WINNERS_MIN,
                      err_over_bound_limit=1.0, share_within_1e5_limit=tp.MMA_SHARE_1E5_MIN)
-    assert mma_vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, probe_out
-    # the formula cancels (b = 2 (d.o - d.c)): t agrees with the plain
-    # version only to float32's error, so each hit is held to its own
-    # error bound against a float64 evaluation (trace_probe.error_bound)
-    assert mma_vs_exact["max_err_over_bound"] <= 1.0, probe_out
-    assert plain_vs_exact["max_err_over_bound"] <= 1.0, probe_out
-    assert mma_vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, probe_out
-    del ex_t, ex_w, hp_t, hp_w, gp_t, gp_w
+    del ex_t, ex_w, hp_t, hp_w, gp_t, gp_w, mma_bound
     # the probe's entry point: the tool at its full shape, seed 0
     for w in wrappers.values():
         w.launches = 0
@@ -1557,12 +1597,19 @@ def main() -> int:
         seg_iters * ops_per_iteration(s_st, s_cfg, s_tb),
         n_sph * (4 * 10 + 2 * s32 + 4 * 8 + 2 * s32))
     torch.cuda.synchronize()
-    n_tests = fori[1].numel() * tp.N_OBJ  # every ray against every sphere
+    # the probes: every pair's test, the root stage of this run's pairs with
+    # disc > 0, kernel B's 3xTF32 products (flops.probe_terms)
+    n_pairs = fori[1].numel() * tp.N_OBJ  # every ray against every sphere
     n_pr = fori[1].numel()
-    bounds["cuda_probe_fori"] = flops.bound_ms(
-        n_tests * flops.PROBE_TEST_OPS, 4 * (8 * n_pr + 4 * tp.N_OBJ))
-    bounds["cuda_probe_mma"] = flops.bound_ms(
-        n_tests * flops.PROBE_TEST_OPS, 4 * (21 * n_pr + 9 * tp.N_OBJ))
+    probe_bytes = dict(fori=4 * (8 * n_pr + 4 * tp.N_OBJ), mma=4 * (21 * n_pr + 9 * tp.N_OBJ))
+    probe_terms = {}
+    for key in ("fori", "mma"):
+        b_ms, b_by, b_term = flops.probe_bound_ms(key, n_pairs, root_pairs[key],
+                                                  probe_bytes[key])
+        bounds[f"cuda_probe_{key}"] = (b_ms, b_by)
+        probe_terms[f"cuda_probe_{key}"] = dict(
+            bound_term=b_term, pairs=n_pairs, root_pairs=root_pairs[key],
+            terms_ms=flops.probe_terms(key, n_pairs, root_pairs[key], probe_bytes[key]))
     library = None  # no single PyTorch call computes a bounce loop or a nearest hit
     timings = {
         "cuda_mono": ("spectral_tpu/ops/pallas/megakernel.py:2113", mono_err, mono_ms,
@@ -1647,6 +1694,13 @@ def main() -> int:
         "cuda_cost": dict(
             design="the mono_parent build: one lane per pixel, ceil(n / 128) blocks",
             cornell512_frame0=cost_turns),
+        "cuda_probe_fori": dict(
+            design="the probe_parent build: one ray per thread, the root stage on every pair",
+            probe_full_shape=fori_turns),
+        "cuda_probe_mma": dict(
+            design="the probe_parent build: mma.sync per 16 x 8 tile, every block "
+                   "splitting the spheres, the root stage on every pair",
+            probe_full_shape=mma_turns),
         "cuda_seg": dict(
             design="tables without packed records (the earlier walk)",
             spheres1000_0_2=dict(ms=seg_ms, parent_design_ms=seg_parent_ms),
@@ -1716,6 +1770,8 @@ def main() -> int:
             entry.update(lens=lens[name])
         if name in shadow_interval:
             entry.update(shadow_interval=shadow_interval[name])
+        if name in probe_terms:
+            entry.update(bound_terms=probe_terms[name])
         kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,14 @@ two TPU kernels and their inputs.
   error of its two dot products (``compare`` reports both);
 * ``cuda_probe_fori`` / ``cuda_probe_mma`` launch their CUDA kernels
   (``ops/csrc/probe.cu``) on CUDA tensors and count their launches
-  (``.launches``), and run the plain version on CPU tensors.
+  (``.launches``), and run the plain version on CPU tensors;
+  ``probe_fori_variant`` / ``probe_mma_variant`` launch a diagnostic build
+  of the same source (``build.VARIANTS``: ``probe_parent``, the earlier
+  design), uncounted; ``probe_layout`` reads from a build how many spheres
+  its kernels hold (the wrappers refuse more before any launch);
+* ``fori_root_pairs`` / ``mma_root_pairs`` count the pairs whose
+  discriminant is positive, the pairs that need the root stage
+  (``utils/flops.py``: ``probe_terms``).
 
 The contract of both (the probe's, not the bounce kernels'): a sphere is
 hit where ``disc > 0`` and the chosen root is ``> 0`` (strict), the roots
@@ -47,11 +54,6 @@ N_OBJ = 1024
 N_TILES = 48  # 196,608 rays at the tool's full shape
 BLOCK_OBJ = 128  # objects per block of kernel B (its lane argmin)
 INF = float("inf")
-# the kernels hold every sphere in a block's shared memory (csrc/probe.cu:
-# MAX_SMEM): 16 B per sphere for kernel A, 68 B (c split in two TF32 parts,
-# and cc) for kernel B, so at most 14,528 and 3,416 spheres
-MAX_SMEM = 232448
-
 # How close ``cuda_probe_mma`` (3xTF32) must come, as the card tests and
 # ``chip_smoke.py`` hold it: the plain version's winners on this share of
 # rays, and against ``probe_exact`` (float64) every hit within its own
@@ -139,6 +141,22 @@ def _first_min(t: torch.Tensor):
     return tb, idx
 
 
+def _fori_blocks(geom, ox, oy, oz, dx, dy, dz):
+    """Kernel A's quadratic per block of ``BLOCK_OBJ`` spheres, op for op
+    as its loop: ``(first sphere, b, c, 4a, 1 / 2a)``, ``b`` and ``c``
+    ``[n, block]``."""
+    ox, oy, oz, dx, dy, dz = (v.reshape(-1, 1) for v in (ox, oy, oz, dx, dy, dz))
+    a = dot3(dx, dy, dz, dx, dy, dz)
+    inv2a = 1.0 / (2.0 * a)
+    foura = 4.0 * a
+    for lo in range(0, geom.shape[0], BLOCK_OBJ):
+        g = geom[lo:lo + BLOCK_OBJ]
+        rx, ry, rz = ox - g[None, :, 0], oy - g[None, :, 1], oz - g[None, :, 2]
+        b = 2.0 * dot3(dx, dy, dz, rx, ry, rz)
+        c = dot3(rx, ry, rz, rx, ry, rz) - g[None, :, 3]
+        yield lo, b, c, foura, inv2a
+
+
 def probe_fori_plain(geom, ox, oy, oz, dx, dy, dz):
     """Kernel A (``build_a``): every ray against every sphere of ``geom``
     (``[n_obj, 4]``: cx, cy, cz, r^2) in index order, strict ``<``.
@@ -146,36 +164,30 @@ def probe_fori_plain(geom, ox, oy, oz, dx, dy, dz):
     taken in blocks of 128 (per-element ops as the loop's; a block's
     first minimum, then strict ``<`` across blocks, is the loop's
     winner)."""
-    shape = ox.shape
-    ox, oy, oz, dx, dy, dz = (v.reshape(-1, 1) for v in (ox, oy, oz, dx, dy, dz))
-    a = dot3(dx, dy, dz, dx, dy, dz)
-    inv2a = 1.0 / (2.0 * a)
-    foura = 4.0 * a
-    t_best = torch.full_like(ox, INF)[:, 0]
+    t_best = torch.full((ox.numel(),), INF, dtype=torch.float32, device=ox.device)
     win = torch.full_like(t_best, -1.0)
-    for lo in range(0, geom.shape[0], BLOCK_OBJ):
-        g = geom[lo:lo + BLOCK_OBJ]
-        rx, ry, rz = ox - g[None, :, 0], oy - g[None, :, 1], oz - g[None, :, 2]
-        b = 2.0 * dot3(dx, dy, dz, rx, ry, rz)
-        c = dot3(rx, ry, rz, rx, ry, rz) - g[None, :, 3]
+    for lo, b, c, foura, inv2a in _fori_blocks(geom, ox, oy, oz, dx, dy, dz):
         tb, idx = _first_min(_roots(b, c, foura, inv2a))
         closer = tb < t_best
         t_best = torch.where(closer, tb, t_best)
         win = torch.where(closer, idx + float(lo), win)
-    return t_best.reshape(shape), win.reshape(shape)
+    return t_best.reshape(ox.shape), win.reshape(ox.shape)
 
 
-def probe_mma_plain(dmat, omat, cmat, cc, do, oo, a):
-    """Kernel B (``build_b``): per block of 128 spheres, ``d.c`` and
-    ``o.c`` as float32 products over the 8 padded components (a chain of
-    fused multiply-adds), the
-    quadratic elementwise, the block's first minimum, then strict ``<``
-    across blocks. Returns ``(t_best, winner)`` ``[n, 1]``."""
+def fori_root_pairs(geom, ox, oy, oz, dx, dy, dz) -> int:
+    """The ray-sphere pairs of kernel A's inputs whose discriminant is
+    positive (``disc > 0`` as the plain version computes it): the pairs
+    that need the root stage."""
+    return sum(int((fma(b, b, -(foura * c)) > 0.0).sum())
+               for _lo, b, c, foura, _inv in _fori_blocks(geom, ox, oy, oz, dx, dy, dz))
+
+
+def _mma_blocks(dmat, omat, cmat, cc, do, oo, a):
+    """Kernel B's quadratic per block of ``BLOCK_OBJ`` spheres: ``(first
+    sphere, b, c, 4a, 1 / 2a)``, ``d.c`` and ``o.c`` as float32 products
+    over the 8 padded components (a chain of fused multiply-adds)."""
     inv2a = 1.0 / (2.0 * a)
     foura = 4.0 * a
-    n = dmat.shape[0]
-    t_best = torch.full((n, 1), INF, dtype=torch.float32, device=dmat.device)
-    win = torch.full_like(t_best, -1.0)
     for lo in range(0, cmat.shape[1], BLOCK_OBJ):
         cblk = cmat[:, lo:lo + BLOCK_OBJ]
         dc = dmat[:, 0:1] * cblk[0]
@@ -185,11 +197,29 @@ def probe_mma_plain(dmat, omat, cmat, cc, do, oo, a):
             oc = fma(omat[:, k:k + 1], cblk[k], oc)
         b = 2.0 * (do - dc)
         c = oo - 2.0 * oc + cc[:, lo:lo + BLOCK_OBJ]
+        yield lo, b, c, foura, inv2a
+
+
+def probe_mma_plain(dmat, omat, cmat, cc, do, oo, a):
+    """Kernel B (``build_b``): per block of 128 spheres, ``d.c`` and
+    ``o.c`` as float32 products over the 8 padded components, the
+    quadratic elementwise, the block's first minimum, then strict ``<``
+    across blocks. Returns ``(t_best, winner)`` ``[n, 1]``."""
+    t_best = torch.full((dmat.shape[0], 1), INF, dtype=torch.float32, device=dmat.device)
+    win = torch.full_like(t_best, -1.0)
+    for lo, b, c, foura, inv2a in _mma_blocks(dmat, omat, cmat, cc, do, oo, a):
         tb, idx = _first_min(_roots(b, c, foura, inv2a))
         closer = tb[:, None] < t_best
         t_best = torch.where(closer, tb[:, None], t_best)
         win = torch.where(closer, idx[:, None] + float(lo), win)
     return t_best, win
+
+
+def mma_root_pairs(dmat, omat, cmat, cc, do, oo, a) -> int:
+    """The ray-sphere pairs of kernel B's inputs whose discriminant is
+    positive, as its plain version computes it."""
+    return sum(int((fma(b, b, -(foura * c)) > 0.0).sum())
+               for _lo, b, c, foura, _inv in _mma_blocks(dmat, omat, cmat, cc, do, oo, a))
 
 
 def probe_exact(dmat, omat, cmat, cc, do, oo, a):
@@ -276,7 +306,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _check(tensors: dict, shapes: dict, smem: int) -> torch.device:
+def _check(tensors: dict, shapes: dict) -> torch.device:
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -285,24 +315,83 @@ def _check(tensors: dict, shapes: dict, smem: int) -> torch.device:
             raise ValueError(f"{name} is {tuple(t.shape)}, expected {shapes[name]}")
     if dev.type != "cuda":
         raise ValueError(f"no probe kernel for device {dev}")
-    if smem > MAX_SMEM:
-        raise ValueError(f"the spheres need {smem} B of shared memory per block; "
-                         f"the probe kernels have {MAX_SMEM}")
     return dev
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("probe")
+def _lib(name: str = "probe") -> ctypes.CDLL:
+    """``probe.cu`` built as library ``name`` (``build.LIBRARIES``)."""
+    lib = build.load(name)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.spectral_probe_fori.argtypes = [ci, ci] + [vp] * 10
-    lib.spectral_probe_mma.argtypes = [ci, ci] + [vp] * 10
+    lib.spectral_probe_mma.argtypes = [ci, ci] + [vp] * 11
+    lib.spectral_probe_info.argtypes = [ci, vp]
     lib.spectral_probe_fori.restype = lib.spectral_probe_mma.restype = ci
+    lib.spectral_probe_info.restype = ci
     return lib
+
+
+def probe_layout(library: str, n_obj: int) -> dict:
+    """What the build ``library`` of ``probe.cu`` holds (its
+    ``spectral_probe_info``, so the layout has one source): the most
+    spheres a block of each kernel keeps in shared memory (``"fori"``,
+    ``"mma"``), and the floats of the tensor-core kernel's scratch at
+    ``n_obj`` spheres (``"mma_scratch"``: its split table and tile
+    counter)."""
+    out = (ctypes.c_int * 3)()
+    err = _lib(library).spectral_probe_info(n_obj, out)
+    if err != 0:
+        raise RuntimeError(f"spectral_probe_info failed: cudaError_t {err}")
+    return {"fori": out[0], "mma": out[1], "mma_scratch": out[2]}
+
+
+def _layout(library: str, kernel: str, n_obj: int) -> dict:
+    """``probe_layout``; raises before any launch where a block of
+    ``kernel`` cannot hold ``n_obj`` spheres."""
+    layout = probe_layout(library, n_obj)
+    if n_obj > layout[kernel]:
+        raise ValueError(f"{n_obj} spheres need more shared memory than a block of "
+                         f"cuda_probe_{kernel} has: it holds {layout[kernel]}")
+    return layout
 
 
 def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_fori(library: str, geom, ox, oy, oz, dx, dy, dz):
+    n_obj = geom.shape[0]
+    planes = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz)
+    dev = _check({"geom": geom, **planes},
+                 {"geom": (n_obj, 4), **{k: tuple(ox.shape) for k in planes}})
+    _layout(library, "fori", n_obj)
+    t = torch.empty_like(ox)
+    win = torch.empty_like(ox)
+    err = _lib(library).spectral_probe_fori(ox.numel(), n_obj, _ptr(geom),
+                                            *map(_ptr, planes.values()), _ptr(t), _ptr(win),
+                                            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cuda_probe_fori failed to launch: cudaError_t {err}")
+    return t, win
+
+
+def _launch_mma(library: str, dmat, omat, cmat, cc, do, oo, a):
+    n, n_obj = dmat.shape[0], cmat.shape[1]
+    if n_obj < 8 or n_obj % 8:
+        raise ValueError(f"the sphere count must be a positive multiple of 8, got {n_obj}")
+    args = dict(dmat=dmat, omat=omat, cmat=cmat, cc=cc, do=do, oo=oo, a=a)
+    dev = _check(args, dict(dmat=(n, 8), omat=(n, 8), cmat=(8, n_obj), cc=(1, n_obj),
+                            do=(n, 1), oo=(n, 1), a=(n, 1)))
+    layout = _layout(library, "mma", n_obj)
+    t = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    win = torch.empty_like(t)
+    # the split table (written by the launch's prologue) and the tile counter
+    scratch = torch.empty((layout["mma_scratch"],), dtype=torch.float32, device=dev)
+    err = _lib(library).spectral_probe_mma(n, n_obj, *map(_ptr, args.values()), _ptr(scratch),
+                                           _ptr(t), _ptr(win), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cuda_probe_mma failed to launch: cudaError_t {err}")
+    return t, win
 
 
 def cuda_probe_fori(geom, ox, oy, oz, dx, dy, dz):
@@ -310,19 +399,9 @@ def cuda_probe_fori(geom, ox, oy, oz, dx, dy, dz):
     tensors, runs ``probe_fori_plain`` for CPU ones."""
     if ox.device.type == "cpu":
         return probe_fori_plain(geom, ox, oy, oz, dx, dy, dz)
-    n_obj = geom.shape[0]
-    planes = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz)
-    dev = _check({"geom": geom, **planes},
-                 {"geom": (n_obj, 4), **{k: tuple(ox.shape) for k in planes}}, 16 * n_obj)
-    t = torch.empty_like(ox)
-    win = torch.empty_like(ox)
-    err = _lib().spectral_probe_fori(ox.numel(), n_obj, _ptr(geom),
-                                     *map(_ptr, planes.values()), _ptr(t), _ptr(win),
-                                     _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"cuda_probe_fori failed to launch: cudaError_t {err}")
+    out = _launch_fori("probe", geom, ox, oy, oz, dx, dy, dz)
     cuda_probe_fori.launches += 1
-    return t, win
+    return out
 
 
 cuda_probe_fori.launches = 0
@@ -334,20 +413,22 @@ def cuda_probe_mma(dmat, omat, cmat, cc, do, oo, a):
     TF32 split three ways (3xTF32), close to float32 but not its bits."""
     if dmat.device.type == "cpu":
         return probe_mma_plain(dmat, omat, cmat, cc, do, oo, a)
-    n, n_obj = dmat.shape[0], cmat.shape[1]
-    if n_obj % 8:
-        raise ValueError(f"the sphere count must be a multiple of 8, got {n_obj}")
-    args = dict(dmat=dmat, omat=omat, cmat=cmat, cc=cc, do=do, oo=oo, a=a)
-    dev = _check(args, dict(dmat=(n, 8), omat=(n, 8), cmat=(8, n_obj), cc=(1, n_obj),
-                            do=(n, 1), oo=(n, 1), a=(n, 1)), 68 * n_obj)
-    t = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    win = torch.empty_like(t)
-    err = _lib().spectral_probe_mma(n, n_obj, *map(_ptr, args.values()), _ptr(t),
-                                    _ptr(win), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"cuda_probe_mma failed to launch: cudaError_t {err}")
+    out = _launch_mma("probe", dmat, omat, cmat, cc, do, oo, a)
     cuda_probe_mma.launches += 1
-    return t, win
+    return out
 
 
 cuda_probe_mma.launches = 0
+
+
+def probe_fori_variant(library: str, geom, ox, oy, oz, dx, dy, dz):
+    """``cuda_probe_fori`` through a diagnostic build of ``probe.cu``
+    (``build.VARIANTS``: ``probe_parent``, the earlier design), for the
+    measurements. CUDA tensors only; not counted."""
+    return _launch_fori(library, geom, ox, oy, oz, dx, dy, dz)
+
+
+def probe_mma_variant(library: str, dmat, omat, cmat, cc, do, oo, a):
+    """``cuda_probe_mma`` through a diagnostic build of ``probe.cu``, as
+    ``probe_fori_variant``."""
+    return _launch_mma(library, dmat, omat, cmat, cc, do, oo, a)

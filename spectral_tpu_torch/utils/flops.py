@@ -1,4 +1,4 @@
-"""Analytic op accounting for the bounce kernels (roofline bounds).
+"""Analytic op accounting for the bounce and probe kernels (roofline bounds).
 
 The port's copy of the JAX package's ``spectral_tpu.utils.flops``: the
 per-lane-bounce op counts of the megakernel (``kernel_ops``), counted
@@ -195,10 +195,46 @@ def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
     return 1e3 * t_bytes, "bytes"
 
 
-# --- the trace probe (ops/trace_probe.py), per ray-sphere test: the
-# offsets o - c (3), b = 2 dot3(d, r) (6: a dot3 is a multiply and two
-# FMAs, 5 ops), c = dot3(r, r) - r^2 (6), disc = fma(b, b, -(4a c)) (4),
-# clamp and sqrt (2), the two roots (5), the root pick (2), the validity
-# mask and its select (4), the running minimum (3). Kernel B computes the
-# same function (d.c and o.c 10, b 2, c 3, the rest 20).
-PROBE_TEST_OPS = 35
+# --- the trace probe (ops/trace_probe.py), counted for what a launch's
+# inputs need, per ray-sphere pair. Every pair needs its test:
+# - kernel A (cuda_probe_fori): the offsets o - c (3), b = 2 dot3(d, r)
+#   (6: a dot3 is a multiply and two FMAs, 5 ops), c = dot3(r, r) - r^2
+#   (6), disc = fma(b, b, -(4a c)) (4) and the test disc > 0 (1): 20;
+# - kernel B (cuda_probe_mma): from its two products, b = 2 (d.o - d.c)
+#   (2), c = o.o - 2 o.c + cc (3), disc (4) and the test (1): 10.
+# The root stage only for the pairs with disc > 0
+# (trace_probe.fori_root_pairs / mma_root_pairs count them): the square
+# root's argument and the root (2), the two roots (5), the pick (2), t > 0
+# and the validity select (3), the running minimum (3): 15.
+# Kernel B's d.c and o.c are 3xTF32 tensor-core products over the 3
+# components the rays and centres carry (its inputs pad them to 8 with
+# zeros, which the count leaves out): 3 products x 2 dot products x 3
+# multiply-adds x 2 flops, at the H100's dense TF32 tensor rate (NVIDIA's
+# data sheet, 700 W).
+PROBE_TEST_OPS = {"fori": 20, "mma": 10}
+PROBE_ROOT_OPS = 15
+PROBE_DOT_COMPONENTS = 3
+PROBE_MMA_TENSOR_FLOPS = 3 * 2 * PROBE_DOT_COMPONENTS * 2
+H100_TF32_TENSOR_FLOPS = 495e12
+
+
+def probe_terms(kernel: str, n_pairs: float, n_root_pairs: float, n_bytes: float) -> dict:
+    """The least time (ms) of one probe launch (``kernel`` "fori" or
+    "mma") per resource: ``fp32`` its tests and root stages over the FP32
+    peak, ``tf32`` kernel B's products over the TF32 tensor peak (0 for
+    kernel A), ``bytes`` its inputs read and outputs written once over the
+    HBM rate. The pipes run side by side, so the largest bounds it."""
+    fp32 = n_pairs * PROBE_TEST_OPS[kernel] + n_root_pairs * PROBE_ROOT_OPS
+    tf32 = n_pairs * PROBE_MMA_TENSOR_FLOPS if kernel == "mma" else 0.0
+    return {"fp32": 1e3 * fp32 / H100_FP32_PEAK_OPS,
+            "tf32": 1e3 * tf32 / H100_TF32_TENSOR_FLOPS,
+            "bytes": 1e3 * n_bytes / H100_HBM_BYTES_PER_S}
+
+
+def probe_bound_ms(kernel: str, n_pairs: float, n_root_pairs: float,
+                   n_bytes: float) -> tuple[float, str, str]:
+    """``bound_ms`` of one probe launch (``probe_terms``): ``(ms,
+    "operations" | "bytes", the term that sets it)``."""
+    terms = probe_terms(kernel, n_pairs, n_root_pairs, n_bytes)
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term

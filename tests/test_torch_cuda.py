@@ -31,7 +31,8 @@ within its own first-order error bound (``trace_probe.error_bound``:
 the 3xTF32 dot products err by at most 22 float32 roundings of their
 terms' magnitudes, the rest as the plain version) and 98% of hits within
 1e-5. The formula cancels, so t agrees with the plain version only to
-float32's error.
+float32's error. The earlier probe designs (the ``probe_parent`` build)
+are held to the same, at ragged ray and sphere counts.
 """
 
 import dataclasses
@@ -418,10 +419,19 @@ def test_cuda_probe_mma_matches_plain_to_float32_error(cuda):
 
 
 def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
-    """Every sphere sits in a block's shared memory: 3,416 spheres fit
-    kernel B (68 B each), 3,424 raise on the host and launch nothing."""
+    """Every sphere sits in a block's shared memory, as far as the build's
+    own layout leaves room (``trace_probe.probe_layout``, from
+    ``probe.cu``): kernel B's table holds 3,392 spheres (68 B per sphere of
+    a table padded to a multiple of 32, after a 128-byte head), kernel A
+    14,271 (16 B each, one more slot, and its second share's minima); the
+    earlier design 3,416 and 14,528. Kernel B at 3,400 spheres and kernel
+    A at one more than it holds raise on the host and launch nothing."""
+    assert tp.probe_layout("probe", 1000) == {"fori": 14271, "mma": 3392,
+                                              "mma_scratch": 17 * 1024 + 4}
+    assert tp.probe_layout("probe_parent", 1000) == {"fori": 14528, "mma": 3416,
+                                                     "mma_scratch": 0}
     before = tp.cuda_probe_mma.launches
-    for n_obj, fits in ((3416, True), (3424, False)):
+    for n_obj, fits in ((3392, True), (3400, False)):
         args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["mma"])
         if fits:
             tp.cuda_probe_mma(*args)
@@ -429,6 +439,76 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
             with pytest.raises(ValueError, match="shared memory"):
                 tp.cuda_probe_mma(*args)
     assert tp.cuda_probe_mma.launches == before + 1
+    n_max = tp.probe_layout("probe", 0)["fori"]
+    before = tp.cuda_probe_fori.launches
+    for n_obj, fits in ((n_max, True), (n_max + 1, False)):
+        args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["fori"])
+        if fits:
+            t, win = tp.cuda_probe_fori(*args)
+            pt, pwin = tp.probe_fori_plain(*args)
+            assert torch.equal(t, pt) and torch.equal(win, pwin)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                tp.cuda_probe_fori(*args)
+    assert tp.cuda_probe_fori.launches == before + 1
+
+
+def _ragged_probe(device, n_obj, tiles=8, extra=77):
+    """The probe's inputs at ``tiles`` x 4,096 + ``extra`` rays (not a
+    multiple of any ray tile of the kernels: the loop kernel's planes
+    flat) against ``n_obj`` spheres, seed 1."""
+    inputs = tp.make_inputs(1, tiles + 1, n_obj)
+    n = tiles * tp.N_RAYS + extra
+    geom, *planes = (torch.from_numpy(a).to(device) for a in inputs["fori"])
+    fori = (geom, *(p.reshape(-1)[:n].contiguous() for p in planes))
+    dmat, omat, cmat, cc, do, oo, a = (torch.from_numpy(x).to(device) for x in inputs["mma"])
+    mma = (*(x[:n].contiguous() for x in (dmat, omat)), cmat, cc,
+           *(x[:n].contiguous() for x in (do, oo, a)))
+    return fori, mma
+
+
+@pytest.mark.parametrize("n_obj", [8, 128, 1000, 1024])
+def test_cuda_probe_kernels_match_parent_and_plain_ragged(cuda, n_obj):
+    """The redesigned probe kernels and their earlier design (the
+    ``probe_parent`` build) at a ragged ray count and sphere counts that
+    fill the tensor-core kernel's padded table (1,024), leave it partly
+    padding (8, 1,000) or fill one of the earlier design's 128-sphere
+    blocks:
+    ``cuda_probe_fori`` and its parent ``torch.equal`` to the plain
+    version; ``cuda_probe_mma`` and its parent within the ``MMA_*``
+    limits against the plain version and float64."""
+    fori, mma = _ragged_probe(cuda, n_obj)
+    pt, pwin = tp.probe_fori_plain(*fori)
+    for t, win in (tp.cuda_probe_fori(*fori), tp.probe_fori_variant("probe_parent", *fori)):
+        assert torch.equal(t, pt) and torch.equal(win, pwin)
+    assert bool(torch.isfinite(pt).any())
+    mt, mwin = tp.probe_mma_plain(*mma)
+    et, ewin = tp.probe_exact(*mma)
+    bound = tp.error_bound(*mma, ewin, tp.MMA_DOT_GAMMA)
+    for t, win in (tp.cuda_probe_mma(*mma), tp.probe_mma_variant("probe_parent", *mma)):
+        vs_plain = tp.compare(t, win, mt, mwin)
+        vs_exact = tp.compare(t, win, et, ewin, bound)
+        assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, vs_plain
+        assert vs_exact["max_err_over_bound"] <= 1.0, vs_exact
+        assert vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, vs_exact
+
+
+def test_cuda_probe_kernels_match_parent_at_full_shape(cuda):
+    """At the probe tool's full shape (196,608 rays, 1,024 spheres, seed
+    0): the redesigned loop kernel bit for bit its earlier design's and
+    the plain version's output, the tensor-core kernel's winners the
+    plain version's on ``MMA_WINNERS_MIN`` of rays, as its parent's."""
+    inputs = tp.make_inputs(0)
+    fori = tuple(torch.from_numpy(a).to(cuda) for a in inputs["fori"])
+    mma = tuple(torch.from_numpy(a).to(cuda) for a in inputs["mma"])
+    t, win = tp.cuda_probe_fori(*fori)
+    qt, qwin = tp.probe_fori_variant("probe_parent", *fori)
+    pt, pwin = tp.probe_fori_plain(*fori)
+    assert torch.equal(t, qt) and torch.equal(win, qwin)
+    assert torch.equal(t, pt) and torch.equal(win, pwin)
+    mt, mwin = tp.probe_mma_plain(*mma)
+    for got in (tp.cuda_probe_mma(*mma), tp.probe_mma_variant("probe_parent", *mma)):
+        assert tp.compare(*got, mt, mwin)["winner_agreement"] >= tp.MMA_WINNERS_MIN
 
 
 # ------------------------------------- the redesigned regen and the packed walk

@@ -139,3 +139,86 @@ def test_error_bound_holds_the_plain_version_and_catches_tf32(seed, n_obj):
     tt, tw = tp.probe_mma_plain(*map(_tf32, args[:3]), *args[3:])
     kernel_bound = tp.error_bound(*args, ew, tp.MMA_DOT_GAMMA)
     assert tp.compare(tt, tw, et, ew, kernel_bound)["max_err_over_bound"] > 1.0
+
+
+@pytest.mark.parametrize("seed,n_tiles,n_obj", [(0, 1, 256), (5, 1, 200)])
+def test_root_pair_counts_match_a_direct_count(seed, n_tiles, n_obj):
+    """The host's count of the pairs that need the root stage
+    (``fori_root_pairs`` / ``mma_root_pairs``, which ``chip_smoke.py``
+    feeds to ``flops.probe_terms``) against the discriminants of every
+    pair at once, computed directly with each plain version's ops."""
+    inputs = tp.make_inputs(seed, n_tiles, n_obj)
+    geom, ox, oy, oz, dx, dy, dz = (torch.from_numpy(a) for a in inputs["fori"])
+    o = [v.reshape(-1, 1) for v in (ox, oy, oz)]
+    d = [v.reshape(-1, 1) for v in (dx, dy, dz)]
+    r = [o[k] - geom[None, :, k] for k in range(3)]
+    b = 2.0 * tp.dot3(*d, *r)
+    c = tp.dot3(*r, *r) - geom[None, :, 3]
+    disc = tp.fma(b, b, -((4.0 * tp.dot3(*d, *d)) * c))
+    want_fori = int((disc > 0.0).sum())
+    assert tp.fori_root_pairs(geom, ox, oy, oz, dx, dy, dz) == want_fori
+    dmat, omat, cmat, cc, do, oo, a = (torch.from_numpy(x) for x in inputs["mma"])
+    dc, oc = dmat[:, 0:1] * cmat[0], omat[:, 0:1] * cmat[0]
+    for k in range(1, 8):
+        dc, oc = tp.fma(dmat[:, k:k + 1], cmat[k], dc), tp.fma(omat[:, k:k + 1], cmat[k], oc)
+    bm = 2.0 * (do - dc)
+    cm = oo - 2.0 * oc + cc
+    want_mma = int((tp.fma(bm, bm, -((4.0 * a) * cm)) > 0.0).sum())
+    assert tp.mma_root_pairs(dmat, omat, cmat, cc, do, oo, a) == want_mma
+    # few pairs need the roots: the probe's rays pass near 0.1-0.3% of spheres
+    n_pairs = ox.numel() * n_obj
+    assert 0.0005 * n_pairs < want_fori < 0.005 * n_pairs
+    assert abs(want_mma - want_fori) <= 0.01 * want_fori
+
+
+def test_probe_bound_terms():
+    """``flops.probe_terms``: 20 FP32 operations per pair for kernel A's
+    test, 10 for kernel B's, 15 per root stage, kernel B's 3xTF32 products
+    over 3 components (36 flops a pair) at the TF32 tensor rate; the
+    largest term bounds each kernel: the FP32 work, for kernel B too."""
+    from spectral_tpu_torch.utils import flops
+
+    n, roots, n_bytes = 2.0e8, 3.4e5, 6.3e6
+    fori = flops.probe_terms("fori", n, roots, n_bytes)
+    mma = flops.probe_terms("mma", n, roots, n_bytes)
+    assert fori["fp32"] == pytest.approx(1e3 * (20 * n + 15 * roots) / 67e12)
+    assert mma["fp32"] == pytest.approx(1e3 * (10 * n + 15 * roots) / 67e12)
+    assert fori["tf32"] == 0.0 and mma["tf32"] == pytest.approx(1e3 * 36 * n / 495e12)
+    assert fori["bytes"] == mma["bytes"] == pytest.approx(1e3 * n_bytes / 3.35e12)
+    assert flops.probe_bound_ms("fori", n, roots, n_bytes) == (fori["fp32"], "operations",
+                                                               "fp32")
+    assert flops.probe_bound_ms("mma", n, roots, n_bytes) == (mma["fp32"], "operations",
+                                                              "fp32")
+    assert flops.probe_bound_ms("fori", 1.0, 0.0, 1e9)[1:] == ("bytes", "bytes")
+
+
+def test_mma_table_padding_never_wins_nor_makes_nan():
+    """``cuda_probe_mma`` pads its sphere table to a multiple of 32 with
+    spheres at the origin and cc = +inf (``probe.cu``: ``split_kernel``):
+    through the plain version, such spheres never pass the test, never win
+    and make no NaN, so the padded table gives the unpadded one's hits."""
+    args = list(map(torch.from_numpy, tp.make_inputs(2, 1, 1000)["mma"]))
+    n_pad = 1024
+    padded = list(args)
+    padded[2] = torch.cat([args[2], torch.zeros(8, n_pad - 1000)], dim=1)
+    padded[3] = torch.cat([args[3], torch.full((1, n_pad - 1000), tp.INF)], dim=1)
+    want_t, want_w = tp.probe_mma_plain(*args)
+    got_t, got_w = tp.probe_mma_plain(*padded)
+    assert torch.equal(got_t, want_t) and torch.equal(got_w, want_w)
+    assert not torch.isnan(got_t).any() and int(got_w.max()) < 1000
+    assert tp.mma_root_pairs(*padded) == tp.mma_root_pairs(*args)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_probe_tensor_flops_count_the_components_the_inputs_carry(seed):
+    """Kernel B's 3xTF32 products are counted over the components its
+    inputs carry (``flops.PROBE_DOT_COMPONENTS``), not over the 8 of its
+    padded rows: the rays' and centres' later components are zeros, which
+    add nothing to d.c or o.c."""
+    from spectral_tpu_torch.utils import flops
+
+    dmat, omat, cmat = tp.make_inputs(seed, 1, 64)["mma"][:3]
+    k = flops.PROBE_DOT_COMPONENTS
+    for m in (dmat, omat, cmat.T):
+        assert m.shape[1] == 8 and not m[:, k:].any() and m[:, :k].all()
+    assert flops.PROBE_MMA_TENSOR_FLOPS == 3 * 2 * k * 2
