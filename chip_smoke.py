@@ -34,6 +34,20 @@ the right front box's near edge against the pinhole image; the mesh at
 and persist; the opt-in shadow interval (the ``mono_si``/``regen_si``
 builds) against its plain version and, on the 1000-sphere field, timed
 in turns with the default shadow test;
+what follows a render: the Cornell box at the main path's size saved
+as a scene file, loaded back and rendered through the CLI's render
+command with ``--out x.exr --aovs aov.exr --denoise 5`` (each file read
+back against the Renderer's framebuffer, ``compute_aovs`` and
+``atrous_denoise`` on the card; the native u8 converter and PNG encoder
+against numpy/PIL; the card's AOVs and denoiser against the port's on
+the CPU; a denoised 16-iteration render against the 100-iteration one;
+the AOVs, the denoiser and the EXR writer timed at 512x512 and
+1920x1080), the AOVs of the 1000-sphere field and of mesh5k (time and
+peak memory), a 4-frame orbit of the Cornell box (each frame equal to a
+Renderer of that frame alone) and motion blur on ``cuda_mono`` (static
+tracks equal to the unblurred render, a moving sphere smeared, a sphere
+that leaves its cluster with the clustered walk equal to the flat one,
+ms per frame and the device-busy share against the static mono render);
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
@@ -146,11 +160,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
+        from spectral_tpu_torch import cli as port_cli
         from spectral_tpu_torch import presets, schema
         from spectral_tpu_torch.ops import megakernel as mk
         from spectral_tpu_torch.ops import trace_probe as tp
         from spectral_tpu_torch.ops.vecmath import Vec3
+        from spectral_tpu_torch.ops.geometry import BROADCAST_BUDGET
+        from spectral_tpu_torch.render import animation as anim_mod
+        from spectral_tpu_torch.render import aov as aov_mod
         from spectral_tpu_torch.render import cuda_integrator as ci
+        from spectral_tpu_torch.render import denoise as dn_mod
+        from spectral_tpu_torch.render import image as image_mod
         from spectral_tpu_torch.render import integrator as ti
         from spectral_tpu_torch.render.camera import camera_basis_table
         from spectral_tpu_torch.render.color import spectra_to_rgb
@@ -158,13 +178,14 @@ def main() -> int:
         from spectral_tpu_torch.render.renderer import Renderer
         from spectral_tpu_torch.runtime import build
         from spectral_tpu_torch.scene import mesh as tmesh
-        from spectral_tpu_torch.scene.flatten import flatten_scene
+        from spectral_tpu_torch.scene.flatten import flatten_numpy, flatten_scene
         from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
         from spectral_tpu_torch.tools import shadow_interval_bench as si_bench
         from spectral_tpu_torch.tools.measure_persist import busy_ms
         from spectral_tpu_torch.tools.measure_persist import card as read_card
-        from spectral_tpu_torch.utils import flops
+        from spectral_tpu_torch.utils import flops, sceneio
         from tests import torch_scenes as ts
+        from tests.torch_exr import read_exr
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -1556,6 +1577,271 @@ def main() -> int:
     emit(phase="trace_probe", seconds=round(time.monotonic() - t0, 3), **probe_out,
          tool_launches=probe_counts, card=card)
 
+    # ------ 11. what follows a render: scene files, EXR, AOVs, the denoiser,
+    # the u8 codec, animation and motion blur (cuda_regen and cuda_mono)
+    slice_launches = {}
+
+    def counted(phase_name, fn):
+        """Zero every count, run fn, read the counts (added to the main
+        path's launches and kept under ``phase_name``)."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        counts = {key: w.launches for key, w in wrappers.items()}
+        for key in launches:
+            launches[key] += counts[key]
+        slice_launches[phase_name] = {k: n for k, n in counts.items() if n}
+        return out, counts
+
+    def host_ms(fn, reps=1):
+        """The least wall ms of ``reps`` runs of fn, each ended by a
+        device synchronize: (ms, fn's last result)."""
+        best, out = float("inf"), None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.monotonic() - t) * 1e3)
+        return best, out
+
+    def same_bits(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    def display_rmse(a, b):
+        """The ``compare`` command's RMSE: the 8-bit display images as
+        [0, 1] RGB."""
+        ua = image_mod.accum_to_u8(a)[..., :3].astype(np.float32) / 255.0
+        ub = image_mod.accum_to_u8(b)[..., :3].astype(np.float32) / 255.0
+        return float(np.sqrt(np.mean((ua - ub) ** 2)))
+
+    def linear_rmse(a, b):
+        return float(np.sqrt(np.mean((a[..., :3] - b[..., :3]) ** 2)))
+
+    def denoise_times(label, fb_, aovs_):
+        """``atrous_denoise`` (5 levels) from host arrays to a host array,
+        and ``atrous_filter`` alone on device tensors (CUDA events)."""
+        args_ = (fb_[..., :3], aovs_["depth"], aovs_["normal"], aovs_["albedo"])
+        dn_mod.atrous_denoise(*args_, device="cuda")  # first launches
+        ms, _ = host_ms(lambda: dn_mod.atrous_denoise(*args_, device="cuda"), reps=3)
+        f_in = dn_mod.filter_inputs(*args_, device="cuda")
+        f_ms = min(cuda_span(lambda: dn_mod.atrous_filter(*f_in[:3], 5, f_in[3]))[0]
+                   for _ in range(3))
+        return {f"{label}_atrous_denoise_ms": ms, f"{label}_atrous_filter_ms": f_ms}
+
+    rgba = ((b"R", 0), (b"G", 1), (b"B", 2), (b"A", 3))
+    t0 = time.monotonic()
+    post = {}
+    p_ref = scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], k_main)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scene_file = tmp / "cornell512.json"
+        sceneio.save_scene(p_ref, scene_file)
+        p_scene = sceneio.load_scene(scene_file)
+        assert json.dumps(sceneio.scene_to_dict(p_scene)) == json.dumps(
+            sceneio.scene_to_dict(p_ref)), "the scene file does not round-trip"
+        out_exr, aov_exr = tmp / "x.exr", tmp / "aov.exr"
+
+        def run_cli():
+            t = time.monotonic()
+            rc = port_cli.main(["render", "--scene", str(scene_file), "--out", str(out_exr),
+                                "--aovs", str(aov_exr), "--denoise", "5", "--quiet"])
+            torch.cuda.synchronize()
+            return rc, time.monotonic() - t
+
+        (rc, cli_s), post_counts = counted("post_main_path", run_cli)
+        assert rc == 0 and post_counts["cuda_regen"] == 1, post_counts
+        r_post = Renderer(p_scene, device="cuda")
+        fb = r_post.render()
+        assert r_post.regen_frames == k_main
+        check_image(fb, 512, 512)
+        planes, _, (w_x, h_x) = read_exr(out_exr)
+        assert (w_x, h_x) == (512, 512)
+        for name, ch in rgba:  # --out x.exr: the writer's default half precision
+            assert same_bits(planes[name], fb[..., ch].astype(np.float16).astype(np.float32)), (
+                "beauty EXR", name)
+        aovs = aov_mod.compute_aovs(p_scene, "cuda")
+        planes, _, _ = read_exr(aov_exr)
+        for name, ch in rgba:
+            assert same_bits(planes[name], fb[..., ch]), ("AOV EXR beauty", name)
+        assert same_bits(planes[b"depth.Z"], aovs["depth"])
+        assert same_bits(planes[b"obj_id.Z"], aovs["obj_id"].astype(np.float32))
+        for layer in ("normal", "albedo"):
+            for i, c in enumerate("RGB"):
+                assert same_bits(planes[f"{layer}.{c}".encode()], aovs[layer][..., i]), layer
+        dn_gpu = dn_mod.atrous_denoise(fb[..., :3], aovs["depth"], aovs["normal"],
+                                       aovs["albedo"], device="cuda")
+        planes, _, _ = read_exr(tmp / "x.denoised.exr")
+        for name, ch in rgba[:3]:
+            assert same_bits(planes[name], dn_gpu[..., ch].astype(np.float16).astype(np.float32))
+        # the u8 codec: native=True (g++ at first use; a failed build raises)
+        u8_native = image_mod.accum_to_u8(fb, native=True)
+        assert same_bits(u8_native, image_mod.accum_to_u8(fb, native=False))
+        png_n = image_mod.save_image(fb, tmp / "native.png", native=True)
+        png_p = image_mod.save_image(fb, tmp / "pil.png", native=False)
+        from PIL import Image
+
+        assert same_bits(np.asarray(Image.open(png_n)), np.asarray(Image.open(png_p)))
+        assert same_bits(np.asarray(Image.open(png_n)), u8_native)
+        post.update(
+            cli_render_s=cli_s, launches=post_counts, native_png_bytes=png_n.stat().st_size,
+            pil_png_bytes=png_p.stat().st_size,
+            native_png_bytes_equal_pil=png_n.read_bytes() == png_p.read_bytes(),
+            u8_native_ms=host_ms(lambda: image_mod.accum_to_u8(fb, native=True), 5)[0],
+            u8_numpy_ms=host_ms(lambda: image_mod.accum_to_u8(fb, native=False), 5)[0],
+            png_native_ms=host_ms(lambda: image_mod.save_image(fb, tmp / "n2.png",
+                                                               native=True), 3)[0],
+            png_pil_ms=host_ms(lambda: image_mod.save_image(fb, tmp / "p2.png",
+                                                            native=False), 3)[0],
+            exr_beauty_half_zip_ms=host_ms(lambda: image_mod.save_image(fb, tmp / "b.exr"), 3)[0],
+            exr_beauty_half_zip_bytes=(tmp / "b.exr").stat().st_size,
+            exr_aov_float_zip_ms=host_ms(lambda: aov_mod.save_aovs_exr(
+                aovs, tmp / "a.exr", beauty=fb), 3)[0],
+            exr_aov_float_zip_bytes=(tmp / "a.exr").stat().st_size)
+    # the card's AOVs against the port's CPU AOVs from the same primaries
+    st_c, cfg_c = flatten_scene(p_scene, "cpu")
+    o_c, d_c = aov_mod.pixel_centre_rays(st_c, cfg_c)
+    want_aov = {k: v.numpy() for k, v in aov_mod.aov_buffers(st_c, cfg_c, o_c, d_c).items()}
+    st_g, cfg_g = flatten_scene(p_scene, dev)
+    got_aov = {k: v.cpu().numpy() for k, v in aov_mod.aov_buffers(
+        st_g, cfg_g, Vec3(*(c.to(dev) for c in o_c)), Vec3(*(c.to(dev) for c in d_c))).items()}
+    assert same_bits(got_aov["obj_id"], want_aov["obj_id"]), "AOV obj_id card vs CPU"
+    hit = want_aov["obj_id"] >= 0
+    aov_vs_cpu = {"obj_id_equal": True, "hit_fraction": float(hit.mean())}
+    for k in ("depth", "normal", "albedo"):
+        scale = max(1.0, float(np.abs(want_aov[k][hit]).max()))
+        err = float(np.abs(got_aov[k][hit] - want_aov[k][hit]).max()) / scale
+        aov_vs_cpu[k] = dict(max_rel=err, bit_equal=same_bits(got_aov[k], want_aov[k]),
+                             limit=1e-5)
+        assert err <= 1e-5, (k, err)
+    aov_vs_cpu["card_rays_same_obj_id"] = same_bits(aovs["obj_id"], got_aov["obj_id"])
+    # the card's denoiser against the port's on the CPU, same inputs
+    dn_cpu = dn_mod.atrous_denoise(fb[..., :3], aovs["depth"], aovs["normal"],
+                                   aovs["albedo"], device="cpu")
+    dn_err = float(np.abs(dn_gpu - dn_cpu).max()) / float(np.abs(dn_cpu).max())
+    assert dn_err <= 1e-4, ("denoiser card vs CPU", dn_err)
+    # 16 iterations, denoised, against the 100-iteration render
+    s16 = scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], 16)
+    raw16 = Renderer(s16, device="cuda").render()
+    dn16 = np.concatenate([dn_mod.atrous_denoise(raw16[..., :3], aovs["depth"], aovs["normal"],
+                                                 aovs["albedo"], device="cuda"),
+                           raw16[..., 3:]], axis=-1)
+    rmse = dict(display_raw16=display_rmse(raw16, fb), display_denoised16=display_rmse(dn16, fb),
+                linear_raw16=linear_rmse(raw16, fb), linear_denoised16=linear_rmse(dn16, fb))
+    assert rmse["display_denoised16"] < rmse["display_raw16"], rmse
+    # times: the AOVs and the denoiser at 512x512 and at the hero size
+    times = {"aov_512_ms": host_ms(lambda: aov_mod.compute_aovs(p_scene, "cuda"), 3)[0]}
+    times.update(denoise_times("512", fb, aovs))
+    hero = scene_of(presets.cornell_box, 1920, 1080, 32, MAIN["bounces"], 4)
+    hero_fb = Renderer(hero, device="cuda").render()
+    times["aov_1920x1080_ms"], hero_aovs = host_ms(lambda: aov_mod.compute_aovs(hero, "cuda"), 3)
+    times.update(denoise_times("1920x1080", hero_fb, hero_aovs))
+    with tempfile.TemporaryDirectory() as tmp:
+        times["exr_1920x1080_half_zip_ms"] = host_ms(
+            lambda: image_mod.save_image(hero_fb, Path(tmp) / "h.exr"), 3)[0]
+        times["exr_1920x1080_half_zip_bytes"] = (Path(tmp) / "h.exr").stat().st_size
+    emit(phase="post_main_path", seconds=round(time.monotonic() - t0, 3),
+         config="cornell 512x512, 32 lambda, 30 bounces, 100 iterations, from a scene file; "
+         "render --out x.exr --aovs aov.exr --denoise 5", **post, aov_vs_cpu=aov_vs_cpu,
+         denoise_vs_cpu=dict(max_rel=dn_err, limit=1e-4), rmse_vs_100=rmse, times=times,
+         card=card)
+    del hero_fb, hero_aovs, dn_cpu, want_aov, got_aov
+
+    # ---------------- 12. AOVs of the many-object scenes: time and memory
+    t0 = time.monotonic()
+    aov_many = {}
+    for label, sc in (("spheres1000_1024x768",
+                       field_of(SPHERES["n_spheres"], SPHERES["width"], SPHERES["height"],
+                                SPHERES["n_samples"], SPHERES["bounces"], 1)),
+                      ("mesh5k_512x512", scene_of(presets.PRESETS["mesh5k"], 512, 512, 32, 30, 1))):
+        aov_mod.compute_aovs(sc, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        ms, a = host_ms(lambda: aov_mod.compute_aovs(sc, "cuda"))
+        peak = torch.cuda.max_memory_allocated()
+        n_obj = flatten_numpy(sc)[1].n_objects
+        n_rays = sc.width * sc.height
+        assert (a["obj_id"] >= 0).any() and np.isfinite(a["normal"]).all(), label
+        aov_many[label] = dict(ms=ms, max_memory_allocated=peak,
+                               peak_over_resident_bytes=peak - base_mem, rays=n_rays,
+                               objects=n_obj,
+                               chunks=-(-n_rays // max(128, BROADCAST_BUDGET // n_obj)),
+                               hit_fraction=float((a["obj_id"] >= 0).mean()))
+    emit(phase="aov_many", seconds=round(time.monotonic() - t0, 3), **aov_many, card=card)
+
+    # --------------------------- 13. animation and motion blur (cuda_mono)
+    t0 = time.monotonic()
+    anim_out = {}
+    orbit_base = scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], 8)
+    orbit = anim_mod.Animation(orbit_base, 4, anim_mod.orbit_tracks(orbit_base, 360.0, 4))
+    (orbit_ms, frames), orbit_counts = counted(
+        "animation_orbit", lambda: host_ms(lambda: anim_mod.render_animation(orbit)))
+    assert orbit_counts["cuda_regen"] == 4, orbit_counts
+    for f in range(4):
+        alone = Renderer(orbit.scene_at(f), device="cuda").render()
+        assert same_bits(image_mod.accum_to_u8(alone)[..., :3], frames[f]), ("orbit frame", f)
+    assert not same_bits(frames[0], frames[1])
+    anim_out["orbit_cornell512_4x8"] = dict(ms_per_frame=orbit_ms / 4, launches=orbit_counts)
+
+    def blur_schedule(anim, shutter):
+        cfg0 = flatten_numpy(anim.scene_at(0))[1]
+        return anim_mod._motion_blur_schedule(anim, 0, shutter, cfg0, lambda s: s)
+
+    # static tracks: every shutter sample is the same scene
+    static = anim_mod.Animation(orbit_base, 1, [anim_mod.Track(
+        "camera.fov_y_deg", [(0.0, 60.0), (1.0, 60.0)])])
+    blurred, mb_counts = counted("motion_blur_static", lambda: Renderer(
+        static.scene_at(0), device="cuda", _scene_schedule=blur_schedule(static, 0.5)).render())
+    assert mb_counts["cuda_mono"] == 8 and mb_counts["cuda_regen"] == 0, mb_counts
+    assert same_bits(blurred, Renderer(static.scene_at(0), device="cuda",
+                                       regen_frames=1).render()), "static shutter"
+    # a moving sphere spreads along its path
+    d_scene = scene_of(presets.default_scene, 320, 240, 32, 8, 8)
+    moving = anim_mod.Animation(d_scene, 1, [anim_mod.Track(
+        "objects[0].position", [(0.0, (-1.5, 0.0, 2.0)), (1.0, (1.5, 0.0, 2.0))])])
+    still = anim_mod.render_animation(moving)
+    smeared, _ = counted("motion_blur_moving",
+                         lambda: anim_mod.render_animation(moving, shutter=1.0))
+    moved_px = int((smeared != still).any(axis=-1).sum())
+    assert moved_px > 0, "motion blur left the moving sphere where it was"
+    # a sphere leaves its cluster early in the shutter: clustered == flat
+    field = field_of(SPHERES["n_spheres"], 256, 192, SPHERES["n_samples"],
+                     SPHERES["bounces"], 8)
+    cam_pos = np.asarray(field.camera.position, np.float64)
+    target = tuple(float(v) for v in cam_pos + 2.5 * np.asarray(field.camera.direction))
+    jump = anim_mod.Animation(field, 1, [anim_mod.Track(
+        "objects[1].position", [(0.0, tuple(field.objects[1].position)), (0.1, target)])])
+    jump_imgs = {}
+    for accel in ("auto", "none"):
+        jump_imgs[accel], jc = counted(f"motion_blur_clusters_{accel}", lambda: Renderer(
+            jump.scene_at(0), device="cuda", accel=accel,
+            _scene_schedule=blur_schedule(jump, 1.0)).render())
+        assert jc["cuda_mono"] == 8, jc
+    assert same_bits(jump_imgs["auto"], jump_imgs["none"]), "clustered != flat under motion blur"
+    anim_out["motion_blur_checks"] = dict(
+        static_equals_unblurred=True, moving_sphere_pixels_changed=moved_px,
+        clustered_equals_flat=True)
+    # ms per frame and the device-busy share against the static mono render
+    for label, sc_, anim_ in (("cornell512", orbit_base, static),
+                              ("spheres1000_256x192", field, jump)):
+        mb_wall, mb_busy = profiled_render(anim_.scene_at(0),
+                                           _scene_schedule=blur_schedule(anim_, 1.0))
+        st_wall, st_busy = profiled_render(anim_.scene_at(0), regen_frames=1)
+        mb_ms, _ = host_ms(lambda: Renderer(anim_.scene_at(0), device="cuda",
+                                            _scene_schedule=blur_schedule(anim_, 1.0)).render())
+        st_ms, _ = host_ms(lambda: Renderer(anim_.scene_at(0), device="cuda",
+                                            regen_frames=1).render())
+        frames_n = sc_.nbr_of_iterations
+        anim_out[f"motion_blur_{label}"] = dict(
+            frames=frames_n, ms_per_frame=mb_ms / frames_n, static_mono_ms_per_frame=st_ms / frames_n,
+            busy_share=mb_busy / mb_wall, static_busy_share=st_busy / st_wall,
+            profiled_wall_ms=mb_wall, static_profiled_wall_ms=st_wall)
+    emit(phase="animation", seconds=round(time.monotonic() - t0, 3), **anim_out,
+         launches={k: v for k, v in slice_launches.items() if k != "post_main_path"},
+         card=card)
+
     for key, n in launches.items():
         assert n > 0, f"{key} was never launched by the main path"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "spectral_tpu"))
@@ -1772,6 +2058,11 @@ def main() -> int:
             entry.update(shadow_interval=shadow_interval[name])
         if name in probe_terms:
             entry.update(bound_terms=probe_terms[name])
+        if name in ("cuda_regen", "cuda_mono"):
+            # the launches of this kernel in the phases after a render
+            # (post_main_path, aov_many and animation), by counted run
+            entry.update(post_render_launches={
+                phase: c[name] for phase, c in slice_launches.items() if name in c})
         kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

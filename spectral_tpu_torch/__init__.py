@@ -6,12 +6,24 @@ which stays the reference. This package imports torch and never jax, and
 nothing of the JAX package: it keeps its own copies of the host modules it
 needs (scene schema and presets, spectra, image output).
 
-Public surface (lazy):
+Public surface (the reference's, ``spectral_tpu/__init__.py``, and the
+port's own; all but the spectrum names lazy):
+    spectral_tpu_torch.Spectrum       -- host-side spectrum value type
     spectral_tpu_torch.Renderer       -- progressive renderer
     spectral_tpu_torch.flatten_scene  -- scene -> tensors on a device
     spectral_tpu_torch.presets        -- scene presets (the port's copy)
     spectral_tpu_torch.schema         -- scene schema (the port's copy)
+    spectral_tpu_torch.load_scene / save_scene -- JSON scene files
+    spectral_tpu_torch.animation      -- keyframe animation, motion blur
+    spectral_tpu_torch.mesh           -- triangle-mesh helpers
 """
+
+from spectral_tpu_torch.spectral.spectrum import (
+    NBR_OF_SAMPLES_MAX,
+    VISIBLE_LIGHT_WAVELENGTH_LOWER_BOUND,
+    VISIBLE_LIGHT_WAVELENGTH_UPPER_BOUND,
+    Spectrum,
+)
 
 __version__ = "0.1.0"
 
@@ -33,7 +45,37 @@ def __getattr__(name):
         from spectral_tpu_torch.scene import schema
 
         return schema
+    if name == "load_scene":
+        from spectral_tpu_torch.utils.sceneio import load_scene
+
+        return load_scene
+    if name == "save_scene":
+        from spectral_tpu_torch.utils.sceneio import save_scene
+
+        return save_scene
+    if name == "animation":
+        from spectral_tpu_torch.render import animation
+
+        return animation
+    if name == "mesh":
+        from spectral_tpu_torch.scene import mesh
+
+        return mesh
     raise AttributeError(f"module 'spectral_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["Renderer", "flatten_scene", "presets", "schema", "__version__"]
+__all__ = [
+    "Spectrum",
+    "Renderer",
+    "flatten_scene",
+    "presets",
+    "schema",
+    "load_scene",
+    "save_scene",
+    "animation",
+    "mesh",
+    "VISIBLE_LIGHT_WAVELENGTH_LOWER_BOUND",
+    "VISIBLE_LIGHT_WAVELENGTH_UPPER_BOUND",
+    "NBR_OF_SAMPLES_MAX",
+    "__version__",
+]

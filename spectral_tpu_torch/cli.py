@@ -1,5 +1,6 @@
 """Command-line entry point of the PyTorch/CUDA port (the twin of the reference
-package's ``spectral_tpu.cli`` render command, same flag names):
+package's ``spectral_tpu.cli``: ``render``, ``animate``, ``scene dump``,
+``describe`` and ``compare``, same flag names):
 
     python -m spectral_tpu_torch render --preset cornell --out cornell.png
     python -m spectral_tpu_torch render --preset default --width 320 \\
@@ -13,8 +14,15 @@ package's ``spectral_tpu.cli`` render command, same flag names):
     python -m spectral_tpu_torch render --preset mesh5k --width 512 \\
         --height 512 --bounces 30 --iterations 100 --out mesh5k.png
     python -m spectral_tpu_torch render --preset prism --out prism.png
-    python -m spectral_tpu_torch render --preset cornell --aperture 0.05 \
+    python -m spectral_tpu_torch render --preset cornell --aperture 0.05 \\
         --focus-distance 2.0 --out cornell_dof.png
+    python -m spectral_tpu_torch scene dump --preset cornell --out s.json
+    python -m spectral_tpu_torch render --scene s.json --out x.exr \\
+        --aovs aov.exr --denoise
+    python -m spectral_tpu_torch animate --preset cornell --orbit 360 \\
+        --frames 4 --gif x.gif
+    python -m spectral_tpu_torch describe --scene s.json
+    python -m spectral_tpu_torch compare a.png b.png
 
 The first Ctrl-C finishes the current chunk (persist: launch), saves the
 image and a resumable checkpoint (``--checkpoint``, else
@@ -33,8 +41,6 @@ from spectral_tpu_torch.utils.text_resources import HELP
 
 # every preset renders through the port
 PRESETS = tuple(_PRESET_MAKERS)
-# image formats the port writes (render/image.py: .exr is not ported)
-UNWRITABLE = (".exr",)
 
 
 def _parse_phase(value, allow_auto: bool = True):
@@ -54,10 +60,34 @@ def _parse_phase(value, allow_auto: bool = True):
     return parts[0] if len(parts) == 1 else tuple(parts)
 
 
+def _add_render_overrides(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--width", type=int, help=HELP["width"])
+    p.add_argument("--height", type=int, help=HELP["height"])
+    p.add_argument("--iterations", type=int, help=HELP["iterations"])
+    p.add_argument("--bounces", type=int, help=HELP["max_bounces"])
+    p.add_argument("--samples", type=int, help=HELP["spectrum_samples"])
+    p.add_argument("--aperture", type=float,
+                   help="thin-lens aperture radius (world units); 0 = "
+                        "pinhole (depth of field, beyond the reference)")
+    p.add_argument("--focus-distance", type=float,
+                   help="focus-plane distance along the view axis "
+                        "(with --aperture > 0)")
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda runs the hand-written kernels; cpu their "
+                        "plain PyTorch versions")
+
+
 def _load_scene(args):
     from spectral_tpu_torch.scene import presets
+    from spectral_tpu_torch.utils import sceneio
 
-    scene = presets.PRESETS[args.preset]()
+    if args.scene:
+        scene = sceneio.load_scene(args.scene)
+    else:
+        scene = presets.PRESETS[args.preset]()
     if args.width is not None:
         scene.width = args.width
     if args.height is not None:
@@ -80,11 +110,6 @@ def _load_scene(args):
 def cmd_render(args) -> int:
     from spectral_tpu_torch.render.renderer import Renderer
 
-    if args.out.lower().endswith(UNWRITABLE):
-        # refused before the render, not after it
-        print(f"--out {args.out}: .exr output is not in the PyTorch/CUDA port "
-              "yet (ROADMAP.md queue 1); save .png/.jpg/.bmp/.tiff", file=sys.stderr)
-        return 2
     adaptive = None
     if args.adaptive is not None:
         if not args.persist:
@@ -135,11 +160,12 @@ def cmd_render(args) -> int:
 
     prev_handler = signal.signal(signal.SIGINT, on_sigint)
     try:
-        renderer.render(progress=progress, abort=lambda: stop["requested"])
+        renderer.render(progress=progress, abort=lambda: stop["requested"],
+                        check_finite=args.check_finite)
     finally:
         signal.signal(signal.SIGINT, prev_handler)
     aborted = stop["requested"]
-    renderer.save_image(args.out)
+    renderer.save_image(args.out, exposure=args.exposure, gamma=args.gamma)
     checkpoint = args.checkpoint
     if checkpoint is None and aborted:
         checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
@@ -172,6 +198,225 @@ def cmd_render(args) -> int:
             )
         if aborted and checkpoint:
             print(f"resume with --resume {checkpoint}", file=sys.stderr)
+    if args.aovs or args.denoise is not None:
+        _post_process(args, scene, renderer.framebuffer())
+    return 0
+
+
+def _post_process(args, scene, fb) -> None:
+    """``--aovs`` and ``--denoise`` after the render, in the reference's
+    order (``spectral_tpu/cli.py:302-340``): the G-buffers into DIR (.npy
+    and .png previews) or one multi-layer EXR with the beauty pass, then
+    the denoised copy next to ``--out`` (``<stem>.denoised<ext>``, the
+    display transform applied as to ``--out``). The AOVs are computed
+    once, on ``--device``, for both."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from spectral_tpu_torch.render import image as image_mod
+    from spectral_tpu_torch.render.aov import compute_aovs, save_aovs, save_aovs_exr
+    from spectral_tpu_torch.render.denoise import atrous_denoise
+
+    aovs = compute_aovs(scene, args.device)
+    if args.aovs:
+        if str(args.aovs).endswith(".exr"):
+            save_aovs_exr(aovs, args.aovs, beauty=np.asarray(fb, np.float32))
+            what = "multi-layer EXR (beauty+depth/normal/albedo/obj_id)"
+        else:
+            save_aovs(aovs, args.aovs)
+            what = "AOVs (depth/normal/albedo/obj_id)"
+        if not args.quiet:
+            print(f"{what} -> {args.aovs}", file=sys.stderr)
+    if args.denoise is not None:
+        out = Path(args.out)
+        dn_path = out.with_name(out.stem + ".denoised" + out.suffix)
+        rgb = atrous_denoise(fb[..., :3], aovs["depth"], aovs["normal"], aovs["albedo"],
+                             iterations=args.denoise, device=args.device)
+        denoised = np.concatenate([rgb, fb[..., 3:4]], axis=-1)
+        image_mod.save_image(denoised, dn_path, exposure=args.exposure, gamma=args.gamma)
+        if not args.quiet:
+            print(f"denoised ({args.denoise} a-trous levels) -> {dn_path}",
+                  file=sys.stderr)
+
+
+def cmd_animate(args) -> int:
+    """Render a keyframe animation (the reference's ``cmd_animate``)."""
+    import dataclasses as dc
+    import json as json_mod
+    from pathlib import Path
+
+    from spectral_tpu_torch.render import animation as anim_mod
+
+    if not (args.out_dir or args.gif or args.dump_anim):
+        print("animate: no output requested — pass --out-dir and/or --gif",
+              file=sys.stderr)
+        return 2
+
+    # --scene/--preset override an embedded base scene; with neither
+    # given, an --anim file's embedded scene is used as-is (the preset
+    # default only applies when there is nothing embedded to use)
+    explicit_scene = args.scene is not None or args.preset is not None
+    if args.preset is None:
+        args.preset = "default"
+    scene = _load_scene(args)
+
+    if args.anim:
+        anim = anim_mod.load_animation(
+            args.anim, scene=scene if explicit_scene else None
+        )
+        if not explicit_scene:
+            # size/quality overrides still apply to the embedded scene
+            for attr, val in (
+                ("width", args.width), ("height", args.height),
+                ("nbr_of_iterations", args.iterations),
+                ("nbr_of_ray_bounces", args.bounces),
+            ):
+                if val is not None:
+                    setattr(anim.scene, attr, val)
+            if args.samples is not None:
+                anim.scene.spectrum_number_of_samples = args.samples
+                anim.scene.update_all_spectrum_sample_sizes()
+        # dataclasses.replace re-runs __post_init__ validation on the
+        # overridden frame count / playback rate
+        anim = dc.replace(
+            anim,
+            n_frames=args.frames if args.frames is not None else anim.n_frames,
+            fps=args.fps if args.fps is not None else anim.fps,
+        )
+    elif args.orbit is not None:
+        n = args.frames if args.frames is not None else 48
+        center = (
+            tuple(float(c) for c in args.orbit_center.split(","))
+            if args.orbit_center
+            else (0.0, 0.0, 0.0)
+        )
+        anim = anim_mod.Animation(
+            scene,
+            n_frames=n,
+            tracks=anim_mod.orbit_tracks(
+                scene, degrees=args.orbit, n_frames=n, center=center
+            ),
+            fps=args.fps if args.fps is not None else 12.0,
+        )
+    else:
+        print("animate: pass --anim tracks.json or --orbit DEGREES",
+              file=sys.stderr)
+        return 2
+
+    t0 = time.monotonic()
+
+    def progress(done, total):
+        if args.quiet:
+            return
+        dt = time.monotonic() - t0
+        eta = dt / done * (total - done) if done else 0.0
+        print(
+            f"\rframe {done}/{total}  {dt:6.1f}s elapsed  eta {eta:6.1f}s",
+            end="", file=sys.stderr, flush=True,
+        )
+
+    frames = anim_mod.render_animation(
+        anim,
+        iterations=args.iterations,
+        devices=[args.device],
+        out_dir=args.out_dir,
+        progress=progress,
+        shutter=args.shutter,
+    )
+    if not args.quiet:
+        print(file=sys.stderr)
+    if args.gif:
+        anim_mod.save_gif(frames, args.gif, fps=anim.fps)
+        if not args.quiet:
+            print(f"wrote {args.gif}", file=sys.stderr)
+    if args.dump_anim:
+        Path(args.dump_anim).write_text(
+            json_mod.dumps(anim_mod.animation_to_dict(anim), indent=2)
+        )
+        if not args.quiet:
+            print(f"wrote {args.dump_anim}", file=sys.stderr)
+    return 0
+
+
+def cmd_scene_dump(args) -> int:
+    from spectral_tpu_torch.scene import presets
+    from spectral_tpu_torch.utils import sceneio
+
+    scene = presets.PRESETS[args.preset]()
+    sceneio.save_scene(scene, args.out)
+    print(f"wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_describe(args) -> int:
+    if args.help_for is not None:
+        key = args.help_for
+        if key == "list":
+            for k in sorted(HELP):
+                print(k)
+            return 0
+        if key not in HELP:
+            near = ", ".join(k for k in sorted(HELP) if key in k) or "none"
+            print(f"no help entry {key!r} (close: {near})", file=sys.stderr)
+            return 2
+        print(HELP[key])
+        return 0
+    scene = _load_scene(args)
+    scene.validate()
+    print(f"{scene.width}x{scene.height}, {scene.nbr_of_iterations} iterations, "
+          f"{scene.nbr_of_ray_bounces} bounces, "
+          f"{scene.spectrum_number_of_samples} wavelength samples "
+          f"({scene.spectrum_lower_bound:.0f}-{scene.spectrum_upper_bound:.0f} nm)")
+    print(f"camera: pos {scene.camera.position} dir {scene.camera.direction} "
+          f"fov {scene.camera.fov_y_deg} deg")
+    print(f"{len(scene.lights)} lights:")
+    for light in scene.lights:
+        tag = " [hidden]" if light.hidden else ""
+        print(f"  {light.name}: at {light.position}, spectrum {light.spectrum.name!r}{tag}")
+    print(f"{len(scene.objects)} objects:")
+    for o in scene.objects:
+        tag = " [hidden]" if o.hidden else ""
+        kind = type(o.object_type).__name__
+        if hasattr(o.object_type, "n_triangles"):
+            kind += f" ({o.object_type.n_triangles} triangles)"
+        print(f"  {o.name}: {kind} at {o.position}, "
+              f"material {o.material.name!r}{tag}")
+    print(f"{len(scene.materials)} materials:")
+    for m in scene.materials:
+        extra = ""
+        if m.transmission:
+            extra += (f", transmission {m.transmission} (ior {m.ior}"
+                      f"{', cauchy ' + str(m.cauchy_b_um2) if m.cauchy_b_um2 else ''})")
+        if m.emission is not None:
+            extra += f", emission {m.emission.name!r}"
+        if m.texture is not None:
+            extra += (f", checker texture (scale {m.texture.scale}, "
+                      f"low {m.texture.low})")
+        print(f"  {m.name}: metallicness {m.metallicness}, "
+              f"roughness {m.roughness}{extra}")
+    print(f"{len(scene.spectra)} spectra")
+    return 0
+
+
+def cmd_compare(args) -> int:
+    """Pixel RMSE between two images (the BASELINE accuracy metric)."""
+    import numpy as np
+    from PIL import Image
+
+    def load(p):
+        return np.asarray(Image.open(p).convert("RGB"), dtype=np.float32) / 255.0
+
+    a, b = load(args.a), load(args.b)
+    if a.shape != b.shape:
+        print(f"size mismatch: {a.shape} vs {b.shape}", file=sys.stderr)
+        return 1
+    diff = a - b
+    rmse = float(np.sqrt(np.mean(diff**2)))
+    mae = float(np.abs(diff).mean())
+    p99 = float(np.quantile(np.abs(diff).max(axis=-1), 0.99))
+    print(f"rmse {rmse:.5f}  mae {mae:.5f}  p99|diff| {p99:.5f}  "
+          f"(units: [0,1] pixel intensity)")
     return 0
 
 
@@ -181,23 +426,16 @@ def build_parser() -> argparse.ArgumentParser:
         description="Spectral path tracer, PyTorch + CUDA port",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    pr = sub.add_parser("render", help="render a preset progressively")
-    pr.add_argument("--preset", choices=PRESETS, default="default")
-    pr.add_argument("--width", type=int, help=HELP["width"])
-    pr.add_argument("--height", type=int, help=HELP["height"])
-    pr.add_argument("--iterations", type=int, help=HELP["iterations"])
-    pr.add_argument("--bounces", type=int, help=HELP["max_bounces"])
-    pr.add_argument("--samples", type=int, help=HELP["spectrum_samples"])
-    pr.add_argument("--aperture", type=float,
-                    help="thin-lens aperture radius (world units); 0 = "
-                         "pinhole (depth of field, beyond the reference)")
-    pr.add_argument("--focus-distance", type=float,
-                    help="focus-plane distance along the view axis "
-                         "(with --aperture > 0)")
-    pr.add_argument("--out", default="render.png", help="output image (png/jpg/bmp/tiff)")
-    pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda runs the hand-written kernels; cpu their "
-                         "plain PyTorch versions")
+    pr = sub.add_parser("render", help="render a scene progressively")
+    src = pr.add_mutually_exclusive_group()
+    src.add_argument("--preset", choices=PRESETS, default="default")
+    src.add_argument("--scene", help="path to a scene JSON file")
+    _add_render_overrides(pr)
+    pr.add_argument("--out", default="render.png",
+                    help="output image by extension: png/jpg/bmp/tiff "
+                         "(8-bit, the reference's formats) or exr "
+                         "(linear HDR float, beyond the reference)")
+    _add_device(pr)
     pr.add_argument("--regen-frames", default="auto", metavar="K",
                     help="frames per regeneration launch ('auto' or K >= 1)")
     pr.add_argument("--regen-sort", choices=("auto", "on", "off"), default="auto",
@@ -234,7 +472,88 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--checkpoint", help=HELP["checkpoint"])
     pr.add_argument("--resume", help="resume from a checkpoint file")
     pr.add_argument("--quiet", action="store_true")
+    pr.add_argument("--check-finite", action="store_true",
+                    help="validate the accumulator each chunk; abort on NaN/Inf")
+    pr.add_argument("--exposure", type=float, default=None,
+                    help="opt-in display transform: scale linear RGB by "
+                         "this factor before u8 conversion (default: the "
+                         "reference's straight linear output)")
+    pr.add_argument("--gamma", type=float, default=None,
+                    help="opt-in display transform: encode with 1/gamma "
+                         "(e.g. 2.2) before u8 conversion (default: the "
+                         "reference's no-gamma output, a documented quirk)")
+    pr.add_argument("--aovs", metavar="DIR|FILE.exr",
+                    help="also write first-hit feature buffers (depth, "
+                         "shading normal, albedo, object id) as .npy + .png "
+                         "previews into DIR, or, when the argument ends in "
+                         ".exr, as ONE multi-layer ZIP-compressed EXR with "
+                         "the beauty pass")
+    pr.add_argument("--denoise", nargs="?", const=5, default=None,
+                    type=int, metavar="LEVELS",
+                    help="also write an AOV-guided a-trous denoised copy "
+                         "of the render next to --out (<stem>.denoised<ext>); "
+                         "LEVELS a-trous passes (default 5). Post-process "
+                         "only: the beauty image and checkpoints are "
+                         "untouched")
     pr.set_defaults(func=cmd_render)
+
+    pa = sub.add_parser("animate", help="render a keyframe animation, "
+                        "optionally motion-blurred")
+    srca = pa.add_mutually_exclusive_group()
+    srca.add_argument("--preset", choices=PRESETS, default=None,
+                      help="base scene preset; with --anim and neither "
+                           "--preset nor --scene, the animation file's "
+                           "embedded scene is used")
+    srca.add_argument("--scene", help="path to a scene JSON file")
+    _add_render_overrides(pa)
+    pa.add_argument("--anim", help="animation JSON: {n_frames, fps, tracks:"
+                    " [{path, keys: [[t, value], ...]}]}; an embedded "
+                    "scene is overridden by --scene/--preset")
+    pa.add_argument("--orbit", type=float, metavar="DEGREES",
+                    help="turntable: orbit the camera by DEGREES around "
+                         "--orbit-center, always looking at it")
+    pa.add_argument("--orbit-center", metavar="X,Y,Z",
+                    help="orbit center (default 0,0,0)")
+    pa.add_argument("--frames", type=int, help="number of animation frames")
+    pa.add_argument("--fps", type=float, help="GIF playback rate")
+    pa.add_argument("--out-dir", help="write frame_NNNN.png files here")
+    pa.add_argument("--gif", help="write an animated GIF here")
+    pa.add_argument("--dump-anim", help="write the resolved animation "
+                    "(including the generated orbit tracks) as JSON")
+    pa.add_argument("--shutter", type=float, default=0.0,
+                    help="motion blur: shutter width in frame-intervals "
+                         "(0.5 = 180-degree shutter; 0 = off). Each "
+                         "progressive iteration samples the tracks at one "
+                         "deterministic time in a centered window, so the "
+                         "accumulated frame integrates the shutter")
+    _add_device(pa)
+    pa.add_argument("--quiet", action="store_true")
+    pa.set_defaults(func=cmd_animate)
+
+    ps = sub.add_parser("scene", help="scene file utilities")
+    pssub = ps.add_subparsers(dest="scene_command", required=True)
+    pd = pssub.add_parser("dump", help="write a preset as an editable JSON scene")
+    pd.add_argument("--preset", choices=PRESETS, default="default")
+    pd.add_argument("--out", required=True)
+    pd.set_defaults(func=cmd_scene_dump)
+
+    pc = sub.add_parser("compare", help="pixel RMSE between two images")
+    pc.add_argument("a")
+    pc.add_argument("b")
+    pc.set_defaults(func=cmd_compare)
+
+    pdesc = sub.add_parser("describe", help="validate and summarize a scene")
+    srcd = pdesc.add_mutually_exclusive_group()
+    srcd.add_argument("--preset", choices=PRESETS, default="default")
+    srcd.add_argument("--scene", help="path to a scene JSON file")
+    _add_render_overrides(pdesc)
+    pdesc.add_argument(
+        "--help-for", metavar="KEY", dest="help_for",
+        help="print the help entry for a scene/spectrum knob "
+             "('list' shows all keys); the reference's tooltip catalog "
+             "(text_resources.rs) surfaced headlessly",
+    )
+    pdesc.set_defaults(func=cmd_describe)
     return parser
 
 

@@ -172,6 +172,36 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     objects (``clusters.renderer_plan``), "none" walks every object.
     Raises for scenes outside the port's slices, and for an object type
     tag that no kernel branch knows."""
+    plan = cl.renderer_plan(scene.np_fields, config.n_objects, accel)
+    return _pack(scene, config, plan, scene_features(scene))
+
+
+def repack_tables(tables: KernelTables, scene: SceneTensors) -> KernelTables:
+    """``tables``' cluster plan and feature build over ``scene``, another
+    snapshot of the same configuration (a motion-blur frame): the visit
+    order and the runs stay the plan's, while the geometry, the runs'
+    union AABBs and the packed records are ``scene``'s own, so an object
+    that moved out of its cluster's first bound is still found. Raises
+    ``ValueError`` for a snapshot with a feature the build lacks."""
+    extra = scene_features(scene) & ~tables.features
+    if extra:
+        raise ValueError(
+            f"the scene snapshot has feature bits {extra} that the tables' "
+            f"build ({tables.features}) lacks"
+        )
+    return _pack(scene, tables.config, tables.clusters, tables.features)
+
+
+def with_features(tables: KernelTables, features: int) -> KernelTables:
+    """These tables on the feature build that also holds ``features``
+    (``integrator.FX_*`` bits): a scene schedule whose tracks can switch a
+    feature on takes that build from its first frame."""
+    if not features & ~tables.features:
+        return tables
+    return _pack(tables.scene, tables.config, tables.clusters, tables.features | features)
+
+
+def _pack(scene: SceneTensors, config: RenderConfig, plan, features: int) -> KernelTables:
     require_slice(scene, config)
     f = scene.np_fields
     unknown = set(np.unique(f["obj_type"]).tolist()) - set(OBJECT_TYPES)
@@ -185,7 +215,6 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
     lpos[:, :3] = f["light_pos"]
     cam = np.zeros(4, np.float32)
     cam[:3] = f["cam_pos"]
-    plan = cl.renderer_plan(f, n_obj, accel)
     order, runs = cl.run_tables(f, n_obj, plan)
     packed = cl.pack_walk(f, order, runs)
     dev = scene.device
@@ -201,7 +230,7 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
         mat_emission=t(f["mat_emission"]), lam=t(f["lambda_grid"]), sky=t(sky),
         scene=scene, config=config, clusters=plan,
         triangles=(2 if scene.smooth_tri else 1) if scene.has_triangles else 0,
-        features=scene_features(scene),
+        features=features,
     )
     # the packed records go to shared memory where the block then still
     # fits PACKED_SMEM_LIMIT, else the walk streams them from global memory

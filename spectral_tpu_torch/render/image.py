@@ -7,9 +7,9 @@ scale by 255 and truncate to u8 (Rust ``as u8`` truncates toward zero),
 then export via PIL (PNG/JPG/BMP/TIFF, the formats the reference's
 ``image`` crate offers).
 
-The port's copy of ``spectral_tpu.render.image`` keeps only the
-numpy/PIL path: no native converter or encoder, and ``.exr`` output is
-not ported yet.
+The port's copy of ``spectral_tpu.render.image``: the native converter
+and PNG encoder are the port's own (``runtime/native.py``), and
+``.exr`` goes to the port's copy of the EXR writer (``render/exr.py``).
 """
 
 from __future__ import annotations
@@ -43,12 +43,24 @@ def apply_display_transform(
     return out
 
 
-def accum_to_u8(accum: np.ndarray) -> np.ndarray:
-    """``[H, W, 4]`` float32 -> ``[H, W, 4]`` uint8."""
+def accum_to_u8(accum: np.ndarray, native: bool | None = None) -> np.ndarray:
+    """``[H, W, 4]`` float32 -> ``[H, W, 4]`` uint8.
+
+    Uses the multithreaded C++ converter when available (``native=None``
+    auto-detects); the numpy fallback is semantically identical.
+    """
     data = np.asarray(accum, dtype=np.float32)
-    # NaN -> 0, like the reference's Rust `as u8` saturating cast (NaN as
-    # u8 == 0); np.clip passes NaN through and NaN->uint8 is
-    # platform-undefined.
+    if native is not False:
+        try:
+            from spectral_tpu_torch.runtime import native as native_mod
+
+            return native_mod.convert_f32_rgba_to_u8(data)
+        except Exception:
+            if native is True:
+                raise
+    # NaN -> 0 to match the native C++ converter and the reference's Rust
+    # `as u8` saturating cast (NaN as u8 == 0); np.clip passes NaN through
+    # and NaN->uint8 is platform-undefined.
     data = np.nan_to_num(data, nan=0.0)
     return (np.clip(data, 0.0, 1.0) * 255.0).astype(np.uint8)
 
@@ -56,29 +68,44 @@ def accum_to_u8(accum: np.ndarray) -> np.ndarray:
 def save_image(
     accum: np.ndarray,
     path: str | Path,
+    native: bool | None = None,
     u8: np.ndarray | None = None,
     exposure: float | None = None,
     gamma: float | None = None,
 ) -> Path:
-    """Save the accumulation buffer through PIL; format chosen by
-    extension. Callers that already hold the u8 conversion of ``accum``
-    may pass it to skip re-converting. ``exposure``/``gamma`` opt into a
-    display transform (default: the reference's linear no-gamma output —
-    see apply_display_transform)."""
+    """Save the accumulation buffer; format chosen by extension.
+
+    PNG output goes through the native C++ encoder when available; other
+    formats (and the fallback) use PIL. Callers that already hold the u8
+    conversion of ``accum`` may pass it to skip re-converting.
+    ``exposure``/``gamma`` opt into a display transform (default: the
+    reference's linear no-gamma output — see apply_display_transform).
+    """
     path = Path(path)
-    if path.suffix.lower() == ".exr":
-        raise NotImplementedError(
-            ".exr output is not in the PyTorch/CUDA port yet (the post slice, "
-            "ROADMAP.md queue 1 item 12); save .png/.jpg/.bmp/.tiff"
-        )
     if exposure is not None or gamma is not None:
         if u8 is not None:
             raise ValueError(
                 "pass either a precomputed u8 or a display transform, not both"
             )
         accum = apply_display_transform(accum, exposure, gamma)
+    if path.suffix.lower() == ".exr":
+        # HDR export: the linear float radiance, no u8 clamp (a
+        # capability the reference's 8-bit-only save path lacks)
+        from spectral_tpu_torch.render.exr import write_exr
+
+        return write_exr(np.asarray(accum, np.float32), path)
     if u8 is None:
-        u8 = accum_to_u8(accum)
+        u8 = accum_to_u8(accum, native=native)
+
+    if path.suffix.lower() == ".png" and native is not False:
+        try:
+            from spectral_tpu_torch.runtime import native as native_mod
+
+            path.write_bytes(native_mod.encode_png_rgba(u8))
+            return path
+        except Exception:
+            if native is True:
+                raise
 
     from PIL import Image
 

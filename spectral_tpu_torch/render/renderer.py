@@ -29,7 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from spectral_tpu_torch.ops.megakernel import BLOCK, pack_tables
+from spectral_tpu_torch.ops.megakernel import BLOCK, pack_tables, repack_tables, with_features
 from spectral_tpu_torch.render import image as image_mod
 from spectral_tpu_torch.render.cuda_integrator import (
     check_splits,
@@ -43,12 +43,21 @@ from spectral_tpu_torch.render.cuda_integrator import (
     render_persistent,
 )
 from spectral_tpu_torch.render.integrator import (
+    FX_EMISSION,
+    FX_TRANSMISSION,
     PersistState,
     accumulate_frame,
     integrate_frame,
 )
 from spectral_tpu_torch.render.layout import morton_layout
-from spectral_tpu_torch.scene.flatten import FIELDS, RenderConfig, SceneTensors, flatten_scene
+from spectral_tpu_torch.scene.flatten import (
+    FIELDS,
+    RenderConfig,
+    SceneTensors,
+    flatten_scene,
+    from_numpy,
+    smooth_triangles,
+)
 from spectral_tpu_torch.scene.schema import Scene
 
 # The cap on K from the memory of the K-1 direction planes that the
@@ -231,6 +240,16 @@ class Renderer:
     ``sharding`` is refused with ``NotImplementedError`` until its slice
     lands; scenes with more than 256 materials are refused by the table
     packer.
+    ``_scene_schedule`` (motion blur, ``animation._motion_blur_schedule``)
+    maps a frame id to that frame's host tables (``flatten_numpy``'s
+    field dict, the same configuration as ``scene``): every frame is then
+    one ``cuda_mono`` launch on its own tables, repacked with the first
+    scene's cluster plan (``repack_tables``) and one feature build picked
+    from the first scene's features and the schedule's
+    ``has_transmission``/``has_emission``. It refuses ``persist``,
+    ``phase_split``, ``sharding`` and an explicit ``regen_frames > 1``
+    with ``ValueError``; "auto" becomes 1. ``_flattened``: the
+    ``flatten_numpy`` pair the caller already made for ``scene``.
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",
@@ -241,7 +260,24 @@ class Renderer:
                  persist_keep_state: bool = False,
                  regen_sort: bool | str = "auto",
                  phase_split=None, phase_capacity=None,
-                 accel: str = "auto", sharding=None):
+                 accel: str = "auto", sharding=None,
+                 _scene_schedule: Callable[[int], dict] | None = None,
+                 _flattened: tuple | None = None):
+        if _scene_schedule is not None:
+            # the schedule changes the scene between frames, so every frame
+            # is its own launch; the modes that carry one scene across
+            # frames cannot take it (the reference's renderer.py:585-621)
+            if persist or phase_split is not None or sharding is not None:
+                raise ValueError(
+                    "a per-frame scene schedule (motion blur) runs on the "
+                    "frame-by-frame step only; drop persist/phase_split/sharding"
+                )
+            if regen_frames != "auto" and int(regen_frames) != 1:
+                raise ValueError(
+                    "regen_frames fuses K frames of ONE scene per launch and "
+                    "cannot compose with a per-frame scene schedule"
+                )
+            regen_frames = 1
         later = {
             "sharding": (sharding, "multi-GPU slice"),
         }
@@ -265,7 +301,11 @@ class Renderer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = device
-        self.scene_tensors, self.config = flatten_scene(scene, device)
+        if _flattened is not None:
+            self.scene_tensors, self.config = from_numpy(
+                *_flattened, device, smooth_triangles(scene))
+        else:
+            self.scene_tensors, self.config = flatten_scene(scene, device)
         if self.config.has_dof and persist:
             # one lens point per frame: regeneration ships the per-frame
             # lens shifts, but the persist kernels restart every frame from
@@ -277,6 +317,13 @@ class Renderer:
             )
         # raises outside the slices
         self.tables = pack_tables(self.scene_tensors, self.config, accel)
+        self._scene_schedule = _scene_schedule
+        if _scene_schedule is not None:
+            # a track may raise transmission from 0 mid-shutter: the build
+            # is picked once, from the schedule's conservative flags too
+            self.tables = with_features(self.tables, (
+                (FX_TRANSMISSION if getattr(_scene_schedule, "has_transmission", False) else 0)
+                | (FX_EMISSION if getattr(_scene_schedule, "has_emission", False) else 0)))
         self.clusters = self.tables.clusters
         self.scene_digest = scene_digest(self.scene_tensors, self.config)
         cfg = self.config
@@ -346,6 +393,16 @@ class Renderer:
         )
         self.next_frame = 0
 
+    def frame_tables(self, frame_id: int) -> tuple[SceneTensors, object]:
+        """The scene tensors and kernel tables frame ``frame_id`` renders
+        from: the schedule's snapshot of that frame, copied to the device
+        and repacked on the first scene's plan, or the one scene's."""
+        if self._scene_schedule is None:
+            return self.scene_tensors, self.tables
+        st, _ = from_numpy(self._scene_schedule(frame_id), self.config, self.device,
+                           self.scene_tensors.smooth_tri)
+        return st, repack_tables(self.tables, st)
+
     def _advance(self, frame_id: int) -> None:
         if self.phase_stages is not None:
             rgb, overflow = integrate_frame_cascade(
@@ -355,9 +412,8 @@ class Renderer:
             self._resolve_pending()  # frame f-1 is done by now: no wait
             self._pending = (frame_id, rgb, overflow)
             return
-        self.accum = render_frame_step_cuda(
-            self.scene_tensors, self.config, self.accum, frame_id, self.tables
-        )
+        st, tables = self.frame_tables(frame_id)
+        self.accum = render_frame_step_cuda(st, self.config, self.accum, frame_id, tables)
 
     # ------------------------------------------------------------ phased
 

@@ -322,15 +322,23 @@ def test_cli_renders_every_preset(name, tmp_path):
     assert rc == 0 and out.stat().st_size > 0
 
 
-def test_cli_refuses_exr_before_rendering(tmp_path, monkeypatch, capsys):
-    calls = []
-    monkeypatch.setattr(trender.Renderer, "__init__",
-                        lambda *a, **k: calls.append("renderer"))
+def test_cli_refuses_exr_before_rendering(tmp_path):
+    """Named for the refusal it replaces: ``--out x.exr`` renders the
+    feature scene and writes its linear framebuffer (half precision)."""
+    from tests.torch_exr import read_exr
+
     out = tmp_path / "x.exr"
-    rc = cli.main(["render", "--preset", "cornell", "--width", "8", "--height", "6",
-                   "--device", "cpu", "--out", str(out)])
-    assert rc == 2 and calls == [] and not out.exists()
-    assert ".exr" in capsys.readouterr().err
+    rc = cli.main(["render", "--preset", "prism", "--width", "8", "--height", "6",
+                   "--iterations", "2", "--bounces", "2", "--samples", "8",
+                   "--device", "cpu", "--quiet", "--out", str(out)])
+    assert rc == 0
+    scene = presets.prism(n_samples=8)
+    scene.width, scene.height, scene.nbr_of_iterations, scene.nbr_of_ray_bounces = 8, 6, 2, 2
+    fb = trender.Renderer(scene, device="cpu").render()
+    planes, _, (w, h) = read_exr(out)
+    assert (w, h) == (8, 6)
+    for name, ch in ((b"R", 0), (b"G", 1), (b"B", 2), (b"A", 3)):
+        assert np.array_equal(planes[name], fb[..., ch].astype(np.float16).astype(np.float32))
 
 
 @pytest.mark.parametrize("fields", [(0, 10, 1.5, 64, 16), (9, 10, 3.0, 64, 16),
