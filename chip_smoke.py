@@ -48,6 +48,21 @@ Renderer of that frame alone) and motion blur on ``cuda_mono`` (static
 tracks equal to the unblurred render, a moving sphere smeared, a sphere
 that leaves its cluster with the clustered walk equal to the flat one,
 ms per frame and the device-busy share against the static mono render);
+the live render: the Cornell box at the main path's size through
+``Renderer(regen_frames=("auto", 16))`` against "auto" (K = 100) in
+turns (ms per frame, the device-busy share, the two images), K = 1 and
+10 for the share of K = 100's gain, the cost of one ``viewer.update``
+and one ``--preview-every`` save; more than 256 materials on
+``cuda_regen`` and ``cuda_mono`` against their plain versions
+(``sphere_field(300)`` with a material per object, its table in shared
+memory, and ``sphere_field(1000)`` at 64 wavelengths, in global memory),
+with ms per frame, registers and blocks per SM beside the preset's
+materials; the default scene at 160x90, 150 iterations, on 16-frame
+chunks against the reference's published image (RMSE under 0.030); and
+``python -m spectral_tpu_torch render --serve 0`` on the card, driven
+over HTTP (frames, the page's endpoints, an object edit that restarts
+the count, an illegal scene refused with 400, the Abort button, and the
+checkpoint resumed and served again);
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
@@ -78,11 +93,13 @@ schema and presets are the port's own copies.
 from __future__ import annotations
 
 import functools
+import io
 import json
 import math
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -150,6 +167,8 @@ def rise_widths(pinhole, image):
     return out
 
 
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -182,10 +201,13 @@ def main() -> int:
         from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
         from spectral_tpu_torch.tools import shadow_interval_bench as si_bench
         from spectral_tpu_torch.tools.measure_persist import busy_ms
+        from spectral_tpu_torch.tools.lane_stats import kernel_info
         from spectral_tpu_torch.tools.measure_persist import card as read_card
         from spectral_tpu_torch.utils import flops, sceneio
+        from spectral_tpu_torch.utils.viewer import LiveViewer
         from tests import torch_scenes as ts
         from tests.torch_exr import read_exr
+        from tests.torch_live import LiveRender, http_post
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
@@ -1842,6 +1864,224 @@ def main() -> int:
          launches={k: v for k, v in slice_launches.items() if k != "post_main_path"},
          card=card)
 
+    # ------------------ 14. the live render: cadence, the viewer's and the
+    # preview's cost, many materials, the reference's image, the live view
+    def live_run(name, sc, regen="auto"):
+        """``main_path_run``, its counts also kept under ``name``."""
+        r_, img_, dt_, counts_ = main_path_run(sc, regen=regen)
+        slice_launches[name] = {k: n for k, n in counts_.items() if n}
+        return r_, img_, dt_, counts_
+
+    t0 = time.monotonic()
+    cadence = {"turns": []}
+    cad_imgs = {}
+
+    def cornell512(iters=MAIN["iterations"]):
+        return scene_of(presets.cornell_box, 512, 512, 32, MAIN["bounces"], iters)
+
+    # K = 16 (the live view's chunk cap) against "auto" (K = 100), in turns
+    for turn, regen in enumerate((("auto", 16), "auto", "auto", ("auto", 16))):
+        key = "k16" if isinstance(regen, tuple) else "k100"
+        r_c, img_c, dt_c, counts_c = live_run(f"live_cadence_{turn}", cornell512(), regen)
+        check_image(img_c, 512, 512)
+        wall_c, busy_c = profiled_render(cornell512(), regen_frames=regen)
+        cadence["turns"].append(dict(
+            regen=key, k=r_c.regen_frames, ms_per_frame=dt_c * 1e3 / r_c.next_frame,
+            profiled_wall_ms=wall_c, busy_share=busy_c / wall_c, launches=counts_c))
+        cad_imgs.setdefault(key, img_c)
+    assert cadence["turns"][0]["k"] == 16 and cadence["turns"][1]["k"] == 100
+    assert cadence["turns"][0]["launches"]["cuda_regen"] == 6
+    assert cadence["turns"][0]["launches"]["cuda_mono"] == 4  # the ragged tail
+    for key in ("k16", "k100"):
+        rows = [t for t in cadence["turns"] if t["regen"] == key]
+        cadence[key] = dict(ms_per_frame=sum(t["ms_per_frame"] for t in rows) / 2,
+                            busy_share=sum(t["busy_share"] for t in rows) / 2)
+    # the same paths, frames summed per chunk: only the float32 order of
+    # the chunk sums and the blend differs (the bound of
+    # test_plain_regen_is_the_sum_of_mono_frames, 1e-4 of the scale)
+    scale = max(1.0, float(np.abs(cad_imgs["k100"]).max()))
+    k16_vs_k100 = float(np.abs(cad_imgs["k16"] - cad_imgs["k100"]).max()) / scale
+    cadence["k16_vs_k100_max_rel"] = k16_vs_k100
+    cadence["k16_vs_k100_bit_identical"] = same_bits(cad_imgs["k16"], cad_imgs["k100"])
+    assert k16_vs_k100 <= 1e-4, ("K=16 against K=100", k16_vs_k100)
+    # the reference's note that K = 10 holds ~60% of the K = 100 gain over
+    # frame-by-frame (measured on its TPU): the H100's share, one pass each
+    gain = {}
+    for k in (1, 10):
+        r_k, img_k, dt_k, _ = live_run(f"live_cadence_k{k}", cornell512(), k)
+        check_image(img_k, 512, 512)
+        gain[f"k{k}_ms_per_frame"] = dt_k * 1e3 / r_k.next_frame
+    k1, k10 = gain["k1_ms_per_frame"], gain["k10_ms_per_frame"]
+    k100 = cadence["k100"]["ms_per_frame"]
+    gain["k10_share_of_k100_gain"] = (k1 - k10) / (k1 - k100)
+    gain["k16_share_of_k100_gain"] = (k1 - cadence["k16"]["ms_per_frame"]) / (k1 - k100)
+    cadence["gain_over_frame_by_frame"] = gain
+    # one viewer.update (the device -> host copy and the 512x512 PNG
+    # encode) and one --preview-every save (the copy, u8 and the PNG write)
+    r_v = Renderer(cornell512(16), device="cuda", regen_frames=16)
+    r_v.render()
+    viewer = LiveViewer(port=0)
+    try:
+        fb_ms, fb = host_ms(r_v.framebuffer, reps=5)
+        update_ms, _ = host_ms(lambda: viewer.update(r_v.framebuffer(), 16, 16, 1.0), reps=5)
+        encode_ms, _ = host_ms(lambda: viewer.update(fb, 16, 16, 1.0), reps=5)
+        png_bytes = len(urllib.request.urlopen(viewer.url + "frame.png", timeout=10).read())
+    finally:
+        viewer.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        preview_ms, _ = host_ms(lambda: r_v.save_image(Path(tmp) / "preview.png"), reps=5)
+    cadence["viewer_update_ms"] = update_ms
+    cadence["framebuffer_copy_ms"] = fb_ms
+    cadence["png_encode_ms"] = encode_ms
+    cadence["png_bytes"] = png_bytes
+    cadence["preview_save_ms"] = preview_ms
+    emit(phase="live_cadence", seconds=round(time.monotonic() - t0, 3),
+         config="cornell 512x512, 32 lambda, 30 bounces, 100 iterations", **cadence,
+         card=card)
+
+    # more than 256 materials: sphere_field(300) with a material of its own
+    # per object (301 rows in shared memory) and sphere_field(1000) at 64
+    # lambda (1,001 rows, 256 KB of albedo: global memory)
+    t0 = time.monotonic()
+    many_mat = []
+    for n_sph, s_mm in ((300, 32), (1000, 64)):
+        case = {"case": f"sphere_field({n_sph}) one material per object, S={s_mm}"}
+        for label, own in (("materials", True), ("preset_materials", False)):
+            def field_mm(w, h, iters):
+                sc = field_of(n_sph, w, h, s_mm, SPHERES["bounces"], iters)
+                return ts.one_material_each(schema, sc) if own else sc
+
+            st_mm, cfg_mm = flatten_scene(field_mm(256, 192, 2), dev)
+            tb_mm = mk.pack_tables(st_mm, cfg_mm)
+            row = dict(n_materials=cfg_mm.n_materials, materials_shared=tb_mm.materials_shared(),
+                       smem_bytes=tb_mm.smem_bytes())
+            if own:
+                assert tb_mm.materials_shared() is (n_sph == 300), row
+                planes_mm, px_mm, py_mm = ci.primary_lanes(st_mm, cfg_mm, 0)
+                mono_ms_mm, got = cuda_ms(
+                    lambda: mk.run_mono(*planes_mm, px_mm, py_mm, 0, tb_mm), 3)
+                want = mk.run_mono_plain(*planes_mm, px_mm, py_mm, 0, tb_mm)
+                assert torch.equal(got, want), (case, "cuda_mono against plain")
+                args_mm = (*ci.regen_args(st_mm, cfg_mm, 0, 2,
+                                          morton_layout(256, 192, dev)[0]), tb_mm)
+                regen_ms_mm, got = cuda_ms(lambda: mk.run_regen(*args_mm), 2)
+                assert torch.equal(got, mk.run_regen_plain(*args_mm)), (
+                    case, "cuda_regen against plain")
+                del got, want
+                row.update(bit_identical=dict(cuda_mono=True, cuda_regen=True),
+                           check="256x192, cuda_mono frame 0, cuda_regen K=2 Morton",
+                           cuda_mono_ms_256x192=mono_ms_mm, cuda_regen_k2_ms_256x192=regen_ms_mm)
+            full_mm = field_mm(SPHERES["width"], SPHERES["height"], 20)
+            r_mm, img_mm, dt_mm, counts_mm = live_run(f"many_materials_{n_sph}_{label}",
+                                                      full_mm)
+            check_image(img_mm, SPHERES["width"], SPHERES["height"])
+            row.update(ms_per_frame_1024x768=dt_mm * 1e3 / r_mm.next_frame,
+                       regen_frames=r_mm.regen_frames, launches=counts_mm,
+                       regen_info=kernel_info("regen", r_mm.tables),
+                       mono_info=kernel_info("mono", r_mm.tables, variant=0))
+            case[label] = row
+        many_mat.append(case)
+    emit(phase="many_materials", seconds=round(time.monotonic() - t0, 3),
+         bounces=SPHERES["bounces"], iterations=20, cases=many_mat, card=card)
+
+    # the reference's one published image (tests/test_reference_rmse.py):
+    # the default scene at 160x90, 150 iterations, on 16-frame chunks
+    t0 = time.monotonic()
+    from PIL import Image
+
+    golden = ROOT / "tests" / "goldens" / "example_image_160x90.png"
+    ref_img = np.asarray(Image.open(golden).convert("RGB"), np.float32) / 255.0
+    rm_scene = presets.default_scene()
+    rm_scene.width, rm_scene.height, rm_scene.nbr_of_iterations = 160, 90, 150
+    r_rm, img_rm, dt_rm, counts_rm = live_run("reference_rmse", rm_scene, ("auto", 16))
+    assert r_rm.regen_frames == 16 and counts_rm["cuda_regen"] == 9, counts_rm
+    ours = image_mod.accum_to_u8(img_rm)[..., :3].astype(np.float32) / 255.0
+    rmse = float(np.sqrt(np.mean((ours - ref_img) ** 2)))
+    ref_rms = float(np.sqrt(np.mean(ref_img**2)))
+    assert rmse < 0.030 and rmse < 0.5 * ref_rms, ("RMSE against the reference image", rmse)
+    emit(phase="reference_rmse", seconds=round(time.monotonic() - t0, 3), rmse=rmse,
+         limit=0.030, reference_rms=ref_rms, iterations=150, regen_frames=16,
+         launches=counts_rm, card=card)
+
+    # the live view: the CLI with --serve on the card, driven over HTTP
+    t0 = time.monotonic()
+    live = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out_png = tmp / "img.png"
+        base = ["--out", out_png, "--serve", "0", "--quiet"]
+        first = LiveRender(base + ["--preset", "cornell", "--width", "512", "--height",
+                                   "512", "--bounces", "30", "--iterations", "100000"],
+                           deadline_s=400, cwd=ROOT)
+        try:
+            url = first.url(deadline_s=180)
+            live["startup_s"] = time.monotonic() - t0
+            st0 = first.wait_status(url, lambda s: s["frame"] >= 32, 60)
+            live["first_status"] = st0
+            png = urllib.request.urlopen(url + "frame.png", timeout=10).read()
+            assert Image.open(io.BytesIO(png)).size == (512, 512)
+            for path in ("scene", "spectra", "objects"):
+                with urllib.request.urlopen(url + path, timeout=10) as resp:
+                    assert resp.status == 200, path
+            # a legal per-object edit (the cornell box has no sphere: move
+            # the right front box), two seconds and four chunks in, so that
+            # the count and the seconds after the restart read lower for a
+            # while (the page updates at most once a second)
+            before = first.wait_status(
+                url, lambda s: s["elapsed_s"] >= 2.0 and s["frame"] >= 64, 60)
+            objs = json.loads(urllib.request.urlopen(url + "objects", timeout=10).read())
+            idx = next(o["index"] for o in objs["objects"] if o["name"] == "Right front box")
+            moved = [c + 0.1 for c in objs["objects"][idx]["position"]]
+            code, msg = http_post(url + "object", json.dumps(
+                {"kind": "object", "index": idx, "action": "update",
+                 "fields": {"position": moved}}).encode())
+            assert code == 200, msg
+            first.wait(lambda: "restarting render" in first.text, "the restart", 60)
+            after = first.wait_status(url, lambda s: s["frame"] < before["frame"]
+                                      and s["elapsed_s"] < before["elapsed_s"], 60)
+            live["edit"] = dict(before=before, after=after)
+            edited = urllib.request.urlopen(url + "scene", timeout=10).read()
+            bad = json.loads(edited)
+            bad["settings"]["iterations"] = 0
+            code, msg = http_post(url + "scene", json.dumps(bad).encode())
+            assert code == 400 and b"iterations" in msg, (code, msg)
+            code, _ = http_post(url + "abort", b"")
+            assert code == 200
+            text = first.finish()
+        finally:
+            first.close()
+        assert first.proc.returncode == 0, text
+        assert "aborted after" in text and out_png.exists(), text
+        ckpt = tmp / "img.png.ckpt.npz"
+        assert ckpt.exists(), text
+        done = int(np.load(ckpt)["next_frame"])
+        live["aborted_at_frame"] = done
+        # resume the edited scene's checkpoint, three 16-frame chunks on
+        scene_json = tmp / "edited.json"
+        scene_json.write_bytes(edited)
+        second = LiveRender(base + ["--scene", scene_json, "--iterations", "100000",
+                                    "--resume", ckpt], deadline_s=300, cwd=ROOT)
+        try:
+            url = second.url(deadline_s=180)
+            assert f"resumed at frame {done}" in second.text, second.text
+            second.wait_status(url, lambda s: s["frame"] >= done + 48, 60)
+            code, _ = http_post(url + "abort", b"")
+            assert code == 200
+            text = second.finish()
+        finally:
+            second.close()
+        assert second.proc.returncode == 0, text
+        resumed = np.load(ckpt)
+        accum = resumed["accum"]
+        assert int(resumed["next_frame"]) >= done + 48
+        assert np.isfinite(accum).all() and float(accum[..., :3].mean()) > 0.0
+        live["resumed_to_frame"] = int(resumed["next_frame"])
+        live["resumed_mean_rgb"] = float(accum[..., :3].mean())
+    emit(phase="live_view", seconds=round(time.monotonic() - t0, 3), **live,
+         launches="not counted: the render runs in its own process, on --device cuda "
+                  "(the default), where the Renderer launches the kernels or raises",
+         card=card)
+
     for key, n in launches.items():
         assert n > 0, f"{key} was never launched by the main path"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "spectral_tpu"))
@@ -2059,10 +2299,18 @@ def main() -> int:
         if name in probe_terms:
             entry.update(bound_terms=probe_terms[name])
         if name in ("cuda_regen", "cuda_mono"):
-            # the launches of this kernel in the phases after a render
-            # (post_main_path, aov_many and animation), by counted run
+            # the launches of this kernel in the later phases (after a
+            # render, the live render's), by counted run
             entry.update(post_render_launches={
                 phase: c[name] for phase, c in slice_launches.items() if name in c})
+            # more than 256 materials: bit for bit with the plain version,
+            # the material rows in shared or in global memory
+            entry.update(many_materials=[dict(
+                case=m["case"], materials_shared=m["materials"]["materials_shared"],
+                bit_identical=m["materials"]["bit_identical"][name],
+                ms_256x192=m["materials"][("cuda_mono_ms_256x192" if name == "cuda_mono"
+                                           else "cuda_regen_k2_ms_256x192")])
+                for m in many_mat])
         kernels.append(entry)
     emit(phase="done", seconds=round(time.monotonic() - t_all, 3), card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

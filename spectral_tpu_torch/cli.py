@@ -24,9 +24,14 @@ package's ``spectral_tpu.cli``: ``render``, ``animate``, ``scene dump``,
     python -m spectral_tpu_torch describe --scene s.json
     python -m spectral_tpu_torch compare a.png b.png
 
-The first Ctrl-C finishes the current chunk (persist: launch), saves the
-image and a resumable checkpoint (``--checkpoint``, else
-``<out>.ckpt.npz``), and exits; ``--resume`` continues from it.
+    python -m spectral_tpu_torch render --preset cornell --width 512 \\
+        --height 512 --iterations 100000 --serve 8000 --quiet
+
+The first Ctrl-C, or the live view's Abort button (``--serve``), finishes
+the current chunk (persist: launch), saves the image and a resumable
+checkpoint (``--checkpoint``, else ``<out>.ckpt.npz``), and exits;
+``--resume`` continues from it. ``--serve`` and ``--preview-every`` cap
+the default chunk at 16 frames.
 """
 
 from __future__ import annotations
@@ -108,6 +113,11 @@ def _load_scene(args):
 
 
 def cmd_render(args) -> int:
+    """The reference's ``cmd_render`` (``spectral_tpu/cli.py:82-342``)
+    on one device: the progress line, ``--preview-every``, the live view
+    (``--serve``: frames at most once a second, abort from the page, a
+    scene edit rebuilds the Renderer and restarts), ``--profile`` and a
+    resumable abort."""
     from spectral_tpu_torch.render.renderer import Renderer
 
     adaptive = None
@@ -127,20 +137,88 @@ def cmd_render(args) -> int:
     phase_capacity = _parse_phase(args.phase_capacity, allow_auto=False)
     scene = _load_scene(args)
     regen = args.regen_frames if args.regen_frames == "auto" else int(args.regen_frames)
-    begin = time.monotonic()
-    renderer = Renderer(
-        scene, device=args.device, regen_frames=1 if args.persist else regen,
-        regen_sort={"auto": "auto", "on": True, "off": False}[args.regen_sort],
-        persist=args.persist, persist_budget=args.persist_budget,
-        adaptive=adaptive, persist_keep_state=bool(args.checkpoint),
-        phase_split=phase_split, phase_capacity=phase_capacity,
-    )
+    if regen == "auto" and (args.serve is not None or args.preview_every):
+        # progress, previews and abort act at chunk granularity: 16-frame
+        # chunks update a live view about six times as often as the
+        # default 100 (PERF.md section 6 measures what they cost on the
+        # H100); an explicit --regen-frames overrides this
+        regen = ("auto", 16)
+
+    def build_renderer(sc):
+        return Renderer(
+            sc, device=args.device, regen_frames=1 if args.persist else regen,
+            regen_sort={"auto": "auto", "on": True, "off": False}[args.regen_sort],
+            persist=args.persist, persist_budget=args.persist_budget,
+            adaptive=adaptive, persist_keep_state=bool(args.checkpoint),
+            phase_split=phase_split, phase_capacity=phase_capacity,
+        )
+
+    t0 = time.monotonic()
+    renderer = build_renderer(scene)
     if args.resume:
         renderer.load_checkpoint(args.resume)
         print(f"resumed at frame {renderer.next_frame}", file=sys.stderr)
 
-    # the first Ctrl-C ends the render at the next chunk (persist: launch)
-    # and saves a resumable checkpoint; a second one raises as usual
+    viewer = None
+    if args.serve is not None:
+        from spectral_tpu_torch.utils.viewer import LiveViewer
+
+        try:
+            viewer = LiveViewer(port=args.serve)
+        except OSError as e:
+            print(f"--serve: cannot serve the live view on port {args.serve}: {e}",
+                  file=sys.stderr)
+            return 1
+    try:
+        if viewer is not None:
+            viewer.publish_scene(scene)
+            print(f"live view at {viewer.url}", file=sys.stderr, flush=True)
+        renderer, scene, aborted = _run_render(args, build_renderer, renderer, scene,
+                                               viewer)
+    finally:
+        if viewer is not None:
+            viewer.close()
+    renderer.save_image(args.out, exposure=args.exposure, gamma=args.gamma)
+    checkpoint = args.checkpoint
+    if checkpoint is None and aborted:
+        checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
+    if checkpoint:
+        renderer.save_checkpoint(checkpoint)
+        print(f"checkpoint -> {checkpoint}", file=sys.stderr)
+    verb = "aborted after" if aborted else "rendered"
+    print(f"{verb} {renderer.next_frame} iterations in {time.monotonic() - t0:.1f}s "
+          f"on {args.device} -> {args.out} ({scene.width}x{scene.height})",
+          file=sys.stderr)
+    if renderer.phase_split is not None:
+        print(f"phased: stages {renderer.phase_stages}, "
+              f"{renderer.overflow_frames} overflow frames rendered again "
+              "on the mono kernel", file=sys.stderr)
+    info = renderer.persist_info
+    if info is not None and "mean_counts" in info:
+        cap = renderer.config.intended_frames
+        print(
+            f"adaptive: {info['mean_counts']:.1f} frames/pixel mean "
+            f"(min {info['min_counts']}, max {info['max_counts']}, cap "
+            f"{cap}, compactions {info['compactions']}): "
+            f"{100.0 * (1.0 - info['mean_counts'] / cap):.0f}% of frame "
+            "work saved against the fixed-count render",
+            file=sys.stderr,
+        )
+    if aborted and checkpoint:
+        print(f"resume with --resume {checkpoint}", file=sys.stderr)
+    if args.aovs or args.denoise is not None:
+        _post_process(args, scene, renderer.framebuffer())
+    return 0
+
+
+def _run_render(args, build_renderer, renderer, scene, viewer):
+    """Render until the last frame, an abort or the end of the live
+    view's edits; returns the renderer and scene it ended on and whether
+    the render was aborted. The first Ctrl-C, the page's Abort button and
+    a pending scene edit each end the render at the next chunk (persist:
+    launch); a second Ctrl-C raises as usual. A submitted edit rebuilds
+    the renderer and restarts accumulation (the reference's edit-then-
+    Start cycle); ``--profile`` traces all of it."""
     stop = {"requested": False}
 
     def on_sigint(_sig, _frame):
@@ -150,57 +228,77 @@ def cmd_render(args) -> int:
         print("\nabort requested: finishing the current chunk "
               "(Ctrl-C again to force quit)", file=sys.stderr)
 
+    last_view = [0.0]
+    last_preview = [time.monotonic()]
+
     def progress(p):
+        if viewer is not None and time.monotonic() - last_view[0] > 1.0:
+            viewer.update(renderer.framebuffer(), p.frame_id + 1, p.total_frames,
+                          p.elapsed_s)
+            last_view[0] = time.monotonic()
         if not args.quiet:
             print(
                 f"\rframe {p.frame_id + 1}/{p.total_frames} "
+                f"({p.fraction:5.1%})  elapsed {p.elapsed_s:6.1f}s  "
+                f"eta {p.eta_s:6.1f}s  {p.mpaths_per_s:7.1f} Mpaths/s  "
                 f"{p.seconds_per_frame * 1e3:.2f} ms/frame",
                 end="", file=sys.stderr, flush=True,
             )
+        if args.preview_every and time.monotonic() - last_preview[0] > args.preview_every:
+            renderer.save_image(args.out, exposure=args.exposure, gamma=args.gamma)
+            last_preview[0] = time.monotonic()
+
+    def abort():  # polled once per chunk
+        return stop["requested"] or (
+            viewer is not None
+            and (viewer.abort_requested() or viewer.scene_edit_pending()))
+
+    def run():
+        nonlocal renderer, scene
+        while True:
+            renderer.render(progress=progress, abort=abort,
+                            check_finite=args.check_finite)
+            if viewer is None or stop["requested"] or viewer.abort_requested():
+                return
+            edited = viewer.take_scene_edit()
+            if edited is None:
+                return
+            scene = edited
+            renderer = build_renderer(scene)
+            viewer.publish_scene(scene)
+            print("\nscene edited via live view — restarting render", file=sys.stderr)
 
     prev_handler = signal.signal(signal.SIGINT, on_sigint)
     try:
-        renderer.render(progress=progress, abort=lambda: stop["requested"],
-                        check_finite=args.check_finite)
+        if args.profile:
+            _profiled(run, args.profile, args.device)
+        else:
+            run()
     finally:
         signal.signal(signal.SIGINT, prev_handler)
-    aborted = stop["requested"]
-    renderer.save_image(args.out, exposure=args.exposure, gamma=args.gamma)
-    checkpoint = args.checkpoint
-    if checkpoint is None and aborted:
-        checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
-    if checkpoint:
-        renderer.save_checkpoint(checkpoint)
-        if not args.quiet:
-            print(f"\ncheckpoint -> {checkpoint}", file=sys.stderr)
     if not args.quiet:
-        verb = "aborted after" if aborted else "wrote"
-        print(
-            f"\n{verb} {renderer.next_frame} frames in "
-            f"{time.monotonic() - begin:.2f} s on {args.device} -> {args.out} "
-            f"({scene.width}x{scene.height})",
-            file=sys.stderr,
-        )
-        if renderer.phase_split is not None:
-            print(f"phased: stages {renderer.phase_stages}, "
-                  f"{renderer.overflow_frames} overflow frames rendered again "
-                  "on the mono kernel", file=sys.stderr)
-        info = renderer.persist_info
-        if info is not None and "mean_counts" in info:
-            cap = renderer.config.intended_frames
-            print(
-                f"adaptive: {info['mean_counts']:.1f} frames/pixel mean "
-                f"(min {info['min_counts']}, max {info['max_counts']}, cap "
-                f"{cap}, compactions {info['compactions']}): "
-                f"{100.0 * (1.0 - info['mean_counts'] / cap):.0f}% of frame "
-                "work saved against the fixed-count render",
-                file=sys.stderr,
-            )
-        if aborted and checkpoint:
-            print(f"resume with --resume {checkpoint}", file=sys.stderr)
-    if args.aovs or args.denoise is not None:
-        _post_process(args, scene, renderer.framebuffer())
-    return 0
+        print(file=sys.stderr)
+    return renderer, scene, abort()
+
+
+def _profiled(fn, out_dir, device) -> None:
+    """Run ``fn`` under ``torch.profiler`` (the host's activity, and the
+    card's kernels when the device is the card) and write the Chrome
+    trace into ``out_dir``."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        fn()
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "render_trace.json"
+    prof.export_chrome_trace(str(trace))
+    print(f"\nprofile -> {trace}", file=sys.stderr)
 
 
 def _post_process(args, scene, fb) -> None:
@@ -471,6 +569,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "of the image); comma list, one per split")
     pr.add_argument("--checkpoint", help=HELP["checkpoint"])
     pr.add_argument("--resume", help="resume from a checkpoint file")
+    pr.add_argument("--preview-every", type=float, default=0.0, metavar="SECONDS",
+                    help="write the output image every SECONDS while rendering")
+    pr.add_argument("--serve", type=int, nargs="?", const=0, default=None,
+                    metavar="PORT",
+                    help="serve a live progressive view over HTTP (frame, "
+                         "progress, abort button, scene editor); PORT 0 or "
+                         "omitted picks a free port")
+    pr.add_argument("--profile", metavar="DIR",
+                    help="trace the render with torch.profiler (the host, and "
+                         "the card's kernels on --device cuda) and write a "
+                         "Chrome trace into DIR")
     pr.add_argument("--quiet", action="store_true")
     pr.add_argument("--check-finite", action="store_true",
                     help="validate the accumulator each chunk; abort on NaN/Inf")

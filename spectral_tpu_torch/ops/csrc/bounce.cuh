@@ -132,6 +132,12 @@ struct TableArgs {
   int tri;                  // 0: no triangles, 1: flat meshes, 2: vertex normals
   int n_packed;
   int packed_shared;        // 1: the block copies `packed` to shared memory
+  // The material rows the block copies to shared memory: n_mat, or 0 where
+  // they stay in global memory (the host's choice, ops/megakernel.py:
+  // KernelTables.materials_shared); then stage_floats is BLOCK *
+  // stage_stride(S), the staging slots, else 0.
+  int mat_rows;
+  int stage_floats;
 #ifdef SPECTRAL_FX
   int features;             // FX_* bits, never 0 in a feature build
   const float* mat_fx;      // [n_mat][MAT_FX_COLS]
@@ -143,21 +149,28 @@ struct TableArgs {
 
 struct Tables {
   const float* geom;        // shared (MANY = false) or global
-  const float* mat_albedo;  // shared
+  const float* mat_albedo;  // shared (mat_rows rows; else the staging slots)
   const int* order;         // shared (MANY only)
   const float* runs;        // shared (MANY only)
   const float4* packed;     // shared or global (MANY only)
   const float* lpos;        // shared
   const float* lspec;       // shared
   float* scale;             // [n_lights][BLOCK] this thread's NEE scales
+  // where the material rows stay in global memory (staged: mat_rows is
+  // 0), the rows; a bounce copies its material's rows into the thread's
+  // slot of shared memory (stage_slot)
+  const float* g_albedo;
+  bool staged;
   int n_obj;
   int n_runs;
   int n_lights;
   bool smooth;              // interpolate triangle normals (tri == 2)
 #ifdef SPECTRAL_FX
   int features;             // FX_* bits
-  const float* mat_fx;      // shared
-  const float* mat_emission;  // shared
+  const float* mat_fx;      // shared, like mat_albedo
+  const float* mat_emission;  // shared, like mat_albedo
+  const float* g_fx;
+  const float* g_emission;
   const float* lambda;      // shared
   const float* sky;         // shared
 #endif
@@ -798,6 +811,40 @@ __device__ __forceinline__ void start_path(Lane<S, SHARED>& L, float ox,
   for (int s = 0; s < S; ++s) L.thr[s] = 1.0f;
 }
 
+// Floats of one thread's staging slot (the material rows in global
+// memory): its material's albedo, and in a feature build its emission and
+// feature scalars; an odd stride, so a warp's slots fall in distinct banks.
+__host__ __device__ constexpr int stage_stride(int S) {
+#ifdef SPECTRAL_FX
+  return 2 * S + MAT_FX_COLS;
+#else
+  return S + 1;
+#endif
+}
+
+// The thread's staging slot: the slots lie just before the NEE scales
+// (load_tables), so the address follows from tb.scale and holds no
+// register of its own.
+__device__ __forceinline__ float* stage_slot(const Tables& tb, int S) {
+  return tb.scale - (BLOCK - (int)threadIdx.x) * stage_stride(S);
+}
+
+// One material row of S floats from global memory into a thread's
+// staging slot of shared memory, four floats a load, one load in flight
+// (the loop is not unrolled): the copy adds a few registers beside the
+// thread's spectral state, where an unrolled copy would hold the row.
+template <int S>
+__device__ __forceinline__ void stage_row(float* slot, const float* row) {
+#pragma unroll 1
+  for (int i = 0; i < S; i += 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row + i));
+    slot[i] = v.x;
+    slot[i + 1] = v.y;
+    slot[i + 2] = v.z;
+    slot[i + 3] = v.w;
+  }
+}
+
 // One bounce iteration of a live lane (`make_body.bounce`): trace, add the
 // hit's direct light to rad, and either set up the continuation ray
 // (returns true) or end the path (returns false with alive cleared; the
@@ -834,12 +881,25 @@ __device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S, SHARED>& L
   const float metal = G(tb, G_METAL, win);
   const float rough = G(tb, G_ROUGH, win);
   // the material's albedo row: the winner's per-object albedo bit for bit
-  const float* alb = tb.mat_albedo + (int)G(tb, G_MATID, win) * S;
+  const int mat = (int)G(tb, G_MATID, win);
+  const float* alb = tb.mat_albedo + mat * S;
 #ifdef SPECTRAL_FX
   // the material's feature row and emission, read like the albedo
-  const int mat = (int)G(tb, G_MATID, win);
   const float* mf = tb.mat_fx + mat * MAT_FX_COLS;
   const float* emis = tb.mat_emission + mat * S;
+#endif
+  if (tb.staged) {  // the rows stay in global memory
+    float* slot = stage_slot(tb, S);
+    stage_row<S>(slot, tb.g_albedo + mat * S);
+    alb = slot;
+#ifdef SPECTRAL_FX
+    stage_row<S>(slot + S, tb.g_emission + mat * S);
+    for (int c = 0; c < MAT_FX_COLS; ++c) slot[2 * S + c] = tb.g_fx[mat * MAT_FX_COLS + c];
+    emis = slot + S;
+    mf = slot + 2 * S;
+#endif
+  }
+#ifdef SPECTRAL_FX
   const bool textured = (tb.features & FX_TEXTURE) != 0;
   const float texf =
       textured ? checker_factor(ipx, ipy, ipz, mf[MF_TEX_SCALE], mf[MF_TEX_LOW])
@@ -996,28 +1056,53 @@ inline bool many_objects(const TableArgs& a) {
   return a.n_obj > SMEM_OBJECTS || a.n_runs > 1;
 }
 
-// Bytes of dynamic shared memory a block takes for these tables: the
-// packed walk records first (16-byte aligned) when the host put them
-// there, then the walk tables or the small scene's geometry, the albedo,
-// the lights and the NEE scales.
+// Floats of one material's rows: the albedo, and in a feature build the
+// feature scalars and the emission.
+constexpr int material_row_floats(int S) {
+#ifdef SPECTRAL_FX
+  return S + MAT_FX_COLS + S;
+#else
+  return S;
+#endif
+}
+
+// Bytes of dynamic shared memory a block takes for these tables, in
+// load_tables' order: the packed walk records first (16-byte aligned)
+// when the host put them there, then the walk tables or the small scene's
+// geometry, the material rows the host put there (mat_rows), the lights,
+// in a feature build the wavelengths and the sky, the staging slots, and
+// the NEE scales.
+//
+// The material rows go to shared memory while the whole table fits a
+// block's MAX_SMEM (ops/megakernel.py:KernelTables.materials_shared).
+// Beyond that (a scene with one material per object and a thousand objects
+// at S = 64 holds 256 KB of albedo alone) they stay in global memory, and
+// each bounce copies its material's rows into the thread's staging slot
+// (stage_row), so the shading reads shared memory either way. The host
+// decides and passes mat_rows and stage_floats; the kernels' layout is
+// the one of a table that always holds its rows, sized by them: rows read
+// through a pointer to either memory (a generic load), or a layout the
+// block decided itself, each cost the persist and segment kernels 24-40
+// registers (PERF.md section 6).
 inline size_t smem_bytes(const TableArgs& a, int S) {
   const bool many = many_objects(a);
   const size_t walk = many ? (size_t)a.n_obj + (size_t)a.n_runs * RUN_COLS
                            : (size_t)GEOM_ROWS * a.n_obj;
   const size_t packed = many && a.packed_shared ? 4 * (size_t)a.n_packed : 0;
 #ifdef SPECTRAL_FX
-  const size_t fx = (size_t)a.n_mat * (MAT_FX_COLS + S) + 2 * (size_t)S;
+  const size_t fx = 2 * (size_t)S;
 #else
   const size_t fx = 0;
 #endif
-  return sizeof(float) * (packed + walk + (size_t)a.n_mat * S +
-                          4 * (size_t)a.n_lights + (size_t)a.n_lights * S +
-                          fx + (size_t)a.n_lights * BLOCK);
+  return sizeof(float) * (packed + walk + (size_t)a.mat_rows * material_row_floats(S) +
+                          4 * (size_t)a.n_lights + (size_t)a.n_lights * S + fx +
+                          (size_t)a.stage_floats + (size_t)a.n_lights * BLOCK);
 }
 
 // The block's cooperative copy of the tables into shared memory: the
 // geometry of a small scene, the walk tables (and the packed records,
-// where they fit) of a many-object one.
+// where they fit) of a many-object one, and the material rows the host
+// put there (mat_rows).
 template <bool MANY>
 __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
                                               int S) {
@@ -1048,25 +1133,25 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
     p += GEOM_ROWS * a.n_obj;
   }
   float* s_alb = p;
-  p += a.n_mat * S;
+  p += a.mat_rows * S;
   float* s_lpos = p;
   p += 4 * a.n_lights;
   float* s_lspec = p;
   p += a.n_lights * S;
-  for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_alb[i] = a.mat_albedo[i];
+  for (int i = threadIdx.x; i < a.mat_rows * S; i += blockDim.x) s_alb[i] = a.mat_albedo[i];
   for (int i = threadIdx.x; i < 4 * a.n_lights; i += blockDim.x) s_lpos[i] = a.lpos[i];
   for (int i = threadIdx.x; i < a.n_lights * S; i += blockDim.x) s_lspec[i] = a.lspec[i];
 #ifdef SPECTRAL_FX
   float* s_fx = p;
-  p += a.n_mat * MAT_FX_COLS;
+  p += a.mat_rows * MAT_FX_COLS;
   float* s_emis = p;
-  p += a.n_mat * S;
+  p += a.mat_rows * S;
   float* s_lambda = p;
   p += S;
   float* s_sky = p;
   p += S;
-  for (int i = threadIdx.x; i < a.n_mat * MAT_FX_COLS; i += blockDim.x) s_fx[i] = a.mat_fx[i];
-  for (int i = threadIdx.x; i < a.n_mat * S; i += blockDim.x) s_emis[i] = a.mat_emission[i];
+  for (int i = threadIdx.x; i < a.mat_rows * MAT_FX_COLS; i += blockDim.x) s_fx[i] = a.mat_fx[i];
+  for (int i = threadIdx.x; i < a.mat_rows * S; i += blockDim.x) s_emis[i] = a.mat_emission[i];
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     s_lambda[i] = a.lambda[i];
     s_sky[i] = a.sky[i];
@@ -1074,14 +1159,19 @@ __device__ __forceinline__ Tables load_tables(float* smem, const TableArgs& a,
   tb.features = a.features;
   tb.mat_fx = s_fx;
   tb.mat_emission = s_emis;
+  tb.g_fx = a.mat_fx;
+  tb.g_emission = a.mat_emission;
   tb.lambda = s_lambda;
   tb.sky = s_sky;
 #endif
 #ifdef SPECTRAL_STATS
   for (int i = 0; i < WALK_STATS; ++i) walk_slots()[i * BLOCK + threadIdx.x] = 0u;
 #endif
+  p += a.stage_floats;  // the staging slots (stage_slot)
   __syncthreads();
   tb.mat_albedo = s_alb;
+  tb.g_albedo = a.mat_albedo;
+  tb.staged = a.stage_floats > 0;
   tb.lpos = s_lpos;
   tb.lspec = s_lspec;
   tb.scale = p;
@@ -1144,9 +1234,11 @@ __device__ __forceinline__ void stats_end(unsigned iters, unsigned pixels) {
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, const TableArgs& a, int S, size_t& smem,
                     size_t extra = 0) {
-  if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 || a.n_mat > MAX_MATERIALS ||
+  if (a.n_obj < 1 || a.n_runs < 1 || a.n_mat < 1 ||
       a.n_lights < 0 || a.tri < 0 || a.tri > 2 || a.n_packed < 0 ||
-      (a.n_packed > 0 && a.packed == nullptr)) {
+      (a.n_packed > 0 && a.packed == nullptr) ||
+      !((a.mat_rows == a.n_mat && a.stage_floats == 0) ||
+        (a.mat_rows == 0 && a.stage_floats == BLOCK * stage_stride(S)))) {
     return cudaErrorInvalidValue;
   }
 #ifdef SPECTRAL_FX
@@ -1277,7 +1369,8 @@ cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
 #endif
 #define SPECTRAL_TABLE_PARAMS                                               \
   int n_obj, int n_mat, int n_runs, int n_lights, int tri, int n_packed,   \
-      int packed_shared, const void *geom, const void *mat_albedo,         \
+      int packed_shared, int mat_rows, int stage_floats,                   \
+      const void *geom, const void *mat_albedo,                            \
       const void *order, const void *runs, const void *lpos,               \
       const void *lspec, const void *packed SPECTRAL_FX_PARAMS
 #define SPECTRAL_TABLE_ARGS                                                 \
@@ -1286,7 +1379,7 @@ cudaError_t dispatch_tables(const TableArgs& ta, Launch&& launch) {
         static_cast<const int*>(order), static_cast<const float*>(runs),    \
         static_cast<const float*>(lpos), static_cast<const float*>(lspec),  \
         static_cast<const float4*>(packed), n_obj, n_mat, n_runs, n_lights, \
-        tri, n_packed, packed_shared SPECTRAL_FX_ARGS                       \
+        tri, n_packed, packed_shared, mat_rows, stage_floats SPECTRAL_FX_ARGS \
   }
 
 #ifdef SPECTRAL_STATS

@@ -105,7 +105,6 @@ constexpr int CAM_BASIS = 20;  // 18-19: pad
 // ones read it from global memory through L1 (every lane of a warp reads
 // the same object, so each load is a broadcast)
 constexpr int SMEM_OBJECTS = 64;
-constexpr int MAX_MATERIALS = 256;
 constexpr int BLOCK = 128;       // threads per block, one pixel-lane each
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 

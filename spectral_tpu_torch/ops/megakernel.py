@@ -50,13 +50,11 @@ from spectral_tpu_torch.render.integrator import (
     FX_SKY,
     FX_TEXTURE,
     FX_TRANSMISSION,
-    MAX_MATERIALS,
     PersistState,
     Wavefront,
     bounce_loop,
     bounce_loop_cost,
     persist_iterations,
-    require_slice,
     scene_features,
     segment_iterations,
 )
@@ -145,17 +143,36 @@ class KernelTables:
         runs[:, cl.RUN_PACK] = -1.0
         return dataclasses.replace(self, runs=runs, packed=self.packed[:0])
 
-    def smem_bytes(self) -> int:
-        """The kernels' dynamic shared memory for these tables
-        (``csrc/bounce.cuh:smem_bytes``)."""
+    def _floats(self) -> tuple[int, int, int]:
+        """Floats of shared memory of every table but the material rows,
+        of the material rows, and of the staging slots that take their
+        place where they stay in global memory (``csrc/bounce.cuh:
+        smem_bytes``, ``stage_stride``)."""
         o, s = self.config.n_objects, self.config.n_samples
         n_l = self.config.n_lights
         walk = o + self.runs.numel() if self.many_objects() else GEOM_ROWS * o
         if self.many_objects() and self.packed_shared:
             walk += self.packed.numel()
         n_mat = self.mat_albedo.shape[0]
-        fx = n_mat * (MAT_FX_COLS + s) + 2 * s if self.features else 0
-        return 4 * (walk + n_mat * s + 4 * n_l + n_l * s + fx + n_l * BLOCK)
+        per_mat = s + MAT_FX_COLS + s if self.features else s
+        tables = walk + 4 * n_l + n_l * s + (2 * s if self.features else 0) + n_l * BLOCK
+        stage = BLOCK * (2 * s + MAT_FX_COLS if self.features else s + 1)
+        return tables, n_mat * per_mat, stage
+
+    def materials_shared(self) -> bool:
+        """Whether the kernels copy the material rows to shared memory:
+        while the whole table fits ``MAX_SMEM``; else they stay in global
+        memory, and each bounce copies its material's rows into its
+        thread's staging slot (``csrc/bounce.cuh:smem_bytes``; the launch
+        passes the choice as ``mat_rows`` and ``stage_floats``)."""
+        tables, materials, _stage = self._floats()
+        return 4 * (tables + materials) <= MAX_SMEM
+
+    def smem_bytes(self) -> int:
+        """The kernels' dynamic shared memory for these tables
+        (``csrc/bounce.cuh:smem_bytes``)."""
+        tables, materials, stage = self._floats()
+        return 4 * (tables + (materials if self.materials_shared() else stage))
 
     def feature_gates(self) -> dict:
         """The features as ``flops.kernel_ops``' gates."""
@@ -169,9 +186,12 @@ def pack_tables(scene: SceneTensors, config: RenderConfig,
                 accel: str = "auto") -> KernelTables:
     """Pack the scene for the kernels (host numpy, then one copy to the
     scene's device). ``accel``: "auto" plans 64-object clusters above 64
-    objects (``clusters.renderer_plan``), "none" walks every object.
-    Raises for scenes outside the port's slices, and for an object type
-    tag that no kernel branch knows."""
+    objects (``clusters.renderer_plan``), "none" walks every object. Any
+    material count packs: the kernels keep the material rows in shared
+    memory while the whole table fits a block's, else in global memory
+    (``KernelTables.materials_shared``). Raises for an object type tag
+    that no kernel branch knows, and for tables whose other rows (the
+    lights) exceed a block's shared memory."""
     plan = cl.renderer_plan(scene.np_fields, config.n_objects, accel)
     return _pack(scene, config, plan, scene_features(scene))
 
@@ -202,7 +222,6 @@ def with_features(tables: KernelTables, features: int) -> KernelTables:
 
 
 def _pack(scene: SceneTensors, config: RenderConfig, plan, features: int) -> KernelTables:
-    require_slice(scene, config)
     f = scene.np_fields
     unknown = set(np.unique(f["obj_type"]).tolist()) - set(OBJECT_TYPES)
     if unknown:
@@ -399,17 +418,20 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 # the table arguments of every C entry point (csrc/bounce.cuh:
-# SPECTRAL_TABLE_PARAMS): 7 ints, 7 pointers, and in a feature build the
+# SPECTRAL_TABLE_PARAMS): 9 ints, 7 pointers, and in a feature build the
 # feature mask and 4 pointers
-_TABLE_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
+_TABLE_ARGTYPES = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 7
 _FEATURE_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def _table_args(tables: KernelTables) -> tuple:
     cfg = tables.config
-    args = (cfg.n_objects, tables.mat_albedo.shape[0], tables.runs.shape[0],
+    n_mat = tables.mat_albedo.shape[0]
+    shared = tables.materials_shared()
+    args = (cfg.n_objects, n_mat, tables.runs.shape[0],
             cfg.n_lights, tables.triangles, tables.packed.shape[0],
-            int(tables.packed_shared),
+            int(tables.packed_shared), n_mat if shared else 0,
+            0 if shared else tables._floats()[2],
             *map(_ptr, (tables.geom, tables.mat_albedo, tables.order,
                         tables.runs, tables.lpos, tables.lspec, tables.packed)))
     if tables.features:

@@ -25,8 +25,8 @@ its arithmetic, exactly as the reference's gates compile none of it.
 
 ``bounce_loop`` runs that loop over lane planes; it is also the plain
 version of the CUDA kernels (``spectral_tpu_torch.ops.megakernel``), so
-there is one bounce implementation in torch. Scene features outside the
-port's slices raise ``NotImplementedError`` (``require_slice``).
+there is one bounce implementation in torch. It takes any material
+count: materials are gathered by id.
 """
 
 from __future__ import annotations
@@ -56,9 +56,6 @@ from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 # reference src/shader.rs:8 and :14
 NEW_RAY_POSITION_OFFSET_DISTANCE = 1e-5
 SPECULAR_MIN_RAY_DISTANCE = 1e-4
-# the kernels read albedo through the material id (csrc/megakernel.cuh);
-# the reference's many-object loop has the same limit
-MAX_MATERIALS = 256
 # the Fraunhofer d line, the wavelength of a lane without a hero bin
 # (irrelevant where cauchy_b == 0)
 D_LINE_NM = 587.6
@@ -90,23 +87,6 @@ def checker_factor(ipx, ipy, ipz, scale, low):
     p = torch.floor(ipx * inv) + torch.floor(ipy * inv) + torch.floor(ipz * inv)
     odd = (p - 2.0 * torch.floor(p * 0.5)) != 0.0
     return torch.where(scale > 0.0, torch.where(odd, low, 1.0), 1.0)
-
-
-def require_slice(scene: SceneTensors, config: RenderConfig) -> None:
-    """Raise ``NotImplementedError`` for scene features the port does not
-    render yet, naming the slice that will bring each. Never falls back."""
-    later = []
-    if config.n_materials > MAX_MATERIALS:
-        later.append(
-            f"more than {MAX_MATERIALS} materials (the kernels index a "
-            f"material table of at most {MAX_MATERIALS} rows; no slice "
-            "lifts it yet)"
-        )
-    if later:
-        raise NotImplementedError(
-            "not in the PyTorch/CUDA port yet: " + "; ".join(later)
-            + " (see ROADMAP.md queue 1)"
-        )
 
 
 class BounceState(NamedTuple):
@@ -262,7 +242,6 @@ def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
     if None), as the kernels add a K-frame sum. ``occupancy`` (f32
     ``[max_bounces]``) gets the count of lanes alive entering each
     bounce; ``shadow_interval`` is ``_direct_lighting``'s."""
-    require_slice(scene, config)
     n = origin.x.shape[0]
     s = config.n_samples
     dev = origin.x.device
@@ -504,7 +483,6 @@ def segment_iterations(wf: Wavefront, b_start: int, b_stop: int, frame_id,
     with ``max_bounces - b_start`` bounces left (``megakernel.py:2104``)
     and the wavefront's frame id, so its path is the one the whole-frame
     loop traces; dead lanes stay as they are."""
-    require_slice(scene, config)
     n = wf.ox.shape[0]
     dev = wf.ox.device
     state = BounceState(

@@ -199,13 +199,22 @@ def auto_regen_frames(width: int, height: int, n_samples: int, intended: int) ->
     return max(1, min(intended, cap))
 
 
+def _is_auto(regen_frames) -> bool:
+    """``"auto"`` or ``("auto", cap)``."""
+    return regen_frames == "auto" or (
+        isinstance(regen_frames, tuple) and len(regen_frames) == 2
+        and regen_frames[0] == "auto")
+
+
 class Renderer:
     """Progressive spectral renderer for one scene snapshot on one device.
 
     ``device``: "cuda" launches the hand-written kernels (and raises when
     no GPU is present); "cpu" runs their plain PyTorch versions.
-    ``regen_frames``: "auto" (see ``auto_regen_frames``) or K >= 1 frames
-    per launch; progress and abort operate at chunk granularity.
+    ``regen_frames``: "auto" (see ``auto_regen_frames``), ``("auto",
+    cap)`` (the same, at most ``cap``: the live view's 16-frame chunks,
+    as the reference's ``renderer.py:620-626``) or K >= 1 frames per
+    launch; progress and abort operate at chunk granularity.
     ``regen_sort=True`` assigns pixels to the regeneration lanes in
     descending probed path cost (pure relabeling; "auto" leaves it off,
     as the reference does).
@@ -238,8 +247,10 @@ class Renderer:
     regeneration, frame by frame and phased; ``persist=True`` refuses it
     with ``ValueError``, as the reference does. The reference renderer's
     ``sharding`` is refused with ``NotImplementedError`` until its slice
-    lands; scenes with more than 256 materials are refused by the table
-    packer.
+    lands. Any material count renders, on every path and device: the
+    kernels keep the material rows in shared memory while the whole table
+    fits a block's, else in global memory
+    (``KernelTables.materials_shared``).
     ``_scene_schedule`` (motion blur, ``animation._motion_blur_schedule``)
     maps a frame id to that frame's host tables (``flatten_numpy``'s
     field dict, the same configuration as ``scene``): every frame is then
@@ -253,7 +264,7 @@ class Renderer:
     """
 
     def __init__(self, scene: Scene, device: str = "cuda",
-                 regen_frames: int | str = "auto", *, persist: bool = False,
+                 regen_frames: int | str | tuple = "auto", *, persist: bool = False,
                  persist_budget: int | None = None,
                  persist_frames_per_launch: int | None = None,
                  adaptive: tuple | None = None,
@@ -272,7 +283,7 @@ class Renderer:
                     "a per-frame scene schedule (motion blur) runs on the "
                     "frame-by-frame step only; drop persist/phase_split/sharding"
                 )
-            if regen_frames != "auto" and int(regen_frames) != 1:
+            if not _is_auto(regen_frames) and int(regen_frames) != 1:
                 raise ValueError(
                     "regen_frames fuses K frames of ONE scene per launch and "
                     "cannot compose with a per-frame scene schedule"
@@ -327,6 +338,13 @@ class Renderer:
         self.clusters = self.tables.clusters
         self.scene_digest = scene_digest(self.scene_tensors, self.config)
         cfg = self.config
+        auto_cap = None
+        if isinstance(regen_frames, tuple):
+            if not _is_auto(regen_frames):
+                raise ValueError(f"regen_frames takes 'auto', ('auto', cap) or K >= 1, "
+                                 f"not {regen_frames!r}")
+            auto_cap = int(regen_frames[1])
+            regen_frames = "auto"
         if (persist or phase_split is not None) and regen_frames == "auto":
             # persist and the phased path supersede the default chunking
             regen_frames = 1
@@ -334,6 +352,8 @@ class Renderer:
             regen_frames = auto_regen_frames(
                 cfg.width, cfg.height, cfg.n_samples, cfg.intended_frames
             )
+            if auto_cap is not None:
+                regen_frames = max(1, min(regen_frames, auto_cap))
         if int(regen_frames) < 1:
             raise ValueError("regen_frames must be >= 1")
         self.regen_frames = int(regen_frames)

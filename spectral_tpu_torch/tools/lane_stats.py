@@ -218,6 +218,33 @@ def ray_order(wf, tables):
     return torch.argsort(key, stable=True)
 
 
+def kernel_info(source, tb, library=None, variant=None, samples=None, many=None, tri=None,
+                smem=None):
+    """``spectral_<source>_info`` at ``tb``'s shared memory (or
+    ``smem`` bytes of tables): of the instantiation ``tb`` takes, or
+    of the one ``samples``, ``many``, ``tri`` name; ``variant``:
+    persist's form (0 free-running, 1 ring, 2 lane-stop) or mono's (0
+    mono, 1 cost)."""
+    from spectral_tpu_torch.runtime import build
+
+    samples = tb.config.n_samples if samples is None else samples
+    many = tb.many_objects() if many is None else many
+    tri = tb.triangles if tri is None else tri
+    smem = tb.smem_bytes() if smem is None else smem
+    fn = getattr(build.load(library or source), f"spectral_{source}_info")
+    out = (ctypes.c_int * 3)()
+    head = (samples, int(many), int(tri)) + (() if variant is None else (variant,))
+    err = fn(*head, smem, out)
+    if err:
+        raise RuntimeError(f"spectral_{source}_info: cudaError_t {err}")
+    got = dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+               smem_bytes=smem, many=bool(many), triangles=int(tri),
+               samples=samples)
+    if variant is not None:
+        got["variant"] = variant
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", default=list(SCENES), choices=SCENES)
@@ -260,30 +287,6 @@ def main(argv=None) -> int:
         libs |= set(build.REGISTER_LIBRARIES) | {"persist_tri", "mono_tri", "mono_parent"}
     build.build_all(build.SOURCES + tuple(sorted(libs)))
 
-    def info(source, tb, library=None, variant=None, samples=None, many=None, tri=None,
-             smem=None):
-        """``spectral_<source>_info`` at ``tb``'s shared memory (or
-        ``smem`` bytes of tables): of the instantiation ``tb`` takes, or
-        of the one ``samples``, ``many``, ``tri`` name; ``variant``:
-        persist's form (0 free-running, 1 ring, 2 lane-stop) or mono's (0
-        mono, 1 cost)."""
-        samples = tb.config.n_samples if samples is None else samples
-        many = tb.many_objects() if many is None else many
-        tri = tb.triangles if tri is None else tri
-        smem = tb.smem_bytes() if smem is None else smem
-        fn = getattr(build.load(library or source), f"spectral_{source}_info")
-        out = (ctypes.c_int * 3)()
-        head = (samples, int(many), int(tri)) + (() if variant is None else (variant,))
-        err = fn(*head, smem, out)
-        if err:
-            raise RuntimeError(f"spectral_{source}_info: cudaError_t {err}")
-        got = dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
-                   smem_bytes=smem, many=bool(many), triangles=int(tri),
-                   samples=samples)
-        if variant is not None:
-            got["variant"] = variant
-        return got
-
     def culled(tb):
         return int((tb.runs[:, 8] > 0).sum())
 
@@ -303,7 +306,7 @@ def main(argv=None) -> int:
         tb = mk.pack_tables(st, cfg)
         perm = morton_layout(cfg.width, cfg.height, dev)[0] if morton else None
         rargs = ci.regen_args(st, cfg, 0, cfg.intended_frames, perm)
-        infos.append(dict(kernel="regen", case=label, **info("regen", tb)))
+        infos.append(dict(kernel="regen", case=label, **kernel_info("regen", tb)))
         n = cfg.width * cfg.height
         designs = DESIGNS
         launch = {d: (lambda lib=lib: mk.run_regen_variant(lib, *rargs, tb)) if lib
@@ -316,7 +319,7 @@ def main(argv=None) -> int:
         for d in (*designs, *reversed(designs)):
             turns[d].append(timed(launch[d]))
         for d, (_, lib) in designs.items():
-            lib_info = info("regen", tb, lib)
+            lib_info = kernel_info("regen", tb, lib)
             buf = _buffers(n, dev)
             _bind(build.load(lib), buf, n)
             ms = timed(lambda: mk.run_regen_variant(lib, *rargs, tb))
@@ -358,8 +361,8 @@ def main(argv=None) -> int:
     if "seg" in args.only:
         st, cfg = flatten_scene(scene(presets.sphere_field, 1024, 768, 8), dev)
         tb = mk.pack_tables(st, cfg)
-        infos.append(dict(kernel="seg", case="spheres1000", **info("seg", tb)))
-        slots = info("seg", tb, "seg_stats")["blocks_per_sm"] * sms
+        infos.append(dict(kernel="seg", case="spheres1000", **kernel_info("seg", tb)))
+        slots = kernel_info("seg", tb, "seg_stats")["blocks_per_sm"] * sms
         full = ci.frame_wavefront(st, cfg, 0)
         mk.run_seg(full, 0, 2, 0, tb)
         live = int((full.alive > 0).sum())
@@ -408,7 +411,7 @@ def main(argv=None) -> int:
         n = cfg.width * cfg.height
         for v in range(3):
             infos.append(dict(kernel="persist", case=label,
-                              **info("persist", tb, mk.persist_library(tb), variant=v)))
+                              **kernel_info("persist", tb, mk.persist_library(tb), variant=v)))
         real = mk.run_persist
 
         def render(launch):
@@ -461,12 +464,12 @@ def main(argv=None) -> int:
             if lib is None:  # no stats build: its registers and turns alone
                 print(json.dumps(dict(part="persist", case=label, design=d, library=timed_lib,
                                       main_path_library=main_library,
-                                      main_build=info("persist", tb, timed_lib or main_library,
+                                      main_build=kernel_info("persist", tb, timed_lib or main_library,
                                                       variant=0),
                                       image_equals_parent=same[d], main_build_turns=turns[d],
                                       card=gpu)), flush=True)
                 continue
-            lib_info = info("persist", tb, lib, variant=0)
+            lib_info = kernel_info("persist", tb, lib, variant=0)
             slots = lib_info["blocks_per_sm"] * sms
             per_launch = []
 
@@ -500,7 +503,7 @@ def main(argv=None) -> int:
         args = (*planes, px, py, 0, tb)
         n = cfg.width * cfg.height
         for v in range(2):
-            infos.append(dict(kernel="mono", case=label, **info("mono", tb, variant=v)))
+            infos.append(dict(kernel="mono", case=label, **kernel_info("mono", tb, variant=v)))
         launch = {}
         for d, (lib, _) in MONO_DESIGNS.items():
             launch[(d, "mono")] = (lambda lib=lib: mk.run_mono_variant(lib, *args)) if lib else (
@@ -521,7 +524,7 @@ def main(argv=None) -> int:
             for kind in ("mono", "cost"):
                 turns[(d, kind)].append(timed(lambda: [launch[(d, kind)]() for _ in range(5)]) / 5)
         for d, (_, lib) in MONO_DESIGNS.items():
-            lib_info = info("mono", tb, lib, variant=0)
+            lib_info = kernel_info("mono", tb, lib, variant=0)
             buf = _buffers(n, dev)
             _bind(build.load(lib), buf, n)
             ms = timed(lambda: mk.run_mono_variant(lib, *args))
@@ -586,13 +589,13 @@ def main(argv=None) -> int:
                     for lib in libs[source]:
                         for v in forms:
                             infos.append(dict(kernel=source, library=lib, every_instantiation=True,
-                                              **info(source, k_tb, lib, variant=v,
+                                              **kernel_info(source, k_tb, lib, variant=v,
                                                      samples=samples, many=many, tri=tri)))
                             if many and source == "persist" and v == 0:
                                 # the largest tables whose records stay in
                                 # shared memory
                                 infos.append(dict(kernel=source, library=lib, at_packed_limit=True,
-                                                  **info(source, k_tb, lib, variant=0,
+                                                  **kernel_info(source, k_tb, lib, variant=0,
                                                          samples=samples, many=many, tri=tri,
                                                          smem=mk.PACKED_SMEM_LIMIT)))
     ptxas = {src: [ln.strip() for ln in build.build_log(src).splitlines()

@@ -10,6 +10,8 @@ differ by 1 ulp (both round the sphere quadratic's sqrt and division
 correctly, but XLA may fuse or reorder the products around them).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops import geometry as tgeom
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops.vecmath import Vec3
+from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.scene import presets
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
@@ -104,13 +107,29 @@ def test_renderer_policy_and_run_tables():
 
 
 def test_more_than_256_materials_raise():
-    port, cfg = flatten_scene(ts.sphere_field(presets, 100, 8, 6, 1), "cpu")
-    f = dict(port.np_fields)
-    f["mat_id"] = np.arange(cfg.n_objects, dtype=np.int32) % 300
-    many = RenderConfig(**{**vars(cfg), "n_materials": 300})
-    st, c = from_numpy(f, many, "cpu")
-    with pytest.raises(NotImplementedError, match="256 materials"):
-        mk.pack_tables(st, c)
+    """No material count raises any more. sphere_field(300) with a
+    material of its own per object (301 rows) keeps its material rows in
+    shared memory; sphere_field(1000) at 64 wavelengths (1,001 rows, 256 KB
+    of albedo alone) leaves them in global memory, and the shared memory
+    the kernels take then holds a staging slot of S + 1 floats per thread
+    in their place (``csrc/bounce.cuh:materials_shared``, ``smem_bytes``).
+    Both render a plain frame."""
+    from spectral_tpu_torch.scene import schema
+
+    for n, samples, shared in ((300, 8, True), (1000, 64, False)):
+        scene = ts.one_material_each(schema, ts.sphere_field(presets, n, 8, 6, 1, samples=samples))
+        port, cfg = flatten_scene(scene, "cpu")
+        assert cfg.n_materials == n + 1
+        tb = mk.pack_tables(port, cfg)
+        assert tb.materials_shared() is shared
+        rows = 4 * tb.mat_albedo.numel()
+        without = dataclasses.replace(tb, mat_albedo=tb.mat_albedo[:0]).smem_bytes()
+        slots = 4 * mk.BLOCK * (samples + 1)
+        assert tb.smem_bytes() == without + (rows if shared else slots)
+        assert tb.smem_bytes() <= mk.MAX_SMEM
+        planes, px, py = ci.primary_lanes(port, cfg, 0)
+        rad = mk.run_mono(*planes, px, py, 0, tb)
+        assert rad.shape == (samples, 48) and bool(torch.isfinite(rad).all())
 
 
 @pytest.mark.parametrize("budget", [None, 4096])

@@ -983,3 +983,35 @@ def test_cuda_aovs_and_denoiser_match_the_cpu(cuda):
     dn_cuda = denoise.atrous_denoise(*args, device="cuda")
     dn_cpu = denoise.atrous_denoise(*args, device="cpu")
     assert float(np.abs(dn_cuda - dn_cpu).max()) <= 1e-4 * float(np.abs(dn_cpu).max())
+
+
+def _many_materials(n, samples, features=False):
+    """sphere_field(n) with a material of its own per object; with
+    ``features`` every 7th sphere glass and every 11th emissive (the
+    feature build, whose material rows are 2S + 5 floats)."""
+    scene = torch_scenes.one_material_each(
+        schema, torch_scenes.sphere_field(presets, n, 32, 24, 3, samples=samples))
+    if features:
+        sky = scene.spectra[0]
+        for i, obj in enumerate(scene.objects[1:], start=1):
+            if i % 7 == 0:
+                obj.material.transmission, obj.material.ior = 1.0, 1.5
+            if i % 11 == 0:
+                obj.material.emission = sky
+    return scene
+
+
+@pytest.mark.parametrize("n,samples,features,shared", [
+    (300, 32, False, True), (1000, 64, False, False), (500, 64, True, False),
+    (100, 64, True, True)])
+def test_cuda_kernels_with_many_materials_match_plain(cuda, n, samples, features, shared):
+    """More than 256 materials on every bounce kernel, bit for bit with
+    the plain versions: the material rows in shared memory while the
+    whole table fits a block's, else read from global memory (albedo,
+    and in the feature build the feature scalars and emission)."""
+    port, cfg = flatten_scene(_many_materials(n, samples, features), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert cfg.n_materials == n + 1 and tb.materials_shared() is shared
+    assert bool(tb.features) is features
+    checks, _ = torch_scenes.kernel_checks(tb, lane_perm=morton_layout(32, 24, cuda)[0])
+    assert all(checks.values()), checks

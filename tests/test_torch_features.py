@@ -298,19 +298,27 @@ def test_library_and_features_must_agree():
 
 
 def test_require_slice_refuses_only_dof_and_material_count():
-    """Every feature scene is inside the slices, and depth of field too
-    since the lens slice (it was refused): the prism with a lens renders
-    a frame. Only the material count is refused."""
+    """Nothing is refused any more: every feature scene packs, depth of
+    field since the lens slice (the prism with a lens renders a frame),
+    and a material count above the 256 that was refused (the prism with
+    its materials repeated into 300 rows renders a frame)."""
     for scene in (presets.prism(n_samples=8), ts.open_sky(schema, 8),
                   ts.textured(schema, presets), ts.emissive_panel(schema, 8)):
-        tint.require_slice(*flatten_scene(scene, "cpu"))
+        mk.pack_tables(*flatten_scene(scene, "cpu"))
     scene = ts.with_lens(ts.preset(presets, "prism", 8, 6, 2), 0.05, 3.0)
     port, cfg = flatten_scene(scene, "cpu")
-    tint.require_slice(port, cfg)
+    mk.pack_tables(port, cfg)
     rgb = tint.integrate_frame(port, cfg, 0)
     assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())
-    with pytest.raises(NotImplementedError, match="materials"):
-        tint.require_slice(port, dataclasses.replace(cfg, n_materials=tint.MAX_MATERIALS + 1))
+    f = dict(port.np_fields)
+    reps = -(-300 // cfg.n_materials)
+    for key in ("mat_albedo", "mat_emission", "mat_scalars"):
+        f[key] = np.tile(f[key], (reps, 1))[:300]
+    many = dataclasses.replace(cfg, n_materials=300)
+    port300, cfg300 = from_numpy(f, many, "cpu")
+    tb = mk.pack_tables(port300, cfg300)
+    assert tb.mat_albedo.shape[0] == 300 and tb.materials_shared()
+    assert torch.equal(tint.integrate_frame(port300, cfg300, 0), rgb)
 
 
 @pytest.mark.parametrize("name", cli.PRESETS)

@@ -26,6 +26,7 @@ from spectral_tpu.render import integrator as jint
 from spectral_tpu.render.color import spectra_to_rgb as jrgb
 from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
+from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops.vecmath import Vec3
 from spectral_tpu_torch.render import integrator as tint
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
@@ -156,7 +157,7 @@ def test_out_of_slice_features_raise(name, feature):
     if feature == "depth of field":
         scene.camera.aperture_radius, scene.camera.focus_distance = 0.05, 3.0
     port, cfg = flatten_scene(scene, "cpu")
-    tint.require_slice(port, cfg)
+    mk.pack_tables(port, cfg)
     if feature is not None:
         rgb = tint.integrate_frame(port, cfg, 0)
         assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())

@@ -330,11 +330,11 @@ def test_require_slice_takes_triangles_refuses_the_dielectric():
     feature slice (glass meshes, the prism), and depth of field since the
     lens slice: a mesh with a lens renders a frame."""
     port, cfg = flatten_scene(presets.mesh_demo(n_samples=8), "cpu")
-    tint.require_slice(port, cfg)
-    tint.require_slice(*flatten_scene(ts.glass_meshes(schema, presets, "mesh", 8, 8, 1), "cpu"))
+    mk.pack_tables(port, cfg)
+    mk.pack_tables(*flatten_scene(ts.glass_meshes(schema, presets, "mesh", 8, 8, 1), "cpu"))
     scene = ts.with_lens(ts.preset(presets, "mesh", 8, 6, 1), 0.05, 3.0)
     port, cfg = flatten_scene(scene, "cpu")
-    tint.require_slice(port, cfg)
+    mk.pack_tables(port, cfg)
     rgb = tint.integrate_frame(port, cfg, 0)
     assert rgb.shape == (6, 8, 3) and bool(torch.isfinite(rgb).all())
 

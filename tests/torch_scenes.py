@@ -263,3 +263,70 @@ def kernel_checks(tables, frame=1, regen_k=3, split=2, lane_perm=None,
     info["persist_heroes"] = int((a.hero >= 0).sum())
     torch.cuda.synchronize()
     return {k: bool(v) for k, v in checks.items()}, info
+
+
+def one_material_each(schema, scene, own_spectra=True):
+    """``scene`` with a material of its own for every object: a copy of
+    the object's material with a reflective spectrum of its own (a plain
+    reflectance that differs from object to object), so that the kernels
+    see as many distinct albedo rows as objects (``sphere_field(300)``:
+    301 materials). ``own_spectra=False`` keeps each copy's spectrum: the
+    same image as ``scene``, its rows relabeled."""
+    S = schema
+    n = scene.spectrum_number_of_samples
+    for i, obj in enumerate(scene.objects):
+        mat = obj.material.copy()
+        mat.name = f"{mat.name} {i}"
+        if own_spectra:
+            value = 0.2 + 0.75 * ((i * 0.6180339887) % 1.0)
+            mat.spectrum = S.SceneSpectrum.new(f"albedo {i}", S.PlainReflective(value),
+                                               S.SpectrumEffectType.REFLECTIVE, n=n)
+            scene.spectra.append(mat.spectrum)
+        obj.material = mat
+        scene.materials.append(mat)
+    scene.validate()
+    return scene
+
+
+def random_scene(schema, seed, bounces=1):
+    """The seeded random scene of ``tests/test_fuzz_scenes.py``
+    (``_random_scene``: spheres, boxes and rotated boxes with random
+    materials and one or two lights, 10x8, 8 wavelengths), built with
+    ``schema``: the same draws in the same order, so each package's copy
+    flattens to the same tables."""
+    import numpy as np
+
+    S = schema
+    rng = np.random.default_rng(seed)
+    emis = S.SceneSpectrum.new("sun", S.Solar(float(rng.uniform(0.5, 2.0))),
+                               S.SpectrumEffectType.EMISSIVE, n=8)
+    spectra, materials = [emis], []
+    for i in range(int(rng.integers(2, 4))):
+        refl = S.SceneSpectrum.new(f"refl{i}", S.PlainReflective(float(rng.uniform(0.2, 0.95))),
+                                   S.SpectrumEffectType.REFLECTIVE, n=8)
+        spectra.append(refl)
+        materials.append(S.Material(
+            metallicness=float(rng.choice([0.0, 1.0, rng.uniform()])),
+            roughness=float(rng.uniform(0.0, 0.5)), spectrum=refl, name=f"m{i}"))
+    objects = []
+    for i in range(int(rng.integers(3, 7))):
+        pos = tuple(float(v) for v in rng.uniform([-4, -3, 2], [4, 3, 10]))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            ot = S.Sphere(radius=float(rng.uniform(0.3, 1.5)))
+        elif kind == 1:
+            ot = S.PlainBox(*(float(v) for v in rng.uniform(0.5, 2.5, 3)))
+        else:
+            ot = S.RotatedBox(*(float(v) for v in rng.uniform(0.5, 2.5, 3)),
+                              *(float(v) for v in rng.uniform(-1.5, 1.5, 3)))
+        objects.append(S.SceneObject(pos, ot, materials[int(rng.integers(len(materials)))],
+                                     name=f"o{i}"))
+    lights = [S.Light(tuple(float(v) for v in rng.uniform([-6, 2, -2], [6, 8, 12])), emis, f"L{j}")
+              for j in range(int(rng.integers(1, 3)))]
+    scene = S.Scene(
+        width=10, height=8, nbr_of_iterations=4, nbr_of_ray_bounces=bounces,
+        camera=S.Camera((0.0, 0.0, -3.0), (0.0, 0.0, 1.0), (0.0, 1.0, 0.0), 55.0),
+        lights=lights, objects=objects, spectra=spectra, materials=materials,
+        spectrum_number_of_samples=8)
+    scene.validate()
+    return scene
