@@ -63,6 +63,18 @@ chunks against the reference's published image (RMSE under 0.030); and
 over HTTP (frames, the page's endpoints, an object edit that restarts
 the count, an illegal scene refused with 400, the Abort button, and the
 checkpoint resumed and served again);
+the row-sharded render on one card: cornell512 over ``make_mesh(2)`` and
+``make_mesh(4)`` (each slab's ``cuda_regen`` ``torch.equal`` to the
+unsharded launch's columns, the images against one slot, ms per frame at
+1, 2 and 4 slots) and spheres1000 on Morton lanes per slab (iterations
+cut to 10); cornell512 with the lens frame by frame over 2 slots (each
+slab's ``cuda_mono`` ``torch.equal`` to its plain version) and cornell512
+``persist=True`` over 2 slots (``cuda_cost`` and ``cuda_persist`` on the
+slabs, one MIN per launch, the mean within 2% of one slot's); the CLI's
+``render --mesh 2`` in two processes sharing the card over gloo and in
+one NCCL process, each image against the in-process render;
+``render_batch_spmd`` of 4 scenes over 2 slots against their own renders,
+and ``frames_per_dispatch=4`` against 1;
 and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
@@ -92,10 +104,13 @@ schema and presets are the port's own copies.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import io
 import json
 import math
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -185,6 +200,7 @@ def main() -> int:
         from spectral_tpu_torch.ops import trace_probe as tp
         from spectral_tpu_torch.ops.vecmath import Vec3
         from spectral_tpu_torch.ops.geometry import BROADCAST_BUDGET
+        from spectral_tpu_torch.parallel.mesh import make_mesh, row_sharding
         from spectral_tpu_torch.render import animation as anim_mod
         from spectral_tpu_torch.render import aov as aov_mod
         from spectral_tpu_torch.render import cuda_integrator as ci
@@ -2082,6 +2098,259 @@ def main() -> int:
                   "(the default), where the Renderer launches the kernels or raises",
          card=card)
 
+    # ------ 12. the multi-GPU slice: row slabs on one card (each slab's
+    # kernels on its global rows), processes in one group, the batch over
+    # a mesh's slots and fused dispatches
+    def slabs_of(cfg_, n):
+        """``(row_offset, slab config)`` of each of ``n`` row slabs."""
+        h = cfg_.height // n
+        return [(i * h, dataclasses.replace(cfg_, height=h)) for i in range(n)]
+
+    def timed_render(sc, **kw):
+        """A Renderer of ``sc`` on the card: (renderer, image, render seconds)."""
+        r = Renderer(sc, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        img = r.render()  # ends in a device -> host copy
+        return r, img, time.monotonic() - t
+
+    def same_or_within(a, b, rel=1e-6):
+        """``"bit-equal"``, or the max difference over the image scale when
+        it is within ``rel`` (else raises)."""
+        if same_bits(a, b):
+            return "bit-equal"
+        err = float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+        assert err <= rel, err
+        return err
+
+    t0 = time.monotonic()
+    mg_st, mg_cfg = flatten_scene(cornell512(), dev)
+    mg_tb = mk.pack_tables(mg_st, mg_cfg)
+    k_mg = MAIN["iterations"]
+    # each slab's cuda_regen launch against the unsharded launch's columns
+    mg_rad = ci.regen_radiance(mg_st, mg_cfg, 0, k_mg, mg_tb)
+    mg_slab_equal = {}
+    for n in (2, 4):
+        ok = True
+        for off, s_cfg in slabs_of(mg_cfg, n):
+            rad_s = ci.regen_radiance(mg_st, s_cfg, 0, k_mg, mg_tb, full_height=mg_cfg.height,
+                                      row_offset=off)
+            cols = slice(off * mg_cfg.width, (off + s_cfg.height) * mg_cfg.width)
+            ok = ok and torch.equal(rad_s, mg_rad[:, cols])
+        mg_slab_equal[f"{n}_slots"] = ok
+    assert all(mg_slab_equal.values()), mg_slab_equal
+    del mg_rad
+    mg_runs, mg_imgs = {}, {}
+    for n in (1, 2, 4):
+        sharding = None if n == 1 else row_sharding(make_mesh(n))
+        (r_mg, img_mg, dt_mg), c_mg = counted(
+            f"sharded_regen_cornell512_{n}", lambda s=sharding: timed_render(cornell512(),
+                                                                             sharding=s))
+        check_image(img_mg, 512, 512)
+        assert c_mg["cuda_regen"] == n, c_mg  # one K = 100 launch per slab
+        mg_imgs[n] = img_mg
+        mg_runs[f"{n}_slots"] = dict(ms_per_frame=dt_mg * 1e3 / r_mg.next_frame,
+                                     launches={k: v for k, v in c_mg.items() if v})
+    mg_image = {f"{n}_slots": same_or_within(mg_imgs[n], mg_imgs[1]) for n in (2, 4)}
+    # spheres1000 on Morton lanes per slab, iterations cut to 10
+    sp_it = 10
+    sp_st, sp_cfg = flatten_scene(field_of(SPHERES["n_spheres"], SPHERES["width"],
+                                           SPHERES["height"], SPHERES["n_samples"],
+                                           SPHERES["bounces"], sp_it), dev)
+    sp_tb = mk.pack_tables(sp_st, sp_cfg)
+    perm_f, inv_f = morton_layout(sp_cfg.width, sp_cfg.height, dev)
+    sp_rad = ci.regen_radiance(sp_st, sp_cfg, 0, sp_it, sp_tb, perm_f)[:, inv_f]
+    sp_slab_equal = True
+    for off, s_cfg in slabs_of(sp_cfg, 4):
+        perm_s, inv_s = morton_layout(sp_cfg.width, s_cfg.height, dev)
+        rad_s = ci.regen_radiance(sp_st, s_cfg, 0, sp_it, sp_tb, perm_s,
+                                  full_height=sp_cfg.height, row_offset=off)[:, inv_s]
+        cols = slice(off * sp_cfg.width, (off + s_cfg.height) * sp_cfg.width)
+        sp_slab_equal = sp_slab_equal and torch.equal(rad_s, sp_rad[:, cols])
+    assert sp_slab_equal, "a spheres1000 slab's cuda_regen differs from its columns"
+    del sp_rad
+
+    def spheres10():
+        return field_of(SPHERES["n_spheres"], SPHERES["width"], SPHERES["height"],
+                        SPHERES["n_samples"], SPHERES["bounces"], sp_it)
+
+    sp_runs, sp_imgs = {}, {}
+    for n in (1, 4):
+        sharding = None if n == 1 else row_sharding(make_mesh(n))
+        (r_sp, img_sp, dt_sp), c_sp = counted(
+            f"sharded_regen_spheres1000_{n}", lambda s=sharding: timed_render(spheres10(),
+                                                                              sharding=s))
+        check_image(img_sp, SPHERES["width"], SPHERES["height"])
+        assert c_sp["cuda_regen"] == n, c_sp
+        if n > 1:
+            assert r_sp.lane_layout == "morton" and all(
+                sl.lane_perm is not None for sl in r_sp._slabs)
+        sp_imgs[n] = img_sp
+        sp_runs[f"{n}_slots"] = dict(ms_per_frame=dt_sp * 1e3 / r_sp.next_frame,
+                                     launches={k: v for k, v in c_sp.items() if v})
+    emit(phase="sharded_regen", seconds=round(time.monotonic() - t0, 3),
+         cornell512=dict(case="cornell512 K=100, make_mesh(n) on cuda:0",
+                         slab_cuda_regen_equal_to_unsharded_columns=mg_slab_equal,
+                         image_against_1_slot=mg_image, runs=mg_runs),
+         spheres1000=dict(case="sphere_field(1000) 1024x768 S=32 b8, Morton lanes per slab",
+                          cut="iterations 100 -> 10 (one K = 10 launch per slab)",
+                          slab_cuda_regen_equal_to_unsharded_columns=sp_slab_equal,
+                          image_against_1_slot=same_or_within(sp_imgs[4], sp_imgs[1]),
+                          runs=sp_runs),
+         card=card)
+
+    # cornell512 with the lens frame by frame over 2 slots (host raygen on
+    # the slabs), then persist over 2 slots (cuda_cost, cuda_persist)
+    t0 = time.monotonic()
+    dof_it = 8
+
+    def dof512():
+        return lens_of(cornell512(dof_it))
+
+    dm_st, dm_cfg = flatten_scene(dof512(), dev)
+    dm_tb = mk.pack_tables(dm_st, dm_cfg)
+    mono_slab_equal = True
+    for off, s_cfg in slabs_of(dm_cfg, 2):
+        planes, px, py = ci.primary_lanes(dm_st, s_cfg, 1, dm_cfg.height, off)
+        got = mk.run_mono(*planes, px, py, 1, dm_tb)
+        want = mk.run_mono_plain(*planes, px, py, 1, dm_tb)
+        mono_slab_equal = mono_slab_equal and torch.equal(got, want)
+    assert mono_slab_equal, "a slab's cuda_mono differs from its plain version"
+    (r_d1, img_d1, dt_d1), c_d1 = counted("sharded_mono_dof_cornell512_1",
+                                          lambda: timed_render(dof512(), regen_frames=1))
+    (r_d2, img_d2, dt_d2), c_d2 = counted(
+        "sharded_mono_dof_cornell512_2",
+        lambda: timed_render(dof512(), regen_frames=1, sharding=row_sharding(make_mesh(2))))
+    check_image(img_d2, 512, 512)
+    assert c_d2["cuda_mono"] == 2 * dof_it, c_d2
+    (r_p1, img_p1, dt_p1), c_p1 = counted("sharded_persist_cornell512_1",
+                                          lambda: timed_render(cornell512(), persist=True))
+    (r_p2, img_p2, dt_p2), c_p2 = counted(
+        "sharded_persist_cornell512_2",
+        lambda: timed_render(cornell512(), persist=True, sharding=row_sharding(make_mesh(2))))
+    check_image(img_p2, 512, 512)
+    p_info = r_p2.persist_info
+    assert p_info["n_devices"] == 2 and not p_info["aborted"], p_info
+    assert p_info["min_reductions"] == p_info["launches"], p_info  # one MIN per launch
+    assert c_p2["cuda_cost"] == 2 and c_p2["cuda_persist"] == 2 * p_info["launches"], c_p2
+    p_mean = float(img_p2[..., :3].mean()) / float(img_p1[..., :3].mean())
+    assert abs(p_mean - 1.0) <= 0.02, p_mean
+    emit(phase="sharded_mono_persist", seconds=round(time.monotonic() - t0, 3),
+         dof=dict(case=f"cornell512 aperture {LENS['aperture']} focus {LENS['focus']}, "
+                       "frame by frame", cut=f"iterations 100 -> {dof_it}",
+                  slab_cuda_mono_equal_to_plain=mono_slab_equal,
+                  image_against_1_slot=same_or_within(img_d2, img_d1),
+                  ms_per_frame={"1_slot": dt_d1 * 1e3 / dof_it, "2_slots": dt_d2 * 1e3 / dof_it},
+                  launches={"1_slot": {k: v for k, v in c_d1.items() if v},
+                            "2_slots": {k: v for k, v in c_d2.items() if v}}),
+         persist=dict(case="cornell512 persist=True, the default budget (cuda_cost on the slabs)",
+                      mean_ratio_2_slots_to_1=p_mean,
+                      bit_equal=same_bits(img_p2, img_p1),
+                      budget={"1_slot": r_p1.persist_info["budget"], "2_slots": p_info["budget"]},
+                      launches_2_slots=p_info["launches"],
+                      min_reductions_2_slots=p_info["min_reductions"],
+                      ms_per_frame={"1_slot": dt_p1 * 1e3 / MAIN["iterations"],
+                                    "2_slots": dt_p2 * 1e3 / MAIN["iterations"]},
+                      kernel_launches={"1_slot": {k: v for k, v in c_p1.items() if v},
+                                       "2_slots": {k: v for k, v in c_p2.items() if v}}),
+         card=card)
+
+    # two processes sharing cuda:0 over gloo, and one NCCL process, through
+    # the CLI (the libraries are built: the processes load them)
+    t0 = time.monotonic()
+    dist_args = ["render", "--preset", "cornell", "--width", "256", "--height", "256",
+                 "--bounces", "30", "--samples", "32", "--iterations", "16", "--mesh", "2",
+                 "--quiet"]
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def cli_group(n, out_dir):
+        """The CLI in ``n`` processes of one group: (stderr texts, the
+        checkpoint's accumulator, wall seconds)."""
+        port = free_port()
+        ckpt = out_dir / f"group{n}.npz"
+        t = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "spectral_tpu_torch", *dist_args,
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+             "--process-id", str(i), "--out", str(out_dir / f"group{n}.png"),
+             "--checkpoint", str(ckpt)],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE) for i in range(n)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=300)[1].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.monotonic() - t
+        for p, text in zip(procs, texts):
+            assert p.returncode == 0, text
+        return texts, np.load(ckpt)["accum"], wall
+
+    def dist_scene():
+        return scene_of(presets.cornell_box, 256, 256, 32, 30, 16)
+
+    (_, img_dist_ref, dt_dist_ref), c_dist = counted("distributed_reference_1_process",
+                                                     lambda: timed_render(dist_scene()))
+    dist = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        texts2, acc2, wall2 = cli_group(2, Path(tmp))
+        assert "distributed: process 0/2 (gloo)" in texts2[0], texts2[0]
+        assert "distributed: process 1/2 (gloo)" in texts2[1], texts2[1]
+        texts1, acc1, wall1 = cli_group(1, Path(tmp))
+        assert "distributed: process 0/1 (nccl)" in texts1[0], texts1[0]
+    dist["gloo_2_processes"] = dict(image_against_1_process=same_or_within(acc2, img_dist_ref),
+                                    wall_s=wall2)
+    dist["nccl_1_process"] = dict(image_against_1_process=same_or_within(acc1, img_dist_ref),
+                                  wall_s=wall1)
+    emit(phase="distributed", seconds=round(time.monotonic() - t0, 3),
+         case="cornell 256x256 S=32 b30, 16 iterations, --mesh 2, the CLI",
+         in_process_render_s=dt_dist_ref, **dist,
+         launches="the processes' own (not counted here; each launches cuda_regen on "
+                  "its slab or raises)", card=card)
+
+    # render_batch_spmd of 4 scenes over 2 slots, and frames_per_dispatch
+    t0 = time.monotonic()
+
+    def batch_scenes():
+        out = []
+        for k in range(4):
+            sc = scene_of(presets.cornell_box, 256, 256, 32, 30, 16)
+            sc.camera.fov_y_deg = 50.0 + 5.0 * k
+            out.append(sc)
+        return out
+
+    (batch, dt_batch), c_batch = counted("batch_spmd_4_scenes_2_slots", lambda: host_ms(
+        lambda: anim_mod.render_batch_spmd(batch_scenes(), mesh=make_mesh(2)))[::-1])
+    assert batch.shape == (4, 256, 256, 4) and c_batch["cuda_regen"] == 4, c_batch
+    batch_equal = [same_bits(batch[k], Renderer(sc, device="cuda").render())
+                   for k, sc in enumerate(batch_scenes())]
+    assert all(batch_equal), batch_equal
+    fpd = {}
+    fpd_imgs = {}
+    for turn, k in enumerate((1, 4, 4, 1)):
+        (r_f, img_f, dt_f), c_f = counted(
+            f"frames_per_dispatch_{k}_turn_{turn}",
+            lambda k=k: timed_render(cornell512(8), regen_frames=1, frames_per_dispatch=k))
+        assert c_f["cuda_mono"] == 8, c_f
+        fpd.setdefault(f"k{k}", []).append(dt_f * 1e3 / 8)
+        fpd_imgs[k] = img_f
+    assert same_bits(fpd_imgs[4], fpd_imgs[1]), "frames_per_dispatch=4 differs from 1"
+    emit(phase="batch_and_dispatch", seconds=round(time.monotonic() - t0, 3),
+         batch=dict(case="4 cornell 256x256 S=32 b30 16 iterations (fov 50-65), "
+                         "make_mesh(2) on cuda:0", ms=dt_batch,
+                    each_equal_to_its_own_render=batch_equal,
+                    launches={k: v for k, v in c_batch.items() if v}),
+         frames_per_dispatch=dict(case="cornell512 8 iterations, regen_frames=1, in turns "
+                                       "1, 4, 4, 1", bit_equal=True, ms_per_frame=fpd),
+         card=card)
+
     for key, n in launches.items():
         assert n > 0, f"{key} was never launched by the main path"
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "spectral_tpu"))
@@ -2298,11 +2567,12 @@ def main() -> int:
             entry.update(shadow_interval=shadow_interval[name])
         if name in probe_terms:
             entry.update(bound_terms=probe_terms[name])
-        if name in ("cuda_regen", "cuda_mono"):
+        if name in ("cuda_regen", "cuda_mono", "cuda_persist", "cuda_cost"):
             # the launches of this kernel in the later phases (after a
-            # render, the live render's), by counted run
+            # render, the live render's, the sharded ones), by counted run
             entry.update(post_render_launches={
                 phase: c[name] for phase, c in slice_launches.items() if name in c})
+        if name in ("cuda_regen", "cuda_mono"):
             # more than 256 materials: bit for bit with the plain version,
             # the material rows in shared or in global memory
             entry.update(many_materials=[dict(

@@ -26,12 +26,26 @@ package's ``spectral_tpu.cli``: ``render``, ``animate``, ``scene dump``,
 
     python -m spectral_tpu_torch render --preset cornell --width 512 \\
         --height 512 --iterations 100000 --serve 8000 --quiet
+    python -m spectral_tpu_torch render --preset cornell --mesh 4 \\
+        --out sharded.png
+    python -m spectral_tpu_torch render --preset cornell --mesh 2 \\
+        --num-processes 2 --process-id 0 --coordinator 127.0.0.1:29500
+    python -m spectral_tpu_torch render --preset cornell --mesh 2 \\
+        --num-processes 2 --process-id 1 --coordinator 127.0.0.1:29500
 
 The first Ctrl-C, or the live view's Abort button (``--serve``), finishes
 the current chunk (persist: launch), saves the image and a resumable
 checkpoint (``--checkpoint``, else ``<out>.ckpt.npz``), and exits;
 ``--resume`` continues from it. ``--serve`` and ``--preview-every`` cap
 the default chunk at 16 frames.
+
+``--mesh N`` renders N row slabs (``parallel/mesh.py``); with
+``--coordinator``, ``--num-processes`` and ``--process-id`` (or
+torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``) the
+processes join one group first, split the slabs evenly, and only process
+0 logs and writes files. The group's backend is NCCL where each process
+has a card of its own, gloo on the CPU or on a shared card
+(``distributed.choose_backend``).
 """
 
 from __future__ import annotations
@@ -113,11 +127,39 @@ def _load_scene(args):
 
 
 def cmd_render(args) -> int:
-    """The reference's ``cmd_render`` (``spectral_tpu/cli.py:82-342``)
-    on one device: the progress line, ``--preview-every``, the live view
-    (``--serve``: frames at most once a second, abort from the page, a
-    scene edit rebuilds the Renderer and restarts), ``--profile`` and a
-    resumable abort."""
+    """The reference's ``cmd_render`` (``spectral_tpu/cli.py:82-342``):
+    the progress line, ``--preview-every``, the live view (``--serve``:
+    frames at most once a second, abort from the page, a scene edit
+    rebuilds the Renderer and restarts), ``--profile``, a resumable
+    abort, and the row-sharded render over ``--mesh`` slots in one or
+    more processes."""
+    from spectral_tpu_torch.parallel import distributed
+
+    multi = bool(args.coordinator or args.num_processes or distributed.env_configured())
+    if args.serve is not None and multi:
+        raise SystemExit(
+            "--serve is single-process only (the live framebuffer fetch "
+            "cannot be time-gated deterministically across processes); use "
+            "--preview-every instead"
+        )
+    if args.persist and args.mesh and (args.resume or args.checkpoint):
+        print("--persist checkpoints are single-device: drop --mesh or "
+              "--resume/--checkpoint", file=sys.stderr)
+        return 2
+    if multi:
+        # join the process group before any device use
+        backend = distributed.initialize(args.coordinator, args.num_processes,
+                                         args.process_id, device=args.device)
+        print(f"distributed: process {distributed.rank()}/{distributed.world_size()} "
+              f"({backend})", file=sys.stderr, flush=True)
+    try:
+        return _render(args)
+    finally:
+        distributed.shutdown()
+
+
+def _render(args) -> int:
+    from spectral_tpu_torch.parallel import distributed
     from spectral_tpu_torch.render.renderer import Renderer
 
     adaptive = None
@@ -144,6 +186,13 @@ def cmd_render(args) -> int:
         # H100); an explicit --regen-frames overrides this
         regen = ("auto", 16)
 
+    sharding = None
+    if args.mesh:
+        from spectral_tpu_torch.parallel.mesh import make_mesh, row_sharding
+
+        sharding = row_sharding(make_mesh(args.mesh, device=args.device))
+    primary = distributed.is_primary()  # only process 0 logs and saves
+
     def build_renderer(sc):
         return Renderer(
             sc, device=args.device, regen_frames=1 if args.persist else regen,
@@ -151,13 +200,15 @@ def cmd_render(args) -> int:
             persist=args.persist, persist_budget=args.persist_budget,
             adaptive=adaptive, persist_keep_state=bool(args.checkpoint),
             phase_split=phase_split, phase_capacity=phase_capacity,
+            sharding=sharding, frames_per_dispatch=args.frames_per_dispatch,
         )
 
     t0 = time.monotonic()
     renderer = build_renderer(scene)
     if args.resume:
         renderer.load_checkpoint(args.resume)
-        print(f"resumed at frame {renderer.next_frame}", file=sys.stderr)
+        if primary:
+            print(f"resumed at frame {renderer.next_frame}", file=sys.stderr)
 
     viewer = None
     if args.serve is not None:
@@ -174,17 +225,29 @@ def cmd_render(args) -> int:
             viewer.publish_scene(scene)
             print(f"live view at {viewer.url}", file=sys.stderr, flush=True)
         renderer, scene, aborted = _run_render(args, build_renderer, renderer, scene,
-                                               viewer)
+                                               viewer, primary)
     finally:
         if viewer is not None:
             viewer.close()
+    # a collective under a process group: every process joins, 0 writes
     renderer.save_image(args.out, exposure=args.exposure, gamma=args.gamma)
     checkpoint = args.checkpoint
     if checkpoint is None and aborted:
-        checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
+        if args.persist and args.mesh:
+            # a sharded persist render carries no host-side resume state:
+            # the partial image is saved, the auto-checkpoint skipped
+            if primary:
+                print("sharded persist aborts are not resumable; partial image saved",
+                      file=sys.stderr)
+        else:
+            checkpoint = f"{args.out}.ckpt.npz"  # auto-save: a resumable abort
     if checkpoint:
         renderer.save_checkpoint(checkpoint)
-        print(f"checkpoint -> {checkpoint}", file=sys.stderr)
+        if primary:
+            print(f"checkpoint -> {checkpoint}", file=sys.stderr)
+    fb = renderer.framebuffer() if (args.aovs or args.denoise is not None) else None
+    if not primary:
+        return 0
     verb = "aborted after" if aborted else "rendered"
     print(f"{verb} {renderer.next_frame} iterations in {time.monotonic() - t0:.1f}s "
           f"on {args.device} -> {args.out} ({scene.width}x{scene.height})",
@@ -206,12 +269,12 @@ def cmd_render(args) -> int:
         )
     if aborted and checkpoint:
         print(f"resume with --resume {checkpoint}", file=sys.stderr)
-    if args.aovs or args.denoise is not None:
-        _post_process(args, scene, renderer.framebuffer())
+    if fb is not None:
+        _post_process(args, scene, fb)
     return 0
 
 
-def _run_render(args, build_renderer, renderer, scene, viewer):
+def _run_render(args, build_renderer, renderer, scene, viewer, primary=True):
     """Render until the last frame, an abort or the end of the live
     view's edits; returns the renderer and scene it ended on and whether
     the render was aborted. The first Ctrl-C, the page's Abort button and
@@ -236,7 +299,7 @@ def _run_render(args, build_renderer, renderer, scene, viewer):
             viewer.update(renderer.framebuffer(), p.frame_id + 1, p.total_frames,
                           p.elapsed_s)
             last_view[0] = time.monotonic()
-        if not args.quiet:
+        if not args.quiet and primary:
             print(
                 f"\rframe {p.frame_id + 1}/{p.total_frames} "
                 f"({p.fraction:5.1%})  elapsed {p.elapsed_s:6.1f}s  "
@@ -276,7 +339,7 @@ def _run_render(args, build_renderer, renderer, scene, viewer):
             run()
     finally:
         signal.signal(signal.SIGINT, prev_handler)
-    if not args.quiet:
+    if not args.quiet and primary:
         print(file=sys.stderr)
     return renderer, scene, abort()
 
@@ -567,6 +630,22 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--phase-capacity",
                     help="compacted-wavefront lane capacity (default: 1/16 "
                          "of the image); comma list, one per split")
+    pr.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="render N row slabs, one per mesh slot (0 = one "
+                         "device); the slots split evenly over the processes "
+                         "and go to each process's GPUs round-robin")
+    pr.add_argument("--coordinator", metavar="HOST:PORT",
+                    help="multi-process: the process group's address (or set "
+                         "MASTER_ADDR and MASTER_PORT)")
+    pr.add_argument("--num-processes", type=int,
+                    help="multi-process: total process count (or WORLD_SIZE)")
+    pr.add_argument("--process-id", type=int,
+                    help="multi-process: this process's index (or RANK)")
+    pr.add_argument("--frames-per-dispatch", type=int, default=1, metavar="K",
+                    help="render K progressive frames per dispatch on the frame "
+                         "by frame path (K mono launches with no host "
+                         "synchronisation between them); progress and abort "
+                         "act every K frames")
     pr.add_argument("--checkpoint", help=HELP["checkpoint"])
     pr.add_argument("--resume", help="resume from a checkpoint file")
     pr.add_argument("--preview-every", type=float, default=0.0, metavar="SECONDS",

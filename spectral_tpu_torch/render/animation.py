@@ -6,9 +6,9 @@ deals whole animation frames over devices: frames are independent renders
 of the same-shaped scene, so each device renders whole frames on the
 single-scene path (``Renderer``) with no collectives.
 :func:`render_animation` takes a list of torch devices and runs one host
-thread per device. The reference's ``render_batch_spmd`` (a batch axis
-sharded over a mesh) belongs to the port's multi-GPU slice and is not
-here.
+thread per device. :func:`render_batch_spmd` splits a batch of
+same-shaped scenes over a mesh's slots (``parallel/mesh.py``), in one
+process or across processes.
 
 Tracks address scene fields by path (``camera.position``,
 ``objects[2].object_type.radius``, ``materials[0].roughness``, ...) with
@@ -522,6 +522,63 @@ def render_animation(
                 fut.result()  # re-raise worker errors
 
     return np.stack(frames_u8)
+
+
+def render_batch_spmd(
+    scenes: Sequence[Scene],
+    mesh=None,
+    iterations: int | None = None,
+) -> np.ndarray:
+    """Render B same-shaped scenes split over a mesh's slots by scene and
+    return every process the float32 ``[B, H, W, 4]`` accumulation
+    buffers (the reference's ``render_batch_spmd``, whose jit program
+    shards a batch axis over a device mesh).
+
+    ``mesh`` (``parallel.mesh.make_mesh``; default one slot on the card)
+    must split the B scenes evenly: slot ``i`` renders scenes ``i * B/n``
+    .. ``(i + 1) * B/n - 1``, each through the Renderer's default path on
+    the slot's device (the kernels on the card, their plain versions on
+    the CPU), and the processes join their results with one all-gather.
+    Outputs partition by scene, so no render crosses slots.
+    ``iterations`` overrides every scene's iteration count before
+    flattening, so the screen-wide Hammersley denominator
+    (``intended_frames``) follows it, as in ``render_animation``; the
+    caller's scenes are not changed. Raises ``SceneError`` for scenes of
+    different configurations and ``ValueError`` for an empty list.
+    """
+    import torch
+
+    from spectral_tpu_torch.parallel import distributed
+    from spectral_tpu_torch.parallel.mesh import make_mesh
+    from spectral_tpu_torch.render.renderer import Renderer
+    from spectral_tpu_torch.scene.flatten import flatten_numpy
+
+    if not scenes:
+        raise ValueError("render_batch_spmd needs at least one scene")
+    if iterations is not None:
+        if iterations < 1:
+            raise ValueError("iterations must be >= 1")
+        scenes = [copy.deepcopy(s) for s in scenes]
+        for s in scenes:
+            s.nbr_of_iterations = iterations
+    flat = [flatten_numpy(s) for s in scenes]
+    cfg = flat[0][1]
+    for f, (_, c) in enumerate(flat[1:], start=1):
+        if c != cfg:
+            raise SceneError(f"batch scene {f} has a different render configuration")
+    mesh = mesh if mesh is not None else make_mesh(1)
+    if len(scenes) % mesh.size:
+        raise ValueError(
+            f"{len(scenes)} scenes do not split evenly over {mesh.size} mesh slots"
+        )
+    per = len(scenes) // mesh.size
+    mine = []
+    for slot in mesh.local_slots():
+        for b in range(slot.index * per, (slot.index + 1) * per):
+            r = Renderer(scenes[b], device=slot.device, _flattened=flat[b])
+            r.render()
+            mine.append(torch.from_numpy(r.framebuffer())[None])
+    return distributed.fetch_global(mine)
 
 
 def save_gif(frames_u8: np.ndarray, path, fps: float = 12.0) -> Path:

@@ -94,11 +94,17 @@ def refocus(d: Vec3, forward: Vec3, shift: Vec3, focus) -> Vec3:
     return (d * t_f - shift).normalize().normalize()
 
 
-def pixel_coords(width: int, height: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def pixel_coords(width: int, height: int, device,
+                 row_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-major ``(px, py)`` int64 lane planes of a ``width x height``
-    image (uint32 bit patterns for the RNG seeds)."""
+    image, or of the ``height``-row slab of a taller image that starts at
+    row ``row_offset`` (``py`` is then the global row): uint32 bit
+    patterns for the RNG seeds."""
     idx = torch.arange(width * height, dtype=torch.int64, device=device)
-    return idx % width, idx // width
+    py = idx // width
+    if row_offset:
+        py = py + int(row_offset)
+    return idx % width, py
 
 
 def generate_primary_rays(
@@ -111,6 +117,8 @@ def generate_primary_rays(
     frame_id: int,
     intended_frames: int,
     dof=None,
+    full_height: int | None = None,
+    row_offset: int = 0,
 ) -> tuple[Vec3, Vec3, torch.Tensor, torch.Tensor]:
     """The ``[height * width]`` wavefront of camera rays for one frame.
 
@@ -118,9 +126,14 @@ def generate_primary_rays(
     row-major pixel coordinates. ``dof = (aperture_radius,
     focus_distance)`` (``scene_dof``) moves every origin by the frame's
     ``lens_point`` and re-aims each ray at its pinhole ray's point on the
-    focus plane; None is the pinhole."""
+    focus plane; None is the pinhole. ``full_height``/``row_offset``
+    generate the ``height``-row slab of a ``full_height`` image that
+    starts at row ``row_offset``, in the whole image's coordinates
+    (row-sharded rendering): the NDC mapping and the aspect ratio are the
+    whole image's, and each ray is its unsharded twin bit for bit."""
     dev = cam_pos.device
-    px, py = pixel_coords(width, height, dev)
+    px, py = pixel_coords(width, height, dev, row_offset)
+    height = full_height or height
     n = px.shape[0]
     xf = px.to(torch.float32)
     yf = py.to(torch.float32)
@@ -152,7 +165,7 @@ CAM_BASIS = 20
 CB_FOCUS = 17
 
 
-def camera_basis_table(scene, config) -> torch.Tensor:
+def camera_basis_table(scene, config, full_height: int | None = None) -> torch.Tensor:
     """The free-running persist kernel's ``[20]`` float32 camera table on
     the scene's device (the reference's ``pack_camera_basis``,
     ``megakernel.py:2545-2572``): position (0-2), forward (3-5), right
@@ -160,14 +173,17 @@ def camera_basis_table(scene, config) -> torch.Tensor:
     and height (14-15), the Hammersley denominator ``intended_frames``
     (16), the focus distance with depth of field (17; else 0, like the
     reference's pad) and two pad columns. The basis is ``camera_basis``'s,
-    in the host raygen's op order."""
+    in the host raygen's op order. ``full_height`` is the whole image's
+    height when ``config`` is a row slab's: the kernels map a lane's
+    global ``py`` through the whole image's height and aspect ratio."""
+    height = full_height or config.height
     fwd, right, true_up, focal, aspect = camera_basis(
-        scene.cam_dir, scene.cam_up, scene.fov_y_deg, config.width, config.height
+        scene.cam_dir, scene.cam_up, scene.fov_y_deg, config.width, height
     )
     dev = scene.cam_pos.device
     cols = [
         *scene.cam_pos, *fwd, *right, *true_up, focal, aspect,
-        float(config.width), float(config.height), float(config.intended_frames),
+        float(config.width), float(height), float(config.intended_frames),
         scene.cam_focus if config.has_dof else 0.0, 0.0, 0.0,
     ]
     return torch.stack([

@@ -50,13 +50,16 @@ from spectral_tpu_torch.render.integrator import (
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 
-def primary_lanes(scene: SceneTensors, config: RenderConfig, frame_id: int):
+def primary_lanes(scene: SceneTensors, config: RenderConfig, frame_id: int,
+                  full_height: int | None = None, row_offset: int = 0):
     """Lane planes for the kernels: ``(ox, oy, oz, dx, dy, dz)`` f32 and
-    ``(px, py)`` int32, all contiguous ``[W*H]``."""
+    ``(px, py)`` int32, all contiguous ``[W*H]``. ``full_height``/
+    ``row_offset``: ``config`` is the row slab of a ``full_height`` image
+    from row ``row_offset`` (``generate_primary_rays``)."""
     origin, direction, px, py = generate_primary_rays(
         scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
         config.width, config.height, frame_id, config.intended_frames,
-        dof=scene_dof(scene, config),
+        dof=scene_dof(scene, config), full_height=full_height, row_offset=row_offset,
     )
     planes = tuple(c.contiguous() for c in (*origin, *direction))
     return planes, px.to(torch.int32), py.to(torch.int32)
@@ -95,44 +98,53 @@ def _tables(scene: SceneTensors, config: RenderConfig,
 def integrate_frame_cuda(
     scene: SceneTensors, config: RenderConfig, frame_id: int,
     tables: mk.KernelTables | None = None, shadow_interval: bool = False,
+    full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """One progressive frame -> linear RGB ``[H, W, 3]`` via ``run_mono``.
     ``shadow_interval=True`` takes the opt-in sqrt-free sphere shadow test
-    (``megakernel.with_shadow_interval``: many-object scenes only)."""
+    (``megakernel.with_shadow_interval``: many-object scenes only).
+    ``full_height``/``row_offset`` render the row slab ``config`` of a
+    taller image (``primary_lanes``)."""
     tables = _tables(scene, config, tables, shadow_interval)
     if config.n_objects == 0:
         return empty_frame(scene, config)
-    planes, px, py = primary_lanes(scene, config, frame_id)
+    planes, px, py = primary_lanes(scene, config, frame_id, full_height, row_offset)
     rad = mk.run_mono(*planes, px, py, frame_id, tables)
     return _to_rgb(rad, scene, config)
 
 
 def regen_args(scene: SceneTensors, config: RenderConfig, first_frame_id: int,
-               k: int, lane_perm: torch.Tensor | None = None) -> tuple:
+               k: int, lane_perm: torch.Tensor | None = None,
+               full_height: int | None = None, row_offset: int = 0) -> tuple:
     """``run_regen``'s lane arguments for K frames from ``first_frame_id``:
     ``(px, py, first_frame_id, camera table, Hammersley table, lens
     table)``, lane ``p`` on pixel ``lane_perm[p]`` (row-major without
     one); the lens table (``camera.lens_table``) is None for a pinhole
-    camera."""
-    px, py = pixel_coords(config.width, config.height, scene.device)
+    camera. ``full_height``/``row_offset``: ``config`` is a row slab, its
+    lanes carry global rows and the camera table the whole image's
+    height; ``lane_perm`` indexes the slab's pixels."""
+    px, py = pixel_coords(config.width, config.height, scene.device, row_offset)
     if lane_perm is not None:
         px, py = px[lane_perm], py[lane_perm]
     offsets = hammersley_table(first_frame_id, k, config.intended_frames, scene.device)
     return (px.to(torch.int32), py.to(torch.int32), first_frame_id,
-            camera_basis_table(scene, config), offsets,
+            camera_basis_table(scene, config, full_height), offsets,
             lens_table(scene, config, first_frame_id, k))
 
 
 def regen_radiance(
     scene: SceneTensors, config: RenderConfig, first_frame_id: int, k: int,
     tables: mk.KernelTables, lane_perm: torch.Tensor | None = None,
+    full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """The SUM of K frames' radiance ``[S, n]`` in one ``run_regen``
     launch, in lane order: lane ``p`` traces pixel ``lane_perm[p]``. The
     kernel generates every frame's primaries itself, elementwise in the
     lane's pixel, so each lane's paths are bit-identical to the
-    unpermuted launch's and to host raygen's."""
-    return mk.run_regen(*regen_args(scene, config, first_frame_id, k, lane_perm), tables)
+    unpermuted launch's and to host raygen's, and a row slab's
+    (``full_height``/``row_offset``) to the whole image's."""
+    return mk.run_regen(*regen_args(scene, config, first_frame_id, k, lane_perm,
+                                    full_height, row_offset), tables)
 
 
 def integrate_frames_cuda_regen(
@@ -141,6 +153,7 @@ def integrate_frames_cuda_regen(
     lane_perm: torch.Tensor | None = None,
     lane_inv: torch.Tensor | None = None,
     shadow_interval: bool = False,
+    full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """K progressive frames in one ``run_regen`` launch -> the SUM of their
     linear-RGB frames ``[H, W, 3]``. Every path is the one its frame's
@@ -149,7 +162,8 @@ def integrate_frames_cuda_regen(
     pixels to lanes (cost-sorted lane assignment): pure relabeling, and
     the RGB sum is put back in pixel order after the fold. Blend with
     ``integrator.accumulate_frames``. ``shadow_interval`` as in
-    ``integrate_frame_cuda``."""
+    ``integrate_frame_cuda``; ``full_height``/``row_offset`` render the
+    row slab ``config`` of a taller image."""
     if k < 2:
         raise ValueError("regen wants k >= 2 (use integrate_frame_cuda)")
     if (lane_perm is None) != (lane_inv is None):
@@ -157,17 +171,20 @@ def integrate_frames_cuda_regen(
     tables = _tables(scene, config, tables, shadow_interval)
     if config.n_objects == 0:
         return empty_frame(scene, config, k)
-    rad = regen_radiance(scene, config, first_frame_id, k, tables, lane_perm)
+    rad = regen_radiance(scene, config, first_frame_id, k, tables, lane_perm,
+                         full_height, row_offset)
     return _to_rgb(rad, scene, config, lane_inv)
 
 
 def render_frame_step_cuda(
     scene: SceneTensors, config: RenderConfig, accum: torch.Tensor,
     frame_id: int, tables: mk.KernelTables | None = None,
+    full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """One progressive frame (one ``run_mono`` launch) blended into the
-    accumulator."""
-    rgb = integrate_frame_cuda(scene, config, frame_id, tables)
+    accumulator (a row slab's with ``full_height``/``row_offset``)."""
+    rgb = integrate_frame_cuda(scene, config, frame_id, tables,
+                               full_height=full_height, row_offset=row_offset)
     return accumulate_frame(accum, rgb, frame_id)
 
 
@@ -177,11 +194,13 @@ def render_frames_step_cuda_regen(
     lane_perm: torch.Tensor | None = None,
     lane_inv: torch.Tensor | None = None,
     shadow_interval: bool = False,
+    full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """K progressive frames (one ``run_regen`` launch) blended into the
-    accumulator."""
+    accumulator (a row slab's with ``full_height``/``row_offset``)."""
     rgb_sum = integrate_frames_cuda_regen(
-        scene, config, first_frame_id, k, tables, lane_perm, lane_inv, shadow_interval)
+        scene, config, first_frame_id, k, tables, lane_perm, lane_inv, shadow_interval,
+        full_height, row_offset)
     return accumulate_frames(accum, rgb_sum, first_frame_id, k)
 
 
@@ -351,19 +370,21 @@ def default_phase_capacity(n: int) -> int:
 def probe_path_cost(
     scene: SceneTensors, config: RenderConfig,
     tables: mk.KernelTables | None = None, n_probe_frames: int = 2,
-    first_frame_id: int = 0,
+    first_frame_id: int = 0, full_height: int | None = None, row_offset: int = 0,
 ) -> torch.Tensor:
     """Per-pixel realized path length summed over ``n_probe_frames``
     frames, flat ``[W*H]`` float32: one ``run_cost`` launch per frame,
     each lane reporting how many bounce iterations it ran while alive
-    (the reference's ``probe_path_cost``, ``pallas_integrator.py:372``)."""
+    (the reference's ``probe_path_cost``, ``pallas_integrator.py:372``);
+    of the row slab ``config`` with ``full_height``/``row_offset``."""
     n = config.width * config.height
     if config.n_objects == 0:
         return torch.full((n,), float(n_probe_frames), device=scene.device)
     tables = tables or mk.pack_tables(scene, config)
     total = torch.zeros((n,), dtype=torch.float32, device=scene.device)
     for j in range(n_probe_frames):
-        planes, px, py = primary_lanes(scene, config, first_frame_id + j)
+        planes, px, py = primary_lanes(scene, config, first_frame_id + j,
+                                       full_height, row_offset)
         _rad, cost = mk.run_cost(*planes, px, py, first_frame_id + j, tables)
         total = total + cost
     return total
@@ -383,11 +404,14 @@ def cost_sort_perm(cost: torch.Tensor):
 
 
 def persist_init(scene: SceneTensors, config: RenderConfig,
-                 lane_perm: torch.Tensor | None = None) -> PersistState:
+                 lane_perm: torch.Tensor | None = None,
+                 full_height: int | None = None, row_offset: int = 0) -> PersistState:
     """Every lane starts frame 0 of its pixel (``pallas_integrator.py:700``):
     the frame-0 primaries, alive, gate open, no hero, the full bounce
-    budget, unit throughput and zero radiance."""
-    planes, px, py = primary_lanes(scene, config, 0)
+    budget, unit throughput and zero radiance. ``full_height``/
+    ``row_offset``: the lanes of the row slab ``config``, with global
+    rows, as a sharded persist render carries them."""
+    planes, px, py = primary_lanes(scene, config, 0, full_height, row_offset)
     if lane_perm is not None:
         planes = tuple(p[lane_perm] for p in planes)
         px, py = px[lane_perm], py[lane_perm]

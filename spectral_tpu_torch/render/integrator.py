@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from spectral_tpu_torch.ops.geometry import surface_normal, trace, trace_shadow
+from spectral_tpu_torch.ops.grid_trace import trace_grid
 from spectral_tpu_torch.ops.rng import MASK32, as_u32, random_pcg3d
 from spectral_tpu_torch.ops.sampling import (
     cosine_hemisphere_bounce,
@@ -103,12 +104,15 @@ class BounceState(NamedTuple):
 
 def _direct_lighting(
     offset_pos: Vec3, normal: Vec3, incoming: Vec3, scene: SceneTensors,
-    config: RenderConfig, shadow_interval: bool = False,
+    config: RenderConfig, shadow_interval: bool = False, grid=None,
 ) -> torch.Tensor:
     """Next-event estimation over all lights (reference
     ``src/shader.rs:420-439``): unoccluded lights contribute
     ``spectrum / dist^2 * cos_in * cos_out``. ``shadow_interval`` takes
-    the sqrt-free sphere occlusion test (``geometry.trace_shadow``)."""
+    the sqrt-free sphere occlusion test (``geometry.trace_shadow``);
+    ``grid`` (``scene.accel.build_grid``) traces the shadow ray through
+    the uniform grid (``ops.grid_trace``), blocked by a hit within
+    ``dist``."""
     n = offset_pos.x.shape[0]
     direct = torch.zeros((n, config.n_samples), dtype=torch.float32,
                          device=offset_pos.x.device)
@@ -119,7 +123,11 @@ def _direct_lighting(
         dist2 = ldir.dot(ldir)
         dist = ldir.magnitude()
         ldn = ldir.normalize()
-        blocked = trace_shadow(offset_pos, ldn, dist, scene, interval=shadow_interval)
+        if grid is None:
+            blocked = trace_shadow(offset_pos, ldn, dist, scene, interval=shadow_interval)
+        else:
+            hit = trace_grid(offset_pos, ldn, scene, grid)
+            blocked = hit.hit & (hit.t <= dist)
         # the reference re-normalizes the already-normalized direction
         cos_in = torch.clamp_min(ldn.normalize().dot(normal), 0.0)
         scale = (cos_in * cos_out) / dist2
@@ -137,6 +145,7 @@ def _bounce(
     scene: SceneTensors,
     config: RenderConfig,
     shadow_interval: bool = False,
+    grid=None,
 ) -> BounceState:
     """One bounce iteration of every lane. ``bounces_left`` and
     ``frame_id`` are per-lane int64 ``[N]`` (uint32 bit patterns; callers
@@ -149,7 +158,7 @@ def _bounce(
     # one submit_ray per live lane
     ray_count = ray_count + alive.sum(dtype=torch.float32)
 
-    res = trace(o, d, scene)
+    res = trace(o, d, scene) if grid is None else trace_grid(o, d, scene, grid)
     gate_ok = (~pending_gate) | (res.t > SPECULAR_MIN_RAY_DISTANCE)
     if fx & FX_SKY:
         # an escaping live ray collects throughput * sky (t is inf on a
@@ -183,7 +192,7 @@ def _bounce(
         )
 
     offset_pos = ip + normal * NEW_RAY_POSITION_OFFSET_DISTANCE
-    direct = _direct_lighting(offset_pos, normal, d, scene, config, shadow_interval)
+    direct = _direct_lighting(offset_pos, normal, d, scene, config, shadow_interval, grid)
     diffuse = alive & ~spec & ~trans
     # one shadow ray per light per live diffuse lane
     ray_count = ray_count + float(config.n_lights) * diffuse.sum(dtype=torch.float32)
@@ -235,13 +244,15 @@ def _bounce(
 
 
 def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
-                 radiance=None, occupancy=None, shadow_interval=False):
+                 radiance=None, occupancy=None, shadow_interval=False, grid=None):
     """The one-frame loop over lane planes; returns the final state and
     the per-lane bounces left (frozen when a path ends). The frame's
     radiance is added bounce by bounce to ``radiance`` (``[N, S]``, zeros
     if None), as the kernels add a K-frame sum. ``occupancy`` (f32
     ``[max_bounces]``) gets the count of lanes alive entering each
-    bounce; ``shadow_interval`` is ``_direct_lighting``'s."""
+    bounce; ``shadow_interval`` and ``grid`` are ``_direct_lighting``'s,
+    and ``grid`` traces the continuation rays too (the reference's
+    ``make_tracers``)."""
     n = origin.x.shape[0]
     s = config.n_samples
     dev = origin.x.device
@@ -267,7 +278,7 @@ def _bounce_loop(origin, direction, px, py, frame_id, scene, config,
         for b in range(config.max_bounces):
             if occupancy is not None:
                 occupancy[b] = state.alive.sum(dtype=torch.float32)
-            state = _bounce(state, bl, fid, px, py, scene, config, shadow_interval)
+            state = _bounce(state, bl, fid, px, py, scene, config, shadow_interval, grid)
             bl = torch.where(state.alive, bl - 1, bl)
             # a dead lane adds nothing, so an all-dead wavefront is done
             if not bool(state.alive.any()):
@@ -524,22 +535,29 @@ def integrate_frame(
     frame_id,
     return_stats: bool = False,
     return_occupancy: bool = False,
+    full_height: int | None = None,
+    row_offset: int = 0,
+    grid=None,
 ):
     """Trace one progressive frame; returns linear RGB ``[H, W, 3]``, then
     the reference-equivalent submitted-ray count if ``return_stats``, then
     the per-bounce live-lane counts ``[max_bounces]`` f32 (lanes entering
-    each bounce, the reference's ``return_occupancy``) if asked."""
+    each bounce, the reference's ``return_occupancy``) if asked.
+    ``full_height``/``row_offset`` trace the row slab ``config`` of a
+    taller image in its global coordinates; ``grid`` traces every ray
+    through the uniform grid (``scene.accel.build_grid``) instead of
+    testing every object."""
     origin, direction, px, py = generate_primary_rays(
         scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
         config.width, config.height, frame_id, config.intended_frames,
-        dof=scene_dof(scene, config),
+        dof=scene_dof(scene, config), full_height=full_height, row_offset=row_offset,
     )
     hist = None
     if return_occupancy:
         hist = torch.zeros((config.max_bounces,), dtype=torch.float32,
                            device=origin.x.device)
     state, _ = _bounce_loop(origin, direction, px, py, frame_id, scene, config,
-                            occupancy=hist)
+                            occupancy=hist, grid=grid)
     rgb = spectra_to_rgb(state.radiance, scene.xyz_weights, scene.xyz_to_rgb)
     out = (rgb.reshape(config.height, config.width, 3),)
     if return_stats:

@@ -14,8 +14,12 @@ variance-adaptive. ``phase_split`` renders each frame as bounce segments
 than 64 objects walk a cluster plan (``ops/clusters.py``), and their
 regeneration lanes take the Morton layout (``render/layout.py``). All
 kinds checkpoint and resume. A scene with a sky, checker textures,
-emissive surfaces or a dielectric runs the kernels' feature builds. On
-``device="cpu"`` the same calls run the kernels' plain versions.
+emissive surfaces or a dielectric runs the kernels' feature builds.
+``sharding=row_sharding(mesh)`` renders one row slab per mesh slot, in one
+process or across processes (``parallel/``); ``frames_per_dispatch``
+groups frame-by-frame renders between the host's checks; ``accel="grid"``
+traces through the uniform grid on the CPU. On ``device="cpu"`` the same
+calls run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -30,6 +34,15 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.ops.megakernel import BLOCK, pack_tables, repack_tables, with_features
+from spectral_tpu_torch.parallel import distributed
+from spectral_tpu_torch.parallel.mesh import RowSharding
+from spectral_tpu_torch.parallel.sharding import (
+    gather,
+    render_frame_step_sharded,
+    render_frames_step_sharded_regen,
+    render_persistent_sharded,
+    shard_scene,
+)
 from spectral_tpu_torch.render import image as image_mod
 from spectral_tpu_torch.render.cuda_integrator import (
     check_splits,
@@ -50,6 +63,7 @@ from spectral_tpu_torch.render.integrator import (
     integrate_frame,
 )
 from spectral_tpu_torch.render.layout import morton_layout
+from spectral_tpu_torch.scene.accel import build_grid
 from spectral_tpu_torch.scene.flatten import (
     FIELDS,
     RenderConfig,
@@ -245,12 +259,35 @@ class Renderer:
     ``integrator.scene_features``) through the kernels' feature builds.
     Depth of field (a camera with ``aperture_radius > 0``) renders on
     regeneration, frame by frame and phased; ``persist=True`` refuses it
-    with ``ValueError``, as the reference does. The reference renderer's
-    ``sharding`` is refused with ``NotImplementedError`` until its slice
-    lands. Any material count renders, on every path and device: the
+    with ``ValueError``, as the reference does. Any material count
+    renders, on every path and device: the
     kernels keep the material rows in shared memory while the whole table
     fits a block's, else in global memory
     (``KernelTables.materials_shared``).
+    ``sharding=row_sharding(mesh)`` (``parallel/mesh.py``; the mesh's
+    slots on ``device``) renders row slabs, one per slot of the mesh,
+    each with its own accumulator slab and the kernels on its global
+    rows (``parallel/sharding.py``): regeneration (Morton lanes per slab
+    for a clustered scene) and frame by frame with no collective,
+    ``persist=True`` through ``render_persistent_sharded`` (one MIN per
+    launch; ``persist_info["n_devices"]``). ``framebuffer()`` gathers
+    the slabs from every process, and only the primary process writes
+    images and checkpoints. It refuses ``phase_split``, ``regen_sort``
+    and a scene schedule with ``ValueError``, an image height that does
+    not divide over the mesh too, and a sharded persist render has no
+    checkpoint.
+    ``frames_per_dispatch=k`` renders k frames per dispatch on the frame
+    by frame path (k ``cuda_mono`` launches with no host synchronisation
+    between them); progress, abort and the finite check run between
+    dispatches. It refuses ``sharding``, ``phase_split``, the grid,
+    ``persist`` and ``regen_frames > 1``; "auto" becomes 1.
+    ``accel="grid"`` traces through the uniform-grid DDA
+    (``scene/accel.py``, ``ops/grid_trace.py``), the reference's opt-in
+    eager tracer: on the CPU only (the kernels walk every object or cull
+    by cluster, so ``device="cuda"`` raises ``ValueError``), frame by
+    frame, and not with triangles, ``persist``, ``regen_frames > 1``,
+    ``phase_split``, ``frames_per_dispatch > 1``, ``sharding`` or a scene
+    schedule.
     ``_scene_schedule`` (motion blur, ``animation._motion_blur_schedule``)
     maps a frame id to that frame's host tables (``flatten_numpy``'s
     field dict, the same configuration as ``scene``): every frame is then
@@ -271,17 +308,22 @@ class Renderer:
                  persist_keep_state: bool = False,
                  regen_sort: bool | str = "auto",
                  phase_split=None, phase_capacity=None,
-                 accel: str = "auto", sharding=None,
+                 accel: str = "auto", sharding=None, frames_per_dispatch: int = 1,
                  _scene_schedule: Callable[[int], dict] | None = None,
                  _flattened: tuple | None = None):
+        if accel not in ("auto", "none", "grid"):
+            raise ValueError(f"unknown accel {accel!r}")
+        use_grid = accel == "grid"
         if _scene_schedule is not None:
             # the schedule changes the scene between frames, so every frame
             # is its own launch; the modes that carry one scene across
             # frames cannot take it (the reference's renderer.py:585-621)
-            if persist or phase_split is not None or sharding is not None:
+            if (persist or phase_split is not None or sharding is not None
+                    or frames_per_dispatch > 1 or use_grid):
                 raise ValueError(
                     "a per-frame scene schedule (motion blur) runs on the "
-                    "frame-by-frame step only; drop persist/phase_split/sharding"
+                    "frame-by-frame step only; drop persist/phase_split/"
+                    "frames_per_dispatch/sharding/accel='grid'"
                 )
             if not _is_auto(regen_frames) and int(regen_frames) != 1:
                 raise ValueError(
@@ -289,17 +331,31 @@ class Renderer:
                     "cannot compose with a per-frame scene schedule"
                 )
             regen_frames = 1
-        later = {
-            "sharding": (sharding, "multi-GPU slice"),
-        }
-        asked = [f"{k} ({why})" for k, (v, why) in later.items() if v is not None]
-        if asked:
-            raise NotImplementedError(
-                "not in the PyTorch/CUDA port yet: " + "; ".join(asked)
-                + " (see ROADMAP.md queue 1)"
+        if use_grid and (persist or phase_split is not None or sharding is not None):
+            raise ValueError(
+                "accel='grid' is the eager frame-by-frame tracer of one device: "
+                "drop persist/phase_split/sharding"
             )
         device = torch.device(device)
+        if sharding is not None and not isinstance(sharding, RowSharding):
+            raise TypeError(
+                f"sharding takes parallel.mesh.row_sharding(mesh), not {type(sharding).__name__}"
+            )
+        if sharding is not None and sharding.mesh.device_type != device.type:
+            raise ValueError(
+                f"the mesh's slots are on {sharding.mesh.device_type}, the renderer "
+                f"on {device.type}: make the mesh with device={device.type!r}"
+            )
         if device.type == "cuda":
+            if use_grid:
+                # the reference refuses the grid on its accelerator too
+                # (renderer.py:426-445): the kernels walk every object or
+                # cull by cluster, and the grid is an eager CPU tracer
+                raise ValueError(
+                    "accel='grid' is CPU-only: the CUDA kernels walk every "
+                    "object or cull by 64-object cluster; pass device='cpu' "
+                    "for the grid or drop accel='grid'"
+                )
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "Renderer(device='cuda') needs a CUDA GPU and "
@@ -326,8 +382,20 @@ class Renderer:
                 "in-kernel frame restarts assume the pinhole camera); drop "
                 "persist or set aperture_radius=0"
             )
+        self.grid = None
+        if use_grid:
+            if self.scene_tensors.has_triangles:
+                # the grid's cell tests treat every non-sphere as a slab
+                # box, but triangle rows keep their edges in the slab columns
+                raise ValueError(
+                    "accel='grid' does not support mesh/triangle scenes; use "
+                    "the default dense path (triangles cluster-cull on the kernels)"
+                )
+            if self.config.n_objects > 0:
+                self.grid = build_grid(self.scene_tensors)
         # raises outside the slices
-        self.tables = pack_tables(self.scene_tensors, self.config, accel)
+        self.tables = pack_tables(self.scene_tensors, self.config,
+                                  "none" if use_grid else accel)
         self._scene_schedule = _scene_schedule
         if _scene_schedule is not None:
             # a track may raise transmission from 0 mid-shutter: the build
@@ -345,8 +413,20 @@ class Renderer:
                                  f"not {regen_frames!r}")
             auto_cap = int(regen_frames[1])
             regen_frames = "auto"
-        if (persist or phase_split is not None) and regen_frames == "auto":
-            # persist and the phased path supersede the default chunking
+        if frames_per_dispatch < 1:
+            raise ValueError("frames_per_dispatch must be >= 1")
+        if frames_per_dispatch > 1 and (phase_split is not None or sharding is not None
+                                        or use_grid):
+            raise ValueError(
+                "frames_per_dispatch > 1 supports the plain frame step only "
+                "(the phased pipeline needs per-frame overflow checks; the "
+                "sharded and grid steps are per-frame programs)"
+            )
+        self.frames_per_dispatch = int(frames_per_dispatch)
+        if (persist or phase_split is not None or use_grid
+                or frames_per_dispatch > 1) and regen_frames == "auto":
+            # persist, the phased path, the grid and fused dispatches
+            # supersede the default chunking
             regen_frames = 1
         if regen_frames == "auto":
             regen_frames = auto_regen_frames(
@@ -357,18 +437,21 @@ class Renderer:
         if int(regen_frames) < 1:
             raise ValueError("regen_frames must be >= 1")
         self.regen_frames = int(regen_frames)
-        if phase_split is not None and self.regen_frames > 1:
+        if self.regen_frames > 1 and (phase_split is not None or use_grid
+                                      or frames_per_dispatch > 1):
             raise ValueError(
-                "regen_frames composes with the plain frame step only "
-                "(not phase_split)"
+                "regen_frames composes with the plain or row-sharded frame "
+                "step only (not phase_split/grid/frames_per_dispatch)"
             )
         if regen_sort == "auto":
             # measured and rejected as a default by the reference (per-pixel
             # cost is mostly per-frame noise); an opt-in here too until an
             # H100 measurement says otherwise
             regen_sort = False
-        if regen_sort and self.regen_frames < 2:
-            raise ValueError("regen_sort requires regen_frames >= 2")
+        if regen_sort and (self.regen_frames < 2 or sharding is not None):
+            raise ValueError(
+                "regen_sort requires regen_frames >= 2 on the single-device path"
+            )
         self.regen_sort = bool(regen_sort)
         # the reference's policy (renderer.py:719-742): Morton where the
         # cluster cull can use coherent lanes
@@ -388,10 +471,11 @@ class Renderer:
                 )
             self.adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
         if self.persist and (self.regen_frames > 1 or self.regen_sort
-                             or phase_split is not None):
+                             or phase_split is not None or use_grid
+                             or frames_per_dispatch > 1):
             raise ValueError(
-                "persist is a standalone dispatch mode: drop "
-                "phase_split/regen_frames/regen_sort"
+                "persist is a standalone dispatch mode: drop phase_split/grid/"
+                "frames_per_dispatch/regen_frames/regen_sort"
             )
         self.persist_info: dict | None = None
         self._persist_resume: dict | None = None
@@ -402,15 +486,39 @@ class Renderer:
         self.phase_stages: tuple | None = None
         self.phase_occupancy = None  # the "auto" probe's profile
         if phase_split is not None:
+            if sharding is not None:
+                raise ValueError(
+                    "phase_split is per-device; combine it with sharding "
+                    "once per-slab wavefronts exist"
+                )
             self.phase_stages = self._resolve_phase_stages(phase_split, phase_capacity)
+        self.sharding = sharding
+        self._slabs = None
+        if sharding is not None:
+            self._slabs = shard_scene(self.scene_tensors, sharding, self.config,
+                                      self.tables)
+            if self.lane_layout == "morton":
+                # the Z-curve over each slab's own rows, once per device
+                perms = {}
+                for sl in self._slabs:
+                    dev = sl.scene.device
+                    if dev not in perms:
+                        perms[dev] = morton_layout(cfg.width, sl.config.height, dev)
+                    sl.lane_perm, sl.lane_inv = perms[dev]
         self.reset()
 
     def reset(self) -> None:
         cfg = self.config
         self._pending = None  # frames before the reset are discarded
-        self.accum = torch.zeros(
-            (cfg.height, cfg.width, 4), dtype=torch.float32, device=self.device
-        )
+        if self._slabs is not None:
+            self.accum = None  # the slabs hold it
+            for sl in self._slabs:
+                sl.accum = torch.zeros((sl.config.height, cfg.width, 4),
+                                       dtype=torch.float32, device=sl.scene.device)
+        else:
+            self.accum = torch.zeros(
+                (cfg.height, cfg.width, 4), dtype=torch.float32, device=self.device
+            )
         self.next_frame = 0
 
     def frame_tables(self, frame_id: int) -> tuple[SceneTensors, object]:
@@ -431,6 +539,13 @@ class Renderer:
             )
             self._resolve_pending()  # frame f-1 is done by now: no wait
             self._pending = (frame_id, rgb, overflow)
+            return
+        if self._slabs is not None:
+            render_frame_step_sharded(self._slabs, self.config, frame_id)
+            return
+        if self.grid is not None:
+            rgb = integrate_frame(self.scene_tensors, self.config, frame_id, grid=self.grid)
+            self.accum = accumulate_frame(self.accum, rgb, frame_id)
             return
         st, tables = self.frame_tables(frame_id)
         self.accum = render_frame_step_cuda(st, self.config, self.accum, frame_id, tables)
@@ -517,6 +632,9 @@ class Renderer:
             self._lane_perm, self._lane_inv = cost_sort_perm(cost)
 
     def _advance_regen(self, first_frame: int, k: int) -> None:
+        if self._slabs is not None:
+            render_frames_step_sharded_regen(self._slabs, self.config, first_frame, k)
+            return
         lanes = {}
         if self.regen_sort:
             self._ensure_lane_perm()
@@ -540,32 +658,33 @@ class Renderer:
     ) -> np.ndarray:
         """Render up to ``n_frames`` more progressive iterations and return
         the framebuffer. ``abort`` is polled after each chunk (with
-        ``persist``, after each launch)."""
+        ``persist``, after each launch): a regeneration launch, or
+        ``frames_per_dispatch`` frames."""
         if self.persist:
             return self._render_persistent(n_frames, progress, abort, check_finite)
         begin = time.monotonic()
         total = self.config.intended_frames
         rendered = 0
+        chunk = max(self.frames_per_dispatch, self.regen_frames)
         while rendered < n_frames and self.next_frame < total:
-            k = min(self.regen_frames, n_frames - rendered, total - self.next_frame)
+            k = min(chunk, n_frames - rendered, total - self.next_frame)
             if k > 1 and k == self.regen_frames:
                 self._advance_regen(self.next_frame, k)
             else:
-                # ragged tail (k < K) or K == 1: frame by frame on the mono
-                # kernel, as the reference does
+                # ragged tail (k < K), K == 1 or a dispatch of k frames:
+                # frame by frame on the mono kernel, as the reference does
                 for j in range(k):
                     self._advance(self.next_frame + j)
             self.next_frame += k
             rendered += k
             if self.phase_stages is not None and self.next_frame >= total:
                 self._resolve_pending()  # the last frame has no successor
-            if check_finite and not bool(torch.isfinite(self.accum).all()):
+            if check_finite and not self._finite():
                 raise FloatingPointError(
                     f"non-finite accumulator after frame {self.next_frame - 1}"
                 )
             if progress is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._synchronize()
                 progress(RenderProgress(
                     self.next_frame - 1, total, time.monotonic() - begin,
                     pixels=self.config.width * self.config.height,
@@ -610,25 +729,58 @@ class Renderer:
             last_preview[0] = now
             self._set_rgb(make_rgb())
 
-        rgb, info = render_persistent(
-            self.scene_tensors, self.config, total, self.tables,
-            budget=self.persist_budget, frames_per_launch=self.persist_fpl,
-            progress=on_launch, should_abort=abort, adaptive=self.adaptive,
-            preview=on_preview if progress is not None else None,
-            resume_state=resume, return_state=True,
-        )
-        if not (info["aborted"] or self.persist_keep_state):
-            info.pop("resume_state", None)  # nothing left to resume: free the planes
+        kwargs = dict(budget=self.persist_budget, frames_per_launch=self.persist_fpl,
+                      progress=on_launch, should_abort=abort, adaptive=self.adaptive,
+                      preview=on_preview if progress is not None else None)
+        if self._slabs is not None:
+            if resume is not None:
+                raise ValueError(
+                    "persist checkpoints are single-device for now (the sharded "
+                    "carried state is mesh-layout-dependent)"
+                )
+            rgb, info = render_persistent_sharded(
+                self._slabs, self.config, self.sharding.mesh, total, **kwargs)
+        else:
+            rgb, info = render_persistent(
+                self.scene_tensors, self.config, total, self.tables,
+                resume_state=resume, return_state=True, **kwargs)
+            if not (info["aborted"] or self.persist_keep_state):
+                info.pop("resume_state", None)  # nothing left to resume: free the planes
         self.persist_info = info
         self._set_rgb(rgb)
         self.next_frame = total if not info["aborted"] else info["frames_done"]
-        if check_finite and not bool(torch.isfinite(self.accum).all()):
+        if check_finite and not self._finite():
             raise FloatingPointError("non-finite framebuffer after persist render")
         return self.framebuffer()
 
-    def _set_rgb(self, rgb: torch.Tensor) -> None:
-        alpha = torch.ones(rgb.shape[:2] + (1,), dtype=torch.float32, device=rgb.device)
-        self.accum = torch.cat([rgb, alpha], dim=-1)
+    def _set_rgb(self, rgb) -> None:
+        """The accumulator from linear RGB ``[H, W, 3]`` (a sharded render:
+        one ``[h, W, 3]`` per slab), alpha 1."""
+        def with_alpha(c):
+            alpha = torch.ones(c.shape[:2] + (1,), dtype=torch.float32, device=c.device)
+            return torch.cat([c, alpha], dim=-1)
+
+        if self._slabs is not None:
+            for sl, c in zip(self._slabs, rgb):
+                sl.accum = with_alpha(c)
+        else:
+            self.accum = with_alpha(rgb)
+
+    def _finite(self) -> bool:
+        """Whether the accumulator is finite; a sharded render asks every
+        process's slabs, so all of them raise together."""
+        if self._slabs is None:
+            return bool(torch.isfinite(self.accum).all())
+        ok = all(bool(torch.isfinite(sl.accum).all()) for sl in self._slabs)
+        return distributed.all_min([1.0 if ok else 0.0])[0] == 1.0
+
+    def _synchronize(self) -> None:
+        """Wait for the queued work of every device this renderer uses."""
+        if self.device.type != "cuda":
+            return
+        devices = {sl.scene.device for sl in self._slabs} if self._slabs else {self.device}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
 
     def render(
         self,
@@ -644,14 +796,21 @@ class Renderer:
 
     def framebuffer(self) -> np.ndarray:
         """The ``[H, W, 4]`` float32 accumulation buffer on the host (a
-        phased frame still pending is blended first)."""
+        phased frame still pending is blended first). A sharded render
+        gathers every process's slabs: a collective that every process
+        must join."""
         self._resolve_pending()
+        if self._slabs is not None:
+            return gather(self._slabs)
         return self.accum.cpu().numpy()
 
     def save_image(self, path, exposure=None, gamma=None) -> None:
         """Save the framebuffer (format by extension; linear, no gamma
-        unless asked), through the port's image writer."""
-        image_mod.save_image(self.framebuffer(), path, exposure=exposure, gamma=gamma)
+        unless asked), through the port's image writer. Multi-process safe:
+        every process joins the gather, the primary one writes."""
+        fb = self.framebuffer()
+        if distributed.is_primary():
+            image_mod.save_image(fb, path, exposure=exposure, gamma=gamma)
 
     # ------------------------------------------------------------ checkpoint
 
@@ -659,11 +818,16 @@ class Renderer:
         """Save the accumulator and frame counter, or, for a persist render,
         its full carried lane state (the accumulator alone cannot continue
         a lane-asynchronous render). The npz keys are the reference's
-        (``renderer.py:1227``), so the file says which kind it is."""
+        (``renderer.py:1227``), so the file says which kind it is. A
+        sharded accumulator is gathered (every process joins) and written
+        by the primary process; a sharded persist render has no
+        checkpoint."""
         if self.persist:
             info = self.persist_info
             if not info or "resume_state" not in info:
                 raise ValueError(
+                    "no persist state to checkpoint: sharded persist renders "
+                    "carry no host-side resume state" if self._slabs is not None else
                     "no persist state to checkpoint: abort a render, or render "
                     "with persist_keep_state=True"
                 )
@@ -692,8 +856,11 @@ class Renderer:
                     **{f"stat_{i}": host(a) for i, a in enumerate(rs["stats"])},
                 )
         else:
+            fb = self.framebuffer()  # a collective when sharded
+            if not distributed.is_primary():
+                return
             payload = dict(
-                accum=self.framebuffer(), next_frame=self.next_frame,
+                accum=fb, next_frame=self.next_frame,
                 intended_frames=self.config.intended_frames,
                 width=self.config.width, height=self.config.height,
                 scene_digest=self.scene_digest,
@@ -733,7 +900,13 @@ class Renderer:
             self._load_persist_checkpoint(data)
             return
         self._pending = None
-        self.accum = torch.as_tensor(data["accum"], dtype=torch.float32).to(self.device)
+        accum = torch.as_tensor(data["accum"], dtype=torch.float32)
+        if self._slabs is not None:
+            for sl in self._slabs:  # each slot takes its own rows again
+                rows = accum[sl.row_offset:sl.row_offset + sl.config.height]
+                sl.accum = rows.to(sl.scene.device).contiguous()
+        else:
+            self.accum = accum.to(self.device)
         self.next_frame = int(data["next_frame"])
 
     def _load_persist_checkpoint(self, data) -> None:

@@ -37,7 +37,10 @@ are held to the same, at ragged ray and sphere counts. Motion blur on
 with a sphere leaving its cluster, and static tracks equal the unblurred
 render. The AOVs on the card against the CPU: ``obj_id`` exactly, depth,
 normal and albedo within 1e-5 of their scale; the denoiser within 1e-4
-of the image's.
+of the image's. Row slabs on one card (``make_mesh(4)``): regeneration,
+frame by frame, a clustered scene on Morton lanes per slab and persist
+each equal to the unsharded render bit for bit; ``frames_per_dispatch``
+equal to one frame per dispatch; the grid refused.
 """
 
 import dataclasses
@@ -1015,3 +1018,52 @@ def test_cuda_kernels_with_many_materials_match_plain(cuda, n, samples, features
     assert bool(tb.features) is features
     checks, _ = torch_scenes.kernel_checks(tb, lane_perm=morton_layout(32, 24, cuda)[0])
     assert all(checks.values()), checks
+
+
+@pytest.mark.parametrize("case", ["regen", "mono", "clustered_morton", "persist"])
+def test_cuda_sharded_render_equals_unsharded(cuda, case):
+    """Row slabs on one card (``make_mesh(4)``): each slab's kernels on its
+    global rows give the unsharded render bit for bit (regeneration, frame
+    by frame, a clustered scene on Morton lanes per slab, and persist with
+    one MIN per launch), and every slab launches its own kernels."""
+    from spectral_tpu_torch.parallel.mesh import make_mesh, row_sharding
+
+    kw = {"regen": {}, "mono": {"regen_frames": 1}, "clustered_morton": {},
+          "persist": {"persist": True, "persist_budget": 40}}[case]
+
+    def make():
+        if case == "clustered_morton":
+            return torch_scenes.sphere_field(presets, 100, 32, 32, 3, iters=3)
+        return _scene("cornell", 32, 32, 4, iters=5)
+
+    want = Renderer(make(), device="cuda", **kw).render()
+    mesh = make_mesh(4)
+    assert mesh.size == 4 and all(s.device.type == "cuda" for s in mesh.slots)
+    wrappers = (mk.run_regen, mk.run_mono, mk.run_persist, mk.run_cost)
+    for w in wrappers:
+        w.launches = 0
+    r = Renderer(make(), device="cuda", sharding=row_sharding(mesh), **kw)
+    got = r.render()
+    assert np.array_equal(got, want)
+    counts = {w.__name__: w.launches for w in wrappers}
+    if case == "persist":
+        info = r.persist_info
+        assert info["n_devices"] == 4 and info["min_reductions"] == info["launches"]
+        assert counts["run_persist"] >= 4 * info["launches"]
+    elif case == "mono":
+        assert counts["run_mono"] == 4 * 5
+    else:
+        assert counts["run_regen"] == 4
+
+
+def test_cuda_frames_per_dispatch_equals_one(cuda):
+    want = Renderer(_scene("cornell", 32, 16, 4, iters=6), device="cuda",
+                    regen_frames=1).render()
+    got = Renderer(_scene("cornell", 32, 16, 4, iters=6), device="cuda",
+                   frames_per_dispatch=4).render()
+    assert np.array_equal(got, want)
+
+
+def test_cuda_refuses_the_grid(cuda):
+    with pytest.raises(ValueError, match="CPU-only"):
+        Renderer(_scene("cornell", 8, 8, 1), device="cuda", accel="grid")

@@ -161,12 +161,13 @@ def test_mesh_presets_build_clustered_renderer(name):
 @pytest.mark.parametrize("option,error,match", [
     (dict(persist=True, regen_frames=4), ValueError, "standalone"),
     (dict(phase_split=2, regen_frames=4), ValueError, "phase_split"),
-    (dict(sharding=object()), NotImplementedError, "sharding"),
+    (dict(sharding=object()), TypeError, "row_sharding"),
     (dict(adaptive=(2, 0, 0)), ValueError, "persist=True"),
 ])
 def test_out_of_slice_modes_raise(option, error, match):
-    """sharding waits for its slice; persist, adaptive and phase_split
-    render now, and refuse what the reference refuses."""
+    """Every mode renders now (sharding since the multi-GPU slice, which
+    takes a ``parallel.mesh.row_sharding``); persist, adaptive, phase_split
+    and sharding refuse what the reference refuses."""
     with pytest.raises(error, match=match):
         trender.Renderer(_scene("cornell", 8, 6, 1, 1), device="cpu", **option)
 
