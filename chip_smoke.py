@@ -211,11 +211,12 @@ def main() -> int:
         from spectral_tpu_torch.render.color import spectra_to_rgb
         from spectral_tpu_torch.render.layout import morton_layout
         from spectral_tpu_torch.render.renderer import Renderer
-        from spectral_tpu_torch.runtime import build
+        from spectral_tpu_torch.runtime import build, trace
         from spectral_tpu_torch.scene import mesh as tmesh
         from spectral_tpu_torch.scene.flatten import flatten_numpy, flatten_scene
         from spectral_tpu_torch.tools import mxu_trace_probe as probe_tool
         from spectral_tpu_torch.tools import shadow_interval_bench as si_bench
+        from spectral_tpu_torch.tools.measure_persist import WINDOW as PROFILE_WINDOW
         from spectral_tpu_torch.tools.measure_persist import busy_ms
         from spectral_tpu_torch.tools.lane_stats import kernel_info
         from spectral_tpu_torch.tools.measure_persist import card as read_card
@@ -922,39 +923,42 @@ def main() -> int:
          **dof_main_shape, card=card)
 
     # ------------------------------------------- 4. the main path at full size
-    wrappers = {"cuda_mono": mk.run_mono, "cuda_regen": mk.run_regen,
-                "cuda_persist": mk.run_persist, "cuda_cost": mk.run_cost,
-                "cuda_seg": mk.run_seg, "cuda_probe_fori": tp.cuda_probe_fori,
-                "cuda_probe_mma": tp.cuda_probe_mma}
-    launches = dict.fromkeys(wrappers, 0)
+    # each kernel's launch count in the tracer (runtime/trace.py)
+    counters = {"cuda_mono": "launch.mono", "cuda_regen": "launch.regen",
+                "cuda_persist": "launch.persist", "cuda_cost": "launch.cost",
+                "cuda_seg": "launch.seg", "cuda_probe_fori": "launch.probe_fori",
+                "cuda_probe_mma": "launch.probe_mma"}
+    launches = dict.fromkeys(counters, 0)
+
+    def count_launches(fn):
+        """fn's result and the launches of each kernel while it ran."""
+        base = {key: trace.total(c) for key, c in counters.items()}
+        out = fn()
+        return out, {key: trace.total(c) - base[key] for key, c in counters.items()}
 
     def main_path_run(sc, regen="auto", render=None, **kw):
         """Build a Renderer, zero every count, render, read the counts."""
         r = Renderer(sc, device="cuda", regen_frames=regen, **kw)
-        for w in wrappers.values():
-            w.launches = 0
         t = time.monotonic()
-        img = (render or Renderer.render)(r)  # ends in a device -> host copy
+        # ends in a device -> host copy
+        img, counts = count_launches(lambda: (render or Renderer.render)(r))
         dt = time.monotonic() - t
-        counts = {key: w.launches for key, w in wrappers.items()}
         for key in launches:
             launches[key] += counts[key]
         return r, img, dt, counts
 
     def profiled_render(sc, **kw):
-        """One more render of ``sc`` under the profiler: (wall ms, the
-        device-busy ms of its kernel spans)."""
-        from torch.profiler import ProfilerActivity, profile
+        """One more render of ``sc`` under the profiler: (the profiled
+        window's wall ms, the device-busy ms of its kernel spans in it)."""
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         r_prof = Renderer(sc, device="cuda", **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.monotonic()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
+              record_function(PROFILE_WINDOW)):
             r_prof.render()
             torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t) * 1e3
-        busy, _ = busy_ms([e for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA])
+        busy, wall_ms = busy_ms(prof.events())
         return wall_ms, busy
 
     def check_image(img, w, h):
@@ -1605,10 +1609,7 @@ def main() -> int:
                      err_over_bound_limit=1.0, share_within_1e5_limit=tp.MMA_SHARE_1E5_MIN)
     del ex_t, ex_w, hp_t, hp_w, gp_t, gp_w, mma_bound
     # the probe's entry point: the tool at its full shape, seed 0
-    for w in wrappers.values():
-        w.launches = 0
-    probe_tool.main([])
-    probe_counts = {key: w.launches for key, w in wrappers.items()}
+    _, probe_counts = count_launches(lambda: probe_tool.main([]))
     assert probe_counts["cuda_probe_fori"] > 0 and probe_counts["cuda_probe_mma"] > 0
     for key in launches:
         launches[key] += probe_counts[key]
@@ -1622,10 +1623,7 @@ def main() -> int:
     def counted(phase_name, fn):
         """Zero every count, run fn, read the counts (added to the main
         path's launches and kept under ``phase_name``)."""
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        counts = {key: w.launches for key, w in wrappers.items()}
+        out, counts = count_launches(fn)
         for key in launches:
             launches[key] += counts[key]
         slice_launches[phase_name] = {k: n for k, n in counts.items() if n}

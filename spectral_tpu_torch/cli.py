@@ -347,21 +347,36 @@ def _run_render(args, build_renderer, renderer, scene, viewer, primary=True):
 def _profiled(fn, out_dir, device) -> None:
     """Run ``fn`` under ``torch.profiler`` (the host's activity, and the
     card's kernels when the device is the card) and write the Chrome
-    trace into ``out_dir``."""
+    trace into ``out_dir``, with the program's spans and counts
+    (``runtime/trace.py``, on while the profiler records) as host events
+    ``spectral.<name>`` on a track of their own."""
+    import json
+    import os
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
+    from spectral_tpu_torch.runtime import trace
+
     activities = [ProfilerActivity.CPU]
     if device == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    trace.clear()
     with profile(activities=activities) as prof:
+        # one paired reading of the spans' clock and the wall clock that
+        # the trace's times are taken from
+        perf0, wall0_ns = time.perf_counter(), time.time_ns()
         fn()
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    trace = out / "render_trace.json"
-    prof.export_chrome_trace(str(trace))
-    print(f"\nprofile -> {trace}", file=sys.stderr)
+    path = out / "render_trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    origin_us = (wall0_ns - int(doc.get("baseTimeNanoseconds", 0))) / 1e3
+    doc["traceEvents"].extend(trace.chrome_events(
+        trace.rows(), lambda t: origin_us + (t - perf0) * 1e6, os.getpid(), 0))
+    path.write_text(json.dumps(doc))
+    print(f"\nprofile -> {path}", file=sys.stderr)
 
 
 def _post_process(args, scene, fb) -> None:

@@ -12,7 +12,7 @@ The counterpart of the reference package's
   tables;
 * ``run_mono`` / ``run_regen`` / ``run_persist`` / ``run_cost`` /
   ``run_seg`` launch the CUDA kernels on CUDA tensors and count their
-  launches (``.launches`` on each wrapper);
+  launches (``runtime.trace``'s ``launch.mono`` ... ``launch.seg``);
 * ``run_mono_plain`` / ``run_regen_plain`` / ``run_persist_plain`` /
   ``run_cost_plain`` / ``run_seg_plain`` take the same arguments and run
   the eager PyTorch bounce loop (``render.integrator``);
@@ -58,7 +58,7 @@ from spectral_tpu_torch.render.integrator import (
     scene_features,
     segment_iterations,
 )
-from spectral_tpu_torch.runtime import build
+from spectral_tpu_torch.runtime import build, trace
 from spectral_tpu_torch.scene.flatten import (
     OBJ_PLAIN_BOX,
     OBJ_ROTATED_BOX,
@@ -585,7 +585,7 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
         return run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
     out = _launch_mono(_entry("spectral_mono", tables), ox, oy, oz, dx, dy, dz, px, py,
                        frame_id, tables)[0]
-    run_mono.launches += 1
+    trace.count("launch.mono")
     return out
 
 
@@ -619,9 +619,6 @@ def _launch_mono(fn, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables, cost=Fals
     return out, (planes[1] if cost else None)
 
 
-run_mono.launches = 0
-
-
 def run_regen(px, py, first_frame: int, camera, offsets, lens,
               tables: KernelTables) -> torch.Tensor:
     """The SUM of K progressive frames' radiance ``[S, n]`` in one launch.
@@ -639,7 +636,7 @@ def run_regen(px, py, first_frame: int, camera, offsets, lens,
         return run_regen_plain(px, py, first_frame, camera, offsets, lens, tables)
     out = _launch_regen(_entry("spectral_regen", tables, lens=lens is not None), px, py,
                         first_frame, camera, offsets, lens, tables)
-    run_regen.launches += 1
+    trace.count("launch.regen")
     return out
 
 
@@ -669,9 +666,6 @@ def _launch_regen(fn, px, py, first_frame, camera, offsets, lens, tables):
     return out
 
 
-run_regen.launches = 0
-
-
 def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
              tables: KernelTables):
     """One frame's radiance ``[S, n]`` and per-lane path cost ``[n]`` f32
@@ -683,7 +677,7 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
         return run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
     out = _launch_mono(_entry("spectral_cost", tables), ox, oy, oz, dx, dy, dz, px, py,
                        frame_id, tables, cost=True)
-    run_cost.launches += 1
+    trace.count("launch.cost")
     return out
 
 
@@ -694,9 +688,6 @@ def run_cost_variant(library: str, ox, oy, oz, dx, dy, dz, px, py, frame_id: int
     not counted."""
     return _launch_mono(_entry("spectral_cost", tables, library), ox, oy, oz, dx, dy, dz,
                         px, py, frame_id, tables, cost=True)
-
-
-run_cost.launches = 0
 
 
 def run_persist(state: PersistState, lead: int, end: int,
@@ -720,7 +711,7 @@ def run_persist(state: PersistState, lead: int, end: int,
     _refuse_shadow_interval(tables, "cuda_persist")
     _launch_persist(_entry("spectral_persist", tables), state, lead, end, tables, cam,
                     ring, stop, budget)
-    run_persist.launches += 1
+    trace.count("launch.persist")
 
 
 def run_persist_variant(library: str, state: PersistState, lead: int, end: int,
@@ -775,9 +766,6 @@ def _launch_persist(fn, state, lead, end, tables, cam, ring, stop, budget):
     _raise_on(err, "cuda_persist")
 
 
-run_persist.launches = 0
-
-
 def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
             tables: KernelTables) -> None:
     """Bounces ``[b_start, b_stop)`` of one frame's wavefront ``wf``,
@@ -795,7 +783,7 @@ def run_seg(wf: Wavefront, b_start: int, b_stop: int, frame_id: int,
         return run_seg_plain(wf, b_start, b_stop, frame_id, tables)
     _refuse_shadow_interval(tables, "cuda_seg")
     _launch_seg(_entry("spectral_seg", tables), wf, b_start, b_stop, frame_id, tables)
-    run_seg.launches += 1
+    trace.count("launch.seg")
 
 
 def run_seg_variant(library: str, wf: Wavefront, b_start: int, b_stop: int,
@@ -821,6 +809,3 @@ def _launch_seg(fn, wf, b_start, b_stop, frame_id, tables):
                     wf.gate, wf.hero, wf.px, wf.py, wf.thr, wf.rad)), _stream(wf.ox),
     )
     _raise_on(err, "cuda_seg")
-
-
-run_seg.launches = 0

@@ -11,7 +11,7 @@ two TPU kernels and their inputs.
   error of its two dot products (``compare`` reports both);
 * ``cuda_probe_fori`` / ``cuda_probe_mma`` launch their CUDA kernels
   (``ops/csrc/probe.cu``) on CUDA tensors and count their launches
-  (``.launches``), and run the plain version on CPU tensors;
+  (``runtime.trace``'s ``launch.probe_fori``, ``launch.probe_mma``), and run the plain version on CPU tensors;
   ``probe_fori_variant`` / ``probe_mma_variant`` launch a diagnostic build
   of the same source (``build.VARIANTS``: ``probe_parent``, the earlier
   design), uncounted; ``probe_layout`` reads from a build how many spheres
@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.ops.vecmath import sqrt
-from spectral_tpu_torch.runtime import build
+from spectral_tpu_torch.runtime import build, trace
 
 LANE = 128
 R8 = 32  # ray rows per tile of kernel A: 4096 rays per tile
@@ -400,11 +400,8 @@ def cuda_probe_fori(geom, ox, oy, oz, dx, dy, dz):
     if ox.device.type == "cpu":
         return probe_fori_plain(geom, ox, oy, oz, dx, dy, dz)
     out = _launch_fori("probe", geom, ox, oy, oz, dx, dy, dz)
-    cuda_probe_fori.launches += 1
+    trace.count("launch.probe_fori")
     return out
-
-
-cuda_probe_fori.launches = 0
 
 
 def cuda_probe_mma(dmat, omat, cmat, cc, do, oo, a):
@@ -414,11 +411,8 @@ def cuda_probe_mma(dmat, omat, cmat, cc, do, oo, a):
     if dmat.device.type == "cpu":
         return probe_mma_plain(dmat, omat, cmat, cc, do, oo, a)
     out = _launch_mma("probe", dmat, omat, cmat, cc, do, oo, a)
-    cuda_probe_mma.launches += 1
+    trace.count("launch.probe_mma")
     return out
-
-
-cuda_probe_mma.launches = 0
 
 
 def probe_fori_variant(library: str, geom, ox, oy, oz, dx, dy, dz):

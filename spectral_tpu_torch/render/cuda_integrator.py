@@ -47,6 +47,7 @@ from spectral_tpu_torch.render.integrator import (
     accumulate_frames,
     lane_int_dtype,
 )
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 
@@ -67,11 +68,12 @@ def primary_lanes(scene: SceneTensors, config: RenderConfig, frame_id: int,
 
 def _to_rgb(rad: torch.Tensor, scene: SceneTensors, config: RenderConfig,
             lane_inv: torch.Tensor | None = None):
-    rgb = spectra_to_rgb(rad.T, scene.xyz_weights, scene.xyz_to_rgb)
-    if lane_inv is not None:
-        # back to pixel order AFTER the RGB fold: one [n, 3] gather
-        rgb = rgb[lane_inv]
-    return rgb.reshape(config.height, config.width, 3)
+    with trace.span("render.fold"):
+        rgb = spectra_to_rgb(rad.T, scene.xyz_weights, scene.xyz_to_rgb)
+        if lane_inv is not None:
+            # back to pixel order AFTER the RGB fold: one [n, 3] gather
+            rgb = rgb[lane_inv]
+        return rgb.reshape(config.height, config.width, 3)
 
 
 def empty_frame(scene: SceneTensors, config: RenderConfig, frames: int = 1) -> torch.Tensor:
@@ -105,11 +107,12 @@ def integrate_frame_cuda(
     (``megakernel.with_shadow_interval``: many-object scenes only).
     ``full_height``/``row_offset`` render the row slab ``config`` of a
     taller image (``primary_lanes``)."""
-    tables = _tables(scene, config, tables, shadow_interval)
-    if config.n_objects == 0:
-        return empty_frame(scene, config)
-    planes, px, py = primary_lanes(scene, config, frame_id, full_height, row_offset)
-    rad = mk.run_mono(*planes, px, py, frame_id, tables)
+    with trace.span("launch.mono"):  # host raygen and the launch's arguments
+        tables = _tables(scene, config, tables, shadow_interval)
+        if config.n_objects == 0:
+            return empty_frame(scene, config)
+        planes, px, py = primary_lanes(scene, config, frame_id, full_height, row_offset)
+        rad = mk.run_mono(*planes, px, py, frame_id, tables)
     return _to_rgb(rad, scene, config)
 
 
@@ -143,8 +146,9 @@ def regen_radiance(
     lane's pixel, so each lane's paths are bit-identical to the
     unpermuted launch's and to host raygen's, and a row slab's
     (``full_height``/``row_offset``) to the whole image's."""
-    return mk.run_regen(*regen_args(scene, config, first_frame_id, k, lane_perm,
-                                    full_height, row_offset), tables)
+    with trace.span("launch.regen"):
+        return mk.run_regen(*regen_args(scene, config, first_frame_id, k, lane_perm,
+                                        full_height, row_offset), tables)
 
 
 def integrate_frames_cuda_regen(
@@ -185,7 +189,8 @@ def render_frame_step_cuda(
     accumulator (a row slab's with ``full_height``/``row_offset``)."""
     rgb = integrate_frame_cuda(scene, config, frame_id, tables,
                                full_height=full_height, row_offset=row_offset)
-    return accumulate_frame(accum, rgb, frame_id)
+    with trace.span("render.fold"):
+        return accumulate_frame(accum, rgb, frame_id)
 
 
 def render_frames_step_cuda_regen(
@@ -201,7 +206,8 @@ def render_frames_step_cuda_regen(
     rgb_sum = integrate_frames_cuda_regen(
         scene, config, first_frame_id, k, tables, lane_perm, lane_inv, shadow_interval,
         full_height, row_offset)
-    return accumulate_frames(accum, rgb_sum, first_frame_id, k)
+    with trace.span("render.fold"):
+        return accumulate_frames(accum, rgb_sum, first_frame_id, k)
 
 
 # ----------------------------------------------------- bounce segments
@@ -463,15 +469,27 @@ def ring_refill(ring, frame: int, scene: SceneTensors, config: RenderConfig):
         plane[slot].copy_(comp)
 
 
+def _frames_done(st: PersistState, stop, end: int) -> torch.Tensor:
+    """Per-lane completed frames, a stopped dead lane counted as ``end``."""
+    done = completed_frames(st)
+    if stop is not None:
+        done = torch.where((stop > 0.0) & (st.alive <= 0.0), int(end), done)
+    return done
+
+
 def min_frames_done(st: PersistState, stop, end: int) -> torch.Tensor:
     """The scheduler scalar: the minimum completed-frame count over the
     lanes. A stopped lane that is dead owes no more frames and counts as
     ``end``; a stopped lane mid-path keeps its true count, so the render
     runs on until its in-flight frame completes."""
-    done = completed_frames(st)
-    if stop is not None:
-        done = torch.where((stop > 0.0) & (st.alive <= 0.0), int(end), done)
-    return done.min()
+    return _frames_done(st, stop, end).min()
+
+
+def lanes_working(st: PersistState, stop, end: int) -> torch.Tensor:
+    """The lanes that still owe frames, counted as ``min_frames_done``
+    counts them (fewer than ``end`` completed; a stopped dead lane owes
+    none): an int32 device scalar."""
+    return (_frames_done(st, stop, end) < int(end)).sum(dtype=torch.int32)
 
 
 class _Readback:
@@ -491,9 +509,10 @@ class _Readback:
             self.host = t
 
     def value(self) -> int:
-        if self.event is not None:
-            self.event.synchronize()
-        return int(self.host)
+        with trace.span("persist.wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return int(self.host)
 
 
 def adapt_update(rad, fid, alive, stop, prev_lum, prev_cnt, s_mean, s_m2, s_j,
@@ -712,24 +731,25 @@ def render_persistent(
     if budget is None or cost_sort:
         # one probe serves both: the budget needs the mean cost of one
         # frame, the sort the per-pixel rank over cost_sort frames
-        n_probe = max(1, int(cost_sort))
-        cost = probe_path_cost(scene, config, tables, n_probe_frames=n_probe)
-        if budget is None:
-            mean_cost = float(cost.mean()) / n_probe
-            budget = max(8, int(round(fpl * mean_cost)))
-        if cost_sort:
-            lane_perm, lane_inv = cost_sort_perm(cost)
+        with trace.span("persist.probe"):
+            n_probe = max(1, int(cost_sort))
+            cost = probe_path_cost(scene, config, tables, n_probe_frames=n_probe)
+            if budget is None:
+                mean_cost = float(cost.mean()) / n_probe
+                budget = max(8, int(round(fpl * mean_cost)))
+            if cost_sort:
+                lane_perm, lane_inv = cost_sort_perm(cost)
     budget = int(budget)
-    cam = tables.cam if ring_slots else camera_basis_table(scene, config)
-
-    if resume_state is not None:
-        st = _load_state(resume_state, config, dev)
-        if st.ox.shape != (n,):
-            raise ValueError(
-                f"resume state has {st.ox.shape[0]} lanes, this render {n}"
-            )
-    else:
-        st = persist_init(scene, config, lane_perm)
+    with trace.span("persist.init"):
+        cam = tables.cam if ring_slots else camera_basis_table(scene, config)
+        if resume_state is not None:
+            st = _load_state(resume_state, config, dev)
+            if st.ox.shape != (n,):
+                raise ValueError(
+                    f"resume state has {st.ox.shape[0]} lanes, this render {n}"
+                )
+        else:
+            st = persist_init(scene, config, lane_perm)
 
     stop = stats = None
     if adaptive is not None:
@@ -759,8 +779,9 @@ def render_persistent(
             ring_refill(ring, f, scene, config)
 
     def launch(end):
-        mk.run_persist(st, lead, end, tables, cam, ring=ring, stop=stop,
-                       budget=budget)
+        with trace.span("launch.persist"):
+            mk.run_persist(st, lead, end, tables, cam, ring=ring, stop=stop,
+                           budget=budget)
 
     pending: list[_Readback] = []
     pending_work: list[_Readback] = []
@@ -773,6 +794,12 @@ def render_persistent(
     if adaptive is not None and compactions:
         cur_lane_inv = torch.from_numpy(slot_inverse(pixel_of_slot, n)).to(dev)
     while True:
+        if trace.enabled():
+            # the lanes owing frames as this launch starts: every lane of a
+            # fresh render, else one reduction queued behind the last launch
+            trace.count("persist.lanes_working",
+                        n if launches == 0 and resume_state is None
+                        else lanes_working(st, stop, n_frames))
         launch(n_frames)
         md = min_frames_done(st, stop, n_frames)
         if adaptive is not None:
@@ -838,7 +865,8 @@ def render_persistent(
                 break
             launch(0)
 
-    rgb = persist_finish(st, scene, config, cur_lane_inv)
+    with trace.span("persist.finish"):
+        rgb = persist_finish(st, scene, config, cur_lane_inv)
     info = {
         "launches": launches, "frames_done": int(min_done), "budget": budget,
         "ring_slots": ring_slots, "tile": mk.BLOCK, "aborted": aborted,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import math
 import time
 from typing import Callable
@@ -63,6 +64,7 @@ from spectral_tpu_torch.render.integrator import (
     integrate_frame,
 )
 from spectral_tpu_torch.render.layout import morton_layout
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.accel import build_grid
 from spectral_tpu_torch.scene.flatten import (
     FIELDS,
@@ -79,6 +81,9 @@ from spectral_tpu_torch.scene.schema import Scene
 # (12*(K-1)*W*H bytes). It no longer has a cause; it stays so that the
 # default chunking, and with it the images, are what they were.
 REGEN_DIRECTION_BUDGET = 2 * 1024**3
+
+# Each Renderer's serial: the ``request`` of the trace's spans it runs
+_REQUESTS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -311,214 +316,220 @@ class Renderer:
                  accel: str = "auto", sharding=None, frames_per_dispatch: int = 1,
                  _scene_schedule: Callable[[int], dict] | None = None,
                  _flattened: tuple | None = None):
-        if accel not in ("auto", "none", "grid"):
-            raise ValueError(f"unknown accel {accel!r}")
-        use_grid = accel == "grid"
-        if _scene_schedule is not None:
-            # the schedule changes the scene between frames, so every frame
-            # is its own launch; the modes that carry one scene across
-            # frames cannot take it (the reference's renderer.py:585-621)
-            if (persist or phase_split is not None or sharding is not None
-                    or frames_per_dispatch > 1 or use_grid):
+        self.request = next(_REQUESTS)  # this Renderer's serial in the trace
+        with trace.span("renderer.init", self.request):
+            if accel not in ("auto", "none", "grid"):
+                raise ValueError(f"unknown accel {accel!r}")
+            use_grid = accel == "grid"
+            if _scene_schedule is not None:
+                # the schedule changes the scene between frames, so every frame
+                # is its own launch; the modes that carry one scene across
+                # frames cannot take it (the reference's renderer.py:585-621)
+                if (persist or phase_split is not None or sharding is not None
+                        or frames_per_dispatch > 1 or use_grid):
+                    raise ValueError(
+                        "a per-frame scene schedule (motion blur) runs on the "
+                        "frame-by-frame step only; drop persist/phase_split/"
+                        "frames_per_dispatch/sharding/accel='grid'"
+                    )
+                if not _is_auto(regen_frames) and int(regen_frames) != 1:
+                    raise ValueError(
+                        "regen_frames fuses K frames of ONE scene per launch and "
+                        "cannot compose with a per-frame scene schedule"
+                    )
+                regen_frames = 1
+            if use_grid and (persist or phase_split is not None or sharding is not None):
                 raise ValueError(
-                    "a per-frame scene schedule (motion blur) runs on the "
-                    "frame-by-frame step only; drop persist/phase_split/"
-                    "frames_per_dispatch/sharding/accel='grid'"
+                    "accel='grid' is the eager frame-by-frame tracer of one device: "
+                    "drop persist/phase_split/sharding"
                 )
-            if not _is_auto(regen_frames) and int(regen_frames) != 1:
+            device = torch.device(device)
+            if sharding is not None and not isinstance(sharding, RowSharding):
+                raise TypeError("sharding takes parallel.mesh.row_sharding(mesh), "
+                                f"not {type(sharding).__name__}")
+            if sharding is not None and sharding.mesh.device_type != device.type:
                 raise ValueError(
-                    "regen_frames fuses K frames of ONE scene per launch and "
-                    "cannot compose with a per-frame scene schedule"
+                    f"the mesh's slots are on {sharding.mesh.device_type}, the renderer "
+                    f"on {device.type}: make the mesh with device={device.type!r}"
                 )
-            regen_frames = 1
-        if use_grid and (persist or phase_split is not None or sharding is not None):
-            raise ValueError(
-                "accel='grid' is the eager frame-by-frame tracer of one device: "
-                "drop persist/phase_split/sharding"
-            )
-        device = torch.device(device)
-        if sharding is not None and not isinstance(sharding, RowSharding):
-            raise TypeError(
-                f"sharding takes parallel.mesh.row_sharding(mesh), not {type(sharding).__name__}"
-            )
-        if sharding is not None and sharding.mesh.device_type != device.type:
-            raise ValueError(
-                f"the mesh's slots are on {sharding.mesh.device_type}, the renderer "
-                f"on {device.type}: make the mesh with device={device.type!r}"
-            )
-        if device.type == "cuda":
+            if device.type == "cuda":
+                if use_grid:
+                    # the reference refuses the grid on its accelerator too
+                    # (renderer.py:426-445): the kernels walk every object or
+                    # cull by cluster, and the grid is an eager CPU tracer
+                    raise ValueError(
+                        "accel='grid' is CPU-only: the CUDA kernels walk every "
+                        "object or cull by 64-object cluster; pass device='cpu' "
+                        "for the grid or drop accel='grid'"
+                    )
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "Renderer(device='cuda') needs a CUDA GPU and "
+                        "torch.cuda.is_available() is False; pass device='cpu' "
+                        "for the plain PyTorch path"
+                    )
+            elif device.type != "cpu":
+                raise ValueError(f"unsupported device {device}")
+            # spectra_to_rgb is a float32 matmul: never TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            self.device = device
+            with trace.span("scene.flatten"):
+                if _flattened is not None:
+                    self.scene_tensors, self.config = from_numpy(
+                        *_flattened, device, smooth_triangles(scene))
+                else:
+                    self.scene_tensors, self.config = flatten_scene(scene, device)
+            if self.config.has_dof and persist:
+                # one lens point per frame: regeneration ships the per-frame
+                # lens shifts, but the persist kernels restart every frame from
+                # the one camera origin (the reference's renderer.py:630-641)
+                raise ValueError(
+                    "persist=True cannot render depth-of-field scenes (the "
+                    "in-kernel frame restarts assume the pinhole camera); drop "
+                    "persist or set aperture_radius=0"
+                )
+            self.grid = None
             if use_grid:
-                # the reference refuses the grid on its accelerator too
-                # (renderer.py:426-445): the kernels walk every object or
-                # cull by cluster, and the grid is an eager CPU tracer
+                if self.scene_tensors.has_triangles:
+                    # the grid's cell tests treat every non-sphere as a slab
+                    # box, but triangle rows keep their edges in the slab columns
+                    raise ValueError(
+                        "accel='grid' does not support mesh/triangle scenes; use "
+                        "the default dense path (triangles cluster-cull on the kernels)"
+                    )
+                if self.config.n_objects > 0:
+                    self.grid = build_grid(self.scene_tensors)
+            with trace.span("scene.pack"):
+                # raises outside the slices
+                self.tables = pack_tables(self.scene_tensors, self.config,
+                                          "none" if use_grid else accel)
+                self._scene_schedule = _scene_schedule
+                if _scene_schedule is not None:
+                    # a track may raise transmission from 0 mid-shutter: the build
+                    # is picked once, from the schedule's conservative flags too
+                    self.tables = with_features(self.tables, (
+                        (FX_TRANSMISSION if getattr(_scene_schedule, "has_transmission", False) else 0)
+                        | (FX_EMISSION if getattr(_scene_schedule, "has_emission", False) else 0)))
+            self.clusters = self.tables.clusters
+            with trace.span("renderer.digest"):
+                self.scene_digest = scene_digest(self.scene_tensors, self.config)
+            cfg = self.config
+            auto_cap = None
+            if isinstance(regen_frames, tuple):
+                if not _is_auto(regen_frames):
+                    raise ValueError(f"regen_frames takes 'auto', ('auto', cap) or K >= 1, "
+                                     f"not {regen_frames!r}")
+                auto_cap = int(regen_frames[1])
+                regen_frames = "auto"
+            if frames_per_dispatch < 1:
+                raise ValueError("frames_per_dispatch must be >= 1")
+            if frames_per_dispatch > 1 and (phase_split is not None or sharding is not None
+                                            or use_grid):
                 raise ValueError(
-                    "accel='grid' is CPU-only: the CUDA kernels walk every "
-                    "object or cull by 64-object cluster; pass device='cpu' "
-                    "for the grid or drop accel='grid'"
+                    "frames_per_dispatch > 1 supports the plain frame step only "
+                    "(the phased pipeline needs per-frame overflow checks; the "
+                    "sharded and grid steps are per-frame programs)"
                 )
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Renderer(device='cuda') needs a CUDA GPU and "
-                    "torch.cuda.is_available() is False; pass device='cpu' "
-                    "for the plain PyTorch path"
+            self.frames_per_dispatch = int(frames_per_dispatch)
+            if (persist or phase_split is not None or use_grid
+                    or frames_per_dispatch > 1) and regen_frames == "auto":
+                # persist, the phased path, the grid and fused dispatches
+                # supersede the default chunking
+                regen_frames = 1
+            if regen_frames == "auto":
+                regen_frames = auto_regen_frames(
+                    cfg.width, cfg.height, cfg.n_samples, cfg.intended_frames
                 )
-        elif device.type != "cpu":
-            raise ValueError(f"unsupported device {device}")
-        # spectra_to_rgb is a float32 matmul: never TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        self.device = device
-        if _flattened is not None:
-            self.scene_tensors, self.config = from_numpy(
-                *_flattened, device, smooth_triangles(scene))
-        else:
-            self.scene_tensors, self.config = flatten_scene(scene, device)
-        if self.config.has_dof and persist:
-            # one lens point per frame: regeneration ships the per-frame
-            # lens shifts, but the persist kernels restart every frame from
-            # the one camera origin (the reference's renderer.py:630-641)
-            raise ValueError(
-                "persist=True cannot render depth-of-field scenes (the "
-                "in-kernel frame restarts assume the pinhole camera); drop "
-                "persist or set aperture_radius=0"
-            )
-        self.grid = None
-        if use_grid:
-            if self.scene_tensors.has_triangles:
-                # the grid's cell tests treat every non-sphere as a slab
-                # box, but triangle rows keep their edges in the slab columns
+                if auto_cap is not None:
+                    regen_frames = max(1, min(regen_frames, auto_cap))
+            if int(regen_frames) < 1:
+                raise ValueError("regen_frames must be >= 1")
+            self.regen_frames = int(regen_frames)
+            if self.regen_frames > 1 and (phase_split is not None or use_grid
+                                          or frames_per_dispatch > 1):
                 raise ValueError(
-                    "accel='grid' does not support mesh/triangle scenes; use "
-                    "the default dense path (triangles cluster-cull on the kernels)"
+                    "regen_frames composes with the plain or row-sharded frame "
+                    "step only (not phase_split/grid/frames_per_dispatch)"
                 )
-            if self.config.n_objects > 0:
-                self.grid = build_grid(self.scene_tensors)
-        # raises outside the slices
-        self.tables = pack_tables(self.scene_tensors, self.config,
-                                  "none" if use_grid else accel)
-        self._scene_schedule = _scene_schedule
-        if _scene_schedule is not None:
-            # a track may raise transmission from 0 mid-shutter: the build
-            # is picked once, from the schedule's conservative flags too
-            self.tables = with_features(self.tables, (
-                (FX_TRANSMISSION if getattr(_scene_schedule, "has_transmission", False) else 0)
-                | (FX_EMISSION if getattr(_scene_schedule, "has_emission", False) else 0)))
-        self.clusters = self.tables.clusters
-        self.scene_digest = scene_digest(self.scene_tensors, self.config)
-        cfg = self.config
-        auto_cap = None
-        if isinstance(regen_frames, tuple):
-            if not _is_auto(regen_frames):
-                raise ValueError(f"regen_frames takes 'auto', ('auto', cap) or K >= 1, "
-                                 f"not {regen_frames!r}")
-            auto_cap = int(regen_frames[1])
-            regen_frames = "auto"
-        if frames_per_dispatch < 1:
-            raise ValueError("frames_per_dispatch must be >= 1")
-        if frames_per_dispatch > 1 and (phase_split is not None or sharding is not None
-                                        or use_grid):
-            raise ValueError(
-                "frames_per_dispatch > 1 supports the plain frame step only "
-                "(the phased pipeline needs per-frame overflow checks; the "
-                "sharded and grid steps are per-frame programs)"
-            )
-        self.frames_per_dispatch = int(frames_per_dispatch)
-        if (persist or phase_split is not None or use_grid
-                or frames_per_dispatch > 1) and regen_frames == "auto":
-            # persist, the phased path, the grid and fused dispatches
-            # supersede the default chunking
-            regen_frames = 1
-        if regen_frames == "auto":
-            regen_frames = auto_regen_frames(
-                cfg.width, cfg.height, cfg.n_samples, cfg.intended_frames
-            )
-            if auto_cap is not None:
-                regen_frames = max(1, min(regen_frames, auto_cap))
-        if int(regen_frames) < 1:
-            raise ValueError("regen_frames must be >= 1")
-        self.regen_frames = int(regen_frames)
-        if self.regen_frames > 1 and (phase_split is not None or use_grid
-                                      or frames_per_dispatch > 1):
-            raise ValueError(
-                "regen_frames composes with the plain or row-sharded frame "
-                "step only (not phase_split/grid/frames_per_dispatch)"
-            )
-        if regen_sort == "auto":
-            # measured and rejected as a default by the reference (per-pixel
-            # cost is mostly per-frame noise); an opt-in here too until an
-            # H100 measurement says otherwise
-            regen_sort = False
-        if regen_sort and (self.regen_frames < 2 or sharding is not None):
-            raise ValueError(
-                "regen_sort requires regen_frames >= 2 on the single-device path"
-            )
-        self.regen_sort = bool(regen_sort)
-        # the reference's policy (renderer.py:719-742): Morton where the
-        # cluster cull can use coherent lanes
-        self.lane_layout = ("morton" if self.clusters is not None
-                            and self.regen_frames > 1 and not self.regen_sort
-                            else "rowmajor")
-        self._lane_perm = self._lane_inv = None
-        self.persist = bool(persist)
-        self.persist_budget = persist_budget
-        self.persist_fpl = persist_frames_per_launch
-        self.persist_keep_state = bool(persist_keep_state)
-        self.adaptive = None
-        if adaptive is not None:
-            if not persist:
+            if regen_sort == "auto":
+                # measured and rejected as a default by the reference (per-pixel
+                # cost is mostly per-frame noise); an opt-in here too until an
+                # H100 measurement says otherwise
+                regen_sort = False
+            if regen_sort and (self.regen_frames < 2 or sharding is not None):
                 raise ValueError(
-                    "adaptive sampling runs on the persist kernel: pass persist=True"
+                    "regen_sort requires regen_frames >= 2 on the single-device path"
                 )
-            self.adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
-        if self.persist and (self.regen_frames > 1 or self.regen_sort
-                             or phase_split is not None or use_grid
-                             or frames_per_dispatch > 1):
-            raise ValueError(
-                "persist is a standalone dispatch mode: drop phase_split/grid/"
-                "frames_per_dispatch/regen_frames/regen_sort"
-            )
-        self.persist_info: dict | None = None
-        self._persist_resume: dict | None = None
-        self.phase_split = phase_split
-        self.phase_capacity = phase_capacity
-        self.overflow_frames = 0
-        self._pending: tuple | None = None
-        self.phase_stages: tuple | None = None
-        self.phase_occupancy = None  # the "auto" probe's profile
-        if phase_split is not None:
+            self.regen_sort = bool(regen_sort)
+            # the reference's policy (renderer.py:719-742): Morton where the
+            # cluster cull can use coherent lanes
+            self.lane_layout = ("morton" if self.clusters is not None
+                                and self.regen_frames > 1 and not self.regen_sort
+                                else "rowmajor")
+            self._lane_perm = self._lane_inv = None
+            self.persist = bool(persist)
+            self.persist_budget = persist_budget
+            self.persist_fpl = persist_frames_per_launch
+            self.persist_keep_state = bool(persist_keep_state)
+            self.adaptive = None
+            if adaptive is not None:
+                if not persist:
+                    raise ValueError(
+                        "adaptive sampling runs on the persist kernel: pass persist=True"
+                    )
+                self.adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
+            if self.persist and (self.regen_frames > 1 or self.regen_sort
+                                 or phase_split is not None or use_grid
+                                 or frames_per_dispatch > 1):
+                raise ValueError(
+                    "persist is a standalone dispatch mode: drop phase_split/grid/"
+                    "frames_per_dispatch/regen_frames/regen_sort"
+                )
+            self.persist_info: dict | None = None
+            self._persist_resume: dict | None = None
+            self.phase_split = phase_split
+            self.phase_capacity = phase_capacity
+            self.overflow_frames = 0
+            self._pending: tuple | None = None
+            self.phase_stages: tuple | None = None
+            self.phase_occupancy = None  # the "auto" probe's profile
+            if phase_split is not None:
+                if sharding is not None:
+                    raise ValueError(
+                        "phase_split is per-device; combine it with sharding "
+                        "once per-slab wavefronts exist"
+                    )
+                self.phase_stages = self._resolve_phase_stages(phase_split, phase_capacity)
+            self.sharding = sharding
+            self._slabs = None
             if sharding is not None:
-                raise ValueError(
-                    "phase_split is per-device; combine it with sharding "
-                    "once per-slab wavefronts exist"
-                )
-            self.phase_stages = self._resolve_phase_stages(phase_split, phase_capacity)
-        self.sharding = sharding
-        self._slabs = None
-        if sharding is not None:
-            self._slabs = shard_scene(self.scene_tensors, sharding, self.config,
-                                      self.tables)
-            if self.lane_layout == "morton":
-                # the Z-curve over each slab's own rows, once per device
-                perms = {}
-                for sl in self._slabs:
-                    dev = sl.scene.device
-                    if dev not in perms:
-                        perms[dev] = morton_layout(cfg.width, sl.config.height, dev)
-                    sl.lane_perm, sl.lane_inv = perms[dev]
-        self.reset()
+                with trace.span("scene.pack"):
+                    self._slabs = shard_scene(self.scene_tensors, sharding, self.config,
+                                              self.tables)
+                if self.lane_layout == "morton":
+                    # the Z-curve over each slab's own rows, once per device
+                    perms = {}
+                    for sl in self._slabs:
+                        dev = sl.scene.device
+                        if dev not in perms:
+                            perms[dev] = morton_layout(cfg.width, sl.config.height, dev)
+                        sl.lane_perm, sl.lane_inv = perms[dev]
+            self.reset()
 
     def reset(self) -> None:
         cfg = self.config
         self._pending = None  # frames before the reset are discarded
-        if self._slabs is not None:
-            self.accum = None  # the slabs hold it
-            for sl in self._slabs:
-                sl.accum = torch.zeros((sl.config.height, cfg.width, 4),
-                                       dtype=torch.float32, device=sl.scene.device)
-        else:
-            self.accum = torch.zeros(
-                (cfg.height, cfg.width, 4), dtype=torch.float32, device=self.device
-            )
+        with trace.span("renderer.reset", self.request):
+            if self._slabs is not None:
+                self.accum = None  # the slabs hold it
+                for sl in self._slabs:
+                    sl.accum = torch.zeros((sl.config.height, cfg.width, 4),
+                                           dtype=torch.float32, device=sl.scene.device)
+            else:
+                self.accum = torch.zeros(
+                    (cfg.height, cfg.width, 4), dtype=torch.float32, device=self.device
+                )
         self.next_frame = 0
 
     def frame_tables(self, frame_id: int) -> tuple[SceneTensors, object]:
@@ -660,8 +671,13 @@ class Renderer:
         the framebuffer. ``abort`` is polled after each chunk (with
         ``persist``, after each launch): a regeneration launch, or
         ``frames_per_dispatch`` frames."""
-        if self.persist:
-            return self._render_persistent(n_frames, progress, abort, check_finite)
+        with trace.span("render.frames", self.request):
+            if self.persist:
+                return self._render_persistent(n_frames, progress, abort, check_finite)
+            return self._render_chunks(n_frames, progress, abort, check_finite)
+
+    def _render_chunks(self, n_frames, progress, abort, check_finite) -> np.ndarray:
+        """Regeneration chunks of K frames, or frame by frame."""
         begin = time.monotonic()
         total = self.config.intended_frames
         rendered = 0
@@ -747,7 +763,8 @@ class Renderer:
             if not (info["aborted"] or self.persist_keep_state):
                 info.pop("resume_state", None)  # nothing left to resume: free the planes
         self.persist_info = info
-        self._set_rgb(rgb)
+        with trace.span("persist.finish"):
+            self._set_rgb(rgb)
         self.next_frame = total if not info["aborted"] else info["frames_done"]
         if check_finite and not self._finite():
             raise FloatingPointError("non-finite framebuffer after persist render")
@@ -799,10 +816,11 @@ class Renderer:
         phased frame still pending is blended first). A sharded render
         gathers every process's slabs: a collective that every process
         must join."""
-        self._resolve_pending()
-        if self._slabs is not None:
-            return gather(self._slabs)
-        return self.accum.cpu().numpy()
+        with trace.span("render.readback", self.request):
+            self._resolve_pending()
+            if self._slabs is not None:
+                return gather(self._slabs)
+            return self.accum.cpu().numpy()
 
     def save_image(self, path, exposure=None, gamma=None) -> None:
         """Save the framebuffer (format by extension; linear, no gamma

@@ -26,8 +26,9 @@ On cornell512 (the Cornell box at 512x512, 32 wavelengths, 30 bounces,
    launch (budget 3,000), ``--runs`` times each, in turns.
 3. ``profile_persist`` / ``profile_regen``: two renders of each without
    the profiler (seconds per frame; the first warms up), then one under
-   ``torch.profiler``: wall ms, device-busy ms (the union of the kernels'
-   spans), the traced span and the top device-time ops. With
+   ``torch.profiler``: the window's wall ms (``WINDOW``), device-busy ms
+   (the union of the kernels' spans inside it) and the top device-time
+   ops. With
    ``--trace-dir`` the Chrome traces are written there.
 
 Every line carries the card's name and power limit from ``nvidia-smi``.
@@ -57,20 +58,42 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The host span around the profiled work: the base of the busy share
+WINDOW = "measure.window"
+
+
 def busy_ms(events) -> tuple[float, float]:
-    """Union of the device events' spans, and the traced span, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
-        return 0.0, 0.0
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
+    """The card's busy ms inside the profiled window, and the window's ms,
+    from a profile's ``events()``. The window is the host span of
+    ``record_function(WINDOW)`` around the measured work, so the
+    host-only stretches at either end count as idle; busy is the union of
+    the card's kernels and copies clipped to it. The window's annotation,
+    which the profiler copies onto the card's timeline, is no work and is
+    left out."""
+    import torch
+
+    window, spans = None, []
+    for e in events:
+        on_card = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name == WINDOW:
+            if not on_card:
+                window = (e.time_range.start, e.time_range.end)
+        elif on_card:
+            spans.append((e.time_range.start, e.time_range.end))
+    if window is None:
+        raise ValueError(f"the profile holds no {WINDOW!r} span")
+    lo, hi = window
+    busy, cur_s, cur_e = 0.0, lo, lo
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in spans):
+        if s >= e:
+            continue
         if s > cur_e:
             busy += cur_e - cur_s
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+    return busy / 1e3, (hi - lo) / 1e3
 
 
 def _regen_args(mk, ci, st, cfg, tb, k, lanes=None, perm=None) -> tuple:
@@ -100,7 +123,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from spectral_tpu_torch import presets
     from spectral_tpu_torch.ops import megakernel as mk
@@ -246,19 +269,16 @@ def main(argv=None) -> int:
     for key in ("persist", "regen"):
         unprofiled = [render(kinds[key]) for _ in range(2)]  # the first warms up
         r = Renderer(scene(), device="cuda", **kinds[key])
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.monotonic()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof,
+              record_function(WINDOW)):
             r.render()
             torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t) * 1e3
-        dev_events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy, span_ms = busy_ms(dev_events)
-        top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:8]
+        busy, wall_ms = busy_ms(prof.events())
+        top = sorted((k for k in prof.key_averages() if k.key != WINDOW),
+                     key=lambda k: -k.device_time_total)[:8]
         print(json.dumps(dict(
             part=f"profile_{key}", seconds_per_frame_unprofiled=unprofiled,
-            wall_ms=wall_ms, device_busy_ms=busy,
-            traced_span_ms=span_ms, busy_share_of_wall=busy / wall_ms,
+            wall_ms=wall_ms, device_busy_ms=busy, busy_share_of_wall=busy / wall_ms,
             top=[(k.key[:60], k.device_time_total / 1e3, k.count) for k in top],
             card=gpu)), flush=True)
         if args.trace_dir:

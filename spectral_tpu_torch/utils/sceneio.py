@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene import schema as S
 
 
@@ -155,6 +156,11 @@ def scene_to_dict(scene: S.Scene) -> dict:
 
 
 def scene_from_dict(data: dict) -> S.Scene:
+    with trace.span("scene.parse"):
+        return _parse(data)
+
+
+def _parse(data: dict) -> S.Scene:
     if data.get("format") != "spectral_tpu.scene/v1":
         raise ValueError(
             f"unsupported scene format {data.get('format')!r} "

@@ -27,7 +27,9 @@ SMALL = ["--preset", "default", "--width", "16", "--height", "8", "--bounces", "
 
 def test_cli_profile_writes_trace(tmp_path):
     """``--profile DIR`` writes torch.profiler's Chrome trace of the
-    render (the host's activity on the CPU) into DIR."""
+    render (the host's activity on the CPU) into DIR, with the program's
+    spans as ``spectral.*`` host events on a track of their own, inside
+    the profiled time range (1 ms for the pairing of the two clocks)."""
     out, prof = tmp_path / "img.png", tmp_path / "trace"
     rc = cli.main(["render", *SMALL, "--iterations", "2", "--bounces", "1", "--out", str(out),
                    "--profile", str(prof), "--quiet"])
@@ -35,7 +37,21 @@ def test_cli_profile_writes_trace(tmp_path):
     traces = list(prof.rglob("*.json"))
     assert traces
     events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any(e.get("ph") == "X" for e in events)  # spans were recorded
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert ops  # the profiler's own spans were recorded
+    ours = [e for e in events if e.get("cat") == "spectral"]
+    names = {e["name"] for e in ours}
+    assert {"spectral.render.frames", "spectral.launch.regen", "spectral.render.fold",
+            "spectral.render.readback"} <= names
+    assert len({(e["pid"], e["tid"]) for e in ours}) == 1
+    lo = min(e["ts"] for e in ops) - 1e3
+    hi = max(e["ts"] + e["dur"] for e in ops) + 1e3
+    for e in ours:
+        assert lo <= e["ts"] and e["ts"] + e.get("dur", 0.0) <= hi, e
+    (frames,) = [e for e in ours if e["name"] == "spectral.render.frames"]
+    # the RGB fold's matmul runs inside the render's span
+    mm = [e for e in ops if e["name"] == "aten::mm"]
+    assert mm and all(frames["ts"] <= e["ts"] <= frames["ts"] + frames["dur"] for e in mm)
 
 
 def test_cli_sigint_aborts_gracefully_and_resumes(tmp_path):

@@ -22,6 +22,7 @@ from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render import renderer as trender
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
 from spectral_tpu_torch.scene import presets
 from tests.test_pallas_megakernel import _periscope_scene
@@ -67,9 +68,9 @@ def test_run_cost_radiance_is_the_mono_radiance():
     port, cfg = flatten_scene(_cornell(16, 8, bounces=4), "cpu")
     tb = mk.pack_tables(port, cfg)
     planes, px, py = ci.primary_lanes(port, cfg, 1)
-    before = mk.run_cost.launches
+    before = trace.total("launch.cost")
     rad, cost = mk.run_cost(*planes, px, py, 1, tb)
-    assert mk.run_cost.launches == before  # CPU tensors: the plain version
+    assert trace.total("launch.cost") == before  # CPU tensors: the plain version
     assert torch.equal(rad, mk.run_mono_plain(*planes, px, py, 1, tb))
     # every live iteration decrements the budget once, frozen at death
     assert cost.dtype == torch.float32

@@ -55,6 +55,7 @@ from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render.camera import camera_basis_table
 from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.render.renderer import Renderer
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene import mesh as tmesh
 from spectral_tpu_torch.scene import presets, schema
 from spectral_tpu_torch.scene.flatten import flatten_scene
@@ -78,6 +79,23 @@ def _scene(name, w, h, bounces, samples=8, iters=2):
     return scene
 
 
+class _Launches:
+    """The kernel launches counted since it was made, by kind (the
+    tracer's always-kept ``launch.<kind>`` totals)."""
+
+    def __init__(self):
+        self.base = self._now()
+
+    @staticmethod
+    def _now():
+        return {k: trace.total(f"launch.{k}") for k in ("mono", "regen", "persist", "cost", "seg")}
+
+    def __call__(self, *kinds):
+        now = self._now()
+        got = tuple(now[k] - self.base[k] for k in kinds)
+        return got if len(got) > 1 else got[0]
+
+
 def _lanes(scene, device, frame=0):
     port, cfg = flatten_scene(scene, device)
     tb = mk.pack_tables(port, cfg)
@@ -90,9 +108,9 @@ def _lanes(scene, device, frame=0):
                                           ("default", 4)])
 def test_cuda_mono_matches_plain(cuda, name, bounces, samples):
     planes, px, py, tb = _lanes(_scene(name, 32, 16, bounces, samples), cuda, frame=1)
-    before = mk.run_mono.launches
+    before = trace.total("launch.mono")
     got = mk.run_mono(*planes, px, py, 1, tb)
-    assert mk.run_mono.launches == before + 1
+    assert trace.total("launch.mono") == before + 1
     want = mk.run_mono_plain(*planes, px, py, 1, tb)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (samples, 32 * 16)
@@ -106,9 +124,9 @@ def test_cuda_mono_matches_plain(cuda, name, bounces, samples):
 def test_cuda_regen_matches_sum_of_mono(cuda, name):
     port, cfg = flatten_scene(_scene(name, 16, 128, 4, iters=3), cuda)
     tb = mk.pack_tables(port, cfg)
-    before = mk.run_regen.launches
+    before = trace.total("launch.regen")
     got = ci.integrate_frames_cuda_regen(port, cfg, 0, 3, tb)
-    assert mk.run_regen.launches == before + 1
+    assert trace.total("launch.regen") == before + 1
     want = sum(ci.integrate_frame_cuda(port, cfg, f, tb) for f in range(3))
     # and the kernel's radiance sum against the plain version's
     args = (*ci.regen_args(port, cfg, 0, 3), tb)
@@ -120,10 +138,10 @@ def test_cuda_regen_matches_sum_of_mono(cuda, name):
 
 
 def test_cuda_renderer_counts_launches(cuda):
-    mk.run_mono.launches = mk.run_regen.launches = 0
+    n = _Launches()
     img = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cuda",
                    regen_frames=4).render()
-    assert (mk.run_regen.launches, mk.run_mono.launches) == (1, 2)
+    assert n("regen", "mono") == (1, 2)
     assert img.shape == (16, 32, 4) and float(img[..., :3].mean()) > 0
 
 
@@ -174,9 +192,9 @@ def _equal(a, b):
 
 def test_cuda_persist_ring_bit_identical_to_plain_and_regen(cuda):
     scene = _scene("default", 16, 128, 4, iters=6)
-    before = mk.run_persist.launches
+    before = trace.total("launch.persist")
     got, port, cfg, tb = _drive(scene, cuda, 13, ring_w=4)
-    assert mk.run_persist.launches > before + 1
+    assert trace.total("launch.persist") > before + 1
     want, *_ = _drive(scene, cuda, 13, ring_w=4, plain=True)
     assert _equal(got, want)
     assert torch.equal(got.rad, ci.regen_radiance(port, cfg, 0, 6, tb))
@@ -220,9 +238,9 @@ def test_cuda_persist_lane_stop(cuda):
 @pytest.mark.parametrize("name,bounces", [("cornell", 3), ("default", 4)])
 def test_cuda_cost_matches_mono_and_plain(cuda, name, bounces):
     planes, px, py, tb = _lanes(_scene(name, 32, 16, bounces), cuda, frame=1)
-    before = mk.run_cost.launches
+    before = trace.total("launch.cost")
     rad, cost = mk.run_cost(*planes, px, py, 1, tb)
-    assert mk.run_cost.launches == before + 1
+    assert trace.total("launch.cost") == before + 1
     mono = mk.run_mono(*planes, px, py, 1, tb)
     prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
     torch.cuda.synchronize()
@@ -231,10 +249,10 @@ def test_cuda_cost_matches_mono_and_plain(cuda, name, bounces):
 
 
 def test_cuda_renderer_persist_counts_launches(cuda):
-    mk.run_persist.launches = mk.run_cost.launches = 0
+    n = _Launches()
     r = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cuda", persist=True)
     img = r.render()
-    assert mk.run_cost.launches == 1 and mk.run_persist.launches > 1
+    assert n("cost") == 1 and n("persist") > 1
     assert r.persist_info["frames_done"] >= 6
     assert img.shape == (16, 32, 4) and float(img[..., :3].mean()) > 0
     want = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cpu", persist=True,
@@ -291,12 +309,12 @@ def test_cuda_seg_matches_plain_and_composes_to_mono(cuda, scene):
     planes, px, py = ci.primary_lanes(port, cfg, 1)
     mono = mk.run_mono(*planes, px, py, 1, tb)
     got, want = ci.frame_wavefront(port, cfg, 1), ci.frame_wavefront(port, cfg, 1)
-    before = mk.run_seg.launches
+    before = trace.total("launch.seg")
     for b0, b1 in ((0, 1), (1, 2), (2, 4)):
         mk.run_seg(got, b0, b1, 1, tb)
         mk.run_seg_plain(want, b0, b1, 1, tb)
         assert all(torch.equal(v, getattr(want, k)) for k, v in got.planes().items())
-    assert mk.run_seg.launches == before + 3
+    assert trace.total("launch.seg") == before + 3
     assert torch.equal(got.rad, mono)
     split = ci.integrate_frame_split(port, cfg, 1, 2, tb)
     assert torch.equal(split, ci.integrate_frame_cuda(port, cfg, 1, tb))
@@ -307,16 +325,16 @@ def test_cuda_seg_matches_plain_and_composes_to_mono(cuda, scene):
 
 
 def test_cuda_renderer_phased_counts_launches(cuda):
-    mk.run_seg.launches = mk.run_mono.launches = mk.run_regen.launches = 0
+    n = _Launches()
     r = Renderer(_field(32, 16, 3, iters=3), device="cuda", phase_split=1,
                  phase_capacity=512)
     img = r.render()
-    assert (mk.run_seg.launches, mk.run_mono.launches, mk.run_regen.launches) == (6, 0, 0)
+    assert n("seg", "mono", "regen") == (6, 0, 0)
     assert r.overflow_frames == 0 and img.shape == (16, 32, 4)
     r = Renderer(_field(32, 16, 3, iters=3), device="cuda", phase_split=1,
                  phase_capacity=128)
     r.render()
-    assert r.overflow_frames == 3 and mk.run_mono.launches == 3
+    assert r.overflow_frames == 3 and n("mono") == 3
     want = Renderer(_field(32, 16, 3, iters=3), device="cuda", regen_frames=1).render()
     assert (r.framebuffer() == want).all()
 
@@ -378,11 +396,11 @@ def test_cuda_triangles_need_a_triangle_build(cuda, samples):
     port, cfg = flatten_scene(_mesh("mesh", 32, 16, 3, samples=samples), cuda)
     tb = mk.pack_tables(port, cfg)
     assert tb.triangles == 1 and cfg.n_samples == samples
-    before = mk.run_mono.launches
+    before = trace.total("launch.mono")
     checks, info = torch_scenes.kernel_checks(tb, lane_perm=morton_layout(32, 16, cuda)[0],
                                               persist_launches=0)
     assert all(checks.values()), (checks, info)
-    assert mk.run_mono.launches == before + 1
+    assert trace.total("launch.mono") == before + 1
     glass = torch_scenes.glass_meshes(schema, presets, "mesh", 32, 16, 4, samples=samples)
     checks, info = torch_scenes.feature_kernel_checks(
         mk.pack_tables(*flatten_scene(glass, cuda)))
@@ -390,10 +408,10 @@ def test_cuda_triangles_need_a_triangle_build(cuda, samples):
 
 
 def test_cuda_renderer_mesh_counts_launches(cuda):
-    mk.run_regen.launches = mk.run_mono.launches = 0
+    n = _Launches()
     r = Renderer(_mesh("mesh", 32, 16, 3, samples=32, iters=5), device="cuda", regen_frames=4)
     img = r.render()
-    assert (mk.run_regen.launches, mk.run_mono.launches) == (1, 1)
+    assert n("regen", "mono") == (1, 1)
     assert r.clusters is not None and r.lane_layout == "morton"
     assert img.shape == (16, 32, 4) and np.isfinite(img).all()
 
@@ -403,9 +421,9 @@ def test_cuda_renderer_mesh_counts_launches(cuda):
 
 def test_cuda_probe_fori_bit_identical_to_plain(cuda):
     args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 4, 1024)["fori"])
-    before = tp.cuda_probe_fori.launches
+    before = trace.total("launch.probe_fori")
     t, win = tp.cuda_probe_fori(*args)
-    assert tp.cuda_probe_fori.launches == before + 1
+    assert trace.total("launch.probe_fori") == before + 1
     pt, pwin = tp.probe_fori_plain(*args)
     assert torch.equal(win, pwin) and torch.equal(t, pt)
     assert 0.05 < float(torch.isfinite(t).float().mean()) < 0.95
@@ -413,9 +431,9 @@ def test_cuda_probe_fori_bit_identical_to_plain(cuda):
 
 def test_cuda_probe_mma_matches_plain_to_float32_error(cuda):
     args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 4, 1024)["mma"])
-    before = tp.cuda_probe_mma.launches
+    before = trace.total("launch.probe_mma")
     t, win = tp.cuda_probe_mma(*args)
-    assert tp.cuda_probe_mma.launches == before + 1
+    assert trace.total("launch.probe_mma") == before + 1
     pt, pwin = tp.probe_mma_plain(*args)
     et, ewin = tp.probe_exact(*args)
     vs_plain = tp.compare(t, win, pt, pwin)
@@ -438,7 +456,7 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
                                               "mma_scratch": 17 * 1024 + 4}
     assert tp.probe_layout("probe_parent", 1000) == {"fori": 14528, "mma": 3416,
                                                      "mma_scratch": 0}
-    before = tp.cuda_probe_mma.launches
+    before = trace.total("launch.probe_mma")
     for n_obj, fits in ((3392, True), (3400, False)):
         args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["mma"])
         if fits:
@@ -446,9 +464,9 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
         else:
             with pytest.raises(ValueError, match="shared memory"):
                 tp.cuda_probe_mma(*args)
-    assert tp.cuda_probe_mma.launches == before + 1
+    assert trace.total("launch.probe_mma") == before + 1
     n_max = tp.probe_layout("probe", 0)["fori"]
-    before = tp.cuda_probe_fori.launches
+    before = trace.total("launch.probe_fori")
     for n_obj, fits in ((n_max, True), (n_max + 1, False)):
         args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["fori"])
         if fits:
@@ -458,7 +476,7 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
         else:
             with pytest.raises(ValueError, match="shared memory"):
                 tp.cuda_probe_fori(*args)
-    assert tp.cuda_probe_fori.launches == before + 1
+    assert trace.total("launch.probe_fori") == before + 1
 
 
 def _ragged_probe(device, n_obj, tiles=8, extra=77):
@@ -620,9 +638,9 @@ def test_cuda_feature_scenes_load_feature_builds_only(cuda, monkeypatch):
     loaded = []
     real = mk._load_entry
     monkeypatch.setattr(mk, "_load_entry", lambda fn, lib: loaded.append(lib) or real(fn, lib))
-    mk.run_regen.launches = mk.run_mono.launches = 0
+    n = _Launches()
     img = Renderer(_scene("prism", 32, 24, 8, iters=5), device="cuda", regen_frames=4).render()
-    assert (mk.run_regen.launches, mk.run_mono.launches) == (1, 1)
+    assert n("regen", "mono") == (1, 1)
     assert np.isfinite(img).all() and set(loaded) == {"regen_fx", "mono_fx"}
     loaded.clear()
     Renderer(_scene("cornell", 16, 8, 3, iters=5), device="cuda", regen_frames=4).render()
@@ -640,11 +658,11 @@ def test_cuda_cli_refuses_exr_before_any_launch(cuda, tmp_path):
     from spectral_tpu_torch import cli
     from tests.torch_exr import read_exr
 
-    mk.run_regen.launches = 0
+    n = _Launches()
     out = tmp_path / "x.exr"
     rc = cli.main(["render", "--preset", "prism", "--width", "16", "--height", "12",
                    "--iterations", "2", "--out", str(out), "--quiet"])
-    assert rc == 0 and mk.run_regen.launches == 1
+    assert rc == 0 and n("regen") == 1
     scene = presets.prism()
     scene.width, scene.height, scene.nbr_of_iterations = 16, 12, 2
     fb = Renderer(scene, device="cuda").render()
@@ -942,11 +960,11 @@ def test_cuda_motion_blur_clustered_equals_flat(cuda):
         "objects[1].position", [(0.0, tuple(scene.objects[1].position)), (0.1, target)])])
     images = {}
     for accel in ("auto", "none"):
-        mk.run_mono.launches = mk.run_regen.launches = 0
+        n = _Launches()
         r = Renderer(anim.scene_at(0), device="cuda", accel=accel,
                      _scene_schedule=_blur_schedule(anim))
         images[accel] = r.render()
-        assert (mk.run_mono.launches, mk.run_regen.launches) == (8, 0)
+        assert n("mono", "regen") == (8, 0)
     assert np.array_equal(images["auto"], images["none"])
 
 
@@ -1039,13 +1057,11 @@ def test_cuda_sharded_render_equals_unsharded(cuda, case):
     want = Renderer(make(), device="cuda", **kw).render()
     mesh = make_mesh(4)
     assert mesh.size == 4 and all(s.device.type == "cuda" for s in mesh.slots)
-    wrappers = (mk.run_regen, mk.run_mono, mk.run_persist, mk.run_cost)
-    for w in wrappers:
-        w.launches = 0
+    n = _Launches()
     r = Renderer(make(), device="cuda", sharding=row_sharding(mesh), **kw)
     got = r.render()
     assert np.array_equal(got, want)
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = {f"run_{k}": n(k) for k in ("regen", "mono", "persist", "cost")}
     if case == "persist":
         info = r.persist_info
         assert info["n_devices"] == 4 and info["min_reductions"] == info["launches"]

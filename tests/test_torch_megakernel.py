@@ -29,7 +29,7 @@ from spectral_tpu.scene import presets as jax_presets
 from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import cuda_integrator as ci
-from spectral_tpu_torch.runtime import build
+from spectral_tpu_torch.runtime import build, trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
 from spectral_tpu_torch.scene import presets, schema
 from tests import torch_scenes
@@ -173,14 +173,14 @@ def _lanes(scene, frame=0, device="cpu"):
 
 def test_cpu_tensors_run_the_plain_version_without_counting():
     planes, px, py, tb = _lanes(_scene("cornell", 8, 4, bounces=2))
-    mono0, regen0 = mk.run_mono.launches, mk.run_regen.launches
+    mono0, regen0 = trace.total("launch.mono"), trace.total("launch.regen")
     got = mk.run_mono(*planes, px, py, 0, tb)
     assert torch.equal(got, mk.run_mono_plain(*planes, px, py, 0, tb))
     assert got.shape == (8, 32)
     args = ci.regen_args(tb.scene, tb.config, 0, 2)
     got = mk.run_regen(*args, tb)
     assert torch.equal(got, mk.run_regen_plain(*args, tb))
-    assert (mk.run_mono.launches, mk.run_regen.launches) == (mono0, regen0)
+    assert (trace.total("launch.mono"), trace.total("launch.regen")) == (mono0, regen0)
 
 
 def test_regen_wants_two_frames_and_known_devices():

@@ -26,6 +26,7 @@ from spectral_tpu.scene.flatten import flatten_scene as jax_flatten
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.render import camera as tcam
 from spectral_tpu_torch.render import cuda_integrator as ci
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, flatten_scene, from_numpy
 from spectral_tpu_torch.scene import presets
 from tests.test_pallas_megakernel import _periscope_scene
@@ -243,10 +244,10 @@ def test_run_persist_on_cpu_runs_the_plain_version_in_place():
     assert a.bl.dtype == a.fid.dtype == torch.int64 and a.px.dtype == torch.int32
     rad_buffer = a.rad
     cam = tcam.camera_basis_table(port, cfg)
-    before = mk.run_persist.launches
+    before = trace.total("launch.persist")
     mk.run_persist(a, 4, 4, tb, cam, budget=3)
     mk.run_persist_plain(b, 4, 4, tb, cam, budget=3)
-    assert mk.run_persist.launches == before
+    assert trace.total("launch.persist") == before
     assert a.rad is rad_buffer  # updated in place
     for name, t in a.planes().items():
         assert torch.equal(t, getattr(b, name)), name

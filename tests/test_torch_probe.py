@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from spectral_tpu_torch.ops import trace_probe as tp
+from spectral_tpu_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -105,12 +106,12 @@ def test_wrappers_take_the_plain_path_on_cpu():
     inputs = tp.make_inputs(3, 1, 64)
     fori = tuple(map(torch.from_numpy, inputs["fori"]))
     mma = tuple(map(torch.from_numpy, inputs["mma"]))
-    before = (tp.cuda_probe_fori.launches, tp.cuda_probe_mma.launches)
+    before = (trace.total("launch.probe_fori"), trace.total("launch.probe_mma"))
     for wrapper, plain, args in ((tp.cuda_probe_fori, tp.probe_fori_plain, fori),
                                  (tp.cuda_probe_mma, tp.probe_mma_plain, mma)):
         got, want = wrapper(*args), plain(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (tp.cuda_probe_fori.launches, tp.cuda_probe_mma.launches) == before
+    assert (trace.total("launch.probe_fori"), trace.total("launch.probe_mma")) == before
     # the scalar loop and the block form give the same winners here
     assert np.array_equal(tp.probe_fori_plain(*fori)[1].numpy().reshape(-1),
                           tp.probe_mma_plain(*mma)[1].numpy().reshape(-1))
