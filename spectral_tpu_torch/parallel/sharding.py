@@ -34,7 +34,7 @@ import torch
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.parallel import distributed
 from spectral_tpu_torch.parallel.mesh import Mesh, RowSharding
-from spectral_tpu_torch.render.camera import camera_basis_table
+from spectral_tpu_torch.render import launch_inputs
 from spectral_tpu_torch.render.cuda_integrator import (
     _Readback,
     _relabel,
@@ -247,7 +247,7 @@ def render_persistent_sharded(
     cams = {}
     for s in slabs:
         if s.scene.device not in cams:
-            cams[s.scene.device] = camera_basis_table(s.scene, s.config, full_h)
+            cams[s.scene.device] = launch_inputs.camera_table(s.scene, s.config, full_h)
         sl = _SlabLanes(s, persist_init(s.scene, s.config, full_height=full_h,
                                         row_offset=s.row_offset))
         if adaptive is not None:

@@ -31,14 +31,8 @@ import torch
 
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops.rng import MASK32
-from spectral_tpu_torch.render.camera import (
-    camera_basis_table,
-    generate_primary_rays,
-    hammersley_table,
-    lens_table,
-    pixel_coords,
-    scene_dof,
-)
+from spectral_tpu_torch.render import launch_inputs
+from spectral_tpu_torch.render.camera import generate_primary_rays
 from spectral_tpu_torch.render.color import spectra_to_rgb
 from spectral_tpu_torch.render.integrator import (
     PersistState,
@@ -47,23 +41,9 @@ from spectral_tpu_torch.render.integrator import (
     accumulate_frames,
     lane_int_dtype,
 )
+from spectral_tpu_torch.render.launch_inputs import primary_lanes
 from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
-
-
-def primary_lanes(scene: SceneTensors, config: RenderConfig, frame_id: int,
-                  full_height: int | None = None, row_offset: int = 0):
-    """Lane planes for the kernels: ``(ox, oy, oz, dx, dy, dz)`` f32 and
-    ``(px, py)`` int32, all contiguous ``[W*H]``. ``full_height``/
-    ``row_offset``: ``config`` is the row slab of a ``full_height`` image
-    from row ``row_offset`` (``generate_primary_rays``)."""
-    origin, direction, px, py = generate_primary_rays(
-        scene.cam_pos, scene.cam_dir, scene.cam_up, scene.fov_y_deg,
-        config.width, config.height, frame_id, config.intended_frames,
-        dof=scene_dof(scene, config), full_height=full_height, row_offset=row_offset,
-    )
-    planes = tuple(c.contiguous() for c in (*origin, *direction))
-    return planes, px.to(torch.int32), py.to(torch.int32)
 
 
 def _to_rgb(rad: torch.Tensor, scene: SceneTensors, config: RenderConfig,
@@ -125,14 +105,14 @@ def regen_args(scene: SceneTensors, config: RenderConfig, first_frame_id: int,
     one); the lens table (``camera.lens_table``) is None for a pinhole
     camera. ``full_height``/``row_offset``: ``config`` is a row slab, its
     lanes carry global rows and the camera table the whole image's
-    height; ``lane_perm`` indexes the slab's pixels."""
-    px, py = pixel_coords(config.width, config.height, scene.device, row_offset)
-    if lane_perm is not None:
-        px, py = px[lane_perm], py[lane_perm]
-    offsets = hammersley_table(first_frame_id, k, config.intended_frames, scene.device)
-    return (px.to(torch.int32), py.to(torch.int32), first_frame_id,
-            camera_basis_table(scene, config, full_height), offsets,
-            lens_table(scene, config, first_frame_id, k))
+    height; ``lane_perm`` indexes the slab's pixels. Every table comes
+    from ``launch_inputs.MEMO``: built at the first launch of a camera,
+    image and frame window, the same tensors at every later one."""
+    px, py = launch_inputs.pixel_planes(scene, config, lane_perm, full_height, row_offset)
+    offsets, lens = launch_inputs.frame_tables(scene, config, first_frame_id, k,
+                                               full_height, row_offset)
+    return (px, py, first_frame_id,
+            launch_inputs.camera_table(scene, config, full_height, row_offset), offsets, lens)
 
 
 def regen_radiance(
@@ -389,9 +369,12 @@ def probe_path_cost(
     tables = tables or mk.pack_tables(scene, config)
     total = torch.zeros((n,), dtype=torch.float32, device=scene.device)
     for j in range(n_probe_frames):
-        planes, px, py = primary_lanes(scene, config, first_frame_id + j,
-                                       full_height, row_offset)
-        _rad, cost = mk.run_cost(*planes, px, py, first_frame_id + j, tables)
+        frame = first_frame_id + j
+        if frame == 0:  # the persist budget's probe: the same lanes every image
+            planes, px, py = launch_inputs.frame0_lanes(scene, config, full_height, row_offset)
+        else:
+            planes, px, py = primary_lanes(scene, config, frame, full_height, row_offset)
+        _rad, cost = mk.run_cost(*planes, px, py, frame, tables)
         total = total + cost
     return total
 
@@ -416,11 +399,15 @@ def persist_init(scene: SceneTensors, config: RenderConfig,
     the frame-0 primaries, alive, gate open, no hero, the full bounce
     budget, unit throughput and zero radiance. ``full_height``/
     ``row_offset``: the lanes of the row slab ``config``, with global
-    rows, as a sharded persist render carries them."""
-    planes, px, py = primary_lanes(scene, config, 0, full_height, row_offset)
+    rows, as a sharded persist render carries them. The lanes are copies
+    of ``launch_inputs.frame0_lanes``: the kernel updates them in place."""
+    planes, px, py = launch_inputs.frame0_lanes(scene, config, full_height, row_offset)
     if lane_perm is not None:
         planes = tuple(p[lane_perm] for p in planes)
         px, py = px[lane_perm], py[lane_perm]
+    else:
+        planes = tuple(p.clone() for p in planes)
+        px, py = px.clone(), py.clone()
     n = px.shape[0]
     dev = px.device
     s = config.n_samples
@@ -741,7 +728,7 @@ def render_persistent(
                 lane_perm, lane_inv = cost_sort_perm(cost)
     budget = int(budget)
     with trace.span("persist.init"):
-        cam = tables.cam if ring_slots else camera_basis_table(scene, config)
+        cam = tables.cam if ring_slots else launch_inputs.camera_table(scene, config)
         if resume_state is not None:
             st = _load_state(resume_state, config, dev)
             if st.ox.shape != (n,):

@@ -40,7 +40,10 @@ normal and albedo within 1e-5 of their scale; the denoiser within 1e-4
 of the image's. Row slabs on one card (``make_mesh(4)``): regeneration,
 frame by frame, a clustered scene on Morton lanes per slab and persist
 each equal to the unsharded render bit for bit; ``frames_per_dispatch``
-equal to one frame per dispatch; the grid refused.
+equal to one frame per dispatch; the grid refused. The camera inputs
+the launches take from the memo (``render/launch_inputs.py``): a
+Renderer's later images, and a sequence of live edits, equal renders
+from an empty memo bit for bit.
 """
 
 import dataclasses
@@ -52,6 +55,7 @@ import torch
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops import trace_probe as tp
 from spectral_tpu_torch.render import cuda_integrator as ci
+from spectral_tpu_torch.render import launch_inputs
 from spectral_tpu_torch.render.camera import camera_basis_table
 from spectral_tpu_torch.render.layout import morton_layout
 from spectral_tpu_torch.render.renderer import Renderer
@@ -1083,3 +1087,64 @@ def test_cuda_frames_per_dispatch_equals_one(cuda):
 def test_cuda_refuses_the_grid(cuda):
     with pytest.raises(ValueError, match="CPU-only"):
         Renderer(_scene("cornell", 8, 8, 1), device="cuda", accel="grid")
+
+
+# ---------------------------------------------------- launch inputs
+
+
+@pytest.mark.parametrize("case", ["regen", "persist", "morton"])
+def test_cuda_memo_inputs_render_the_same_images(cuda, case):
+    """A Renderer's second and third images, whose launches took their
+    camera inputs from the memo, equal its first and the image of a new
+    Renderer after the memo was cleared, bit for bit: regeneration,
+    persist (frame 0 and the camera table) and a clustered scene on
+    Morton lanes."""
+    kw = {"regen": {"regen_frames": 4}, "persist": {"persist": True}, "morton": {}}[case]
+
+    def make():
+        if case == "morton":
+            return torch_scenes.sphere_field(presets, 100, 32, 32, 3, iters=8)
+        return _scene("cornell", 48, 32, 4, iters=8)
+
+    launch_inputs.MEMO.clear()
+    r = Renderer(make(), device="cuda", **kw)
+    first = r.render()
+    if case == "morton":
+        assert r.lane_layout == "morton"
+    hits, misses = trace.total("launch.inputs_hit"), trace.total("launch.inputs_miss")
+    later = []
+    for _ in range(2):
+        r.reset()
+        later.append(r.render())
+    assert trace.total("launch.inputs_hit") > hits
+    assert trace.total("launch.inputs_miss") == misses
+    launch_inputs.MEMO.clear()
+    fresh = Renderer(make(), device="cuda", **kw).render()
+    for img in (*later, fresh):
+        assert np.array_equal(img, first)
+
+
+def test_cuda_memo_live_edits_equal_fresh_renderers(cuda):
+    """Live edits, each a new Renderer and one 4-frame chunk with the
+    memo kept (a box moved, then the camera moved, then the box moved
+    again): each preview equals a fresh Renderer's from an empty memo."""
+
+    def scene(box_dx, cam_x):
+        s = _scene("cornell", 48, 32, 4, iters=16)
+        box = next(o for o in s.objects if o.name == "Right front box")
+        box.position = (box.position[0] + box_dx, box.position[1], box.position[2])
+        s.camera.position = (cam_x, 0.0, -2.0)
+        return s
+
+    edits = [(0.1, 0.0), (0.1, 0.05), (-0.1, 0.05)]
+    launch_inputs.MEMO.clear()
+    hits, misses = trace.total("launch.inputs_hit"), trace.total("launch.inputs_miss")
+    kept = [Renderer(scene(*e), device="cuda", regen_frames=4).render_frames(4)
+            for e in edits]
+    # the first two cameras miss the pixel planes, frame and camera tables; the third hits
+    assert trace.total("launch.inputs_hit") - hits == 3
+    assert trace.total("launch.inputs_miss") - misses == 6
+    for e, got in zip(edits, kept):
+        launch_inputs.MEMO.clear()
+        want = Renderer(scene(*e), device="cuda", regen_frames=4).render_frames(4)
+        assert np.array_equal(got, want)
