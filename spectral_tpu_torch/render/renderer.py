@@ -689,8 +689,10 @@ class Renderer:
             else:
                 # ragged tail (k < K), K == 1 or a dispatch of k frames:
                 # frame by frame on the mono kernel, as the reference does
-                for j in range(k):
-                    self._advance(self.next_frame + j)
+                with trace.span("render.tail", arg=k):
+                    trace.count("render.tail_frames", k)
+                    for j in range(k):
+                        self._advance(self.next_frame + j)
             self.next_frame += k
             rendered += k
             if self.phase_stages is not None and self.next_frame >= total:

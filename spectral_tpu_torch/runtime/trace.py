@@ -8,11 +8,12 @@ clock and allocating nothing, and ``count`` adds its int to the counter's
 total, which is always kept (``total``: the ``launch.*`` counts of the
 kernel wrappers).
 
-On, each ``span(name, request)`` leaves a ``Span`` row: its start and end
-on ``time.perf_counter()``, the id of the enclosing span of the same
-thread (``parent``) and the serial of the ``Renderer`` it worked for
+On, each ``span(name, request, arg)`` leaves a ``Span`` row: its start and
+end on ``time.perf_counter()``, the id of the enclosing span of the same
+thread (``parent``), the serial of the ``Renderer`` it worked for
 (``request``: given, else the enclosing span's), so one live edit's
-rebuild and chunk share an id. Each ``count`` leaves a ``Count`` row; a
+rebuild and chunk share an id, and the int ``arg`` it was given (the
+frames of ``render.tail``). Each ``count`` leaves a ``Count`` row; a
 device scalar is copied to pinned memory behind the work queued before
 it and read only by ``rows()``, so the render gains no host wait. The
 collector's passes are ``gc`` spans (``arg``: the generation), whoever
@@ -47,7 +48,7 @@ class Span(NamedTuple):
     parent: int | None
     request: int | None
     id: int
-    arg: int | None = None  # gc: the generation collected
+    arg: int | None = None  # gc: the generation collected; else the caller's
 
 
 class Count(NamedTuple):
@@ -92,11 +93,12 @@ _OFF = _Off()
 
 
 class _On:
-    __slots__ = ("name", "request", "id", "parent", "start")
+    __slots__ = ("name", "request", "arg", "id", "parent", "start")
 
-    def __init__(self, name: str, request: int | None):
+    def __init__(self, name: str, request: int | None, arg: int | None):
         self.name = name
         self.request = request
+        self.arg = arg
 
     def __enter__(self):
         stack = _stack()
@@ -112,16 +114,17 @@ class _On:
     def __exit__(self, *exc):
         end = time.perf_counter()
         _stack().pop()
-        _rows.append((self.name, self.start, end, self.parent, self.request, self.id, None))
+        _rows.append((self.name, self.start, end, self.parent, self.request, self.id, self.arg))
         return False
 
 
-def span(name: str, request: int | None = None):
-    """A context manager that records the host's time in ``name`` while
-    tracing; the shared no-op context otherwise."""
+def span(name: str, request: int | None = None, arg: int | None = None):
+    """A context manager that records the host's time in ``name`` (with
+    ``arg``, an int the row keeps) while tracing; the shared no-op context
+    otherwise."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    return _On(name, request)
+    return _On(name, request, arg)
 
 
 class _Pinned:
@@ -209,7 +212,7 @@ def chrome_events(rows_, to_us, pid: int, tid: int) -> list[dict]:
         if isinstance(r, Span):
             args.update(id=r.id, parent=r.parent)
             if r.arg is not None:
-                args["generation"] = r.arg
+                args["generation" if r.name == "gc" else "arg"] = r.arg
             out.append({"ph": "X", "cat": "spectral", "name": f"spectral.{r.name}",
                         "pid": pid, "tid": tid, "ts": to_us(r.start),
                         "dur": (r.end - r.start) * 1e6, "args": args})

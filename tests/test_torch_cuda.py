@@ -43,7 +43,9 @@ each equal to the unsharded render bit for bit; ``frames_per_dispatch``
 equal to one frame per dispatch; the grid refused. The camera inputs
 the launches take from the memo (``render/launch_inputs.py``): a
 Renderer's later images, and a sequence of live edits, equal renders
-from an empty memo bit for bit.
+from an empty memo bit for bit. The hero frame's shape (1920x1080, 64
+wavelengths, 30 bounces; one regeneration launch, then one mono frame)
+against the benchmark's blocked reference within its 1e-5 limit.
 """
 
 import dataclasses
@@ -1148,3 +1150,25 @@ def test_cuda_memo_live_edits_equal_fresh_renderers(cuda):
         launch_inputs.MEMO.clear()
         want = Renderer(scene(*e), device="cuda", regen_frames=4).render_frames(4)
         assert np.array_equal(got, want)
+
+
+def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
+    """The hero frame's shape (1920x1080, 64 lambda, 30 bounces) with
+    3 frames at K = 2: one ``cuda_regen`` launch at S = 64, then one
+    ``cuda_mono`` frame, against the benchmark's blocked reference on the
+    card at every 64th pixel, within the benchmark's limit."""
+    from benchmark.harness import check
+    from benchmark.reference import blocks, paths
+    from spectral_tpu_torch.utils import sceneio
+
+    scene = _scene("cornell", 1920, 1080, 30, samples=64, iters=3)
+    doc = sceneio.scene_to_dict(scene)
+    launches = _Launches()
+    fb = Renderer(scene, device="cuda", regen_frames=2).render()
+    assert launches("regen", "mono") == (1, 1)
+    px, py = check.pixel_grid(1920, 1080, 64, 2**31 + 17)
+    st, cfg = paths.tables(doc, "cuda")
+    ref = blocks.regen_plan_image(st, cfg, torch.from_numpy(px).cuda(),
+                                  torch.from_numpy(py).cuda(), 3, 2).cpu().numpy()
+    assert float(np.abs(ref[:, :3]).max()) > 0.0
+    assert check.pixel_gap(fb[py, px], ref) <= 1e-5

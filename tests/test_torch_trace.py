@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 
 REGEN_SPANS = {"scene.parse", "renderer.init", "scene.flatten", "scene.pack",
                "renderer.digest", "renderer.reset", "render.frames", "launch.regen",
-               "launch.mono", "render.fold", "render.readback"}
+               "render.tail", "launch.mono", "render.fold", "render.readback"}
 
 
 def _cornell(w=16, h=12, bounces=3, iters=5):
@@ -65,8 +65,9 @@ def test_regen_path_spans_nest_and_share_their_request():
     """Under a profiler one edit (parse, build, a chunk of 2 frames and a
     ragged frame, read back) records every span of the regeneration path;
     the build's and the render's spans nest under ``renderer.init`` and
-    ``render.frames``, inside them in time, and carry the Renderer's
-    serial; a second edit gets another."""
+    ``render.frames`` (the ragged frame's under ``render.tail``), inside
+    them in time, and carry the Renderer's serial; a second edit gets
+    another."""
     doc = sceneio.scene_to_dict(_cornell())
 
     def edit():
@@ -81,13 +82,19 @@ def test_regen_path_spans_nest_and_share_their_request():
     (init,) = [s for s in spans if s.name == "renderer.init"]
     (frames,) = [s for s in spans if s.name == "render.frames"]
     (parse,) = [s for s in spans if s.name == "scene.parse"]
+    (tail,) = [s for s in spans if s.name == "render.tail"]
     assert init.parent is frames.parent is parse.parent is None
     assert parse.end <= init.start and init.end <= frames.start
+    assert tail.arg == 1
     for s in spans:
         if s.name in ("scene.flatten", "scene.pack", "renderer.digest", "renderer.reset"):
             assert s.parent == init.id, s
-        elif s.name in ("launch.regen", "launch.mono", "render.fold", "render.readback"):
+        elif s.name in ("launch.regen", "render.tail", "render.readback"):
             assert s.parent == frames.id, s
+        elif s.name == "launch.mono":
+            assert s.parent == tail.id, s
+        elif s.name == "render.fold":
+            assert s.parent in (frames.id, tail.id), s
         if s.parent is not None:
             outer = by_id[s.parent]
             assert outer.start <= s.start <= s.end <= outer.end
