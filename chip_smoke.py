@@ -93,7 +93,13 @@ and the two probe kernels (``probe_parent``: one ray per thread and the
 root stage on every pair; its tensor-core kernel on ``mma.sync``) at the
 probe's full shape, in turns parent, new, new, parent, each turn held to
 the plain version (the loop kernels ``torch.equal``, the tensor-core
-kernels to ``trace_probe``'s ``MMA_*`` limits). Prints one JSON line per
+kernels to ``trace_probe``'s ``MMA_*`` limits). After the build, the
+``kernels_regen_bins`` line gives both builds of ``regen_kernel<64,...>``
+(the radiance bins in registers and in shared memory) at the hero
+frame's tables: registers, spills, blocks per SM, and the build
+``megakernel.regen_shared_bins`` takes, which must be the shared one;
+one launch at the hero shape (K = 3) is counted as a shared launch and
+is ``torch.equal`` to the plain version and to the register build. Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine
@@ -260,6 +266,55 @@ def main() -> int:
         sc.width, sc.height = w, h
         sc.nbr_of_ray_bounces, sc.nbr_of_iterations = bounces, iters
         return sc
+
+    # ------------------------------------------ 2b. cuda_regen's bins at S = 64
+    # both builds of regen_kernel<64,0,0,*> at the hero frame's tables
+    # (presets.cornell_box, 1920x1080, 64 lambda): blocks per SM and
+    # registers (the occupancy API), spills (nvcc's report), and the build
+    # megakernel.regen_shared_bins takes there; the S <= 32 instantiations
+    # as nvcc reports them (the build line has every library's). Then one
+    # launch of the hero shape (30 bounces, K = 3: each lane takes further
+    # pixels from the counter) in the build the rule takes, which must be
+    # the shared one and counted once, torch.equal to the plain version
+    # and to the register build
+    t0 = time.monotonic()
+    hero_st, hero_cfg = flatten_scene(scene_of(presets.cornell_box, 1920, 1080, 64, 30, 1000),
+                                      dev)
+    hero_tb = mk.pack_tables(hero_st, hero_cfg)
+    regen_nvcc = {r["entry"]: r for r in resources["regen"]}
+    regen_builds = {}
+    for shared, label in ((0, "registers"), (1, "shared_bins")):
+        nv = regen_nvcc[f"regen_kernel<64,0,0,{shared}>"]
+        regen_builds[label] = dict(kernel_info("regen", hero_tb, variant=shared),
+                                   spill_stores=nv["spill_stores"], spill_loads=nv["spill_loads"])
+    takes_shared = mk.regen_shared_bins("regen", hero_tb)
+    assert takes_shared == (regen_builds["shared_bins"]["blocks_per_sm"]
+                            > regen_builds["registers"]["blocks_per_sm"]), regen_builds
+    assert takes_shared, regen_builds
+    hero_args = (*ci.regen_args(hero_st, hero_cfg, 0, 3), hero_tb)
+    counted = trace.total("launch.regen_shared_bins")
+    hero_got = mk.run_regen(*hero_args)
+    counted = trace.total("launch.regen_shared_bins") - counted
+    rule = mk.regen_shared_bins
+    mk.regen_shared_bins = lambda library, tables: False  # the register build
+    try:
+        hero_reg = mk.run_regen(*hero_args)
+    finally:
+        mk.regen_shared_bins = rule
+    hero_bits = dict(shared_launches=counted,
+                     equal_plain=bool(torch.equal(hero_got, mk.run_regen_plain(*hero_args))),
+                     equal_registers=bool(torch.equal(hero_got, hero_reg)),
+                     nonzero=bool(hero_got.abs().max() > 0))
+    assert hero_bits == dict(shared_launches=1, equal_plain=True, equal_registers=True,
+                             nonzero=True), hero_bits
+    emit(phase="kernels_regen_bins", seconds=round(time.monotonic() - t0, 3),
+         tables="hero: cornell_box 1920x1080, 64 lambda", builds=regen_builds,
+         takes="shared_bins" if takes_shared else "registers",
+         hero_launch="1920x1080 b30 K=3", hero_bits=hero_bits,
+         regen_s_le_32=[r for r in resources["regen"]
+                        if int(r["entry"].split("<")[1].split(",")[0]) <= 32],
+         card=card)
+    del hero_tb, hero_st, hero_args, hero_got, hero_reg
 
     def rgb_of(rad, st):
         return spectra_to_rgb(rad.T, st.xyz_weights, st.xyz_to_rgb)

@@ -774,25 +774,26 @@ struct SharedBins {
 // :2001-2006): the ray, the flags, the count-down bounce budget, the frame
 // of the path in flight, and the spectral throughput and radiance. Every
 // kernel runs its lanes through `bounce_step` on this one struct. The
-// spectral state is S floats each of registers, or (SHARED) two rows of
-// the block's shared memory (persist.cu), the same arithmetic either way.
-template <int S, bool SHARED = false>
+// spectral throughput and radiance are S floats each of registers, or
+// (SHARED_THR, SHARED_RAD) rows of the block's shared memory: both in
+// persist.cu, the radiance alone in regen.cu's S = 64 build; the same
+// arithmetic either way.
+template <int S, bool SHARED_THR = false, bool SHARED_RAD = SHARED_THR>
 struct Lane {
-  using Bins = std::conditional_t<SHARED, SharedBins, float[S]>;
   float ox, oy, oz, dx, dy, dz;
   bool alive;     // a path is in flight
   bool gate;      // the parent bounce was specular
   float hero;     // hero wavelength bin, -1 until a dispersive event
   int bl;         // bounces left: max_bounces at a path's first trace
   uint32_t fid;   // frame id of the path in flight
-  Bins thr;
-  Bins rad;
+  std::conditional_t<SHARED_THR, SharedBins, float[S]> thr;
+  std::conditional_t<SHARED_RAD, SharedBins, float[S]> rad;
 };
 
 // A new path of frame `fid` from (o, d) at unit throughput; the radiance
 // sum is kept (the restart rule of megakernel.py:1549-1552, :1752-1769).
-template <int S, bool SHARED>
-__device__ __forceinline__ void start_path(Lane<S, SHARED>& L, float ox,
+template <int S, bool ST, bool SR>
+__device__ __forceinline__ void start_path(Lane<S, ST, SR>& L, float ox,
                                            float oy, float oz, float dx,
                                            float dy, float dz, uint32_t fid,
                                            int max_bounces) {
@@ -855,8 +856,8 @@ __device__ __forceinline__ void stage_row(float* slot, const float* row) {
 // from each other, so the order of the three sums is the jnp one), and
 // the dielectric continuation; a lane whose hero collapses keeps the
 // collapsed thr even when its path ends, as the reference's does.
-template <int S, bool MANY, bool TRI, bool SHARED>
-__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S, SHARED>& L,
+template <int S, bool MANY, bool TRI, bool ST, bool SR>
+__device__ __forceinline__ bool bounce_step(const Tables& tb, Lane<S, ST, SR>& L,
                                             uint32_t px, uint32_t py) {
   float t;
   const int win =

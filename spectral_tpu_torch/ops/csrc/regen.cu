@@ -41,6 +41,23 @@
 //   waits for a wave. Each pixel's K frames stay in one lane and are
 //   summed in frame order, so the result is the plain version's bit for
 //   bit whatever lane takes a pixel.
+// - The radiance bins in shared memory at S = 64 (SHARED). A lane's
+//   thr[64] and rad[64] held 128 of regen_kernel<64,0,0>'s 193 registers:
+//   2 blocks of 128 per SM, against 4 at S = 32, for a latency-bound lane
+//   loop. The shared build keeps rad[64] after the tables, lane-minor
+//   ([S][BLOCK] floats, bounce.cuh:SharedBins), and thr[64] in registers
+//   (rad is read and written only at a diffuse hit; thr every bounce):
+//   128 registers without spills, 4 blocks per SM, and the hero frame's
+//   launches ran 5.15 ms a frame against 9.71 on an H100 (PERF.md
+//   section 6). Both rows in shared memory, as in cuda_persist, gave 3
+//   blocks by shared memory and 6.93 ms. The arithmetic and its order are the
+//   register build's, so the sums are its bits. The host takes it per
+//   launch where it holds more resident blocks per SM than the register
+//   build at the launch's tables (megakernel.regen_shared_bins): it was
+//   11-42% faster wherever it did, even in the lens feature builds that
+//   spill 28-56 B; at a tie 0.4-0.7% slower, and with 1 block against 2
+//   (96 KB of tables) 1.68x the time. At S <= 32 only the register
+//   build exists.
 // Built with -DSPECTRAL_PARENT_DESIGN (a diagnostic library, never the
 // main path's), the grid is the earlier design's instead: one lane per
 // pixel, ceil(n / BLOCK) blocks, so that the two can be timed in one run.
@@ -72,8 +89,8 @@ __device__ __forceinline__ void primary_direction(const float* cb,
 // with a lens table, from the camera moved by frame j's shift, through the
 // pinhole ray's point on the focus plane: normalize(normalize(d * t_f -
 // shift)) with t_f = focus / d.forward.
-template <int S>
-__device__ __forceinline__ void start_frame(Lane<S>& L, const float* cb,
+template <int S, bool SHARED>
+__device__ __forceinline__ void start_frame(Lane<S, false, SHARED>& L, const float* cb,
                                             const float* off,
                                             const float* lens, int j,
                                             uint32_t ux, uint32_t uy,
@@ -100,7 +117,14 @@ __device__ __forceinline__ void start_frame(Lane<S>& L, const float* cb,
   start_path(L, ox, oy, oz, dx, dy, dz, first_frame + (uint32_t)j, max_bounces);
 }
 
-template <int S, bool MANY, bool TRI>
+// The S that has a shared-bins build, and the bytes its radiance bins
+// take after the tables: [S][BLOCK] floats (none in the register build).
+constexpr int kSharedBinsSamples = 64;
+constexpr size_t regen_bins_bytes(int S, bool shared) {
+  return shared ? sizeof(float) * (size_t)S * BLOCK : 0;
+}
+
+template <int S, bool MANY, bool TRI, bool SHARED>
 __global__ void __launch_bounds__(BLOCK)
 regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
              int k, const int* __restrict__ px, const int* __restrict__ py,
@@ -118,7 +142,10 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
   int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane < n) {
     uint32_t ux = (uint32_t)px[lane], uy = (uint32_t)py[lane];
-    Lane<S> L;
+    Lane<S, false, SHARED> L;
+    if constexpr (SHARED) {  // rad after the NEE scales, the last of the tables
+      L.rad.p = tb.scale + tb.n_lights * BLOCK + threadIdx.x;
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
     int j = 0;  // the frame in flight, 0..k-1
@@ -155,15 +182,15 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
 #endif
 }
 
-template <int S, bool MANY, bool TRI>
+template <int S, bool MANY, bool TRI, bool SHARED>
 cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
                          uint32_t first_frame, int k, const int* px,
                          const int* py, const float* cam, const float* off,
                          const float* lens, float* out, unsigned* counter,
                          cudaStream_t stream) {
-  const auto kernel = regen_kernel<S, MANY, TRI>;
+  const auto kernel = regen_kernel<S, MANY, TRI, SHARED>;
   size_t smem;
-  cudaError_t err = prepare(kernel, ta, S, smem);
+  cudaError_t err = prepare(kernel, ta, S, smem, regen_bins_bytes(S, SHARED));
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
 #ifndef SPECTRAL_PARENT_DESIGN
@@ -179,62 +206,80 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
 }  // namespace spectral
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
-// returns the cudaError_t of the launch (0 on success). `lens` is the
-// [k][4] lens table with depth of field, NULL for a pinhole camera;
-// a library built without the lens refuses one. `counter` is one
-// unsigned of device scratch, which the launch zeroes on its stream.
+// returns the cudaError_t of the launch (0 on success). `shared_bins`
+// selects the build with the radiance bins in shared memory (S = 64
+// only). `lens` is the [k][4] lens table with depth of field, NULL for a
+// pinhole camera; a library built without the lens refuses one.
+// `counter` is one unsigned of device scratch, which the launch zeroes
+// on its stream.
 extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
-                              unsigned int first_frame, int k,
+                              unsigned int first_frame, int k, int shared_bins,
                               SPECTRAL_TABLE_PARAMS, const void* px,
                               const void* py, const void* cam,
                               const void* off, const void* lens, void* out,
                               void* counter, void* stream) {
   if (n <= 0) return 0;
-  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || (shared_bins && n_samples != spectral::kSharedBinsSamples))
+    return (int)cudaErrorInvalidValue;
 #ifndef SPECTRAL_LENS
   if (lens != nullptr) return (int)cudaErrorInvalidValue;  // a lens library's table
 #endif
   const spectral::TableArgs ta = SPECTRAL_TABLE_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SPECTRAL_REGEN(S)                                                      \
+#define SPECTRAL_REGEN(S, SHARED)                                              \
   return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) {     \
     return spectral::launch_regen<S, decltype(many)::value,                   \
-                                  decltype(tri)::value>(                      \
+                                  decltype(tri)::value, SHARED>(              \
         n, ta, max_bounces, first_frame, k, static_cast<const int*>(px),      \
         static_cast<const int*>(py), static_cast<const float*>(cam),          \
         static_cast<const float*>(off), static_cast<const float*>(lens),      \
         static_cast<float*>(out), static_cast<unsigned*>(counter), st);       \
   })
   switch (n_samples) {
-    case 8: SPECTRAL_REGEN(8);
-    case 16: SPECTRAL_REGEN(16);
-    case 32: SPECTRAL_REGEN(32);
-    case 64: SPECTRAL_REGEN(64);
+    case 8: SPECTRAL_REGEN(8, false);
+    case 16: SPECTRAL_REGEN(16, false);
+    case 32: SPECTRAL_REGEN(32, false);
+    case 64:
+      if (shared_bins) SPECTRAL_REGEN(64, true);
+      SPECTRAL_REGEN(64, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_REGEN
 }
 
 // The registers, local bytes and resident blocks per SM of the regen
-// instantiation that tables of this kind take (spectral_kernel_info's
-// out), for the measurement tools.
-extern "C" int spectral_regen_info(int n_samples, int many, int tri, int smem,
-                                   int* out) {
+// instantiation that tables of this kind take, in the register build or
+// (shared_bins) the shared-bins build, at `smem` bytes of tables plus the
+// build's radiance bins (spectral_kernel_info's out): the host's choice
+// of build (megakernel.regen_shared_bins) and the measurement tools. A
+// shared-bins build that does not exist (S != 64) or whose bins the
+// tables leave no room reads all zeros: no block of it is resident.
+extern "C" int spectral_regen_info(int n_samples, int many, int tri,
+                                   int shared_bins, int smem, int* out) {
+  if (shared_bins && (n_samples != spectral::kSharedBinsSamples ||
+                      smem + spectral::regen_bins_bytes(n_samples, true) >
+                          (size_t)spectral::MAX_SMEM)) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+  }
   spectral::TableArgs ta{};
   ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
   ta.n_runs = 1;
   ta.tri = tri;
-#define SPECTRAL_REGEN_INFO(S)                                                 \
+#define SPECTRAL_REGEN_INFO(S, SHARED)                                         \
   return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
     return spectral_kernel_info(                                              \
-        spectral::regen_kernel<S, decltype(m)::value, decltype(t)::value>,    \
-        smem, out);                                                           \
+        spectral::regen_kernel<S, decltype(m)::value, decltype(t)::value,     \
+                               SHARED>,                                       \
+        smem + (int)spectral::regen_bins_bytes(S, SHARED), out);              \
   })
   switch (n_samples) {
-    case 8: SPECTRAL_REGEN_INFO(8);
-    case 16: SPECTRAL_REGEN_INFO(16);
-    case 32: SPECTRAL_REGEN_INFO(32);
-    case 64: SPECTRAL_REGEN_INFO(64);
+    case 8: SPECTRAL_REGEN_INFO(8, false);
+    case 16: SPECTRAL_REGEN_INFO(16, false);
+    case 32: SPECTRAL_REGEN_INFO(32, false);
+    case 64:
+      if (shared_bins) SPECTRAL_REGEN_INFO(64, true);
+      SPECTRAL_REGEN_INFO(64, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_REGEN_INFO

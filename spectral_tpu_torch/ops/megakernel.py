@@ -30,7 +30,9 @@ scene's regeneration the lens build, triangles at S = 16 or 64 the wide
 triangle build, tables ``with_shadow_interval`` the shadow-interval
 build, any other the default; a persist launch takes the register build
 of its library where the spectral state in shared memory loses
-(``persist_library``). A launch of another kind is refused.
+(``persist_library``), and a regeneration launch at S = 64 the build
+with its radiance bins in shared memory where that holds more blocks
+per SM (``regen_shared_bins``). A launch of another kind is refused.
 """
 
 from __future__ import annotations
@@ -443,7 +445,7 @@ def _table_args(tables: KernelTables) -> tuple:
 _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
     "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
     "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 12)),
-    "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 8)),
+    "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint] + [ctypes.c_int] * 2, 8)),
     "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
                                      + [ctypes.c_int], 21)),
     "spectral_seg": ("seg", ([ctypes.c_int] * 5 + [ctypes.c_uint], 14)),
@@ -518,6 +520,45 @@ def _persist_blocks(library: str, tables: KernelTables, smem: int) -> int:
 def _persist_info(library: str):
     build.build_all(build.kind_of(library) + (library,))
     f = build.load(library).spectral_persist_info
+    f.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def regen_shared_bins(library: str, tables: KernelTables) -> bool:
+    """Whether a ``cuda_regen`` launch of ``tables`` in ``library`` takes
+    the build with the lanes' radiance bins in shared memory: where that
+    build holds more resident blocks per SM than the register build at
+    the tables' shared memory (the occupancy API's count for each, cached
+    per library, S, kind and table bytes). A tie keeps the register
+    build; so do tables that leave the bins no room, and every S but 64,
+    which has no other build (``spectral_regen_info`` counts no block of
+    either)."""
+    return _regen_shared_bins(library, tables.config.n_samples, tables.many_objects(),
+                              tables.triangles, tables.smem_bytes())
+
+
+@functools.cache
+def _regen_shared_bins(library: str, n_samples: int, many: bool, tri: int, smem: int) -> bool:
+    shared = _regen_blocks(library, n_samples, many, tri, True, smem)
+    return shared > 0 and shared > _regen_blocks(library, n_samples, many, tri, False, smem)
+
+
+def _regen_blocks(library: str, n_samples: int, many: bool, tri: int, shared: bool,
+                  smem: int) -> int:
+    """Resident blocks per SM of the regen instantiation of this kind in
+    ``library``, in the shared-bins or the register build, at ``smem``
+    bytes of tables (plus the build's bins)."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_regen_info(library)(n_samples, int(many), int(tri), int(shared), smem, out),
+              f"spectral_regen_info of {library}")
+    return out[0]
+
+
+@functools.cache
+def _regen_info(library: str):
+    build.build_all(build.kind_of(library) + (library,))
+    f = build.load(library).spectral_regen_info
     f.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -634,9 +675,11 @@ def run_regen(px, py, first_frame: int, camera, offsets, lens,
         raise ValueError("regen wants k >= 2 (use run_mono)")
     if not _on_cuda(px):
         return run_regen_plain(px, py, first_frame, camera, offsets, lens, tables)
-    out = _launch_regen(_entry("spectral_regen", tables, lens=lens is not None), px, py,
-                        first_frame, camera, offsets, lens, tables)
+    out, shared = _launch_regen(library_for("regen", tables, lens is not None), px, py,
+                                first_frame, camera, offsets, lens, tables)
     trace.count("launch.regen")
+    if shared:
+        trace.count("launch.regen_shared_bins")
     return out
 
 
@@ -644,12 +687,16 @@ def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets, l
                       tables: KernelTables) -> torch.Tensor:
     """``run_regen`` through a diagnostic build of ``regen.cu``
     (``build.VARIANTS``: the earlier design's grid, the stats build), for
-    the measurement tools. CUDA tensors only; not counted."""
-    return _launch_regen(_entry("spectral_regen", tables, library, lens is not None), px, py,
-                         first_frame, camera, offsets, lens, tables)
+    the measurement tools, with the bins where ``regen_shared_bins`` puts
+    them in that build. CUDA tensors only; not counted."""
+    return _launch_regen(library, px, py, first_frame, camera, offsets, lens, tables)[0]
 
 
-def _launch_regen(fn, px, py, first_frame, camera, offsets, lens, tables):
+def _launch_regen(library, px, py, first_frame, camera, offsets, lens, tables):
+    """One ``cuda_regen`` launch in ``library``: the radiance sum, and
+    whether it took the shared-bins build (``regen_shared_bins``)."""
+    fn = _entry("spectral_regen", tables, library, lens is not None)
+    shared = regen_shared_bins(library, tables)
     n = px.shape[0]
     _check_lanes({}, dict(px=px, py=py), tables, n)
     _check_camera(camera, offsets, lens, px.device)
@@ -658,12 +705,12 @@ def _launch_regen(fn, px, py, first_frame, camera, offsets, lens, tables):
     counter = torch.empty((1,), dtype=torch.int32, device=px.device)  # zeroed by the launch
     err = fn(
         n, cfg.n_samples, cfg.max_bounces, int(first_frame) & 0xFFFFFFFF,
-        offsets.shape[0], *_table_args(tables),
+        offsets.shape[0], int(shared), *_table_args(tables),
         *map(_ptr, (px, py, camera, offsets)), None if lens is None else _ptr(lens),
         *map(_ptr, (out, counter)), _stream(px),
     )
     _raise_on(err, "cuda_regen")
-    return out
+    return out, shared
 
 
 def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,

@@ -223,10 +223,15 @@ def kernel_info(source, tb, library=None, variant=None, samples=None, many=None,
     """``spectral_<source>_info`` at ``tb``'s shared memory (or
     ``smem`` bytes of tables): of the instantiation ``tb`` takes, or
     of the one ``samples``, ``many``, ``tri`` name; ``variant``:
-    persist's form (0 free-running, 1 ring, 2 lane-stop) or mono's (0
-    mono, 1 cost)."""
+    persist's form (0 free-running, 1 ring, 2 lane-stop), mono's (0
+    mono, 1 cost) or regen's build (0 the bins in registers, 1 in shared
+    memory; by default the one a launch of ``tb`` takes,
+    ``megakernel.regen_shared_bins``)."""
+    from spectral_tpu_torch.ops import megakernel as mk
     from spectral_tpu_torch.runtime import build
 
+    if source == "regen" and variant is None:
+        variant = int(mk.regen_shared_bins(library or source, tb))
     samples = tb.config.n_samples if samples is None else samples
     many = tb.many_objects() if many is None else many
     tri = tb.triangles if tri is None else tri

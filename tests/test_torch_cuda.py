@@ -45,7 +45,11 @@ the launches take from the memo (``render/launch_inputs.py``): a
 Renderer's later images, and a sequence of live edits, equal renders
 from an empty memo bit for bit. The hero frame's shape (1920x1080, 64
 wavelengths, 30 bounces; one regeneration launch, then one mono frame)
-against the benchmark's blocked reference within its 1e-5 limit.
+against the benchmark's blocked reference within its 1e-5 limit. At 64
+wavelengths ``cuda_regen``'s build with its radiance bins in shared
+memory bit for bit to the plain version and to the register build (the
+small scene, the clustered field, the prism, mesh64 and a lens scene),
+taken exactly where it holds more blocks per SM and counted as such.
 """
 
 import dataclasses
@@ -94,7 +98,8 @@ class _Launches:
 
     @staticmethod
     def _now():
-        return {k: trace.total(f"launch.{k}") for k in ("mono", "regen", "persist", "cost", "seg")}
+        return {k: trace.total(f"launch.{k}")
+                for k in ("mono", "regen", "persist", "cost", "seg", "regen_shared_bins")}
 
     def __call__(self, *kinds):
         now = self._now()
@@ -147,7 +152,7 @@ def test_cuda_renderer_counts_launches(cuda):
     n = _Launches()
     img = Renderer(_scene("cornell", 32, 16, 3, iters=6), device="cuda",
                    regen_frames=4).render()
-    assert n("regen", "mono") == (1, 2)
+    assert n("regen", "mono", "regen_shared_bins") == (1, 2, 0)
     assert img.shape == (16, 32, 4) and float(img[..., :3].mean()) > 0
 
 
@@ -1152,6 +1157,81 @@ def test_cuda_memo_live_edits_equal_fresh_renderers(cuda):
         assert np.array_equal(got, want)
 
 
+# ------------------------------------------------ regen's radiance bins at S = 64
+
+
+def _bins_scene(kind):
+    """The hero frame's shape cut to 384x216 at 64 lambda, K = 3: 82,944
+    lanes, more than the card holds at once at 4 blocks of 128 per SM
+    (67,584), so lanes take further pixels from the counter."""
+    if kind == "cornell":
+        return _scene("cornell", 384, 216, 30, samples=64, iters=3)
+    if kind == "field":
+        return _field(384, 216, 8, samples=64, iters=3)
+    if kind == "prism":
+        return _scene("prism", 384, 216, 8, samples=64, iters=3)
+    if kind == "mesh64":
+        return _mesh("mesh", 384, 216, 8, samples=64, iters=3)
+    return torch_scenes.with_lens(_scene("cornell", 384, 216, 8, samples=64, iters=3))
+
+
+@pytest.mark.parametrize("kind", ["cornell", "field", "prism", "mesh64", "lens"])
+def test_cuda_regen_shared_bins_equal_plain_and_register_build(cuda, kind, monkeypatch):
+    """At S = 64 ``cuda_regen`` takes the build with its lanes' radiance
+    bins in shared memory where that holds more resident blocks per SM
+    (``regen_shared_bins``), which every one of these tables does: the
+    small scene, the 101-object field on Morton lanes, the prism's
+    feature build, mesh64's wide triangle build and the lens build. The
+    radiance sum is ``torch.equal`` to the plain version's and to the
+    register build's, and a launch counts ``launch.regen_shared_bins``
+    exactly when it takes the shared build."""
+    port, cfg = flatten_scene(_bins_scene(kind), cuda)
+    tb = mk.pack_tables(port, cfg)
+    perm = morton_layout(cfg.width, cfg.height, cuda)[0] if tb.many_objects() else None
+    args = (*ci.regen_args(port, cfg, 0, 3, perm), tb)
+    shared = mk.regen_shared_bins(mk.library_for("regen", tb, args[5] is not None), tb)
+    assert shared
+    n = _Launches()
+    got = mk.run_regen(*args)
+    assert n("regen", "regen_shared_bins") == (1, 1)
+    monkeypatch.setattr(mk, "regen_shared_bins", lambda library, tables: False)
+    registers = mk.run_regen(*args)
+    assert n("regen", "regen_shared_bins") == (2, 1)
+    assert torch.equal(got, registers)
+    assert torch.equal(got, mk.run_regen_plain(*args))
+
+
+def test_cuda_regen_info_of_both_builds(cuda):
+    """At the hero frame's tables the shared-bins build of
+    ``regen_kernel<64,0,0>`` holds more blocks of 128 per SM than the
+    register build, with fewer registers. Tables of 120 lights (96 KB)
+    leave it 1 block against the register build's 2, and 280 lights no
+    room at all (no block); both keep the register build. At S = 32,
+    which has no shared-bins build, the entry counts no block of it and
+    ``cuda_regen`` counts no shared launch."""
+    from spectral_tpu_torch.tools.lane_stats import kernel_info
+
+    def tables(sc):
+        return mk.pack_tables(*flatten_scene(sc, cuda))
+
+    hero = tables(_scene("cornell", 192, 108, 30, samples=64))
+    reg, shared = (kernel_info("regen", hero, variant=v) for v in (0, 1))
+    assert shared["blocks_per_sm"] > reg["blocks_per_sm"] >= 1
+    assert shared["registers"] < reg["registers"]
+    assert mk.regen_shared_bins("regen", hero)
+    for lights, blocks in ((120, (2, 1)), (280, (1, 0))):
+        tb = tables(torch_scenes.many_lights(schema, presets, "cornell", lights, 64, 32, 8, 64))
+        assert tuple(kernel_info("regen", tb, variant=v)["blocks_per_sm"]
+                     for v in (0, 1)) == blocks
+        assert not mk.regen_shared_bins("regen", tb)
+    s32 = tables(_scene("cornell", 64, 32, 3, samples=32, iters=3))
+    assert not mk.regen_shared_bins("regen", s32)
+    assert kernel_info("regen", s32, variant=1)["blocks_per_sm"] == 0
+    n = _Launches()
+    mk.run_regen(*ci.regen_args(s32.scene, s32.config, 0, 3), s32)
+    assert n("regen", "regen_shared_bins") == (1, 0)
+
+
 def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
     """The hero frame's shape (1920x1080, 64 lambda, 30 bounces) with
     3 frames at K = 2: one ``cuda_regen`` launch at S = 64, then one
@@ -1165,7 +1245,7 @@ def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
     doc = sceneio.scene_to_dict(scene)
     launches = _Launches()
     fb = Renderer(scene, device="cuda", regen_frames=2).render()
-    assert launches("regen", "mono") == (1, 1)
+    assert launches("regen", "mono", "regen_shared_bins") == (1, 1, 1)
     px, py = check.pixel_grid(1920, 1080, 64, 2**31 + 17)
     st, cfg = paths.tables(doc, "cuda")
     ref = blocks.regen_plan_image(st, cfg, torch.from_numpy(px).cuda(),

@@ -257,3 +257,85 @@ def test_persist_takes_its_register_build_where_the_state_leaves_no_room(
     assert mk.library_for("persist", full) == f"persist{fx}_reg"
     assert mk.library_for("persist", room) == f"persist{fx}"
     assert mk.library_for("mono", full) == f"mono{fx}"
+
+
+# ------------------------------------------------ regen's radiance bins at S = 64
+
+
+@pytest.fixture
+def regen_blocks(monkeypatch):
+    """Stub occupancy counts for ``regen_shared_bins`` (the CPU has no
+    kernel to ask): ``counts[shared]`` blocks per SM, each query
+    recorded; the rule's cache is emptied before and after."""
+    counts, asked = {}, []
+
+    def blocks(library, n_samples, many, tri, shared, smem):
+        asked.append((library, n_samples, many, tri, shared, smem))
+        return counts[shared]
+
+    monkeypatch.setattr(mk, "_regen_blocks", blocks)
+    mk._regen_shared_bins.cache_clear()
+    yield counts, asked
+    mk._regen_shared_bins.cache_clear()
+
+
+@pytest.mark.parametrize("shared,registers,takes", [(3, 2, True), (4, 2, True), (2, 2, False),
+                                                    (1, 2, False)])
+def test_regen_takes_shared_bins_where_they_hold_more_blocks(regen_blocks, shared, registers,
+                                                             takes):
+    """At S = 64 ``cuda_regen`` takes the build with its radiance bins in
+    shared memory where the occupancy API gives it more resident blocks
+    per SM than the register build; a tie or fewer keep registers. The
+    answer is cached per library, S, kind and table bytes: asked once."""
+    counts, asked = regen_blocks
+    counts.update({True: shared, False: registers})
+    tb = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=64), "cpu"))
+    for library in ("regen", "regen", "regen_lens"):
+        assert mk.regen_shared_bins(library, tb) is takes
+    smem = tb.smem_bytes()
+    assert sorted(asked) == sorted((lib, 64, False, 0, sh, smem)
+                                   for lib in ("regen", "regen_lens") for sh in (False, True))
+
+
+def test_regen_keeps_registers_without_room_or_below_s64(regen_blocks):
+    """Where ``spectral_regen_info`` counts no resident block of the
+    shared-bins build (tables that leave its bins no room, as 280 lights
+    at S = 64 do; every S below 64, which has no such build) the launch
+    keeps the register build, after that one query, once per key."""
+    counts, asked = regen_blocks
+    counts.update({True: 0, False: 1})
+    sc = torch_scenes.many_lights(schema, presets, "cornell", 280, 8, 4, 1, 64)
+    full = mk.pack_tables(*flatten_scene(sc, "cpu"))
+    tables = [full] + [mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=s),
+                                                     "cpu")) for s in (8, 16, 32)]
+    for tb in tables + tables:
+        assert not mk.regen_shared_bins("regen", tb)
+    assert asked == [("regen", tb.config.n_samples, False, 0, True, tb.smem_bytes())
+                     for tb in tables]
+    assert full.smem_bytes() <= mk.MAX_SMEM
+
+
+@pytest.mark.parametrize("samples,shared", [(64, True), (64, False), (32, False)])
+def test_regen_counts_its_shared_bins_launches(regen_blocks, monkeypatch, samples, shared):
+    """``run_regen`` counts ``launch.regen`` for every launch and
+    ``launch.regen_shared_bins`` for each that takes the shared build (the
+    launch itself stubbed: the CPU has no kernel), never at S = 32."""
+    counts, _ = regen_blocks
+    counts.update({True: (3 if shared else 2) if samples == 64 else 0, False: 2})
+    tb = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=samples), "cpu"))
+    taken = []
+
+    def launch(library, px, *rest):
+        taken.append(library)
+        tables = rest[-1]
+        out = torch.zeros((tables.config.n_samples, px.shape[0]))
+        return out, mk.regen_shared_bins(library, tables)
+
+    monkeypatch.setattr(mk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(mk, "_launch_regen", launch)
+    before = trace.total("launch.regen"), trace.total("launch.regen_shared_bins")
+    for _ in range(2):
+        mk.run_regen(*ci.regen_args(tb.scene, tb.config, 0, 2), tb)
+    assert taken == ["regen", "regen"]
+    assert (trace.total("launch.regen") - before[0],
+            trace.total("launch.regen_shared_bins") - before[1]) == (2, 2 * int(shared))
