@@ -79,21 +79,16 @@ and the trace probe at its full shape (196,608 rays, 1,024 spheres)
 through its tool, ``python -m spectral_tpu_torch.tools.mxu_trace_probe``
 (``cuda_probe_fori``, ``cuda_probe_mma``). ``cuda_regen`` is also held
 to the sum of its K frames as ``cuda_mono`` traces them from host
-raygen (its kernel generates the primaries itself), and the redesigned
-kernels are timed in turns beside their earlier designs, each held
-``torch.equal`` to it (``build.PARENT_LIBRARIES``): ``cuda_regen`` (the
-``regen_parent`` build's one-lane-per-pixel grid) at cornell512 and
-spheres1000, ``cuda_seg`` (tables without packed walk records) at
-spheres1000, ``cuda_mono`` and ``cuda_cost`` (``mono_parent``: one lane
-per pixel) at cornell512, and one ``cuda_persist`` launch (the
-register build ``persist_reg``: the spectral state in registers, the
-earlier design) at the persist path's budget on cornell512, mesh,
-mesh64 (``persist_tri_reg``), mesh5k and the prism (``persist_fx_reg``),
-and the two probe kernels (``probe_parent``: one ray per thread and the
-root stage on every pair; its tensor-core kernel on ``mma.sync``) at the
-probe's full shape, in turns parent, new, new, parent, each turn held to
-the plain version (the loop kernels ``torch.equal``, the tensor-core
-kernels to ``trace_probe``'s ``MMA_*`` limits). After the build, the
+raygen (its kernel generates the primaries itself), and two redesigns
+are timed in turns beside the earlier design they replaced, each held
+``torch.equal`` to it: ``cuda_seg`` (tables without packed walk records)
+at spheres1000, and one ``cuda_persist`` launch (the register build
+``persist_reg``: the spectral state in registers, the earlier design) at
+the persist path's budget on cornell512, mesh, mesh64
+(``persist_tri_reg``), mesh5k and the prism (``persist_fx_reg``). The
+two probe kernels at the probe's full shape are held to the plain
+version (the loop kernel ``torch.equal``, the tensor-core kernel to
+``trace_probe``'s ``MMA_*`` limits). After the build, the
 ``kernels_regen_bins`` line gives both builds of ``regen_kernel<64,...>``
 (the radiance bins in registers and in shared memory) at the hero
 frame's tables: registers, spills, blocks per SM, and the build
@@ -250,11 +245,10 @@ def main() -> int:
     # ---------------------------------------------------------------- 2. build
     t0 = time.monotonic()
     # from source, one nvcc per library, in parallel: every library a
-    # render path loads (the main ones; the feature, wide-triangle, lens
-    # and shadow-interval builds) and the earlier designs of the
-    # redesigned kernels (build.PARENT_LIBRARIES), timed beside them below
+    # render path loads (the main ones; the feature, wide-triangle, lens,
+    # shadow-interval and register builds)
     fx_libs = tuple(build.FEATURE_LIBRARIES)
-    build.build_all(build.RENDER_LIBRARIES + build.PARENT_LIBRARIES, force=True)
+    build.build_all(build.RENDER_LIBRARIES, force=True)
     build_s = time.monotonic() - t0
     resources = {name: build.kernel_resources(name) for name in build.RENDER_LIBRARIES}
     emit(phase="build", seconds=round(build_s, 3), libraries=list(build.RENDER_LIBRARIES),
@@ -611,23 +605,12 @@ def main() -> int:
     st, cfg = flatten_scene(full, dev)
     tb = mk.pack_tables(st, cfg)
     planes, px, py = ci.primary_lanes(st, cfg, 0)
-    # the resident grid and the earlier one (mono_parent: one lane per
-    # pixel) in turns, 5 launches a turn
-    got, mono_turns = in_turns(
-        "cuda_mono", lambda: cuda_ms(lambda: mk.run_mono(*planes, px, py, 0, tb), 5),
-        lambda: cuda_ms(lambda: mk.run_mono_variant("mono_parent", *planes, px, py, 0, tb), 5),
-        torch.equal)
-    mono_ms = mono_turns["ms"]
+    mono_ms, got = cuda_ms(lambda: mk.run_mono(*planes, px, py, 0, tb), 5)
     mono_plain_ms, want = cuda_ms(lambda: mk.run_mono_plain(*planes, px, py, 0, tb), 2)
     mono_flips, mono_err = envelope(got, want, st)
     assert mono_flips <= 0.15, ("mono 512^2 b30 flipped", mono_flips)
     args, _ = regen_inputs(full, 0, k_main)
-    # the redesigned kernel and the earlier design's grid (the regen_parent
-    # build: one lane per pixel), in turns
-    got, regen_turns = in_turns(
-        "cuda_regen", lambda: cuda_ms(lambda: mk.run_regen(*args), 2),
-        lambda: cuda_ms(lambda: mk.run_regen_variant("regen_parent", *args), 2), torch.equal)
-    regen_ms, regen_parent_ms = regen_turns["ms"], regen_turns["parent_design_ms"]
+    regen_ms, got = cuda_ms(lambda: mk.run_regen(*args), 2)
     regen_plain_ms, want = cuda_ms(lambda: mk.run_regen_plain(*args), 1, warmup=False)
     regen_flips, regen_err = envelope(got, want, st)
     assert regen_flips <= 0.15, ("regen 512^2 b30 K=100 flipped", regen_flips)
@@ -638,7 +621,6 @@ def main() -> int:
          b1_limit=1e-5, b30_mono_flipped=mono_flips, b30_mono_max_abs=mono_err,
          b30_regen_k100_flipped=regen_flips, b30_regen_k100_max_abs=regen_err,
          b30_regen_k100_vs_sum_of_100_mono_max_rel=regen_vs_mono, sum_of_mono_limit=1e-5,
-         regen_k100_turns_ms=regen_turns["turns_ms"], mono_turns=mono_turns,
          flipped_limit=0.15, mono_ms=mono_ms, mono_plain_ms=mono_plain_ms,
          regen_k100_ms=regen_ms, regen_k100_plain_ms=regen_plain_ms, card=card)
 
@@ -700,11 +682,7 @@ def main() -> int:
     assert checker_flips <= 0.15 and checker_held, (
         "lane-stop 512^2 b30, checkerboard", checker_flips, checker_held)
     del got, want, stop0, chk, chk_plain
-    (crad, cost), cost_turns = in_turns(
-        "cuda_cost", lambda: cuda_ms(lambda: mk.run_cost(*planes, px, py, 0, tb), 5),
-        lambda: cuda_ms(lambda: mk.run_cost_variant("mono_parent", *planes, px, py, 0, tb), 5),
-        lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
-    cost_ms = cost_turns["ms"]
+    cost_ms, (crad, cost) = cuda_ms(lambda: mk.run_cost(*planes, px, py, 0, tb), 5)
     cost_plain_ms, (prad, pcost) = cuda_ms(
         lambda: mk.run_cost_plain(*planes, px, py, 0, tb), 1, warmup=False)
     mono_rad = mk.run_mono(*planes, px, py, 0, tb)
@@ -721,7 +699,6 @@ def main() -> int:
          b30_persist_max_abs=persist_err, flipped_limit=0.15,
          persist_ms=persist_ms, persist_plain_ms=persist_plain_ms,
          persist_turns=persist_main_turns,
-         cost_turns=cost_turns,
          persist_mean_frames_per_launch=persist_frames_one_launch,
          lane_stop_zero_ms=stop0_ms, lane_stop_zero_bit_identical=stop0_identical,
          lane_stop_checker_ms=checker_ms, lane_stop_checker_plain_ms=checker_plain_ms,
@@ -1250,24 +1227,10 @@ def main() -> int:
     _, f_rays = ti.bounce_loop(Vec3(*f_planes[:3]), Vec3(*f_planes[3:]), f_px.long(),
                                f_py.long(), 0, f_st, f_cfg, return_stats=True)
     sph_rays = float(f_rays) * (s_cfg.width * s_cfg.height) / (f_cfg.width * f_cfg.height)
-    # one regeneration launch timed alone, K = 100, Morton lanes: the new
-    # kernel, and the earlier design (the regen_parent build's grid over
-    # tables without packed records), in turns: new, parent, parent, new
+    # one regeneration launch timed alone, K = 100, Morton lanes
     s_args = ci.regen_args(s_st, s_cfg, 0, SPHERES["iterations"], r._lane_perm)
-    s_unpacked = s_tb.unpacked()
-    sph_turns = {"new": [], "parent": []}
-    for key in ("new", "parent", "parent", "new"):
-        fn = (lambda: mk.run_regen(*s_args, s_tb)) if key == "new" else (
-            lambda: mk.run_regen_variant("regen_parent", *s_args, s_unpacked))
-        t_ms, out = cuda_span(fn)
-        sph_turns[key].append(t_ms)
-        if key == "new":
-            sph_new = out
-        else:
-            assert torch.equal(out, sph_new), "spheres1000 cuda_regen: parent design differs"
-    del s_args, sph_new, out
-    sph_regen_ms = sum(sph_turns["new"]) / 2
-    sph_regen_parent_ms = sum(sph_turns["parent"]) / 2
+    sph_regen_ms, _ = cuda_ms(lambda: mk.run_regen(*s_args, s_tb), 2)
+    del s_args, _
     s_planes, s_px, s_py = ci.primary_lanes(s_st, s_cfg, 0)
     sph_mono_ms, _ = cuda_ms(lambda: mk.run_mono(*s_planes, s_px, s_py, 0, s_tb), 3)
     emit(phase="spheres_main_path",
@@ -1277,7 +1240,7 @@ def main() -> int:
          seconds_per_frame=sph_s_per_frame, launches=counts,
          rays_per_frame_plain_f0_scaled_from_256x192=sph_rays,
          mrays_lambda_per_s=sph_rays * s_cfg.n_samples / sph_s_per_frame / 1e6,
-         regen_k100_morton_launch_ms=sph_regen_ms, regen_k100_turns_ms=sph_turns,
+         regen_k100_morton_launch_ms=sph_regen_ms,
          mono_ms=sph_mono_ms,
          mean_rgb=float(img[..., :3].mean()), card=card)
 
@@ -1315,6 +1278,7 @@ def main() -> int:
     # them); the first against its plain version. The new walk (packed
     # records) and the earlier one (tables without records) in turns:
     # new, parent, parent, new
+    s_unpacked = s_tb.unpacked()
     seg_turns = {"new": [], "parent": []}
     tail_turns = {"new": [], "parent": []}
     for key in ("new", "parent", "parent", "new"):
@@ -1592,8 +1556,7 @@ def main() -> int:
          build_seconds_all=build_s, feature_kernels_s64=s64,
          phase_seconds=round(time.monotonic() - t0, 3), card=card)
 
-    # ------------- 9. the trace probe at full shape, in turns with its
-    # earlier design (the probe_parent build), then through its tool
+    # ------------- 9. the trace probe at full shape, then through its tool
     t0 = time.monotonic()
     p_in = tp.make_inputs(0)
     fori = tuple(torch.from_numpy(a).to(dev) for a in p_in["fori"])
@@ -1603,44 +1566,19 @@ def main() -> int:
     ex_t, ex_w = tp.probe_exact(*mma)
     mma_bound = tp.error_bound(*mma, ex_w, tp.MMA_DOT_GAMMA)
 
-    def probe_turns(new, parent, check):
-        """A probe kernel and its earlier design in turns: parent, new,
-        new, parent, 30 launches each after one of each; ``check`` holds
-        every output. Returns the new output and the turns."""
-        runs = {"new": new, "parent": parent}
-        turns, out = {"new": [], "parent": []}, None
-        for key in ("parent", "new", "new", "parent"):
-            ms, got = cuda_ms(runs[key], 30)
-            turns[key].append(ms)
-            check(key, got)
-            out = got if key == "new" else out
-        return out, dict(ms=sum(turns["new"]) / 2, parent_design_ms=sum(turns["parent"]) / 2,
-                         turns_ms=turns)
-
-    def fori_check(key, got):
-        assert torch.equal(got[0], gp_t) and torch.equal(got[1], gp_w), (
-            f"cuda_probe_fori ({key} design) differs from its plain version")
-
-    mma_checks = {}
-
-    def mma_check(key, got):
-        vs_plain = tp.compare(*got, hp_t, hp_w)
-        vs_exact = tp.compare(*got, ex_t, ex_w, mma_bound)
-        mma_checks[key] = dict(vs_plain=vs_plain, vs_float64=vs_exact)
-        assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, (key, mma_checks)
-        # the formula cancels (b = 2 (d.o - d.c)): t agrees with the plain
-        # version only to float32's error, so each hit is held to its own
-        # error bound against a float64 evaluation (trace_probe.error_bound)
-        assert vs_exact["max_err_over_bound"] <= 1.0, (key, mma_checks)
-        assert vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, (key, mma_checks)
-
-    (g_t, g_w), fori_turns = probe_turns(
-        lambda: tp.cuda_probe_fori(*fori),
-        lambda: tp.probe_fori_variant("probe_parent", *fori), fori_check)
-    (h_t, h_w), mma_turns = probe_turns(
-        lambda: tp.cuda_probe_mma(*mma),
-        lambda: tp.probe_mma_variant("probe_parent", *mma), mma_check)
-    fori_ms, mma_ms = fori_turns["ms"], mma_turns["ms"]
+    # 30 launches each, after one
+    fori_ms, (g_t, g_w) = cuda_ms(lambda: tp.cuda_probe_fori(*fori), 30)
+    assert torch.equal(g_t, gp_t) and torch.equal(g_w, gp_w), (
+        "cuda_probe_fori differs from its plain version")
+    mma_ms, (h_t, h_w) = cuda_ms(lambda: tp.cuda_probe_mma(*mma), 30)
+    mma_vs_plain = tp.compare(h_t, h_w, hp_t, hp_w)
+    mma_vs_exact = tp.compare(h_t, h_w, ex_t, ex_w, mma_bound)
+    assert mma_vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, mma_vs_plain
+    # the formula cancels (b = 2 (d.o - d.c)): t agrees with the plain
+    # version only to float32's error, so each hit is held to its own
+    # error bound against a float64 evaluation (trace_probe.error_bound)
+    assert mma_vs_exact["max_err_over_bound"] <= 1.0, mma_vs_exact
+    assert mma_vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, mma_vs_exact
     fori_err = float(torch.where(torch.isfinite(gp_t), (g_t - gp_t).abs(), 0.0).max())
     plain_vs_exact = tp.compare(hp_t, hp_w, ex_t, ex_w,
                                 tp.error_bound(*mma, ex_w, tp.PLAIN_DOT_GAMMA))
@@ -1651,15 +1589,10 @@ def main() -> int:
     # the pairs that need the root stage, for the bounds below
     root_pairs = dict(fori=tp.fori_root_pairs(*fori), mma=tp.mma_root_pairs(*mma))
     probe_out = dict(rays=fori[1].numel(), objects=tp.N_OBJ, fori_ms=fori_ms,
-                     fori_parent_design_ms=fori_turns["parent_design_ms"],
-                     fori_turns_ms=fori_turns["turns_ms"], fori_plain_ms=fori_plain_ms,
-                     fori_bit_identical=True, mma_ms=mma_ms,
-                     mma_parent_design_ms=mma_turns["parent_design_ms"],
-                     mma_turns_ms=mma_turns["turns_ms"], mma_plain_ms=mma_plain_ms,
-                     mma_vs_plain=mma_checks["new"]["vs_plain"],
-                     mma_vs_float64=mma_checks["new"]["vs_float64"],
-                     mma_parent_design_vs_float64=mma_checks["parent"]["vs_float64"],
-                     plain_vs_float64=plain_vs_exact, fori_vs_mma=crosscheck,
+                     fori_plain_ms=fori_plain_ms, fori_bit_identical=True, mma_ms=mma_ms,
+                     mma_plain_ms=mma_plain_ms, mma_vs_plain=mma_vs_plain,
+                     mma_vs_float64=mma_vs_exact, plain_vs_float64=plain_vs_exact,
+                     fori_vs_mma=crosscheck,
                      root_pairs=root_pairs, winner_limit=tp.MMA_WINNERS_MIN,
                      err_over_bound_limit=1.0, share_within_1e5_limit=tp.MMA_SHARE_1E5_MIN)
     del ex_t, ex_w, hp_t, hp_w, gp_t, gp_w, mma_bound
@@ -2522,12 +2455,6 @@ def main() -> int:
     # the redesigned kernels beside the earlier design, timed in this run in
     # turns (new, parent, parent, new; the means of each)
     parent_design = {
-        "cuda_regen": dict(
-            design="the regen_parent build: one lane per pixel, ceil(n / 128) blocks; "
-                   "at spheres1000 over tables without packed records",
-            cornell512_k100=dict(ms=regen_ms, parent_design_ms=regen_parent_ms),
-            spheres1000_k100_morton=dict(ms=sph_regen_ms,
-                                          parent_design_ms=sph_regen_parent_ms)),
         "cuda_persist": dict(
             design="the persist_reg build: the spectral state in registers",
             cornell512_budget=dict(budget=budget_main, **persist_main_turns),
@@ -2536,19 +2463,6 @@ def main() -> int:
                                **mesh_runs["mesh64"]["persist_launch"]),
             prism_budget=dict(parent_library="persist_fx_reg",
                               **prism_kernels["persist_launch_turns"])),
-        "cuda_mono": dict(
-            design="the mono_parent build: one lane per pixel, ceil(n / 128) blocks",
-            cornell512_frame0=mono_turns),
-        "cuda_cost": dict(
-            design="the mono_parent build: one lane per pixel, ceil(n / 128) blocks",
-            cornell512_frame0=cost_turns),
-        "cuda_probe_fori": dict(
-            design="the probe_parent build: one ray per thread, the root stage on every pair",
-            probe_full_shape=fori_turns),
-        "cuda_probe_mma": dict(
-            design="the probe_parent build: mma.sync per 16 x 8 tile, every block "
-                   "splitting the spheres, the root stage on every pair",
-            probe_full_shape=mma_turns),
         "cuda_seg": dict(
             design="tables without packed records (the earlier walk)",
             spheres1000_0_2=dict(ms=seg_ms, parent_design_ms=seg_parent_ms),

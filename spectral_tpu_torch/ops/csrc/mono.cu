@@ -29,10 +29,7 @@
 // cost are the plain version's bit for bit whatever thread takes a lane.
 // The tables go to shared memory at block start (bounce.cuh: load_tables),
 // and the spectral state thr[S], rad[S] lives in registers, templated on S
-// in {8,16,32,64}.
-// Built with -DSPECTRAL_PARENT_DESIGN (a diagnostic library, never the
-// main path's), the grid is the earlier one instead, so that the two can
-// be timed in one run; -DSPECTRAL_STATS adds the per-thread counters of
+// in {8,16,32,64}. -DSPECTRAL_STATS adds the per-thread counters of
 // tools/lane_stats.py.
 
 #include "bounce.cuh"
@@ -84,13 +81,9 @@ mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
 #ifdef SPECTRAL_STATS
       ++stat_pixels;
 #endif
-#ifdef SPECTRAL_PARENT_DESIGN
-      break;  // the earlier grid: one lane per thread
-#else
       lane = next_lane(counter, gridDim.x * BLOCK);
       if (lane >= n) break;
       start();
-#endif
     }
   }
 #ifdef SPECTRAL_STATS
@@ -110,9 +103,7 @@ cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
   cudaError_t err = prepare(kernel, ta, S, smem);
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
-#ifndef SPECTRAL_PARENT_DESIGN
   if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
-#endif
   kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, frame_id, ox, oy,
                                           oz, dx, dy, dz, px, py, out, cost,
                                           counter);

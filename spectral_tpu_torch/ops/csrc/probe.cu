@@ -25,9 +25,7 @@
 // zeros), so that the FP32 work bounds kernel B too. The rays are 4.7 MB
 // in and 1.6 MB out (2 us at 3.35 TB/s).
 //
-// The design, measured against the earlier one (PERF.md section 6; built
-// with -DSPECTRAL_PARENT_DESIGN, the diagnostic library probe_parent keeps
-// the earlier kernels, so that the two can be timed in one run):
+// The design, measured against the earlier one (PERF.md section 6):
 // - The root stage only where a warp needs it. The earlier kernels took
 //   sqrtf, both roots, the pick and the mask for every pair, and sqrtf of
 //   the clamped 0 of 99.8% of them leaves the IEEE square root's fast path
@@ -117,187 +115,6 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   }
   return cudaSuccess;
 }
-
-#if defined(SPECTRAL_PARENT_DESIGN)
-
-// ------------------------------------------------ the earlier design (PR 4)
-// cuda_probe_fori: one ray per thread, ceil(n / 256) blocks; every pair
-// runs the whole root stage. cuda_probe_mma: a warp takes 16 rays, every
-// block splits the spheres into shared memory, mma.sync.m16n8k8 TF32 per 8
-// spheres, a quad merge with the tie rule per 128-sphere block.
-
-constexpr int FORI_BLOCK = 256;
-constexpr int MMA_WARPS = 8;
-constexpr int MMA_BLOCK = 32 * MMA_WARPS;  // 128 rays per block
-constexpr int BLOCK_OBJ = 128;             // kernel B's sphere block
-
-// Shared-memory bytes of a block: kernel A's spheres, kernel B's split
-// spheres (two TF32 parts of 8 components, and cc).
-constexpr size_t fori_smem(int n_obj) { return 16 * (size_t)n_obj; }
-constexpr size_t mma_smem(int n_obj) { return 4 * 17 * (size_t)n_obj; }
-constexpr int FORI_MAX_SPHERES = MAX_SMEM / 16;
-constexpr int MMA_MAX_SPHERES = MAX_SMEM / 68 / 8 * 8;  // a multiple of 8
-
-// The probe's quadratic for one ray-sphere pair: t, or +inf.
-__device__ __forceinline__ float probe_root(float b, float c, float foura,
-                                            float inv2a) {
-  const float disc = fmaf(b, b, -(foura * c));
-  const float sq = sqrtf(disc < 0.0f ? 0.0f : disc);
-  const float t1 = (-b - sq) * inv2a;
-  const float t2 = (-b + sq) * inv2a;
-  const float t = t1 > 0.0f ? t1 : t2;
-  return (disc > 0.0f && t > 0.0f) ? t : INFINITY;
-}
-
-__global__ void __launch_bounds__(FORI_BLOCK)
-fori_kernel(int n, int n_obj, const float* __restrict__ geom,
-            const float* __restrict__ ox, const float* __restrict__ oy,
-            const float* __restrict__ oz, const float* __restrict__ dx,
-            const float* __restrict__ dy, const float* __restrict__ dz,
-            float* __restrict__ t_out, float* __restrict__ w_out) {
-  extern __shared__ float s_geom[];  // [n_obj][4]: cx, cy, cz, r^2
-  for (int i = threadIdx.x; i < 4 * n_obj; i += blockDim.x) s_geom[i] = geom[i];
-  __syncthreads();
-  const int i = blockIdx.x * FORI_BLOCK + threadIdx.x;
-  if (i >= n) return;
-  const float x = ox[i], y = oy[i], z = oz[i];
-  const float u = dx[i], v = dy[i], w = dz[i];
-  const float a = dot3f(u, v, w, u, v, w);
-  const float inv2a = 1.0f / (2.0f * a);
-  const float foura = 4.0f * a;
-  float t_best = INFINITY, win = -1.0f;
-  for (int o = 0; o < n_obj; ++o) {
-    const float* g = s_geom + 4 * o;
-    const float rx = x - g[0], ry = y - g[1], rz = z - g[2];
-    const float b = 2.0f * dot3f(u, v, w, rx, ry, rz);
-    const float c = dot3f(rx, ry, rz, rx, ry, rz) - g[3];
-    const float t = probe_root(b, c, foura, inv2a);
-    if (t < t_best) {
-      t_best = t;
-      win = (float)o;
-    }
-  }
-  t_out[i] = t_best;
-  w_out[i] = win;
-}
-
-// d += A * B, one m16n8k8 TF32 tile, f32 accumulate. Fragments (PTX ISA,
-// m16n8k8 .tf32; g = lane / 4, q = lane % 4): a = A[g][q], A[g+8][q],
-// A[g][q+4], A[g+8][q+4]; b = B[q][g], B[q+4][g]; d = D[g][2q], D[g][2q+1],
-// D[g+8][2q], D[g+8][2q+1].
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#endif
-}
-
-// (t, i) of the smaller, the lower index on a tie
-__device__ __forceinline__ void take_min(float& t, int& i, float t2, int i2) {
-  if (t2 < t || (t2 == t && i2 < i)) {
-    t = t2;
-    i = i2;
-  }
-}
-
-__global__ void __launch_bounds__(MMA_BLOCK)
-mma_kernel(int n, int n_obj, const float* __restrict__ dmat,
-           const float* __restrict__ omat, const float* __restrict__ cmat,
-           const float* __restrict__ cc, const float* __restrict__ dov,
-           const float* __restrict__ oov, const float* __restrict__ av,
-           float* __restrict__ t_out, float* __restrict__ w_out) {
-  // the spheres, split once per block: c_hi, c_lo [8][n_obj], cc [n_obj]
-  extern __shared__ uint32_t s_c[];
-  uint32_t* s_hi = s_c;
-  uint32_t* s_lo = s_c + 8 * n_obj;
-  float* s_cc = reinterpret_cast<float*>(s_c + 16 * n_obj);
-  for (int i = threadIdx.x; i < 8 * n_obj; i += blockDim.x) {
-    split_tf32(cmat[i], s_hi[i], s_lo[i]);
-  }
-  for (int i = threadIdx.x; i < n_obj; i += blockDim.x) s_cc[i] = cc[i];
-  __syncthreads();
-
-  // every thread runs to the end: the MMAs and shuffles are warp-wide
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int row0 = (blockIdx.x * MMA_WARPS + (threadIdx.x >> 5)) * 16;
-  const int rows[2] = {row0 + g, row0 + g + 8};
-  uint32_t dh[4], dl[4], oh[4], ol[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int r = rows[k & 1], col = q + 4 * (k >> 1);
-    const bool in = r < n;
-    split_tf32(in ? dmat[(size_t)r * 8 + col] : 0.0f, dh[k], dl[k]);
-    split_tf32(in ? omat[(size_t)r * 8 + col] : 0.0f, oh[k], ol[k]);
-  }
-  float dor[2], oor[2], inv2a[2], foura[2], t_best[2], win[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = rows[h] < n;
-    const float a = in ? av[rows[h]] : 1.0f;
-    dor[h] = in ? dov[rows[h]] : 0.0f;
-    oor[h] = in ? oov[rows[h]] : 0.0f;
-    inv2a[h] = 1.0f / (2.0f * a);
-    foura[h] = 4.0f * a;
-    t_best[h] = INFINITY;
-    win[h] = -1.0f;
-  }
-
-  for (int blk = 0; blk < n_obj; blk += BLOCK_OBJ) {
-    const int stop = min(blk + BLOCK_OBJ, n_obj);
-    float bt[2] = {INFINITY, INFINITY};
-    int bi[2] = {n_obj, n_obj};
-    for (int j0 = blk; j0 < stop; j0 += 8) {
-      const int s0 = q * n_obj + j0 + g, s1 = (q + 4) * n_obj + j0 + g;
-      const uint32_t bh[2] = {s_hi[s0], s_hi[s1]};
-      const uint32_t bl[2] = {s_lo[s0], s_lo[s1]};
-      float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float oc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_tf32(dc, dl, bh);  // the small terms first
-      mma_tf32(dc, dh, bl);
-      mma_tf32(dc, dh, bh);
-      mma_tf32(oc, ol, bh);
-      mma_tf32(oc, oh, bl);
-      mma_tf32(oc, oh, bh);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, col = j0 + 2 * q + (e & 1);
-        const float b = 2.0f * (dor[h] - dc[e]);
-        const float c = (oor[h] - 2.0f * oc[e]) + s_cc[col];
-        take_min(bt[h], bi[h], probe_root(b, c, foura[h], inv2a[h]), col);
-      }
-    }
-    // the quad's four threads hold the same two rays
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float t2 = __shfl_xor_sync(FULL, bt[h], off);
-        const int i2 = __shfl_xor_sync(FULL, bi[h], off);
-        take_min(bt[h], bi[h], t2, i2);
-      }
-      if (bt[h] < t_best[h]) {  // strict across blocks: the earlier wins ties
-        t_best[h] = bt[h];
-        win[h] = (float)bi[h];
-      }
-    }
-  }
-  if (q == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (rows[h] < n) {
-        t_out[rows[h]] = t_best[h];
-        w_out[rows[h]] = win[h];
-      }
-    }
-  }
-}
-
-#else  // the H100 design
 
 constexpr int FORI_RAYS = 4;     // rays per thread
 constexpr int FORI_SHARES = 2;   // shares of the sphere loop per ray group
@@ -775,8 +592,6 @@ cudaError_t launch_fori(int n, int n_obj, const float* geom, const float* ox, co
   return cudaGetLastError();
 }
 
-#endif  // SPECTRAL_PARENT_DESIGN
-
 }  // namespace
 }  // namespace spectral_probe
 
@@ -786,8 +601,7 @@ cudaError_t launch_fori(int n, int n_obj, const float* geom, const float* ox, co
 // returns the cudaError_t of the launch (0 on success). Rays are planes
 // of n floats (kernel A) or rows of 8 (kernel B, dmat/omat [n][8]).
 // `scratch` (kernel B) is the wrapper's, of the floats spectral_probe_info
-// gives: 17 * n_pad + 4, n_pad = n_obj rounded up to MMA_CHUNK (the earlier
-// design ignores it).
+// gives: 17 * n_pad + 4, n_pad = n_obj rounded up to MMA_CHUNK.
 extern "C" int spectral_probe_fori(int n, int n_obj, const void* geom,
                                    const void* ox, const void* oy,
                                    const void* oz, const void* dx,
@@ -797,19 +611,9 @@ extern "C" int spectral_probe_fori(int n, int n_obj, const void* geom,
   if (n <= 0) return 0;
   if (n_obj < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#if defined(SPECTRAL_PARENT_DESIGN)
-  const size_t smem = fori_smem(n_obj);
-  cudaError_t err = set_smem(fori_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  fori_kernel<<<(n + FORI_BLOCK - 1) / FORI_BLOCK, FORI_BLOCK, smem, st>>>(
-      n, n_obj, PROBE_F(geom), PROBE_F(ox), PROBE_F(oy), PROBE_F(oz), PROBE_F(dx),
-      PROBE_F(dy), PROBE_F(dz), static_cast<float*>(t), static_cast<float*>(win));
-  return (int)cudaGetLastError();
-#else
   return (int)launch_fori(n, n_obj, PROBE_F(geom), PROBE_F(ox), PROBE_F(oy), PROBE_F(oz),
                           PROBE_F(dx), PROBE_F(dy), PROBE_F(dz), static_cast<float*>(t),
                           static_cast<float*>(win), st);
-#endif
 }
 
 extern "C" int spectral_probe_mma(int n, int n_obj, const void* dmat,
@@ -821,39 +625,21 @@ extern "C" int spectral_probe_mma(int n, int n_obj, const void* dmat,
   if (n <= 0) return 0;
   if (n_obj < 8 || n_obj % 8 != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#if defined(SPECTRAL_PARENT_DESIGN)
-  (void)scratch;
-  const size_t smem = mma_smem(n_obj);
-  cudaError_t err = set_smem(mma_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rays_per_block = 16 * MMA_WARPS;
-  const int blocks = (n + rays_per_block - 1) / rays_per_block;
-  mma_kernel<<<blocks, MMA_BLOCK, smem, st>>>(
-      n, n_obj, PROBE_F(dmat), PROBE_F(omat), PROBE_F(cmat), PROBE_F(cc),
-      PROBE_F(dov), PROBE_F(oov), PROBE_F(av), static_cast<float*>(t),
-      static_cast<float*>(win));
-  return (int)cudaGetLastError();
-#else
   return (int)launch_mma(n, n_obj, PROBE_F(dmat), PROBE_F(omat), PROBE_F(cmat), PROBE_F(cc),
                          PROBE_F(dov), PROBE_F(oov), PROBE_F(av),
                          static_cast<uint32_t*>(scratch), static_cast<float*>(t),
                          static_cast<float*>(win), st);
-#endif
 }
 
 // The layout of this build's kernels at n_obj spheres, into out[3]: the
 // most spheres a block of kernel A holds in shared memory, kernel B's, and
-// the floats of kernel B's scratch (0 for the earlier design, and beyond
-// its limit). The wrappers refuse more spheres before any launch.
+// the floats of kernel B's scratch (0 beyond its limit). The wrappers
+// refuse more spheres before any launch.
 extern "C" int spectral_probe_info(int n_obj, int* out) {
   using namespace spectral_probe;
   if (n_obj < 0) return (int)cudaErrorInvalidValue;
   out[0] = FORI_MAX_SPHERES;
   out[1] = MMA_MAX_SPHERES;
-#if defined(SPECTRAL_PARENT_DESIGN)
-  out[2] = 0;
-#else
   out[2] = n_obj <= MMA_MAX_SPHERES ? 17 * table_spheres(n_obj) + 4 : 0;
-#endif
   return 0;
 }

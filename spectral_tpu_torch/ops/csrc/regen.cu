@@ -58,9 +58,6 @@
 //   spill 28-56 B; at a tie 0.4-0.7% slower, and with 1 block against 2
 //   (96 KB of tables) 1.68x the time. At S <= 32 only the register
 //   build exists.
-// Built with -DSPECTRAL_PARENT_DESIGN (a diagnostic library, never the
-// main path's), the grid is the earlier design's instead: one lane per
-// pixel, ceil(n / BLOCK) blocks, so that the two can be timed in one run.
 
 #include "bounce.cuh"
 
@@ -162,9 +159,6 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
 #ifdef SPECTRAL_STATS
         ++stat_pixels;
 #endif
-#ifdef SPECTRAL_PARENT_DESIGN
-        break;
-#else
         lane = next_lane(counter, gridDim.x * BLOCK);
         if (lane >= n) break;
         ux = (uint32_t)px[lane];
@@ -172,7 +166,6 @@ regen_kernel(int n, TableArgs ta, int max_bounces, uint32_t first_frame,
 #pragma unroll
         for (int s = 0; s < S; ++s) L.rad[s] = 0.0f;
         j = 0;
-#endif
       }
       start_frame(L, s_cam, off, lens, j, ux, uy, first_frame, max_bounces);
     }
@@ -193,9 +186,7 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
   cudaError_t err = prepare(kernel, ta, S, smem, regen_bins_bytes(S, SHARED));
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
-#ifndef SPECTRAL_PARENT_DESIGN
   if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
-#endif
   kernel<<<blocks, BLOCK, smem, stream>>>(n, ta, max_bounces, first_frame, k,
                                           px, py, cam, off, lens, out,
                                           counter);

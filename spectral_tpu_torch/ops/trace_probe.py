@@ -12,10 +12,8 @@ two TPU kernels and their inputs.
 * ``cuda_probe_fori`` / ``cuda_probe_mma`` launch their CUDA kernels
   (``ops/csrc/probe.cu``) on CUDA tensors and count their launches
   (``runtime.trace``'s ``launch.probe_fori``, ``launch.probe_mma``), and run the plain version on CPU tensors;
-  ``probe_fori_variant`` / ``probe_mma_variant`` launch a diagnostic build
-  of the same source (``build.VARIANTS``: ``probe_parent``, the earlier
-  design), uncounted; ``probe_layout`` reads from a build how many spheres
-  its kernels hold (the wrappers refuse more before any launch);
+  ``probe_layout`` reads from a build how many spheres its kernels hold
+  (the wrappers refuse more before any launch);
 * ``fori_root_pairs`` / ``mma_root_pairs`` count the pairs whose
   discriminant is positive, the pairs that need the root stage
   (``utils/flops.py``: ``probe_terms``).
@@ -345,10 +343,10 @@ def probe_layout(library: str, n_obj: int) -> dict:
     return {"fori": out[0], "mma": out[1], "mma_scratch": out[2]}
 
 
-def _layout(library: str, kernel: str, n_obj: int) -> dict:
+def _layout(kernel: str, n_obj: int) -> dict:
     """``probe_layout``; raises before any launch where a block of
     ``kernel`` cannot hold ``n_obj`` spheres."""
-    layout = probe_layout(library, n_obj)
+    layout = probe_layout("probe", n_obj)
     if n_obj > layout[kernel]:
         raise ValueError(f"{n_obj} spheres need more shared memory than a block of "
                          f"cuda_probe_{kernel} has: it holds {layout[kernel]}")
@@ -359,36 +357,36 @@ def _stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _launch_fori(library: str, geom, ox, oy, oz, dx, dy, dz):
+def _launch_fori(geom, ox, oy, oz, dx, dy, dz):
     n_obj = geom.shape[0]
     planes = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz)
     dev = _check({"geom": geom, **planes},
                  {"geom": (n_obj, 4), **{k: tuple(ox.shape) for k in planes}})
-    _layout(library, "fori", n_obj)
+    _layout("fori", n_obj)
     t = torch.empty_like(ox)
     win = torch.empty_like(ox)
-    err = _lib(library).spectral_probe_fori(ox.numel(), n_obj, _ptr(geom),
-                                            *map(_ptr, planes.values()), _ptr(t), _ptr(win),
-                                            _stream(dev))
+    err = _lib().spectral_probe_fori(ox.numel(), n_obj, _ptr(geom),
+                                     *map(_ptr, planes.values()), _ptr(t), _ptr(win),
+                                     _stream(dev))
     if err != 0:
         raise RuntimeError(f"cuda_probe_fori failed to launch: cudaError_t {err}")
     return t, win
 
 
-def _launch_mma(library: str, dmat, omat, cmat, cc, do, oo, a):
+def _launch_mma(dmat, omat, cmat, cc, do, oo, a):
     n, n_obj = dmat.shape[0], cmat.shape[1]
     if n_obj < 8 or n_obj % 8:
         raise ValueError(f"the sphere count must be a positive multiple of 8, got {n_obj}")
     args = dict(dmat=dmat, omat=omat, cmat=cmat, cc=cc, do=do, oo=oo, a=a)
     dev = _check(args, dict(dmat=(n, 8), omat=(n, 8), cmat=(8, n_obj), cc=(1, n_obj),
                             do=(n, 1), oo=(n, 1), a=(n, 1)))
-    layout = _layout(library, "mma", n_obj)
+    layout = _layout("mma", n_obj)
     t = torch.empty((n, 1), dtype=torch.float32, device=dev)
     win = torch.empty_like(t)
     # the split table (written by the launch's prologue) and the tile counter
     scratch = torch.empty((layout["mma_scratch"],), dtype=torch.float32, device=dev)
-    err = _lib(library).spectral_probe_mma(n, n_obj, *map(_ptr, args.values()), _ptr(scratch),
-                                           _ptr(t), _ptr(win), _stream(dev))
+    err = _lib().spectral_probe_mma(n, n_obj, *map(_ptr, args.values()), _ptr(scratch),
+                                    _ptr(t), _ptr(win), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cuda_probe_mma failed to launch: cudaError_t {err}")
     return t, win
@@ -399,7 +397,7 @@ def cuda_probe_fori(geom, ox, oy, oz, dx, dy, dz):
     tensors, runs ``probe_fori_plain`` for CPU ones."""
     if ox.device.type == "cpu":
         return probe_fori_plain(geom, ox, oy, oz, dx, dy, dz)
-    out = _launch_fori("probe", geom, ox, oy, oz, dx, dy, dz)
+    out = _launch_fori(geom, ox, oy, oz, dx, dy, dz)
     trace.count("launch.probe_fori")
     return out
 
@@ -410,19 +408,7 @@ def cuda_probe_mma(dmat, omat, cmat, cc, do, oo, a):
     TF32 split three ways (3xTF32), close to float32 but not its bits."""
     if dmat.device.type == "cpu":
         return probe_mma_plain(dmat, omat, cmat, cc, do, oo, a)
-    out = _launch_mma("probe", dmat, omat, cmat, cc, do, oo, a)
+    out = _launch_mma(dmat, omat, cmat, cc, do, oo, a)
     trace.count("launch.probe_mma")
     return out
 
-
-def probe_fori_variant(library: str, geom, ox, oy, oz, dx, dy, dz):
-    """``cuda_probe_fori`` through a diagnostic build of ``probe.cu``
-    (``build.VARIANTS``: ``probe_parent``, the earlier design), for the
-    measurements. CUDA tensors only; not counted."""
-    return _launch_fori(library, geom, ox, oy, oz, dx, dy, dz)
-
-
-def probe_mma_variant(library: str, dmat, omat, cmat, cc, do, oo, a):
-    """``cuda_probe_mma`` through a diagnostic build of ``probe.cu``, as
-    ``probe_fori_variant``."""
-    return _launch_mma(library, dmat, omat, cmat, cc, do, oo, a)

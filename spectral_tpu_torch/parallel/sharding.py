@@ -36,19 +36,17 @@ from spectral_tpu_torch.parallel import distributed
 from spectral_tpu_torch.parallel.mesh import Mesh, RowSharding
 from spectral_tpu_torch.render import launch_inputs
 from spectral_tpu_torch.render.cuda_integrator import (
-    _Readback,
-    _relabel,
-    adapt_update,
-    completed_frames,
+    PersistLanes,
+    check_adaptive,
+    count_info,
     empty_frame,
-    min_frames_done,
-    persist_finish,
+    no_objects_info,
+    persist_drain,
     persist_init,
+    persist_loop,
     probe_path_cost,
     render_frame_step_cuda,
     render_frames_step_cuda_regen,
-    slot_inverse,
-    workable_mask,
 )
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors, from_numpy
 
@@ -132,38 +130,6 @@ def render_frames_step_sharded_regen(slabs: list[Slab], config: RenderConfig,
             full_height=config.height, row_offset=s.row_offset)
 
 
-@dataclasses.dataclass
-class _SlabLanes:
-    """A slab's carried persist state and its adaptive bookkeeping, in the
-    slab's own lane order (compaction never leaves the slab)."""
-
-    slab: Slab
-    st: object
-    stop: torch.Tensor | None = None
-    stats: tuple = ()
-    pixel_of_slot: np.ndarray | None = None
-    lane_inv: torch.Tensor | None = None
-
-    def repack(self, n_frames: int) -> int:
-        """Put the slab's working lanes first (a stable, slab-local
-        relabeling); returns how many it has."""
-        st = self.st
-        workable = workable_mask(st.alive.cpu().numpy(), st.fid.cpu().numpy(),
-                                 self.stop.cpu().numpy(), n_frames)
-        order_np = np.argsort(~workable, kind="stable")
-        order = torch.from_numpy(order_np).to(st.ox.device)
-        _relabel(st, order)
-        self.stop = self.stop[order]
-        self.stats = tuple(a[order] for a in self.stats)
-        self.pixel_of_slot = self.pixel_of_slot[order_np]
-        self.lane_inv = torch.from_numpy(
-            slot_inverse(self.pixel_of_slot, len(order_np))).to(st.ox.device)
-        return int(workable.sum())
-
-    def finish(self) -> torch.Tensor:
-        return persist_finish(self.st, self.slab.scene, self.slab.config, self.lane_inv)
-
-
 def _min_over_slots(readbacks: list, abort: bool) -> tuple[int, bool]:
     """One MIN per launch: the least completed-frame count over this
     process's slots on the host, then over every process with one
@@ -197,13 +163,15 @@ def render_persistent_sharded(
     Each slab's lanes start frame 0 of their global pixels and run
     ``cuda_persist`` launches of ``budget`` bounce iterations (default
     ``max(8, round(fpl * mean cost))`` from a one-frame ``cuda_cost``
-    probe on the slabs, summed over the processes once). Between launches
-    the host reads the one-launch-stale minimum of the completed frames;
-    with ``adaptive`` each slab's stop mask is updated, and when a quarter
-    of the process's last packing has retired (its slabs' working lanes
-    counted together, as the reference counts the mesh's), every slab's
-    working lanes are packed to the front of that slab. ``compactions``
-    counts this process's packings. An abort drains the paths in flight with
+    probe on the slabs, summed over the processes once), one set of
+    lanes per slab in ``persist_loop``. The one-launch-stale minimum of
+    the completed frames is ``_min_over_slots``; with ``adaptive`` each
+    slab's stop mask is updated, and when a quarter of the process's last
+    packing has retired (its slabs' working lanes counted together, as
+    the reference counts the mesh's), every slab's working lanes are
+    packed to the front of that slab. ``compactions`` counts this
+    process's packings. An abort stops one process at once and a group
+    at the next MIN, together, then drains the paths in flight with
     ``end = 0``. Depth of field is refused, as in the reference (the
     restarts assume the pinhole camera); the ring variant is not offered
     (its host refills assume one global frame window)."""
@@ -216,23 +184,12 @@ def render_persistent_sharded(
     if n_frames < 1:
         raise ValueError("n_frames must be >= 1")
     local_h = check_rows(config, mesh)
-    base_info = {"launches": 0, "frames_done": n_frames, "budget": 0, "ring_slots": 0,
-                 "tile": 0, "aborted": False, "n_devices": mesh.size, "min_reductions": 0}
-    local_n = config.width * local_h
+    mesh_info = {"n_devices": mesh.size, "min_reductions": 0}
     if config.n_objects == 0:
-        info = dict(base_info)
-        if adaptive is not None:
-            info.update(min_counts=n_frames, max_counts=n_frames,
-                        mean_counts=float(n_frames), compactions=0,
-                        counts=np.full(config.width * config.height, n_frames, np.int64),
-                        adaptive=tuple(adaptive))
-        return [empty_frame(s.scene, s.config) for s in slabs], info
+        info = no_objects_info(n_frames, config.width * config.height, adaptive)
+        return [empty_frame(s.scene, s.config) for s in slabs], dict(info, **mesh_info)
     if adaptive is not None:
-        adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
-        if adaptive[0] < 2:
-            raise ValueError("adaptive min_frames must be >= 2")
-        if not (adaptive[1] >= 0.0 and adaptive[2] >= 0.0):
-            raise ValueError("adaptive rtol/atol must be >= 0")
+        adaptive = check_adaptive(adaptive)
     full_h = config.height
     fpl = frames_per_launch or 64
     if budget is None:
@@ -243,109 +200,32 @@ def render_persistent_sharded(
         budget = max(8, int(round(fpl * mean_cost)))
     budget = int(budget)
 
-    lanes = []
+    sets = []
     cams = {}
     for s in slabs:
         if s.scene.device not in cams:
             cams[s.scene.device] = launch_inputs.camera_table(s.scene, s.config, full_h)
-        sl = _SlabLanes(s, persist_init(s.scene, s.config, full_height=full_h,
-                                        row_offset=s.row_offset))
+        lanes = PersistLanes(persist_init(s.scene, s.config, full_height=full_h,
+                                          row_offset=s.row_offset),
+                             s.scene, s.config, s.tables, cams[s.scene.device], lead=n_frames)
         if adaptive is not None:
-            dev = s.scene.device
-            sl.stop = torch.zeros((local_n,), dtype=torch.float32, device=dev)
-            sl.stats = tuple(torch.zeros((local_n,), dtype=torch.float32, device=dev)
-                             for _ in range(5))
-            sl.pixel_of_slot = np.arange(local_n)
-        lanes.append(sl)
+            lanes.start_adaptive(np.arange(config.width * local_h))
+        sets.append(lanes)
 
-    def launch(sl, end):
-        mk.run_persist(sl.st, n_frames, end, sl.slab.tables, cams[sl.slab.scene.device],
-                       stop=sl.stop, budget=budget)
+    run = persist_loop(
+        sets, n_frames, budget, config.max_bounces, _min_over_slots,
+        adaptive=adaptive, compact=compact, progress=progress, should_abort=should_abort,
+        preview=((lambda: preview(lambda: [ls.finish() for ls in sets]))
+                 if preview is not None else None),
+        abort_at_once=not distributed.is_multiprocess())
+    if run.aborted:
+        persist_drain(sets, config.max_bounces, budget)
 
-    def adapt(sl):
-        """The slab's convergence update; returns its count of working
-        lanes as a readback."""
-        sl.stop, *rest = adapt_update(sl.st.rad, sl.st.fid, sl.st.alive, sl.stop,
-                                      *sl.stats, n_frames, *adaptive)
-        sl.stats = tuple(rest[:5])
-        return _Readback(rest[5])
-
-    pending_work: list[list[_Readback]] = []
-    packed_workable = local_n * len(lanes)
-    compactions = 0
-    multi = distributed.is_multiprocess()
-    pending: list[list[_Readback]] = []
-    launches = reductions = 0
-    min_done = 0
-    aborted = abort_req = False
-    max_launches = 16 + 8 * ((n_frames * config.max_bounces) // max(budget, 1) + 1)
-    while True:
-        mds, works = [], []
-        for sl in lanes:
-            launch(sl, n_frames)
-            mds.append(_Readback(min_frames_done(sl.st, sl.stop, n_frames)))
-            if adaptive is not None:
-                works.append(adapt(sl))
-        if adaptive is not None and compact:
-            pending_work.append(works)
-        if len(pending_work) >= 2:
-            # one-launch-stale working count of this process's slabs; the
-            # repack when the packing is a quarter hollow and a block would
-            # empty (render_persistent's rule), inside each slab
-            n_work = sum(r.value() for r in pending_work.pop(0))
-            if 0 < n_work < packed_workable - max(packed_workable // 4, mk.BLOCK):
-                packed_workable = sum(sl.repack(n_frames) for sl in lanes)
-                compactions += 1
-        pending.append(mds)
-        launches += 1
-        if launches > max_launches:
-            raise RuntimeError(
-                f"sharded persistent render exceeded {max_launches} launches "
-                f"(budget={budget}, n_frames={n_frames})"
-            )
-        if preview is not None:
-            preview(lambda: [sl.finish() for sl in lanes])
-        stop_now = False
-        if len(pending) >= 2:
-            min_done, abort_all = _min_over_slots(pending.pop(0), abort_req)
-            reductions += 1
-            if min_done >= n_frames:
-                break
-            stop_now = abort_all
-        if progress is not None:
-            progress(min_done, launches)
-        abort_req = abort_req or bool(should_abort is not None and should_abort())
-        # one process decides at once; a group at the next MIN, together
-        if stop_now or (abort_req and not multi):
-            aborted = True
-            break
-    for mds in pending:
-        min_done = max(min_done, _min_over_slots(mds, abort_req)[0])
-        reductions += 1
-
-    if aborted:
-        # finish every path in flight before averaging: end = 0 blocks all
-        # restarts, so each pixel averages only completed frames
-        for _ in range(2 + config.max_bounces // max(budget, 1)):
-            live = [sl for sl in lanes if bool((sl.st.alive > 0.0).any())]
-            if not live:
-                break
-            for sl in live:
-                launch(sl, 0)
-
-    rgb = [sl.finish() for sl in lanes]
-    info = dict(base_info, launches=launches, frames_done=int(min_done), budget=budget,
-                tile=mk.BLOCK, aborted=aborted, min_reductions=reductions)
+    rgb = [ls.finish() for ls in sets]
+    info = dict(launches=run.launches, frames_done=run.min_done, budget=budget, ring_slots=0,
+                tile=mk.BLOCK, aborted=run.aborted, n_devices=mesh.size,
+                min_reductions=run.reductions)
     if adaptive is not None:
-        counts = []
-        for sl in lanes:
-            c = np.empty(local_n, np.int64)
-            c[sl.pixel_of_slot] = completed_frames(sl.st).cpu().numpy()
-            counts.append(torch.from_numpy(c))
-        counts = distributed.fetch_global(counts)
-        info.update(
-            compactions=compactions,
-            min_counts=int(counts.min()), max_counts=int(counts.max()),
-            mean_counts=float(counts.mean()), counts=counts, adaptive=adaptive,
-        )
+        counts = distributed.fetch_global([torch.from_numpy(ls.counts()) for ls in sets])
+        info.update(count_info(counts, run.compactions, adaptive))
     return rgb, info

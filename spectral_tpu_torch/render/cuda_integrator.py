@@ -26,6 +26,8 @@ the first bounces. The reference's single-stage
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -588,6 +590,222 @@ def _load_state(rs: dict, config: RenderConfig, device) -> PersistState:
     return PersistState(**out)
 
 
+@dataclasses.dataclass
+class PersistLanes:
+    """One set of persist lanes and what the scheduler carries with them
+    between launches: the whole image's, or one row slab's of a sharded
+    render. ``lead``/``ring`` are the ring variant's frame window
+    (free-running: ``lead`` is the render's frame count, no ring). With
+    ``adaptive``: the stop mask, the five running statistics and the
+    slot -> pixel map, which a repack permutes inside the set.
+    ``lane_inv`` takes the lanes back to pixel order (``None``: they are
+    in it)."""
+
+    st: PersistState
+    scene: SceneTensors
+    config: RenderConfig
+    tables: mk.KernelTables
+    cam: torch.Tensor
+    lead: int
+    ring: tuple | None = None
+    stop: torch.Tensor | None = None
+    stats: tuple = ()
+    pixel_of_slot: np.ndarray | None = None
+    lane_inv: torch.Tensor | None = None
+
+    @property
+    def n(self) -> int:
+        return self.st.px.shape[0]
+
+    def start_adaptive(self, pixel_of_slot: np.ndarray) -> None:
+        """No lane stopped, every statistic zero."""
+        dev = self.st.px.device
+        self.stop = torch.zeros((self.n,), dtype=torch.float32, device=dev)
+        self.stats = tuple(torch.zeros((self.n,), dtype=torch.float32, device=dev)
+                           for _ in range(5))
+        self.pixel_of_slot = pixel_of_slot
+
+    def launch(self, end: int, budget: int) -> None:
+        with trace.span("launch.persist"):
+            mk.run_persist(self.st, self.lead, end, self.tables, self.cam, ring=self.ring,
+                           stop=self.stop, budget=budget)
+
+    def adapt(self, end: int, adaptive: tuple) -> torch.Tensor:
+        """Refresh the stop mask the next launch reads; the statistics stay
+        on the device, queued behind the launch. Returns the count of
+        working lanes, a device scalar."""
+        self.stop, *rest = adapt_update(self.st.rad, self.st.fid, self.st.alive, self.stop,
+                                        *self.stats, end, *adaptive)
+        self.stats = tuple(rest[:5])
+        return rest[5]
+
+    def repack(self, end: int) -> int:
+        """Put the working lanes first (a stable relabeling inside the
+        set); returns how many there are."""
+        st = self.st
+        workable = workable_mask(st.alive.cpu().numpy(), st.fid.cpu().numpy(),
+                                 self.stop.cpu().numpy(), end)
+        order_np = np.argsort(~workable, kind="stable")
+        order = torch.from_numpy(order_np).to(st.px.device)
+        _relabel(st, order)
+        self.stop = self.stop[order]
+        self.stats = tuple(a[order] for a in self.stats)
+        self.pixel_of_slot = self.pixel_of_slot[order_np]
+        self.lane_inv = torch.from_numpy(slot_inverse(self.pixel_of_slot, self.n)).to(st.px.device)
+        return int(workable.sum())
+
+    def finish(self) -> torch.Tensor:
+        return persist_finish(self.st, self.scene, self.config, self.lane_inv)
+
+    def counts(self) -> np.ndarray:
+        """Each pixel's completed frames, in pixel order (int64)."""
+        c = np.empty(self.n, np.int64)
+        c[self.pixel_of_slot] = completed_frames(self.st).cpu().numpy()
+        return c
+
+
+@dataclasses.dataclass
+class PersistRun:
+    """What ``persist_loop`` leaves: its launches, the last completed-frame
+    minimum, whether it stopped on an abort, the minima it reduced, and
+    the adaptive packing (``packed`` working lanes at the last of
+    ``compactions`` repacks)."""
+
+    launches: int
+    min_done: int
+    aborted: bool
+    reductions: int
+    packed: int
+    compactions: int
+
+
+def persist_loop(sets: list[PersistLanes], n_frames: int, budget: int, max_bounces: int,
+                 reduce_min, adaptive: tuple | None = None, compact: bool = True,
+                 progress=None, should_abort=None, preview=None, on_min=None,
+                 abort_at_once: bool = True, fresh: bool = True, packed: int | None = None,
+                 compactions: int = 0) -> PersistRun:
+    """The persist scheduler: launches of ``budget`` bounce iterations over
+    every set of lanes until each lane has completed ``n_frames`` frames,
+    or an abort (``persist_drain`` then finishes the paths in flight).
+
+    The host reads the completed-frame minimum one launch stale:
+    ``reduce_min(readbacks, abort)`` gets a launch's readbacks, one per
+    set, and whether an abort was asked for, and returns ``(min_done,
+    abort_all)``; ``on_min(min_done)`` runs on each minimum short of
+    ``n_frames``. With ``adaptive`` each set's stop mask is updated after
+    its launch and, with ``compact``, when a quarter of the last packing
+    has retired (the one-launch-stale working lanes of all sets counted
+    together) and at least one block would empty, every set packs its
+    working lanes to its front. ``preview()``, ``progress(min_done,
+    launches)`` and ``should_abort()`` run once per launch; an abort stops
+    the loop at once, or with ``abort_at_once=False`` at the next minimum
+    whose ``abort_all`` says so. ``fresh``: the lanes start frame 0.
+    ``packed``/``compactions`` continue a resumed packing."""
+    n = sum(ls.n for ls in sets)
+    packed = n if packed is None else packed
+    # generous runaway bound: ideal launches * 8 + slack
+    max_launches = 16 + 8 * ((n_frames * max_bounces) // max(budget, 1) + 1)
+    pending: list[list[_Readback]] = []
+    pending_work: list[list[_Readback]] = []
+    launches = reductions = min_done = 0
+    aborted = abort_req = False
+    while True:
+        if trace.enabled():
+            # the lanes owing frames as this launch starts: every lane of a
+            # fresh render, else one reduction queued behind the last launch
+            if launches == 0 and fresh:
+                trace.count("persist.lanes_working", n)
+            else:
+                first, *rest = (lanes_working(ls.st, ls.stop, n_frames) for ls in sets)
+                trace.count("persist.lanes_working",
+                            sum((c.to(first.device) for c in rest), first))
+        mds, works = [], []
+        for ls in sets:
+            ls.launch(n_frames, budget)
+            mds.append(min_frames_done(ls.st, ls.stop, n_frames))
+            if adaptive is not None:
+                works.append(ls.adapt(n_frames, adaptive))
+        if adaptive is not None and compact:
+            pending_work.append([_Readback(w) for w in works])
+            if len(pending_work) >= 2:
+                n_work = sum(r.value() for r in pending_work.pop(0))
+                if 0 < n_work < packed - max(packed // 4, mk.BLOCK):
+                    packed = sum(ls.repack(n_frames) for ls in sets)
+                    compactions += 1
+        pending.append([_Readback(md) for md in mds])
+        launches += 1
+        if launches > max_launches:
+            raise RuntimeError(
+                f"persistent render exceeded {max_launches} launches "
+                f"(budget={budget}, n_frames={n_frames}): scheduler bug"
+            )
+        if preview is not None:
+            preview()
+        abort_all = False
+        if len(pending) >= 2:
+            min_done, abort_all = reduce_min(pending.pop(0), abort_req)
+            reductions += 1
+            if min_done >= n_frames:
+                break
+            if on_min is not None:
+                on_min(min_done)
+        if progress is not None:
+            progress(min_done, launches)
+        abort_req = abort_req or bool(should_abort is not None and should_abort())
+        if abort_all or (abort_req and abort_at_once):
+            aborted = True
+            break
+    for mds in pending:
+        min_done = max(min_done, reduce_min(mds, abort_req)[0])
+        reductions += 1
+    return PersistRun(launches, int(min_done), aborted, reductions, packed, compactions)
+
+
+def persist_drain(sets: list[PersistLanes], max_bounces: int, budget: int) -> None:
+    """Finish every path in flight after an abort: launches with
+    ``end = 0``, which blocks all restarts, until no lane is alive (at
+    most ``2 + max_bounces // budget``), so each pixel averages only its
+    completed frames."""
+    for _ in range(2 + max_bounces // max(budget, 1)):
+        live = [ls for ls in sets if bool((ls.st.alive > 0.0).any())]
+        if not live:
+            break
+        for ls in live:
+            ls.launch(0, budget)
+
+
+def check_adaptive(adaptive: tuple) -> tuple:
+    """``(min_frames, rtol, atol)`` as ``(int, float, float)``; raises
+    unless they can drive the convergence test."""
+    adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
+    if adaptive[0] < 2:
+        raise ValueError(
+            "adaptive min_frames must be >= 2 (the variance estimate "
+            "needs at least two samples)"
+        )
+    if not (adaptive[1] >= 0.0 and adaptive[2] >= 0.0):
+        raise ValueError("adaptive rtol/atol must be >= 0")
+    return adaptive
+
+
+def count_info(counts: np.ndarray, compactions: int, adaptive: tuple) -> dict:
+    """The adaptive keys of a persist render's ``info``, from each pixel's
+    completed frames."""
+    return dict(compactions=compactions, min_counts=int(counts.min()),
+                max_counts=int(counts.max()), mean_counts=float(counts.mean()),
+                counts=counts, adaptive=adaptive)
+
+
+def no_objects_info(n_frames: int, n: int, adaptive: tuple | None) -> dict:
+    """The ``info`` of a persist render of a scene without objects: no
+    launch, every one of the ``n`` pixels at ``n_frames``."""
+    info = {"launches": 0, "frames_done": n_frames, "budget": 0,
+            "ring_slots": 0, "tile": 0, "aborted": False}
+    if adaptive is not None:
+        info.update(count_info(np.full(n, n_frames, np.int64), 0, tuple(adaptive)))
+    return info
+
+
 def render_persistent(
     scene: SceneTensors,
     config: RenderConfig,
@@ -612,7 +830,8 @@ def render_persistent(
 
     Every launch (``run_persist``) runs exactly ``budget`` bounce
     iterations, and each lane advances through its own frame stream with
-    its state carried between launches, so a fast lane runs ahead.
+    its state carried between launches, so a fast lane runs ahead
+    (``persist_loop``, with the image as one set of lanes).
     ``ring_slots=0`` (default) is free-running: restarts recompute raygen
     in the kernel (ulps from host raygen, so held to the regen path only
     statistically; launch-split invariant). ``ring_slots=W`` (a power of
@@ -654,15 +873,7 @@ def render_persistent(
     n = config.width * config.height
     dev = scene.device
     if config.n_objects == 0:
-        info = {"launches": 0, "frames_done": n_frames, "budget": 0,
-                "ring_slots": 0, "tile": 0, "aborted": False}
-        if adaptive is not None:
-            info.update(
-                min_counts=n_frames, max_counts=n_frames,
-                mean_counts=float(n_frames), compactions=0,
-                counts=np.full(n, n_frames, np.int64), adaptive=tuple(adaptive),
-            )
-        return empty_frame(scene, config), info
+        return empty_frame(scene, config), no_objects_info(n_frames, n, adaptive)
     ring_slots = ring_slots or 0
     if ring_slots and (ring_slots < 2 or ring_slots & (ring_slots - 1)):
         raise ValueError(f"ring_slots must be 0 or a power of two >= 2, got {ring_slots}")
@@ -678,14 +889,7 @@ def render_persistent(
                 "(ring_slots=0): the ring's host refills assume uniform "
                 "frame progress across lanes"
             )
-        adaptive = (int(adaptive[0]), float(adaptive[1]), float(adaptive[2]))
-        if adaptive[0] < 2:
-            raise ValueError(
-                "adaptive min_frames must be >= 2 (the variance estimate "
-                "needs at least two samples)"
-            )
-        if not (adaptive[1] >= 0.0 and adaptive[2] >= 0.0):
-            raise ValueError("adaptive rtol/atol must be >= 0")
+        adaptive = check_adaptive(adaptive)
     if (resume_state is not None or return_state) and ring_slots:
         raise ValueError(
             "persist checkpointing is free-running only (the ring's host "
@@ -737,126 +941,58 @@ def render_persistent(
                 )
         else:
             st = persist_init(scene, config, lane_perm)
+    lanes = PersistLanes(st, scene, config, tables, cam, lead=n_frames, lane_inv=lane_inv)
 
-    stop = stats = None
+    packed, compactions = n, 0
     if adaptive is not None:
         if resume_state is not None:
-            stop = torch.as_tensor(np.asarray(resume_state["stop"]), dtype=torch.float32).to(dev)
-            stats = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)
-                          for a in resume_state["stats"])
-            pixel_of_slot = np.asarray(resume_state["pixel_of_slot"], np.int64)
-            packed_workable = int(resume_state["packed_workable"])
+            lanes.stop = torch.as_tensor(np.asarray(resume_state["stop"]),
+                                         dtype=torch.float32).to(dev)
+            lanes.stats = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)
+                                for a in resume_state["stats"])
+            lanes.pixel_of_slot = np.asarray(resume_state["pixel_of_slot"], np.int64)
+            packed = int(resume_state["packed_workable"])
             compactions = int(resume_state["compactions"])
+            if compactions:
+                lanes.lane_inv = torch.from_numpy(slot_inverse(lanes.pixel_of_slot, n)).to(dev)
         else:
-            stop = torch.zeros((n,), dtype=torch.float32, device=dev)
-            stats = tuple(torch.zeros((n,), dtype=torch.float32, device=dev)
-                          for _ in range(5))
-            pixel_of_slot = (lane_perm.cpu().numpy().astype(np.int64)
-                             if lane_perm is not None else np.arange(n))
-            packed_workable = n
-            compactions = 0
+            lanes.start_adaptive(lane_perm.cpu().numpy().astype(np.int64)
+                                 if lane_perm is not None else np.arange(n))
 
-    ring = None
-    lead = n_frames  # read by the ring variant only
+    def refill(min_done):
+        new_lead = min(min_done + ring_slots, n_frames)
+        while lanes.lead < new_lead:
+            ring_refill(lanes.ring, lanes.lead, scene, config)
+            lanes.lead += 1
+
     if ring_slots:
-        ring = tuple(torch.zeros((ring_slots, n), dtype=torch.float32, device=dev)
-                     for _ in range(3))
-        lead = min(ring_slots, n_frames)
-        for f in range(1, lead):
-            ring_refill(ring, f, scene, config)
+        lanes.ring = tuple(torch.zeros((ring_slots, n), dtype=torch.float32, device=dev)
+                           for _ in range(3))
+        lanes.lead = min(ring_slots, n_frames)
+        for f in range(1, lanes.lead):
+            ring_refill(lanes.ring, f, scene, config)
 
-    def launch(end):
-        with trace.span("launch.persist"):
-            mk.run_persist(st, lead, end, tables, cam, ring=ring, stop=stop,
-                           budget=budget)
-
-    pending: list[_Readback] = []
-    pending_work: list[_Readback] = []
-    launches = 0
-    min_done = 0
-    aborted = False
-    # generous runaway bound: ideal launches * 8 + slack
-    max_launches = 16 + 8 * ((n_frames * config.max_bounces) // max(budget, 1) + 1)
-    cur_lane_inv = lane_inv
-    if adaptive is not None and compactions:
-        cur_lane_inv = torch.from_numpy(slot_inverse(pixel_of_slot, n)).to(dev)
-    while True:
-        if trace.enabled():
-            # the lanes owing frames as this launch starts: every lane of a
-            # fresh render, else one reduction queued behind the last launch
-            trace.count("persist.lanes_working",
-                        n if launches == 0 and resume_state is None
-                        else lanes_working(st, stop, n_frames))
-        launch(n_frames)
-        md = min_frames_done(st, stop, n_frames)
-        if adaptive is not None:
-            # refresh the stop mask the NEXT launch reads; the statistics
-            # stay on the device, queued behind the launch
-            stop, *rest = adapt_update(st.rad, st.fid, st.alive, stop, *stats,
-                                       n_frames, *adaptive)
-            stats, n_work_dev = tuple(rest[:5]), rest[5]
-            if compact:
-                pending_work.append(_Readback(n_work_dev))
-            if compact and len(pending_work) >= 2:
-                # one-launch-stale working count; repack when the packing
-                # is a quarter hollow and at least one block would empty
-                n_work = pending_work.pop(0).value()
-                if 0 < n_work < packed_workable - max(packed_workable // 4, mk.BLOCK):
-                    workable = workable_mask(
-                        st.alive.cpu().numpy(), st.fid.cpu().numpy(),
-                        stop.cpu().numpy(), n_frames)
-                    order_np = np.argsort(~workable, kind="stable")
-                    order = torch.from_numpy(order_np).to(dev)
-                    _relabel(st, order)
-                    stop = stop[order]
-                    stats = tuple(a[order] for a in stats)
-                    pixel_of_slot = pixel_of_slot[order_np]
-                    packed_workable = int(workable.sum())
-                    compactions += 1
-                    cur_lane_inv = torch.from_numpy(slot_inverse(pixel_of_slot, n)).to(dev)
-        pending.append(_Readback(md))
-        launches += 1
-        if launches > max_launches:
-            raise RuntimeError(
-                f"persistent render exceeded {max_launches} launches "
-                f"(budget={budget}, n_frames={n_frames}): scheduler bug"
-            )
-        if preview is not None:
-            preview(lambda inv=cur_lane_inv: persist_finish(st, scene, config, inv))
-        if len(pending) >= 2:
-            min_done = pending.pop(0).value()
-            if min_done >= n_frames:
-                break
-            if ring_slots:
-                new_lead = min(min_done + ring_slots, n_frames)
-                while lead < new_lead:
-                    ring_refill(ring, lead, scene, config)
-                    lead += 1
-        if progress is not None:
-            progress(min_done, launches)
-        if should_abort is not None and should_abort():
-            aborted = True
-            break
-    for md in pending:
-        min_done = max(min_done, md.value())
+    run = persist_loop(
+        [lanes], n_frames, budget, config.max_bounces,
+        lambda readbacks, abort: (readbacks[0].value(), abort),
+        adaptive=adaptive, compact=compact, progress=progress, should_abort=should_abort,
+        preview=(lambda: preview(lanes.finish)) if preview is not None else None,
+        on_min=refill if ring_slots else None, fresh=resume_state is None,
+        packed=packed, compactions=compactions)
 
     state_pre_drain = None
-    if aborted:
-        # finish every path in flight before averaging: end=0 blocks all
-        # restarts. The checkpoint keeps the state from BEFORE the drain,
-        # so a resume replays the uninterrupted launch stream exactly.
+    if run.aborted:
+        # the checkpoint keeps the state from BEFORE the drain, so a
+        # resume replays the uninterrupted launch stream exactly
         if return_state:
             state_pre_drain = PersistState(**{k: v.clone() for k, v in st.planes().items()})
-        for _ in range(2 + config.max_bounces // max(budget, 1)):
-            if not bool((st.alive > 0.0).any()):
-                break
-            launch(0)
+        persist_drain([lanes], config.max_bounces, budget)
 
     with trace.span("persist.finish"):
-        rgb = persist_finish(st, scene, config, cur_lane_inv)
+        rgb = lanes.finish()
     info = {
-        "launches": launches, "frames_done": int(min_done), "budget": budget,
-        "ring_slots": ring_slots, "tile": mk.BLOCK, "aborted": aborted,
+        "launches": run.launches, "frames_done": run.min_done, "budget": budget,
+        "ring_slots": ring_slots, "tile": mk.BLOCK, "aborted": run.aborted,
     }
     if return_state:
         saved = state_pre_drain if state_pre_drain is not None else st
@@ -867,19 +1003,9 @@ def render_persistent(
                      "adaptive": adaptive},
         }
         if adaptive is not None:
-            rs.update(stop=stop, stats=stats, pixel_of_slot=pixel_of_slot,
-                      packed_workable=packed_workable, compactions=compactions)
+            rs.update(stop=lanes.stop, stats=lanes.stats, pixel_of_slot=lanes.pixel_of_slot,
+                      packed_workable=run.packed, compactions=run.compactions)
         info["resume_state"] = rs
     if adaptive is not None:
-        counts_slot = completed_frames(st).cpu().numpy()
-        counts = np.empty(n, np.int64)
-        counts[pixel_of_slot] = counts_slot
-        info.update(
-            compactions=compactions,
-            min_counts=int(counts.min()),
-            max_counts=int(counts.max()),
-            mean_counts=float(counts.mean()),
-            counts=counts,
-            adaptive=adaptive,
-        )
+        info.update(count_info(lanes.counts(), run.compactions, adaptive))
     return rgb, info

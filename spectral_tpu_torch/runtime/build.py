@@ -121,16 +121,9 @@ REGISTER_LIBRARIES = {f"persist{fx}{tri}_reg": ("persist", d1 + d2 + REGISTER_DE
 # with extra defines (its source note says what each changes). The
 # measurement tools and chip_smoke.py build them beside the main ones.
 VARIANTS = {
-    **{f"{src}_parent": (src, ("-DSPECTRAL_PARENT_DESIGN",))
-       for src in ("regen", "mono", "probe")},
     **{f"{src}_stats": (src, ("-DSPECTRAL_STATS",)) for src in ("regen", "persist", "mono", "seg")},
-    **{f"{src}_parent_stats": (src, ("-DSPECTRAL_PARENT_DESIGN", "-DSPECTRAL_STATS"))
-       for src in ("regen", "mono")},
     "persist_reg_stats": ("persist", REGISTER_DEFINES + ("-DSPECTRAL_STATS",)),
 }
-# the earlier designs that chip_smoke.py times in turns beside the main
-# ones (persist's are its register builds, render libraries)
-PARENT_LIBRARIES = ("regen_parent", "mono_parent", "probe_parent")
 LIBRARIES = {**{src: (src, ()) for src in SOURCES}, **FEATURE_LIBRARIES,
              **TRIANGLE_LIBRARIES, **LENS_LIBRARIES, **SHADOW_INTERVAL_LIBRARIES,
              **REGISTER_LIBRARIES, **VARIANTS}

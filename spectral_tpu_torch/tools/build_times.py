@@ -5,8 +5,8 @@ more checkouts of the port, on the machine with the card.
         [--extra]
 
 For each checkout (default: this one), in the order given, builds its
-default and feature libraries and ``regen_parent`` (``SOURCES`` and
-``FEATURE_LIBRARIES``: the set every checkout with feature builds has)
+default and feature libraries (``SOURCES`` and ``FEATURE_LIBRARIES``:
+the set every checkout with feature builds has)
 into a temporary directory (this package's own into its build
 directory, where its loader finds them), one ``nvcc`` per library, all
 started together, with the checkout's own flags and sources; ``--extra``
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     for checkout in args.checkout or [build.PKG_DIR.parent]:
         checkout = checkout.resolve()
         mod = _build_module(checkout)
-        waves = [("main", tuple(mod.SOURCES) + tuple(mod.FEATURE_LIBRARIES) + ("regen_parent",))]
+        waves = [("main", tuple(mod.SOURCES) + tuple(mod.FEATURE_LIBRARIES))]
         extra = tuple(n for n in getattr(mod, "RENDER_LIBRARIES", ()) if n not in waves[0][1])
         if args.extra and extra:
             waves.append(("extra", extra))

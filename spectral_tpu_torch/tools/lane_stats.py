@@ -9,9 +9,7 @@ and launches them at the main paths' shapes:
 ``cuda_regen`` at cornell512 (512x512, 32 wavelengths, 30 bounces, K =
 100, row-major lanes), spheres1000 (1024x768, 8 bounces, K = 100, Morton
 lanes), mesh (512x512, 30 bounces, K = 100, Morton lanes) and mesh5k
-(the same at K = 10), each in the shipped design and in the earlier
-design's grid (``regen_parent_stats``, one lane per pixel), with both
-main builds timed in turns; ``cuda_seg`` at spheres1000 over bounces
+(the same at K = 10), the main build timed twice; ``cuda_seg`` at spheres1000 over bounces
 [0, 2) of the full wavefront and [2, 8) of the compacted survivors
 (``cuda_integrator.compact_live``), these in three lane orders, the
 cascade's ascending one and two that were measured and not kept
@@ -27,10 +25,8 @@ the stats builds, on the tables where the shared state holds no more
 blocks per SM than registers do (mesh and sphere_field(1000) at 64
 wavelengths, sphere_field(2400) at 32 and 64), each line naming the
 library ``megakernel.persist_library`` takes; ``cuda_mono`` and ``cuda_cost``
-(``mono``) on frame 0 of cornell512 and of mesh (Morton lanes), the
-shipped resident grid and the earlier one (``mono_parent``: one lane
-per pixel) in turns. Every
-thread records its live bounce iterations, its start and end time
+(``mono``) on frame 0 of cornell512 and of mesh (Morton lanes), each
+timed twice. Every thread records its live bounce iterations, its start and end time
 (``globaltimer``) and its walk counters, every block its SM. One JSON
 line per launch:
 
@@ -53,8 +49,8 @@ line per launch:
 A last line, ``kernel_info``, gives the registers, local bytes and
 resident blocks per SM of every instantiation these paths run, from
 the main libraries (``spectral_regen_info``, ``spectral_seg_info``), of
-every instantiation of the persist and mono kernels in the main and the
-earlier design's library (``spectral_persist_info``,
+every instantiation of the persist kernel in the main and the register
+library and of the mono kernel (``spectral_persist_info``,
 ``spectral_mono_info``, at the tables of a scene of each kind, and the
 many-object persist ones also at ``PACKED_SMEM_LIMIT``, the largest
 tables whose records stay in shared memory), and the ``nvcc -Xptxas -v`` lines
@@ -76,7 +72,6 @@ SCENES = ("cornell512", "spheres1000", "mesh", "mesh5k", "seg", "persist", "pers
 # the designs of each source: (library timed, its stats build); None: the
 # main library
 DESIGNS = {
-    "parent: one lane per pixel": ("regen_parent", "regen_parent_stats"),
     "resident grid": (None, "regen_stats"),
 }
 PERSIST_DESIGNS = {
@@ -84,7 +79,6 @@ PERSIST_DESIGNS = {
     "spectral state in shared memory": ("persist", "persist_stats"),
 }
 MONO_DESIGNS = {
-    "parent: one lane per pixel": ("mono_parent", "mono_parent_stats"),
     "resident grid": (None, "mono_stats"),
 }
 
@@ -289,7 +283,7 @@ def main(argv=None) -> int:
     if "mono" in only:
         libs |= design_libs(MONO_DESIGNS)
     if only & {"persist", "persist_tables", "mono"}:  # kernel_info's
-        libs |= set(build.REGISTER_LIBRARIES) | {"persist_tri", "mono_tri", "mono_parent"}
+        libs |= set(build.REGISTER_LIBRARIES) | {"persist_tri", "mono_tri"}
     build.build_all(build.SOURCES + tuple(sorted(libs)))
 
     def culled(tb):
@@ -460,7 +454,7 @@ def main(argv=None) -> int:
                                  launch_ms=[row["ms"] for row in rows],
                                  kernel_ms=sum(row["ms"] for row in rows), launches=rows))
             images.setdefault(d, []).extend((img, timed_img))
-        first = images[next(iter(designs))][0]  # the parent's
+        first = images[next(iter(designs))][0]  # the register build's
         same = {d: all(np.array_equal(first, img) for img in imgs) for d, imgs in images.items()}
         if not all(same.values()):
             raise AssertionError(f"{label}: the persist designs render different images")
@@ -471,7 +465,7 @@ def main(argv=None) -> int:
                                       main_path_library=main_library,
                                       main_build=kernel_info("persist", tb, timed_lib or main_library,
                                                       variant=0),
-                                      image_equals_parent=same[d], main_build_turns=turns[d],
+                                      image_equals_registers=same[d], main_build_turns=turns[d],
                                       card=gpu)), flush=True)
                 continue
             lib_info = kernel_info("persist", tb, lib, variant=0)
@@ -492,7 +486,7 @@ def main(argv=None) -> int:
             for row in per_launch:  # the design's renders in turns on its first line
                 print(json.dumps(dict(part="persist", case=label, design=d, library=lib,
                                       main_path_library=main_library,
-                                      stats_build=lib_info, image_equals_parent=same[d],
+                                      stats_build=lib_info, image_equals_registers=same[d],
                                       main_build_turns=turns[d] if row["launch"] == 0 else None,
                                       **row, card=gpu)), flush=True)
 
@@ -580,8 +574,8 @@ def main(argv=None) -> int:
         mono_case("cornell512 frame 0", scene(presets.cornell_box, 512, 512, 30), False)
         mono_case("mesh 512x512 frame 0 Morton", scene(presets.mesh_demo, 512, 512, 30), True)
     if {"persist", "persist_tables", "mono"} & set(args.only):
-        # every instantiation of both kernels, in the main and the parent
-        # library, at the tables of a scene of its kind and S
+        # every instantiation of both kernels (persist's in the main and
+        # the register library), at the tables of a scene of its kind and S
         for samples in (8, 16, 32, 64):
             wide = "" if samples in mk.DEFAULT_TRIANGLE_SAMPLES else "_tri"
             kinds = {(0, 0, ""): presets.cornell_box, (1, 0, ""): presets.sphere_field,
@@ -589,7 +583,7 @@ def main(argv=None) -> int:
             for (many, tri, suffix), maker in kinds.items():
                 k_tb = mk.pack_tables(*flatten_scene(scene_of_s(maker, samples), dev))
                 libs = {"persist": (f"persist{suffix}", f"persist{suffix}_reg"),
-                        "mono": (f"mono{suffix}",) + ((), ("mono_parent",))[not suffix]}
+                        "mono": (f"mono{suffix}",)}
                 for source, forms in (("persist", range(3)), ("mono", range(2))):
                     for lib in libs[source]:
                         for v in forms:
@@ -605,7 +599,7 @@ def main(argv=None) -> int:
                                                          smem=mk.PACKED_SMEM_LIMIT)))
     ptxas = {src: [ln.strip() for ln in build.build_log(src).splitlines()
                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-             for src in ("regen", "seg", "persist", "persist_reg", "mono", "mono_parent")
+             for src in ("regen", "seg", "persist", "persist_reg", "mono")
              if src in build.SOURCES or src in libs}
     print(json.dumps(dict(part="kernel_info", sms=sms, instantiations=infos,
                           ptxas=ptxas, card=gpu)), flush=True)

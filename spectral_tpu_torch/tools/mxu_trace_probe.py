@@ -22,13 +22,9 @@ card; ``--device cpu`` runs the plain versions and reports no time:
 
     python -m spectral_tpu_torch.tools.mxu_trace_probe --reps 1 --seed 0 1 2 3
 
-``--parent`` adds a ``parent_turns`` line per seed: each kernel and its
-earlier design (the ``probe_parent`` build) timed in turns, parent, new,
-new, parent, the loop kernels held ``torch.equal`` to each other and the
-tensor-core kernels each to the plain version's winners. ``--sass DIR``
-writes ``cuobjdump -sass`` of the two builds' libraries into DIR and
-prints a ``sass`` line of instruction counts per kernel (the toolkit's
-``cuobjdump`` beside ``nvcc``).
+``--sass DIR`` writes ``cuobjdump -sass`` of the ``probe`` library into
+DIR and prints a ``sass`` line of instruction counts per kernel (the
+toolkit's ``cuobjdump`` beside ``nvcc``).
 """
 
 from __future__ import annotations
@@ -68,10 +64,8 @@ def main(argv=None) -> None:
     ap.add_argument("--objects", type=int, default=tp.N_OBJ)
     ap.add_argument("--seed", type=int, nargs="+", default=[0])
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--parent", action="store_true",
-                    help="also time the earlier design (probe_parent) in turns")
     ap.add_argument("--sass", type=Path, default=None, metavar="DIR",
-                    help="write the SASS of probe and probe_parent into DIR")
+                    help="write the SASS of the probe library into DIR")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -82,8 +76,6 @@ def main(argv=None) -> None:
         where["card"] = card()
     for seed in args.seed:
         probe(seed, args.tiles, args.objects, args.reps, dev, where)
-        if args.parent and dev.type == "cuda":
-            parent_turns(seed, args.tiles, args.objects, args.reps, dev, where)
     if args.sass is not None:
         sass(args.sass, where)
 
@@ -124,64 +116,33 @@ def probe(seed: int, tiles: int, objects: int, reps: int, dev, where: dict) -> N
     }), flush=True)
 
 
-def parent_turns(seed: int, tiles: int, objects: int, reps: int, dev, where: dict) -> dict:
-    """Each kernel and its earlier design (``probe_parent``) in turns:
-    parent, new, new, parent, ``reps`` launches each, after one launch of
-    each. Prints and returns the ``parent_turns`` line."""
-    inputs = tp.make_inputs(seed, tiles, objects)
-    fori = tuple(torch.from_numpy(a).to(dev) for a in inputs["fori"])
-    mma = tuple(torch.from_numpy(a).to(dev) for a in inputs["mma"])
-    pt, pw = tp.probe_mma_plain(*mma)
-    out = {"name": "parent_turns", "rays": tiles * tp.N_RAYS, "objects": objects,
-           "seed": seed}
-    for key, new, args in (
-            ("fori", tp.cuda_probe_fori, fori), ("mma", tp.cuda_probe_mma, mma)):
-        parent = getattr(tp, f"probe_{key}_variant")
-        runs = {"new": lambda: new(*args), "parent": lambda: parent("probe_parent", *args)}
-        outs = {k: fn() for k, fn in runs.items()}
-        turns = {"new": [], "parent": []}
-        for k in ("parent", "new", "new", "parent"):
-            turns[k].append(time_ms(runs[k], (), reps))
-        if key == "fori":
-            same = all(torch.equal(a, b) for a, b in zip(outs["new"], outs["parent"]))
-            out["fori_new_equals_parent"] = same
-        else:
-            out["mma_winners_vs_plain"] = {
-                k: tp.compare(*outs[k], pt, pw)["winner_agreement"] for k in outs}
-        out[key] = {"ms": sum(turns["new"]) / 2, "parent_ms": sum(turns["parent"]) / 2,
-                    "turns_ms": turns}
-    out.update(where)
-    print(json.dumps(out), flush=True)
-    return out
-
-
 def sass(directory: Path, where: dict) -> None:
-    """``cuobjdump -sass`` of the libraries ``probe`` and ``probe_parent``
-    into ``directory``, and per kernel the count of each instruction kind
-    that the probe's loops are made of."""
+    """``cuobjdump -sass`` of the library ``probe`` into ``directory``, and
+    per kernel the count of each instruction kind that the probe's loops
+    are made of."""
     directory.mkdir(parents=True, exist_ok=True)
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     kinds = ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "MUFU", "CALL", "VOTE", "BRA",
              "LDS", "HGMMA", "HMMA", "SHFL")
-    for name in ("probe", "probe_parent"):
-        build.build(name)
-        text = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
-                              capture_output=True, text=True, check=True).stdout
-        (directory / f"lib{name}.sass").write_text(text)
-        counts, kernel = {}, None
-        for ln in text.splitlines():
-            m = re.search(r"Function : (\S+)", ln)
-            if m:
-                kernel = m.group(1)
-                counts[kernel] = dict.fromkeys(("instructions",) + kinds, 0)
-                continue
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
-            if m and kernel:
-                counts[kernel]["instructions"] += 1
-                if m.group(1) in counts[kernel]:
-                    counts[kernel][m.group(1)] += 1
-        print(json.dumps({"name": "sass", "library": name, "kernels": counts, **where}),
-              flush=True)
+    name = "probe"
+    build.build(name)
+    text = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    (directory / f"lib{name}.sass").write_text(text)
+    counts, kernel = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = dict.fromkeys(("instructions",) + kinds, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", ln)
+        if m and kernel:
+            counts[kernel]["instructions"] += 1
+            if m.group(1) in counts[kernel]:
+                counts[kernel][m.group(1)] += 1
+    print(json.dumps({"name": "sass", "library": name, "kernels": counts, **where}),
+          flush=True)
 
 
 if __name__ == "__main__":

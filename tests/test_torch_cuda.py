@@ -31,8 +31,8 @@ within its own first-order error bound (``trace_probe.error_bound``:
 the 3xTF32 dot products err by at most 22 float32 roundings of their
 terms' magnitudes, the rest as the plain version) and 98% of hits within
 1e-5. The formula cancels, so t agrees with the plain version only to
-float32's error. The earlier probe designs (the ``probe_parent`` build)
-are held to the same, at ragged ray and sphere counts. Motion blur on
+float32's error. Both kernels are held to the same at ragged ray and
+sphere counts. Motion blur on
 ``cuda_mono``: a clustered render equals ``accel="none"`` bit for bit
 with a sphere leaving its cluster, and static tracks equal the unblurred
 render. The AOVs on the card against the CPU: ``obj_id`` exactly, depth,
@@ -460,13 +460,11 @@ def test_cuda_probe_refuses_spheres_beyond_shared_memory(cuda):
     own layout leaves room (``trace_probe.probe_layout``, from
     ``probe.cu``): kernel B's table holds 3,392 spheres (68 B per sphere of
     a table padded to a multiple of 32, after a 128-byte head), kernel A
-    14,271 (16 B each, one more slot, and its second share's minima); the
-    earlier design 3,416 and 14,528. Kernel B at 3,400 spheres and kernel
-    A at one more than it holds raise on the host and launch nothing."""
+    14,271 (16 B each, one more slot, and its second share's minima).
+    Kernel B at 3,400 spheres and kernel A at one more than it holds raise
+    on the host and launch nothing."""
     assert tp.probe_layout("probe", 1000) == {"fori": 14271, "mma": 3392,
                                               "mma_scratch": 17 * 1024 + 4}
-    assert tp.probe_layout("probe_parent", 1000) == {"fori": 14528, "mma": 3416,
-                                                     "mma_scratch": 0}
     before = trace.total("launch.probe_mma")
     for n_obj, fits in ((3392, True), (3400, False)):
         args = tuple(torch.from_numpy(a).to(cuda) for a in tp.make_inputs(0, 1, n_obj)["mma"])
@@ -505,47 +503,42 @@ def _ragged_probe(device, n_obj, tiles=8, extra=77):
 
 
 @pytest.mark.parametrize("n_obj", [8, 128, 1000, 1024])
-def test_cuda_probe_kernels_match_parent_and_plain_ragged(cuda, n_obj):
-    """The redesigned probe kernels and their earlier design (the
-    ``probe_parent`` build) at a ragged ray count and sphere counts that
-    fill the tensor-core kernel's padded table (1,024), leave it partly
-    padding (8, 1,000) or fill one of the earlier design's 128-sphere
-    blocks:
-    ``cuda_probe_fori`` and its parent ``torch.equal`` to the plain
-    version; ``cuda_probe_mma`` and its parent within the ``MMA_*``
-    limits against the plain version and float64."""
+def test_cuda_probe_kernels_match_plain_ragged(cuda, n_obj):
+    """The probe kernels at a ragged ray count and sphere counts that fill
+    the tensor-core kernel's padded table (1,024), leave it partly padding
+    (8, 1,000) or fill 128 spheres: ``cuda_probe_fori`` ``torch.equal`` to
+    the plain version; ``cuda_probe_mma`` within the ``MMA_*`` limits
+    against the plain version and float64."""
     fori, mma = _ragged_probe(cuda, n_obj)
     pt, pwin = tp.probe_fori_plain(*fori)
-    for t, win in (tp.cuda_probe_fori(*fori), tp.probe_fori_variant("probe_parent", *fori)):
-        assert torch.equal(t, pt) and torch.equal(win, pwin)
+    t, win = tp.cuda_probe_fori(*fori)
+    assert torch.equal(t, pt) and torch.equal(win, pwin)
     assert bool(torch.isfinite(pt).any())
     mt, mwin = tp.probe_mma_plain(*mma)
     et, ewin = tp.probe_exact(*mma)
     bound = tp.error_bound(*mma, ewin, tp.MMA_DOT_GAMMA)
-    for t, win in (tp.cuda_probe_mma(*mma), tp.probe_mma_variant("probe_parent", *mma)):
-        vs_plain = tp.compare(t, win, mt, mwin)
-        vs_exact = tp.compare(t, win, et, ewin, bound)
-        assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, vs_plain
-        assert vs_exact["max_err_over_bound"] <= 1.0, vs_exact
-        assert vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, vs_exact
+    t, win = tp.cuda_probe_mma(*mma)
+    vs_plain = tp.compare(t, win, mt, mwin)
+    vs_exact = tp.compare(t, win, et, ewin, bound)
+    assert vs_plain["winner_agreement"] >= tp.MMA_WINNERS_MIN, vs_plain
+    assert vs_exact["max_err_over_bound"] <= 1.0, vs_exact
+    assert vs_exact["share_within_1e5"] >= tp.MMA_SHARE_1E5_MIN, vs_exact
 
 
-def test_cuda_probe_kernels_match_parent_at_full_shape(cuda):
+def test_cuda_probe_kernels_match_plain_at_full_shape(cuda):
     """At the probe tool's full shape (196,608 rays, 1,024 spheres, seed
-    0): the redesigned loop kernel bit for bit its earlier design's and
-    the plain version's output, the tensor-core kernel's winners the
-    plain version's on ``MMA_WINNERS_MIN`` of rays, as its parent's."""
+    0): the loop kernel bit for bit the plain version's output, the
+    tensor-core kernel's winners the plain version's on
+    ``MMA_WINNERS_MIN`` of rays."""
     inputs = tp.make_inputs(0)
     fori = tuple(torch.from_numpy(a).to(cuda) for a in inputs["fori"])
     mma = tuple(torch.from_numpy(a).to(cuda) for a in inputs["mma"])
     t, win = tp.cuda_probe_fori(*fori)
-    qt, qwin = tp.probe_fori_variant("probe_parent", *fori)
     pt, pwin = tp.probe_fori_plain(*fori)
-    assert torch.equal(t, qt) and torch.equal(win, qwin)
     assert torch.equal(t, pt) and torch.equal(win, pwin)
     mt, mwin = tp.probe_mma_plain(*mma)
-    for got in (tp.cuda_probe_mma(*mma), tp.probe_mma_variant("probe_parent", *mma)):
-        assert tp.compare(*got, mt, mwin)["winner_agreement"] >= tp.MMA_WINNERS_MIN
+    got = tp.cuda_probe_mma(*mma)
+    assert tp.compare(*got, mt, mwin)["winner_agreement"] >= tp.MMA_WINNERS_MIN
 
 
 # ------------------------------------- the redesigned regen and the packed walk
@@ -584,15 +577,12 @@ def test_cuda_regen_equals_plain_and_sum_of_mono_frames(cuda, kind):
 def test_cuda_regen_resident_grid_hands_out_pixels(cuda):
     """More lanes than the card holds at once (132 SMs x 4 blocks x 128
     lanes = 67,584): lanes take further pixels from the counter. The image
-    is the plain version's bit for bit, and the earlier design's grid (the
-    ``regen_parent`` diagnostic build, one lane per pixel) gives the same
-    bits."""
+    is the plain version's bit for bit."""
     port, cfg = flatten_scene(_scene("cornell", 384, 256, 3, samples=8, iters=3), cuda)
     tb = mk.pack_tables(port, cfg)
     args = (*ci.regen_args(port, cfg, 0, 3), tb)
     got = mk.run_regen(*args)
     assert torch.equal(got, mk.run_regen_plain(*args))
-    assert torch.equal(got, mk.run_regen_variant("regen_parent", *args))
 
 
 def test_cuda_packed_walk_from_global_memory(cuda):
@@ -658,7 +648,7 @@ def test_cuda_feature_scenes_load_feature_builds_only(cuda, monkeypatch):
     assert set(loaded) == {"regen", "mono"}
     prism = mk.pack_tables(*flatten_scene(_scene("prism", 8, 8, 2), cuda))
     with pytest.raises(ValueError, match="feature"):
-        mk.run_regen_variant("regen_parent", *ci.regen_args(prism.scene, prism.config, 0, 2),
+        mk.run_regen_variant("regen_stats", *ci.regen_args(prism.scene, prism.config, 0, 2),
                              prism)
 
 
@@ -772,8 +762,8 @@ def test_cuda_shadow_interval_matches_plain(cuda, kind, monkeypatch):
 
 
 def _parent_cases(device):
-    """Tables each diagnostic parent build holds (no features, triangles
-    at S = 8 and 32 only): the Cornell box at 384x256 (98,304 lanes, more
+    """Tables the parent build ``persist_reg`` holds (no features,
+    triangles at S = 8 and 32 only): the Cornell box at 384x256 (98,304 lanes, more
     than the resident grid holds at once, so threads take further lanes
     from the counter), the clustered 101-object field, the mesh at S = 32
     and a smooth icosphere at S = 8 (the small-scene triangle build)."""
@@ -785,18 +775,15 @@ def _parent_cases(device):
 
 
 @pytest.mark.parametrize("kind", ["cornell", "field", "mesh", "smooth0"])
-def test_cuda_mono_resident_grid_matches_parent_and_plain(cuda, kind):
+def test_cuda_mono_resident_grid_matches_plain(cuda, kind):
     """``cuda_mono`` and ``cuda_cost`` on the resident grid: bit for bit
-    the earlier grid's (``mono_parent``, one lane per pixel) and the plain
-    version's, the cost radiance the mono radiance."""
+    the plain version's, the cost radiance the mono radiance."""
     tb = _parent_cases(cuda)[kind]
     planes, px, py = ci.primary_lanes(tb.scene, tb.config, 1)
     args = (*planes, px, py, 1, tb)
     mono = mk.run_mono(*args)
     rad, cost = mk.run_cost(*args)
-    assert torch.equal(mono, mk.run_mono_variant("mono_parent", *args))
-    prad, pcost = mk.run_cost_variant("mono_parent", *args)
-    assert torch.equal(rad, mono) and torch.equal(rad, prad) and torch.equal(cost, pcost)
+    assert torch.equal(rad, mono)
     want, want_cost = mk.run_cost_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(mono, want) and torch.equal(cost, want_cost)

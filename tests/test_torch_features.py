@@ -292,7 +292,7 @@ def test_library_and_features_must_agree():
     prism = mk.pack_tables(*flatten_scene(presets.prism(n_samples=8), "cpu"))
     cornell = mk.pack_tables(*flatten_scene(ts.preset(presets, "cornell", 8, 6, 1), "cpu"))
     with pytest.raises(ValueError, match="feature"):
-        mk._entry("spectral_regen", prism, "regen_parent")
+        mk._entry("spectral_regen", prism, "regen_stats")
     with pytest.raises(ValueError, match="feature"):
         mk._entry("spectral_seg", cornell, "seg_fx")
 
@@ -392,4 +392,4 @@ def test_build_runs_one_nvcc_per_library(tmp_path, monkeypatch):
     assert (tmp_path / "libregen_fx.log").exists()
     assert build.build_seconds("regen_fx") >= 0.0
     assert build.has_features("seg_fx") and not build.has_features("seg")
-    assert not build.has_features("regen_parent")
+    assert not build.has_features("regen_stats")

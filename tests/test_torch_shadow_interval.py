@@ -190,11 +190,11 @@ def test_every_kind_of_scene_takes_its_library():
     assert build.has_lens("regen_si") and build.has_lens("regen_fx_lens")
     assert not build.has_lens("regen") and not build.has_lens("regen_tri")
     with pytest.raises(ValueError, match="lens"):
-        mk._entry("spectral_regen", mesh[8], "regen_parent", lens=True)
+        mk._entry("spectral_regen", mesh[8], "regen_stats", lens=True)
     assert set(build.kind_of("persist_tri")) == {"mono_tri", "regen_tri", "persist_tri",
                                                  "seg_tri"}
     assert build.kind_of("regen") == build.SOURCES
-    assert build.kind_of("regen_parent") == ("regen_parent",)
+    assert build.kind_of("regen_stats") == ("regen_stats",)
     assert set(build.RENDER_LIBRARIES) >= set(build.TRIANGLE_LIBRARIES) | set(
         build.LENS_LIBRARIES) | set(build.SHADOW_INTERVAL_LIBRARIES) | set(
         build.FEATURE_LIBRARIES) | set(build.SOURCES)

@@ -258,6 +258,42 @@ def test_sharded_persist_matches_reference_sharded():
     assert np.array_equal(got, single.numpy())  # and the port's own, bit for bit
 
 
+def _abort_on_call(k):
+    """A ``should_abort`` that asks on its ``k``-th call (once per launch)."""
+    calls = []
+    return lambda: calls.append(1) or len(calls) >= k
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(bounces=1, iters=4, budget=12), id="plain"),
+    pytest.param(dict(bounces=4, iters=16, budget=3, adaptive=(2, 1e9, 1e9)), id="adaptive"),
+    pytest.param(dict(bounces=2, iters=6, budget=2, abort=2), id="abort"),
+])
+def test_one_slot_persist_is_the_unsharded_loop(kw):
+    """A one-slot mesh is one set of lanes, the whole image's, in the one
+    persist loop: the sharded render makes the unsharded render's
+    launches, its repacks and its abort, bit for bit."""
+    kw = dict(kw)
+    bounces, iters, abort = kw.pop("bounces"), kw.pop("iters"), kw.pop("abort", None)
+    st, cfg, _, _ = _setup(bounces=bounces, iters=iters)
+
+    def run(render):
+        stop = _abort_on_call(abort) if abort else None
+        return render(n_frames=iters, should_abort=stop, **kw)
+
+    want, info_w = run(lambda **k: ci.render_persistent(st, cfg, **k))
+    got, info_g = run(lambda **k: _port_sharded(st, cfg, 1, **k))
+    assert np.array_equal(got, want.numpy())
+    for key in ("launches", "frames_done", "aborted", "compactions", "budget"):
+        assert info_g.get(key) == info_w.get(key), key
+    assert info_g["min_reductions"] == info_g["launches"]
+    if "adaptive" in kw:
+        assert info_w["compactions"] >= 1  # the repack ran, in both
+        assert np.array_equal(info_g["counts"], info_w["counts"])
+    if abort:
+        assert info_w["aborted"] and info_w["launches"] == abort
+
+
 def test_sharded_persist_adaptive_stops():
     st, cfg, jax_args, jax_kw = _setup(iters=16)
     _, want = jax_persist_sharded(*jax_args, jax_make_mesh(8), n_frames=16, tile=256,

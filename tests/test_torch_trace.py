@@ -13,6 +13,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from spectral_tpu_torch.ops import megakernel as mk
+from spectral_tpu_torch.parallel.mesh import make_mesh, row_sharding
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.render.renderer import Renderer
 from spectral_tpu_torch.runtime import trace
@@ -107,12 +108,19 @@ def test_regen_path_spans_nest_and_share_their_request():
     assert {s.request for s in _spans(rows2) if s.name != "scene.parse"} == {r2.request}
 
 
-@pytest.mark.parametrize("adaptive", [None, (2, 0.5, 1e-2)], ids=["plain", "adaptive"])
-def test_persist_counts_the_lanes_working_at_each_launch(monkeypatch, adaptive):
+@pytest.mark.parametrize("adaptive, slots", [
+    pytest.param(None, None, id="plain"),
+    pytest.param((2, 0.5, 1e-2), None, id="adaptive"),
+    pytest.param(None, 2, id="plain-sharded"),
+    pytest.param((2, 0.5, 1e-2), 2, id="adaptive-sharded"),
+])
+def test_persist_counts_the_lanes_working_at_each_launch(monkeypatch, adaptive, slots):
     """One ``persist.lanes_working`` row per launch: every lane at the
     first, then the lanes that owe frames as the launch starts, which a
     copy of the state taken then gives through ``completed_frames`` (a
-    stopped lane that is dead owes none)."""
+    stopped lane that is dead owes none). A sharded render counts its
+    slabs' lanes together in that row, and times each slab's launch in
+    a ``launch.persist`` span."""
     want = []
     real = mk.run_persist
 
@@ -125,17 +133,23 @@ def test_persist_counts_the_lanes_working_at_each_launch(monkeypatch, adaptive):
 
     monkeypatch.setattr(mk, "run_persist", spy)
     scene = _cornell(iters=6)
-    r = Renderer(scene, device="cpu", persist=True, persist_budget=4, adaptive=adaptive)
+    kw = {"sharding": row_sharding(make_mesh(slots, device="cpu"))} if slots else {}
+    r = Renderer(scene, device="cpu", persist=True, persist_budget=4, adaptive=adaptive, **kw)
     _, rows = _profiled(r.render)
     got = [c.value for c in rows if isinstance(c, trace.Count)
            and c.name == "persist.lanes_working"]
+    per_launch = slots or 1
+    want = [sum(want[i:i + per_launch]) for i in range(0, len(want), per_launch)]
     assert len(got) == r.persist_info["launches"] == len(want) > 2
     assert got[0] == want[0] == scene.width * scene.height
     assert got == want
     assert got[-1] < got[0]
     assert all(c.request == r.request for c in rows if isinstance(c, trace.Count))
-    names = {s.name for s in _spans(rows)}
-    assert {"persist.init", "launch.persist", "persist.wait", "persist.finish"} <= names
+    spans = _spans(rows)
+    assert [s.name for s in spans].count("launch.persist") == len(got) * per_launch
+    names = {s.name for s in spans}
+    assert {"launch.persist", "persist.wait", "persist.finish"} <= names
+    assert ("persist.init" in names) == (slots is None)
 
 
 def test_persist_probe_span_holds_the_budget_probe():
