@@ -24,7 +24,8 @@
 // memory where they fit (spheres1000's 16 KB, mesh's 16 KB) and else
 // streamed from global memory (mesh5k's 300 KB); no order[] load comes
 // before a member test, and the 47-row table in global memory serves the
-// winner's shading, box runs and an unclustered mixed run.
+// winner's shading, box runs and an unclustered mixed run. A sphere
+// member's root stage runs only under a warp vote (sphere_t_voted).
 //
 // Exactness. A cluster is skipped only when the ray cannot enter its
 // union AABB at or before its current best hit (`<=`, not `<`: a member
@@ -384,10 +385,12 @@ __device__ __forceinline__ int packed_kind(const float* R) {
 // trace (base 0) and the shadow rays (base WALK_SHADOW): the traces, the
 // culled runs the lane needs and those its warp visits (any of its
 // active lanes needs them), the member tests the lane needs and those
-// its warp runs.
+// its warp runs; then, once a warp (in its lowest active lane's slot),
+// the packed sphere member tests the warp runs and those whose root
+// stage it runs (sphere_t_voted).
 constexpr int WALK_TRACES = 0, WALK_RUNS_NEED = 1, WALK_RUNS_VISIT = 2,
-              WALK_MEMB_NEED = 3, WALK_MEMB_VISIT = 4, WALK_SHADOW = 5,
-              WALK_STATS = 10;
+              WALK_MEMB_NEED = 3, WALK_MEMB_VISIT = 4, WALK_SPHERE_TESTS = 5,
+              WALK_ROOT_STAGES = 6, WALK_SHADOW = 7, WALK_STATS = 14;
 
 __device__ __forceinline__ unsigned* walk_slots() {
   __shared__ unsigned slots[WALK_STATS * BLOCK];
@@ -408,12 +411,54 @@ __device__ __forceinline__ void walk_run(int base, const float* R, bool reach) {
   walk_count(base, WALK_MEMB_NEED, reach ? size : 0u);
   walk_count(base, WALK_MEMB_VISIT, any ? size : 0u);
 }
+
+__device__ __forceinline__ void walk_sphere(int base, unsigned lanes, bool rooted) {
+  if ((int)(threadIdx.x & 31u) == __ffs(lanes) - 1) {
+    walk_count(base, WALK_SPHERE_TESTS, 1u);
+    walk_count(base, WALK_ROOT_STAGES, rooted ? 1u : 0u);
+  }
+}
 #define SPECTRAL_WALK_TRACE(base) walk_count(base, WALK_TRACES, 1u)
 #define SPECTRAL_WALK_RUN(base, R, reach) walk_run(base, R, reach)
+#define SPECTRAL_WALK_SPHERE(shadow, lanes, rooted) \
+  walk_sphere((shadow) ? WALK_SHADOW : 0, lanes, rooted)
 #else
 #define SPECTRAL_WALK_TRACE(base) ((void)0)
 #define SPECTRAL_WALK_RUN(base, R, reach) ((void)0)
+#define SPECTRAL_WALK_SPHERE(shadow, lanes, rooted) ((void)0)
 #endif
+
+// sphere_t in two stages, for the packed sphere runs of the many-object
+// walk, where most lanes of a warp miss most of a cluster's members: the
+// discriminant on every lane, then the root stage only where a warp vote
+// finds a lane with disc >= 0. A lane votes whenever it runs the test, so
+// a lane with a root always gets its root stage. Inside it a lane without
+// one takes sqrtf(1), not sqrtf(0): zero is off the IEEE square root's
+// fast path, and one such lane would hold its warp on the slow path. Its
+// roots are discarded as before. A lane with disc >= 0 takes sqrtf(disc),
+// which is sqrtf(max0(disc)) there (a -0.0 keeps its sign), so valid and
+// t are sphere_t's bits. The trace probe's roots do the same (probe.cu).
+template <bool SHADOW>
+__device__ __forceinline__ bool sphere_t_voted(float cx, float cy, float cz,
+                                               float r, float ox, float oy,
+                                               float oz, float dx, float dy,
+                                               float dz, float& t) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float b = 2.0f * dot3(ocx, ocy, ocz, dx, dy, dz);
+  const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
+  const float disc = b * b - 4.0f * a * c;
+  const bool root = disc >= 0.0f;
+  const unsigned lanes = __activemask();
+  const bool any = __any_sync(lanes, root);
+  SPECTRAL_WALK_SPHERE(SHADOW, lanes, any);
+  if (!any) return false;
+  const float sq = sqrtf(root ? disc : 1.0f);
+  const float t1 = (-b - sq) / (2.0f * a);
+  const float t2 = (-b + sq) / (2.0f * a);
+  t = t1 >= 0.0f ? t1 : t2;
+  return root && (t >= 0.0f);
+}
 
 // Nearest positive hit: returns the winner's original index (-1: miss).
 // A small scene loops over its objects in index order, where strict <
@@ -449,7 +494,8 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
       for (int k = start; k < stop; ++k) {
         const float4 c = tb.packed[at + k];
         float t;
-        if (sphere_t(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz, t) &&
+        if (sphere_t_voted<false>(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy,
+                                  dz, t) &&
             t > 0.0f && t <= t_best) {
           const int o = tb.order[k];  // ties: the lowest original index wins
           if (t < t_best || o < win) {
@@ -532,7 +578,8 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
         }
 #else
         float t;
-        if (sphere_t(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz, t) &&
+        if (sphere_t_voted<true>(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy,
+                                 dz, t) &&
             t > 0.0f && t <= max_dist && t < INFINITY) {
           return true;
         }

@@ -42,6 +42,9 @@ line per launch:
   (clusters) the lane needs and its warp visits, their SIMT efficiency
   (member tests needed over those run), and ``visited_fraction``: the
   share of clusters a trace needs, the input of ``flops.kernel_ops``;
+  beside it ``root_stage_share``: of the packed sphere member tests a
+  warp runs, the share in which it runs the root stage because a lane
+  has a root (``bounce.cuh:sphere_t_voted``), both counted once a warp;
 - ``bound_ms``: the least time of the launch (``flops.bound_ms``): its
   live iterations at ``kernel_ops``' count with the measured visited
   fractions, or its bytes over HBM.
@@ -81,6 +84,9 @@ PERSIST_DESIGNS = {
 MONO_DESIGNS = {
     "resident grid": (None, "mono_stats"),
 }
+# the walk counters' slots per thread, as ``bounce.cuh`` numbers them:
+# the nearest trace's from 0, the shadow rays' from WALK_SHADOW
+WALK_SHADOW, WALK_STATS = 7, 14
 
 
 def _bind(lib, buf: dict, threads: int) -> None:
@@ -103,7 +109,7 @@ def _buffers(threads: int, dev):
                 t0=torch.zeros(threads, dtype=i64, device=dev),
                 t1=torch.zeros(threads, dtype=i64, device=dev),
                 smid=torch.zeros(blocks, dtype=i32, device=dev),
-                walk=torch.zeros(10 * threads, dtype=i32, device=dev))
+                walk=torch.zeros(WALK_STATS * threads, dtype=i32, device=dev))
 
 
 def summarize(buf: dict, threads: int, slots: int, n_culled: int) -> dict:
@@ -116,7 +122,7 @@ def summarize(buf: dict, threads: int, slots: int, n_culled: int) -> dict:
     t1 = t1[:threads]
     it = buf["iters"].cpu().numpy().astype(np.int64)[:threads]
     t0 = buf["t0"].cpu().numpy()[:threads]
-    walk = buf["walk"].cpu().numpy().astype(np.int64).reshape(10, -1)[:, :threads]
+    walk = buf["walk"].cpu().numpy().astype(np.int64).reshape(WALK_STATS, -1)[:, :threads]
     pad = (-threads) % 128
     itp = np.concatenate([it, np.zeros(pad, np.int64)])
     warp_max = itp.reshape(-1, 32).max(axis=1)
@@ -154,7 +160,7 @@ def summarize(buf: dict, threads: int, slots: int, n_culled: int) -> dict:
     out = dict(lane_loop=lane_loop, blocks=blocks)
     if n_culled:
         w = walk.sum(axis=1).astype(float)
-        for name, base in (("nearest", 0), ("shadow", 5)):
+        for name, base in (("nearest", 0), ("shadow", WALK_SHADOW)):
             traces = max(w[base], 1.0)
             out[f"walk_{name}"] = dict(
                 traces=w[base],
@@ -165,7 +171,10 @@ def summarize(buf: dict, threads: int, slots: int, n_culled: int) -> dict:
                 warp_visited_fraction=w[base + 2] / (traces * n_culled),
                 member_tests_needed_per_trace=w[base + 3] / traces,
                 member_tests_run_per_trace=w[base + 4] / traces,
-                simt_efficiency=w[base + 3] / max(w[base + 4], 1.0))
+                simt_efficiency=w[base + 3] / max(w[base + 4], 1.0),
+                warp_sphere_tests=w[base + 5],
+                warp_root_stages=w[base + 6],
+                root_stage_share=w[base + 6] / max(w[base + 5], 1.0))
     return out
 
 

@@ -15,8 +15,10 @@ bit: the ring variant to its plain version and to ``cuda_regen``, the
 free-running variant across launch splits and to its plain version, the
 all-zero stop mask to the free-running variant, and ``cuda_cost``'s
 radiance to ``cuda_mono``'s. The many-object variants (a 101-object
-sphere field, clustered) and ``cuda_seg`` are held bit for bit to their
-plain versions, the clustered walk to the flat one, and the split frame
+sphere field, clustered, and the same with two spheres exactly tangent
+to a primary and a shadow ray, whose warps' votes meet every case of the
+packed sphere tests' root stage) and ``cuda_seg`` are held bit for bit
+to their plain versions, the clustered walk to the flat one, and the split frame
 to the mono frame; the cascade to the mono frame within 1e-6 of the
 image scale (it sums each segment's radiance separately). The triangle
 builds (the mesh preset, clustered and flat, and a smooth mesh in the
@@ -309,6 +311,33 @@ def test_cuda_many_object_regen_on_morton_lanes(cuda):
     perm, _ = morton_layout(cfg.width, cfg.height, cuda)
     args = (*ci.regen_args(port, cfg, 0, 3, perm), tb)
     assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bounces", [1, 3])
+def test_cuda_many_object_kernels_at_tangent_lanes_match_plain(cuda, bounces):
+    """The packed sphere tests' warp vote (``bounce.cuh:sphere_t_voted``)
+    on the tangent field (``torch_scenes.tangent_field``): one warp of
+    frame 1's primaries holds lanes with no root, a lane exactly tangent
+    to a sphere (disc == 0, its nearest hit) and lanes that hit; one warp
+    of bounce 0's shadow rays to light 0 the same, the tangent sphere its
+    lane's only blocker. mono, cost, regen (frames 1 to 3) and persist
+    (frames 0 to 3) bit for bit to their plain versions."""
+    scene, info = torch_scenes.tangent_field(presets, cuda, 32, 16, bounces, iters=4)
+    port, cfg = flatten_scene(scene, cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.clusters is not None and tb.packed_shared
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    mono = mk.run_mono(*planes, px, py, 1, tb)
+    assert torch.equal(mono, mk.run_mono_plain(*planes, px, py, 1, tb))
+    rad, cost = mk.run_cost(*planes, px, py, 1, tb)
+    prad, pcost = mk.run_cost_plain(*planes, px, py, 1, tb)
+    assert torch.equal(rad, mono) and torch.equal(rad, prad) and torch.equal(cost, pcost)
+    args = (*ci.regen_args(port, cfg, 1, 3), tb)
+    assert torch.equal(mk.run_regen(*args), mk.run_regen_plain(*args))
+    got, *_ = _drive(scene, cuda, 5)
+    want, *_ = _drive(scene, cuda, 5, plain=True)
+    assert _equal(got, want)
     torch.cuda.synchronize()
 
 

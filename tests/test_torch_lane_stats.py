@@ -1,8 +1,9 @@
 """The summaries of ``tools/lane_stats.py`` on synthetic counter buffers
 (the per-thread record its stats builds write on the card): the lane
 loop's SIMT efficiency, the waves, the blocks seen at once on one SM,
-the slot time held and the tail, each against its value worked out by
-hand."""
+the slot time held and the tail, and the walk's clusters and the share
+of packed sphere member tests that ran their root stage, each against
+its value worked out by hand or counted directly."""
 
 import numpy as np
 import pytest
@@ -11,14 +12,15 @@ import torch
 from spectral_tpu_torch.tools import lane_stats
 
 
-def _buffers(iters, t0, t1, smid, pixels=None):
+def _buffers(iters, t0, t1, smid, pixels=None, walk=None):
     n = len(iters)
+    walk = np.zeros((lane_stats.WALK_STATS, n)) if walk is None else walk
     return dict(iters=torch.tensor(iters, dtype=torch.int32),
                 pixels=torch.tensor(pixels if pixels is not None else [1] * n,
                                     dtype=torch.int32),
                 t0=torch.tensor(t0, dtype=torch.int64), t1=torch.tensor(t1, dtype=torch.int64),
                 smid=torch.tensor(smid, dtype=torch.int32),
-                walk=torch.zeros(10 * n, dtype=torch.int32))
+                walk=torch.tensor(np.asarray(walk).reshape(-1), dtype=torch.int32))
 
 
 def test_summaries_of_four_blocks_on_two_sms():
@@ -79,3 +81,48 @@ def test_blocks_back_to_back_on_one_sm_are_not_at_once():
     end = np.array([10, 20, 30])
     assert lane_stats._most_at_once(sm, start, end) == 1
     assert lane_stats._most_at_once(sm, np.array([0, 5, 9]), end) == 3
+
+
+def test_walk_summaries_and_the_root_stage_share():
+    """One block of four warps, each thread one nearest trace and one
+    shadow ray over a plan of 4 clusters. Each warp runs 50 packed sphere
+    member tests per kind with a random set of active lanes, each lane
+    with its discriminant (some exactly 0: a tangent lane has a root).
+    The stats build counts a test once a warp, in its lowest active
+    lane's slot, and counts its root stage where the vote finds a lane
+    with disc >= 0; the share is the direct count of such tests."""
+    rng = np.random.default_rng(20)
+    n, warps, tests, clusters = 128, 4, 50, 4
+    walk = np.zeros((lane_stats.WALK_STATS, n), np.int64)
+    want = {}
+    for name, base in (("nearest", 0), ("shadow", lane_stats.WALK_SHADOW)):
+        disc = np.round(rng.normal(-6.0, 3.0, size=(warps, tests, 32)))  # many exact zeros
+        active = rng.random((warps, tests, 32)) < 0.5
+        active[:, :, 31] = True
+        need = rng.integers(0, clusters + 1, size=n)
+        walk[base + 0] = 1  # traces
+        walk[base + 1] = need  # culled runs each lane needs
+        walk[base + 2] = clusters  # its warp visits all of them
+        walk[base + 3] = need * 64
+        walk[base + 4] = clusters * 64
+        for w in range(warps):
+            for k in range(tests):
+                lanes = np.nonzero(active[w, k])[0]
+                leader = 32 * w + lanes[0]
+                walk[base + 5, leader] += 1
+                walk[base + 6, leader] += int(any(disc[w, k, j] >= 0.0 for j in lanes))
+        rooted = ((disc >= 0.0) & active).any(axis=2)
+        want[name] = (float(rooted.sum()), float(rooted.mean()), need.sum() / (n * clusters))
+    assert 0.05 < want["nearest"][1] < 0.95 and 0.05 < want["shadow"][1] < 0.95
+    got = lane_stats.summarize(
+        _buffers(np.full(n, 8), np.zeros(n, np.int64), np.full(n, 100), [0], walk=walk),
+        n, slots=1, n_culled=clusters)
+    for name, (roots, share, visited) in want.items():
+        w = got[f"walk_{name}"]
+        assert w["traces"] == n
+        assert w["warp_sphere_tests"] == warps * tests
+        assert w["warp_root_stages"] == roots
+        assert w["root_stage_share"] == pytest.approx(share)
+        assert w["visited_fraction"] == pytest.approx(visited)
+        assert w["warp_visited_fraction"] == 1.0
+        assert w["simt_efficiency"] == pytest.approx(visited)

@@ -10,7 +10,11 @@ records, ties to the lowest original index), equals the flat loop
 (``ops/geometry.py:trace``, every object in index order) on
 ``sphere_field(80)`` and on the mesh preset: winners exact, t bit for
 bit, with duplicated objects so that exact ties occur, in the planner's
-visit order and with every run's members reversed.
+visit order and with every run's members reversed. The same walk with
+the kernels' warp vote on the packed sphere tests
+(``bounce.cuh:sphere_t_voted``) equals it on the tangent field
+(``tests/torch_scenes.py:tangent_field``), whose tangent lanes read a
+discriminant of exactly 0.
 """
 
 import copy
@@ -23,6 +27,7 @@ from spectral_tpu_torch.ops import clusters as cl
 from spectral_tpu_torch.ops import geometry as tgeom
 from spectral_tpu_torch.ops import megakernel as mk
 from spectral_tpu_torch.ops.vecmath import Vec3
+from spectral_tpu_torch.ops.vecmath import sqrt as vsqrt
 from spectral_tpu_torch.render import cuda_integrator as ci
 from spectral_tpu_torch.scene import presets
 from spectral_tpu_torch.scene.flatten import OBJ_SPHERE, OBJ_TRIANGLE, flatten_scene
@@ -92,10 +97,33 @@ def _rays(st, cfg, n_random=512, seed=0):
     return origin, direction.normalize()
 
 
-def _walk_packed(st, order, runs, packed, origin, direction):
+def _sphere_voted(oc, d, r, lanes):
+    """``bounce.cuh:sphere_t_voted`` over warps of 32 consecutive rays:
+    the discriminant on every ray, the root stage only in the warps where
+    a ray of ``lanes`` (those that run the test) has disc >= 0, with
+    sqrt(1) for a ray without a root. Returns ``(t, valid, vote)``, the
+    vote per ray."""
+    a = d.dot(d)
+    b = 2.0 * oc.dot(d)
+    c = oc.dot(oc) - r * r
+    disc = b * b - 4.0 * a * c
+    root = disc >= 0.0
+    n = root.shape[0]
+    vote = torch.nn.functional.pad(root & lanes, (0, (-n) % 32)).view(-1, 32).any(1)
+    vote = vote.repeat_interleave(32)[:n]
+    sq = vsqrt(torch.where(root, disc, 1.0))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    t = torch.where(t1 >= 0.0, t1, t2)
+    return t, vote & root & (t >= 0.0), vote
+
+
+def _walk_packed(st, order, runs, packed, origin, direction, votes=None):
     """The kernel's nearest-hit walk over the run table and the packed
     records, vectorized over rays; boxes (no records) take the flat
-    loop's candidate t of their object."""
+    loop's candidate t of their object. With ``votes`` (a list) the packed
+    sphere tests take the warp vote (``_sphere_voted``), and each test's
+    votes are appended to it."""
     dense = tgeom.candidates(origin, direction, st)
     n = origin.x.shape[0]
     t_best = torch.full((n,), float("inf"))
@@ -113,8 +141,12 @@ def _walk_packed(st, order, runs, packed, origin, direction):
             o = int(order[k])
             if at >= 0 and tag == OBJ_SPHERE:
                 c = P[at + k - start]
-                t, valid = tgeom.sphere_nearest_t(origin - Vec3(c[0], c[1], c[2]),
-                                                  direction, c[3])
+                oc = origin - Vec3(c[0], c[1], c[2])
+                if votes is None:
+                    t, valid = tgeom.sphere_nearest_t(oc, direction, c[3])
+                else:
+                    t, valid, vote = _sphere_voted(oc, direction, c[3], reach)
+                    votes.append((o, vote))
             elif at >= 0 and tag == OBJ_TRIANGLE:
                 v0, e1, e2 = (Vec3(*r[:3]) for r in P[at + 3 * (k - start):][:3])
                 t, valid, _, _ = tgeom.triangle_t(origin, direction, v0, e1, e2)
@@ -148,3 +180,38 @@ def test_plain_packed_walk_equals_the_flat_loop(kind, visit):
     # the duplicates tie: each loses to its original, the lower index
     dups = range(cfg.n_objects - (3 if kind == "field" else 20), cfg.n_objects)
     assert not bool(np.isin(win.numpy(), list(dups)).any())
+
+
+def test_voted_walk_on_the_tangent_field_equals_the_flat_loop():
+    """The tangent field of the card tests on the CPU: both added spheres
+    sit in packed sphere runs, and the walk with the warp vote equals the
+    flat loop on the frame's primaries and on bounce 0's shadow rays to
+    light 0 (winners exact, t bit for bit), the tangent lanes' winners the
+    tangent spheres. The vote is true in the tangent lanes' warps at their
+    spheres and false in most warp tests."""
+    scene, info = ts.tangent_field(presets, "cpu", 32, 16, 3, iters=4)
+    st, cfg = flatten_scene(scene, "cpu")
+    tb = mk.pack_tables(st, cfg)
+    assert tb.clusters is not None and tb.packed_shared
+    order, runs = tb.order.numpy(), tb.runs.numpy()
+    for obj in (info["tangent"], info["shadow_tangent"]):
+        slot = int(np.nonzero(order == obj)[0][0])
+        run = runs[(runs[:, cl.RUN_START] <= slot) & (slot < runs[:, cl.RUN_STOP])][0]
+        assert int(run[cl.RUN_TYPE]) == OBJ_SPHERE and run[cl.RUN_PACK] >= 0
+    planes, _, _ = ci.primary_lanes(st, cfg, 1)
+    so, sd = (torch.from_numpy(a) for a in info["shadow_rays"])
+    cases = ((Vec3(*planes[:3]), Vec3(*planes[3:]), info["lane"], info["tangent"]),
+             (Vec3(*so.T), Vec3(*sd.T), info["shadow_lane"], info["shadow_tangent"]))
+    tests = warp_votes = 0
+    for origin, direction, lane, obj in cases:
+        votes = []
+        t, win = _walk_packed(st, order, runs, tb.packed.numpy(), origin, direction, votes)
+        want = tgeom.trace(origin, direction, st)
+        hit = want.hit
+        assert torch.equal(win, torch.where(hit, want.obj_idx, -1))
+        assert torch.equal(t[hit], want.t[hit]) and bool(torch.isinf(t[~hit]).all())
+        assert int(win[lane]) == obj
+        assert any(o == obj and bool(v[lane]) for o, v in votes)
+        tests += sum(v[::32].numel() for _, v in votes)
+        warp_votes += sum(int(v[::32].sum()) for _, v in votes)
+    assert 0 < warp_votes < 0.5 * tests

@@ -330,3 +330,180 @@ def random_scene(schema, seed, bounces=1):
         spectrum_number_of_samples=8)
     scene.validate()
     return scene
+
+
+def _disc32(o, d, centre, radius):
+    """The sphere test's discriminant in float32, in the op order of the
+    kernels' ``sphere_t`` and the plain ``geometry.sphere_nearest_t``
+    (one rounding per operation, no contraction)."""
+    import numpy as np
+
+    f = np.float32
+    ocx, ocy, ocz = f(o[0]) - f(centre[0]), f(o[1]) - f(centre[1]), f(o[2]) - f(centre[2])
+    dx, dy, dz = f(d[0]), f(d[1]), f(d[2])
+    a = dx * dx + dy * dy + dz * dz
+    b = f(2.0) * (ocx * dx + ocy * dy + ocz * dz)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - f(radius) * f(radius)
+    return b * b - f(4.0) * a * c
+
+
+def _tangent_sphere(o, d, s, h):
+    """A scene sphere's centre and radius (float32 values) whose table
+    entries (``flatten._sphere_tables``) give the ray ``(o, d)`` a
+    discriminant of exactly 0 with its root near ``s`` along the ray:
+    radius about ``h``, its centre off the ray across it. Sweeps the
+    radius an ulp at a time, and nudges the centre where no radius does."""
+    import numpy as np
+
+    from spectral_tpu_torch.scene.flatten import _sphere_tables
+
+    o64, d64 = np.asarray(o, np.float64), np.asarray(d, np.float64)
+    dn = d64 / np.linalg.norm(d64)
+    axis = np.eye(3)[int(np.argmin(np.abs(dn)))]
+    perp = np.cross(dn, axis)
+    perp /= np.linalg.norm(perp)
+    rng = np.random.default_rng(0)
+    for attempt in range(64):
+        centre = (o64 + dn * s + perp * h + rng.normal(0.0, 1e-4 * h, 3) * (attempt > 0)
+                  ).astype(np.float32)
+        oc = o64 - centre.astype(np.float64)
+        bits = int(np.float32(np.sqrt(oc @ oc - (oc @ dn) ** 2)).view(np.int32))
+        for k in range(4096):  # outwards from the tangent radius, an ulp at a time
+            r = np.int32(bits + (k + 1) // 2 * (1 if k % 2 else -1)).view(np.float32)
+            _lo, _hi, pos, rad = _sphere_tables(centre, r)
+            if _disc32(o, d, pos, rad) == 0.0:
+                return tuple(float(v) for v in centre), float(r)
+    raise AssertionError("no float32 radius makes the ray tangent")
+
+
+def tangent_field(presets, device, w=32, h=16, bounces=3, iters=4, samples=8, frame=1):
+    """The 100-sphere field with two matte spheres added, so that in the
+    many-object walk one warp's vote meets lanes with no root, a lane
+    with a root of exactly disc == 0 and lanes that hit: sphere A
+    tangent to the primary ray of frame ``frame`` of a lane whose warp (32
+    consecutive row-major lanes) holds lanes that hit other spheres, in
+    front of the lane's own hit, so A wins its nearest trace; sphere B
+    tangent to the first shadow ray (bounce 0, light 0) of a lane whose
+    ray nothing blocked before, in a warp with shadow rays that spheres
+    block, so B alone blocks it. Built and checked on the plain path on
+    ``device`` (the discriminants read exactly 0 there, in float32).
+    Returns ``(scene, info)``: ``lane`` and ``shadow_lane``, the objects
+    ``tangent`` and ``shadow_tangent``, and ``shadow_rays``, the origins
+    and directions ``[n, 3]`` of every lane's shadow ray."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from spectral_tpu_torch.ops import geometry
+    from spectral_tpu_torch.ops.vecmath import Vec3
+    from spectral_tpu_torch.render import integrator
+    from spectral_tpu_torch.render.launch_inputs import primary_lanes
+    from spectral_tpu_torch.scene import schema
+    from spectral_tpu_torch.scene.flatten import OBJ_SPHERE, flatten_scene
+
+    def rows(v):
+        return torch.stack(tuple(v), 1).cpu().numpy()
+
+    def look(scene):
+        """Every lane's frame-``frame`` primary ray and nearest hit, and its
+        bounce-0 shadow ray to light 0, its nearest hit and whether it is
+        blocked, on the plain path."""
+        port, cfg = flatten_scene(scene, device)
+        planes, px, py = primary_lanes(port, cfg, frame)
+        o, d = Vec3(*planes[:3]), Vec3(*planes[3:])
+        first = geometry.trace(o, d, port)
+        seen = []
+        real = integrator.trace_shadow
+
+        def spy(origin, direction, max_distance, sc, interval=False):
+            blocked = real(origin, direction, max_distance, sc, interval=interval)
+            if not seen:
+                seen.append((origin, direction, max_distance, blocked))
+            return blocked
+
+        integrator.trace_shadow = spy
+        try:
+            integrator.bounce_loop(o, d, px, py, frame, port, cfg)
+        finally:
+            integrator.trace_shadow = real
+        so, sd, dist, blocked = seen[0]
+        shadow = geometry.trace(so, sd, port)
+        sphere = port.np_fields["obj_type"] == OBJ_SPHERE
+        return dict(port=port, o=rows(o), d=rows(d), obj=first.obj_idx.cpu().numpy(),
+                    t=first.t.cpu().numpy(), hit=first.hit.cpu().numpy(), so=rows(so),
+                    sd=rows(sd), dist=dist.cpu().numpy(), blocked=blocked.cpu().numpy(),
+                    sobj=shadow.obj_idx.cpu().numpy(), sphere=sphere,
+                    matte=port.metallicness.cpu().numpy() == 0.0)
+
+    def disc(port, o, d, i):
+        """Object i's discriminant for the ray (o, d), in torch on the
+        device, from its flattened table values."""
+        c, r = port.sphere_pos[i], port.radius[i]
+        f = lambda v: torch.tensor(v, dtype=torch.float32, device=c.device)
+        oc = Vec3(f(o[0]) - c[0], f(o[1]) - c[1], f(o[2]) - c[2])
+        dv = Vec3(f(d[0]), f(d[1]), f(d[2]))
+        a, b = dv.dot(dv), 2.0 * oc.dot(dv)
+        cc = oc.dot(oc) - r * r
+        return float(b * b - 4.0 * a * cc)
+
+    base = sphere_field(presets, 100, w, h, bounces, iters=iters, samples=samples)
+    before = look(base)
+    n = len(before["t"])
+    warp = np.arange(n) // 32
+    hits_sphere = before["hit"] & before["sphere"][before["obj"]]
+    lit = before["hit"] & before["matte"][before["obj"]]  # a diffuse hit sends shadow rays
+    shade_sphere = lit & before["blocked"] & before["sphere"][before["sobj"]]
+    firsts = [i for i in range(n) if before["hit"][i] and not hits_sphere[i]
+              and hits_sphere[warp == warp[i]].sum() >= 2]
+    seconds = [i for i in range(n) if lit[i] and not before["blocked"][i]
+               and shade_sphere[warp == warp[i]].any()]
+    assert firsts and seconds, "the field has no warp of the three cases"
+    grey = next(m for m in base.materials if m.metallicness == 0.0)
+    a_idx, b_idx = len(base.objects), len(base.objects) + 1
+    for lane, shadow_lane in zip(firsts[::3], seconds[::3]):
+        if lane == shadow_lane:
+            continue
+        s = 0.5 * float(before["t"][lane])
+        ca, ra = _tangent_sphere(before["o"][lane], before["d"][lane], s, min(0.3, 0.25 * s))
+        s2 = min(1.0, 0.5 * float(before["dist"][shadow_lane]))
+        cb, rb = _tangent_sphere(before["so"][shadow_lane], before["sd"][shadow_lane], s2, 0.25)
+        scene = copy.copy(base)
+        scene.objects = list(base.objects) + [
+            schema.SceneObject(ca, schema.Sphere(ra), grey, "Tangent"),
+            schema.SceneObject(cb, schema.Sphere(rb), grey, "Shadow tangent")]
+        after = look(scene)
+        port = after["port"]
+        same = all(np.array_equal(before[k][shadow_lane], after[k][shadow_lane])
+                   for k in ("so", "sd", "dist"))
+        if not (same and after["obj"][lane] == a_idx and after["sobj"][shadow_lane] == b_idx
+                and after["blocked"][shadow_lane]):
+            continue
+        if disc(port, after["o"][lane], after["d"][lane], a_idx) != 0.0:
+            continue
+        if disc(port, after["so"][shadow_lane], after["sd"][shadow_lane], b_idx) != 0.0:
+            continue
+        # B alone blocks the shadow ray within its light distance
+        so = Vec3(*(torch.tensor(after["so"][shadow_lane:shadow_lane + 1, k], device=device)
+                    for k in range(3)))
+        sd = Vec3(*(torch.tensor(after["sd"][shadow_lane:shadow_lane + 1, k], device=device)
+                    for k in range(3)))
+        t_all = geometry.candidates(so, sd, port)[0].cpu().numpy()
+        if np.nonzero(t_all <= after["dist"][shadow_lane])[0].tolist() != [b_idx]:
+            continue
+        # the other cases in the two warps: lanes with no root, lanes that hit
+        mates = np.nonzero(warp == warp[lane])[0]
+        misses = [i for i in mates if disc(port, after["o"][i], after["d"][i], a_idx) < 0.0]
+        hitters = [i for i in mates if after["hit"][i] and after["sphere"][after["obj"][i]]
+                   and after["obj"][i] != a_idx]
+        smates = np.nonzero(warp == warp[shadow_lane])[0]
+        slit = after["hit"] & after["matte"][after["obj"]]
+        sblock = [i for i in smates if slit[i] and after["blocked"][i]
+                  and after["sphere"][after["sobj"][i]] and after["sobj"][i] != b_idx]
+        smiss = [i for i in smates
+                 if disc(port, after["so"][i], after["sd"][i], b_idx) < 0.0]
+        if misses and len(hitters) >= 2 and sblock and smiss:
+            return scene, dict(lane=int(lane), shadow_lane=int(shadow_lane),
+                               tangent=a_idx, shadow_tangent=b_idx,
+                               shadow_rays=(after["so"], after["sd"]))
+    raise AssertionError("no lane pair gave the tangent field")
