@@ -627,6 +627,8 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     out = _launch_mono(_entry("spectral_mono", tables), ox, oy, oz, dx, dy, dz, px, py,
                        frame_id, tables)[0]
     trace.count("launch.mono")
+    if tables.features:  # a feature build (``_entry`` refuses any other)
+        trace.count("launch.mono_features")
     return out
 
 
@@ -678,6 +680,8 @@ def run_regen(px, py, first_frame: int, camera, offsets, lens,
     out, shared = _launch_regen(library_for("regen", tables, lens is not None), px, py,
                                 first_frame, camera, offsets, lens, tables)
     trace.count("launch.regen")
+    if tables.features:  # a feature build (``_entry`` refuses any other)
+        trace.count("launch.regen_features")
     if shared:
         trace.count("launch.regen_shared_bins")
     return out

@@ -51,7 +51,8 @@ against the benchmark's blocked reference within its 1e-5 limit. At 64
 wavelengths ``cuda_regen``'s build with its radiance bins in shared
 memory bit for bit to the plain version and to the register build (the
 small scene, the clustered field, the prism, mesh64 and a lens scene),
-taken exactly where it holds more blocks per SM and counted as such.
+taken exactly where it holds more blocks per SM and counted as such; a
+launch of a feature build counted as one.
 """
 
 import dataclasses
@@ -101,7 +102,8 @@ class _Launches:
     @staticmethod
     def _now():
         return {k: trace.total(f"launch.{k}")
-                for k in ("mono", "regen", "persist", "cost", "seg", "regen_shared_bins")}
+                for k in ("mono", "regen", "persist", "cost", "seg", "regen_shared_bins",
+                          "regen_features", "mono_features")}
 
     def __call__(self, *kinds):
         now = self._now()
@@ -1215,6 +1217,22 @@ def test_cuda_regen_shared_bins_equal_plain_and_register_build(cuda, kind, monke
     assert n("regen", "regen_shared_bins") == (2, 1)
     assert torch.equal(got, registers)
     assert torch.equal(got, mk.run_regen_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["prism", "cornell"])
+def test_cuda_launches_count_their_feature_builds(cuda, kind):
+    """One ``cuda_regen`` launch of the prism (a feature build) counts
+    ``launch.regen_features`` once, and a ``cuda_mono`` frame
+    ``launch.mono_features`` once; the Cornell box's count neither."""
+    port, cfg = flatten_scene(_scene(kind, 32, 24, 3, samples=64, iters=3), cuda)
+    tb = mk.pack_tables(port, cfg)
+    n = _Launches()
+    mk.run_regen(*ci.regen_args(port, cfg, 0, 3), tb)
+    planes, px, py = ci.primary_lanes(port, cfg, 0)
+    mk.run_mono(*planes, px, py, 0, tb)
+    torch.cuda.synchronize()
+    fx = int(kind == "prism")
+    assert n("regen", "regen_features", "mono", "mono_features") == (1, fx, 1, fx)
 
 
 def test_cuda_regen_info_of_both_builds(cuda):

@@ -339,3 +339,31 @@ def test_regen_counts_its_shared_bins_launches(regen_blocks, monkeypatch, sample
     assert taken == ["regen", "regen"]
     assert (trace.total("launch.regen") - before[0],
             trace.total("launch.regen_shared_bins") - before[1]) == (2, 2 * int(shared))
+
+
+@pytest.mark.parametrize("name,features", [("prism", True), ("cornell", False)])
+def test_launches_count_their_feature_builds(monkeypatch, name, features):
+    """``run_regen`` counts ``launch.regen_features`` and ``run_mono``
+    ``launch.mono_features`` for each launch of a feature build (the
+    prism's), and none for a scene without features (the launches
+    stubbed: the CPU has no kernel)."""
+    tb = mk.pack_tables(*flatten_scene(_scene(name, 8, 4, 1, samples=64), "cpu"))
+    assert bool(tb.features) is features
+
+    def launch(library, px, *rest):
+        assert build.has_features(library) is features
+        return torch.zeros((tb.config.n_samples, px.shape[0])), True
+
+    monkeypatch.setattr(mk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(mk, "_launch_regen", launch)
+    monkeypatch.setattr(mk, "_entry", lambda fn, tables: fn)
+    monkeypatch.setattr(mk, "_launch_mono", lambda fn, ox, *rest: (
+        torch.zeros((tb.config.n_samples, ox.shape[0])), None))
+    kinds = ("regen", "regen_features", "regen_shared_bins", "mono", "mono_features")
+    before = [trace.total(f"launch.{k}") for k in kinds]
+    mk.run_regen(*ci.regen_args(tb.scene, tb.config, 0, 2), tb)
+    planes, px, py = ci.primary_lanes(tb.scene, tb.config, 0)
+    for frame in range(2):
+        mk.run_mono(*planes, px, py, frame, tb)
+    got = [trace.total(f"launch.{k}") - b for k, b in zip(kinds, before)]
+    assert got == [1, int(features), 1, 2, 2 * int(features)]
