@@ -92,7 +92,7 @@ version (the loop kernel ``torch.equal``, the tensor-core kernel to
 ``kernels_regen_bins`` line gives both builds of ``regen_kernel<64,...>``
 (the radiance bins in registers and in shared memory) at the hero
 frame's tables: registers, spills, blocks per SM, and the build
-``megakernel.regen_shared_bins`` takes, which must be the shared one;
+``megakernel.shared_bins`` takes, which must be the shared one;
 one launch at the hero shape (K = 3) is counted as a shared launch and
 is ``torch.equal`` to the plain version and to the register build. Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as
@@ -265,7 +265,7 @@ def main() -> int:
     # both builds of regen_kernel<64,0,0,*> at the hero frame's tables
     # (presets.cornell_box, 1920x1080, 64 lambda): blocks per SM and
     # registers (the occupancy API), spills (nvcc's report), and the build
-    # megakernel.regen_shared_bins takes there; the S <= 32 instantiations
+    # megakernel.shared_bins takes there; the S <= 32 instantiations
     # as nvcc reports them (the build line has every library's). Then one
     # launch of the hero shape (30 bounces, K = 3: each lane takes further
     # pixels from the counter) in the build the rule takes, which must be
@@ -281,7 +281,7 @@ def main() -> int:
         nv = regen_nvcc[f"regen_kernel<64,0,0,{shared}>"]
         regen_builds[label] = dict(kernel_info("regen", hero_tb, variant=shared),
                                    spill_stores=nv["spill_stores"], spill_loads=nv["spill_loads"])
-    takes_shared = mk.regen_shared_bins("regen", hero_tb)
+    takes_shared = mk.shared_bins("regen", "regen", hero_tb)
     assert takes_shared == (regen_builds["shared_bins"]["blocks_per_sm"]
                             > regen_builds["registers"]["blocks_per_sm"]), regen_builds
     assert takes_shared, regen_builds
@@ -289,12 +289,12 @@ def main() -> int:
     counted = trace.total("launch.regen_shared_bins")
     hero_got = mk.run_regen(*hero_args)
     counted = trace.total("launch.regen_shared_bins") - counted
-    rule = mk.regen_shared_bins
-    mk.regen_shared_bins = lambda library, tables: False  # the register build
+    rule = mk.shared_bins
+    mk.shared_bins = lambda kernel, library, tables: False  # the register build
     try:
         hero_reg = mk.run_regen(*hero_args)
     finally:
-        mk.regen_shared_bins = rule
+        mk.shared_bins = rule
     hero_bits = dict(shared_launches=counted,
                      equal_plain=bool(torch.equal(hero_got, mk.run_regen_plain(*hero_args))),
                      equal_registers=bool(torch.equal(hero_got, hero_reg)),

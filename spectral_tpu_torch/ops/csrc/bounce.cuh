@@ -817,14 +817,23 @@ struct SharedBins {
   __device__ __forceinline__ float& operator[](int s) const { return p[s * BLOCK]; }
 };
 
+// The S whose regen and mono kernels have a build with the lanes'
+// radiance bins in shared memory (regen.cu, mono.cu), and the bytes those
+// bins take after the tables: [S][BLOCK] floats (none in the register
+// build).
+constexpr int kSharedBinsSamples = 64;
+constexpr size_t shared_bins_bytes(int S, bool shared) {
+  return shared ? sizeof(float) * (size_t)S * BLOCK : 0;
+}
+
 // The carried lane state of `make_body.bounce` (megakernel.py:1928-1935,
 // :2001-2006): the ray, the flags, the count-down bounce budget, the frame
 // of the path in flight, and the spectral throughput and radiance. Every
 // kernel runs its lanes through `bounce_step` on this one struct. The
 // spectral throughput and radiance are S floats each of registers, or
 // (SHARED_THR, SHARED_RAD) rows of the block's shared memory: both in
-// persist.cu, the radiance alone in regen.cu's S = 64 build; the same
-// arithmetic either way.
+// persist.cu, the radiance alone in the S = 64 builds of regen.cu and
+// mono.cu; the same arithmetic either way.
 template <int S, bool SHARED_THR = false, bool SHARED_RAD = SHARED_THR>
 struct Lane {
   float ox, oy, oz, dx, dy, dz;

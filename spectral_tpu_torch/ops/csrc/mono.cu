@@ -29,8 +29,19 @@
 // cost are the plain version's bit for bit whatever thread takes a lane.
 // The tables go to shared memory at block start (bounce.cuh: load_tables),
 // and the spectral state thr[S], rad[S] lives in registers, templated on S
-// in {8,16,32,64}. -DSPECTRAL_STATS adds the per-thread counters of
-// tools/lane_stats.py.
+// in {8,16,32,64}, except in the S = 64 build with the radiance bins in
+// shared memory (SHARED), regen.cu's move: rad[64] after the tables,
+// lane-minor ([S][BLOCK] floats, bounce.cuh:SharedBins), thr[64] in
+// registers. The register build held mono_kernel<64,0,0,0> at 190
+// registers and 2 blocks of 128 per SM, the shared build 128 and 4 (the
+// many-object builds 3 against 2), and a frame at the hero frame's shape
+// took 7.29 ms against 10.34 on an H100 (PERF.md section 6). The
+// arithmetic and its order are the register build's, so the radiance
+// and the cost plane are its bits. The host takes it per launch where it
+// holds more resident blocks per SM than the register build at the
+// launch's tables (megakernel.shared_bins, the rule of cuda_regen); at
+// S <= 32 only the register build exists. -DSPECTRAL_STATS adds the
+// per-thread counters of tools/lane_stats.py.
 
 #include "bounce.cuh"
 
@@ -41,7 +52,8 @@ namespace {
 // from the given primaries. The cost variant also stores the lane's live
 // iteration count, max_bounces + 1 - bl with bl frozen at death
 // (megakernel.py:1887-1892); its radiance is cuda_mono's bit for bit.
-template <int S, bool COST, bool MANY, bool TRI>
+// SHARED: the radiance bins in shared memory (S = 64 only).
+template <int S, bool COST, bool MANY, bool TRI, bool SHARED>
 __global__ void __launch_bounds__(BLOCK)
 mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
             const float* __restrict__ ox, const float* __restrict__ oy,
@@ -58,7 +70,10 @@ mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
 #endif
   int lane = blockIdx.x * BLOCK + threadIdx.x;
   if (lane < n) {
-    Lane<S> L;
+    Lane<S, false, SHARED> L;
+    if constexpr (SHARED) {  // rad after the NEE scales, the last of the tables
+      L.rad.p = tb.scale + tb.n_lights * BLOCK + threadIdx.x;
+    }
     uint32_t ux, uy;
     // lane `lane`'s path from its primary ray, at zero radiance
     const auto start = [&] {
@@ -91,16 +106,16 @@ mono_kernel(int n, TableArgs ta, int max_bounces, uint32_t frame_id,
 #endif
 }
 
-template <int S, bool COST, bool MANY, bool TRI>
+template <int S, bool COST, bool MANY, bool TRI, bool SHARED>
 cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
                         uint32_t frame_id, const float* ox, const float* oy,
                         const float* oz, const float* dx, const float* dy,
                         const float* dz, const int* px, const int* py,
                         float* out, float* cost, unsigned* counter,
                         cudaStream_t stream) {
-  const auto kernel = mono_kernel<S, COST, MANY, TRI>;
+  const auto kernel = mono_kernel<S, COST, MANY, TRI, SHARED>;
   size_t smem;
-  cudaError_t err = prepare(kernel, ta, S, smem);
+  cudaError_t err = prepare(kernel, ta, S, smem, shared_bins_bytes(S, SHARED));
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
   if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
@@ -116,10 +131,12 @@ cudaError_t launch_mono(int n, const TableArgs& ta, int max_bounces,
 #define SPECTRAL_FLOAT(p) static_cast<const float*>(p)
 
 // C interface, bound with ctypes: every pointer and the stream are void*;
-// returns the cudaError_t of the launch (0 on success). `counter` is one
-// unsigned of device scratch, which the launch zeroes on its stream.
+// returns the cudaError_t of the launch (0 on success). `shared_bins`
+// selects the build with the radiance bins in shared memory (S = 64
+// only). `counter` is one unsigned of device scratch, which the launch
+// zeroes on its stream.
 static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
-                                 unsigned int frame_id,
+                                 unsigned int frame_id, int shared_bins,
                                  const spectral::TableArgs& ta,
                                  const void* ox, const void* oy,
                                  const void* oz, const void* dx,
@@ -127,26 +144,32 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
                                  const void* px, const void* py, void* out,
                                  void* cost, void* counter, void* stream) {
   if (n <= 0) return 0;
+  if (shared_bins && n_samples != spectral::kSharedBinsSamples)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SPECTRAL_MONO_L(COST)                                                 \
-  spectral::launch_mono<S, COST, decltype(many)::value, decltype(tri)::value>( \
+#define SPECTRAL_MONO_L(COST, SHARED)                                         \
+  spectral::launch_mono<S, COST, decltype(many)::value, decltype(tri)::value, \
+                        SHARED>(                                              \
       n, ta, max_bounces, frame_id, SPECTRAL_FLOAT(ox), SPECTRAL_FLOAT(oy),   \
       SPECTRAL_FLOAT(oz), SPECTRAL_FLOAT(dx), SPECTRAL_FLOAT(dy),             \
       SPECTRAL_FLOAT(dz), static_cast<const int*>(px),                        \
       static_cast<const int*>(py), static_cast<float*>(out),                  \
       static_cast<float*>(cost), static_cast<unsigned*>(counter), st)
-#define SPECTRAL_MONO_S(SS)                                                \
+#define SPECTRAL_MONO_S(SS, SHARED)                                        \
   {                                                                        \
     constexpr int S = SS;                                                  \
     return (int)spectral::dispatch_tables<S>(ta, [&](auto many, auto tri) { \
-      return cost != nullptr ? SPECTRAL_MONO_L(true) : SPECTRAL_MONO_L(false); \
+      return cost != nullptr ? SPECTRAL_MONO_L(true, SHARED)               \
+                             : SPECTRAL_MONO_L(false, SHARED);             \
     });                                                                    \
   }
   switch (n_samples) {
-    case 8: SPECTRAL_MONO_S(8);
-    case 16: SPECTRAL_MONO_S(16);
-    case 32: SPECTRAL_MONO_S(32);
-    case 64: SPECTRAL_MONO_S(64);
+    case 8: SPECTRAL_MONO_S(8, false);
+    case 16: SPECTRAL_MONO_S(16, false);
+    case 32: SPECTRAL_MONO_S(32, false);
+    case 64:
+      if (shared_bins) SPECTRAL_MONO_S(64, true);
+      SPECTRAL_MONO_S(64, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_MONO_S
@@ -154,50 +177,70 @@ static int spectral_mono_or_cost(int n, int n_samples, int max_bounces,
 }
 
 extern "C" int spectral_mono(int n, int n_samples, int max_bounces,
-                             unsigned int frame_id, SPECTRAL_TABLE_PARAMS,
-                             const void* ox, const void* oy, const void* oz,
-                             const void* dx, const void* dy, const void* dz,
-                             const void* px, const void* py, void* out,
-                             void* counter, void* stream) {
+                             unsigned int frame_id, int shared_bins,
+                             SPECTRAL_TABLE_PARAMS, const void* ox,
+                             const void* oy, const void* oz, const void* dx,
+                             const void* dy, const void* dz, const void* px,
+                             const void* py, void* out, void* counter,
+                             void* stream) {
   return spectral_mono_or_cost(n, n_samples, max_bounces, frame_id,
-                               SPECTRAL_TABLE_ARGS, ox, oy, oz, dx, dy, dz,
-                               px, py, out, nullptr, counter, stream);
+                               shared_bins, SPECTRAL_TABLE_ARGS, ox, oy, oz,
+                               dx, dy, dz, px, py, out, nullptr, counter,
+                               stream);
 }
 
 extern "C" int spectral_cost(int n, int n_samples, int max_bounces,
-                             unsigned int frame_id, SPECTRAL_TABLE_PARAMS,
-                             const void* ox, const void* oy, const void* oz,
-                             const void* dx, const void* dy, const void* dz,
-                             const void* px, const void* py, void* out,
-                             void* cost, void* counter, void* stream) {
+                             unsigned int frame_id, int shared_bins,
+                             SPECTRAL_TABLE_PARAMS, const void* ox,
+                             const void* oy, const void* oz, const void* dx,
+                             const void* dy, const void* dz, const void* px,
+                             const void* py, void* out, void* cost,
+                             void* counter, void* stream) {
   if (cost == nullptr) return (int)cudaErrorInvalidValue;
   return spectral_mono_or_cost(n, n_samples, max_bounces, frame_id,
-                               SPECTRAL_TABLE_ARGS, ox, oy, oz, dx, dy, dz,
-                               px, py, out, cost, counter, stream);
+                               shared_bins, SPECTRAL_TABLE_ARGS, ox, oy, oz,
+                               dx, dy, dz, px, py, out, cost, counter,
+                               stream);
 }
 
 // The registers, local bytes and resident blocks per SM of the mono
-// (cost = 0) or cost instantiation that tables of this kind take
-// (spectral_kernel_info's out), for the measurement tools.
+// (cost = 0) or cost instantiation that tables of this kind take, in the
+// register build or (shared_bins) the shared-bins build, at `smem` bytes
+// of tables plus the build's radiance bins (spectral_kernel_info's out):
+// the host's choice of build (megakernel.shared_bins) and the
+// measurement tools. A shared-bins build that does not exist (S != 64)
+// or whose bins the tables leave no room reads all zeros: no block of it
+// is resident.
 extern "C" int spectral_mono_info(int n_samples, int many, int tri, int cost,
-                                  int smem, int* out) {
+                                  int shared_bins, int smem, int* out) {
+  if (shared_bins && (n_samples != spectral::kSharedBinsSamples ||
+                      smem + spectral::shared_bins_bytes(n_samples, true) >
+                          (size_t)spectral::MAX_SMEM)) {
+    out[0] = out[1] = out[2] = 0;
+    return 0;
+  }
   spectral::TableArgs ta{};
   ta.n_obj = many ? spectral::SMEM_OBJECTS + 1 : 1;
   ta.n_runs = 1;
   ta.tri = tri;
-#define SPECTRAL_MONO_INFO(S)                                                  \
+#define SPECTRAL_MONO_INFO(S, SHARED)                                          \
   return (int)spectral::dispatch_tables<S>(ta, [&](auto m, auto t) {          \
     constexpr bool M = decltype(m)::value, T = decltype(t)::value;            \
-    return cost ? spectral_kernel_info(spectral::mono_kernel<S, true, M, T>,  \
-                                       smem, out)                             \
-                : spectral_kernel_info(spectral::mono_kernel<S, false, M, T>, \
-                                       smem, out);                            \
+    const int bytes = smem + (int)spectral::shared_bins_bytes(S, SHARED);     \
+    return cost ? spectral_kernel_info(                                       \
+                      spectral::mono_kernel<S, true, M, T, SHARED>, bytes,    \
+                      out)                                                    \
+                : spectral_kernel_info(                                       \
+                      spectral::mono_kernel<S, false, M, T, SHARED>, bytes,   \
+                      out);                                                   \
   })
   switch (n_samples) {
-    case 8: SPECTRAL_MONO_INFO(8);
-    case 16: SPECTRAL_MONO_INFO(16);
-    case 32: SPECTRAL_MONO_INFO(32);
-    case 64: SPECTRAL_MONO_INFO(64);
+    case 8: SPECTRAL_MONO_INFO(8, false);
+    case 16: SPECTRAL_MONO_INFO(16, false);
+    case 32: SPECTRAL_MONO_INFO(32, false);
+    case 64:
+      if (shared_bins) SPECTRAL_MONO_INFO(64, true);
+      SPECTRAL_MONO_INFO(64, false);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SPECTRAL_MONO_INFO

@@ -53,7 +53,7 @@
 //   blocks by shared memory and 6.93 ms. The arithmetic and its order are the
 //   register build's, so the sums are its bits. The host takes it per
 //   launch where it holds more resident blocks per SM than the register
-//   build at the launch's tables (megakernel.regen_shared_bins): it was
+//   build at the launch's tables (megakernel.shared_bins): it was
 //   11-42% faster wherever it did, even in the lens feature builds that
 //   spill 28-56 B; at a tie 0.4-0.7% slower, and with 1 block against 2
 //   (96 KB of tables) 1.68x the time. At S <= 32 only the register
@@ -112,13 +112,6 @@ __device__ __forceinline__ void start_frame(Lane<S, false, SHARED>& L, const flo
   }
 #endif
   start_path(L, ox, oy, oz, dx, dy, dz, first_frame + (uint32_t)j, max_bounces);
-}
-
-// The S that has a shared-bins build, and the bytes its radiance bins
-// take after the tables: [S][BLOCK] floats (none in the register build).
-constexpr int kSharedBinsSamples = 64;
-constexpr size_t regen_bins_bytes(int S, bool shared) {
-  return shared ? sizeof(float) * (size_t)S * BLOCK : 0;
 }
 
 template <int S, bool MANY, bool TRI, bool SHARED>
@@ -183,7 +176,7 @@ cudaError_t launch_regen(int n, const TableArgs& ta, int max_bounces,
                          cudaStream_t stream) {
   const auto kernel = regen_kernel<S, MANY, TRI, SHARED>;
   size_t smem;
-  cudaError_t err = prepare(kernel, ta, S, smem, regen_bins_bytes(S, SHARED));
+  cudaError_t err = prepare(kernel, ta, S, smem, shared_bins_bytes(S, SHARED));
   if (err != cudaSuccess) return err;
   int blocks = (n + BLOCK - 1) / BLOCK;
   if ((err = resident_grid(kernel, smem, n, counter, stream, blocks)) != cudaSuccess) return err;
@@ -242,13 +235,13 @@ extern "C" int spectral_regen(int n, int n_samples, int max_bounces,
 // instantiation that tables of this kind take, in the register build or
 // (shared_bins) the shared-bins build, at `smem` bytes of tables plus the
 // build's radiance bins (spectral_kernel_info's out): the host's choice
-// of build (megakernel.regen_shared_bins) and the measurement tools. A
+// of build (megakernel.shared_bins) and the measurement tools. A
 // shared-bins build that does not exist (S != 64) or whose bins the
 // tables leave no room reads all zeros: no block of it is resident.
 extern "C" int spectral_regen_info(int n_samples, int many, int tri,
                                    int shared_bins, int smem, int* out) {
   if (shared_bins && (n_samples != spectral::kSharedBinsSamples ||
-                      smem + spectral::regen_bins_bytes(n_samples, true) >
+                      smem + spectral::shared_bins_bytes(n_samples, true) >
                           (size_t)spectral::MAX_SMEM)) {
     out[0] = out[1] = out[2] = 0;
     return 0;
@@ -262,7 +255,7 @@ extern "C" int spectral_regen_info(int n_samples, int many, int tri,
     return spectral_kernel_info(                                              \
         spectral::regen_kernel<S, decltype(m)::value, decltype(t)::value,     \
                                SHARED>,                                       \
-        smem + (int)spectral::regen_bins_bytes(S, SHARED), out);              \
+        smem + (int)spectral::shared_bins_bytes(S, SHARED), out);              \
   })
   switch (n_samples) {
     case 8: SPECTRAL_REGEN_INFO(8, false);

@@ -30,9 +30,9 @@ scene's regeneration the lens build, triangles at S = 16 or 64 the wide
 triangle build, tables ``with_shadow_interval`` the shadow-interval
 build, any other the default; a persist launch takes the register build
 of its library where the spectral state in shared memory loses
-(``persist_library``), and a regeneration launch at S = 64 the build
-with its radiance bins in shared memory where that holds more blocks
-per SM (``regen_shared_bins``). A launch of another kind is refused.
+(``persist_library``), and a regeneration, mono or cost launch at S = 64
+the build with its radiance bins in shared memory where that holds more
+blocks per SM (``shared_bins``). A launch of another kind is refused.
 """
 
 from __future__ import annotations
@@ -443,8 +443,8 @@ def _table_args(tables: KernelTables) -> tuple:
 
 
 _SIGNATURES = {  # entry point: (source, argument types after the tables' split)
-    "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 11)),
-    "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint], 12)),
+    "spectral_mono": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 11)),
+    "spectral_cost": ("mono", ([ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_int], 12)),
     "spectral_regen": ("regen", ([ctypes.c_int] * 3 + [ctypes.c_uint] + [ctypes.c_int] * 2, 8)),
     "spectral_persist": ("persist", ([ctypes.c_int] * 4 + [ctypes.c_uint] * 2
                                      + [ctypes.c_int], 21)),
@@ -525,41 +525,51 @@ def _persist_info(library: str):
     return f
 
 
-def regen_shared_bins(library: str, tables: KernelTables) -> bool:
-    """Whether a ``cuda_regen`` launch of ``tables`` in ``library`` takes
-    the build with the lanes' radiance bins in shared memory: where that
-    build holds more resident blocks per SM than the register build at
-    the tables' shared memory (the occupancy API's count for each, cached
-    per library, S, kind and table bytes). A tie keeps the register
-    build; so do tables that leave the bins no room, and every S but 64,
-    which has no other build (``spectral_regen_info`` counts no block of
+def shared_bins(kernel: str, library: str, tables: KernelTables) -> bool:
+    """Whether a launch of ``kernel`` (``"regen"``: ``cuda_regen``;
+    ``"mono"``, ``"cost"``: ``cuda_mono``, ``cuda_cost``) of ``tables`` in
+    ``library`` takes the build with the lanes' radiance bins in shared
+    memory: where that build holds more resident blocks per SM than the
+    register build at the tables' shared memory (the occupancy API's
+    count for each, ``spectral_regen_info`` or ``spectral_mono_info``,
+    cached per kernel, library, S, kind and table bytes). A tie keeps the
+    register build; so do tables that leave the bins no room, and every
+    S but 64, which has no other build (the entry counts no block of
     either)."""
-    return _regen_shared_bins(library, tables.config.n_samples, tables.many_objects(),
-                              tables.triangles, tables.smem_bytes())
+    return _shared_bins(kernel, library, tables.config.n_samples, tables.many_objects(),
+                        tables.triangles, tables.smem_bytes())
 
 
 @functools.cache
-def _regen_shared_bins(library: str, n_samples: int, many: bool, tri: int, smem: int) -> bool:
-    shared = _regen_blocks(library, n_samples, many, tri, True, smem)
-    return shared > 0 and shared > _regen_blocks(library, n_samples, many, tri, False, smem)
+def _shared_bins(kernel: str, library: str, n_samples: int, many: bool, tri: int,
+                 smem: int) -> bool:
+    shared = _bins_blocks(kernel, library, n_samples, many, tri, True, smem)
+    return shared > 0 and shared > _bins_blocks(kernel, library, n_samples, many, tri, False,
+                                                smem)
 
 
-def _regen_blocks(library: str, n_samples: int, many: bool, tri: int, shared: bool,
-                  smem: int) -> int:
-    """Resident blocks per SM of the regen instantiation of this kind in
+def _bins_blocks(kernel: str, library: str, n_samples: int, many: bool, tri: int,
+                 shared: bool, smem: int) -> int:
+    """Resident blocks per SM of ``kernel``'s instantiation of this kind in
     ``library``, in the shared-bins or the register build, at ``smem``
     bytes of tables (plus the build's bins)."""
+    src = "regen" if kernel == "regen" else "mono"
+    form = () if kernel == "regen" else (int(kernel == "cost"),)
     out = (ctypes.c_int * 3)()
-    _raise_on(_regen_info(library)(n_samples, int(many), int(tri), int(shared), smem, out),
-              f"spectral_regen_info of {library}")
+    _raise_on(_bins_info(src, library)(n_samples, int(many), int(tri), *form, int(shared),
+                                       smem, out),
+              f"spectral_{src}_info of {library}")
     return out[0]
 
 
 @functools.cache
-def _regen_info(library: str):
+def _bins_info(src: str, library: str):
+    """``spectral_regen_info`` of a ``regen.cu`` library, or
+    ``spectral_mono_info`` of a ``mono.cu`` one (``src``), which takes
+    the cost form after the kind."""
     build.build_all(build.kind_of(library) + (library,))
-    f = build.load(library).spectral_regen_info
-    f.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f = getattr(build.load(library), f"spectral_{src}_info")
+    f.argtypes = [ctypes.c_int] * (5 if src == "regen" else 6) + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -624,26 +634,32 @@ def run_mono(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     ``cuda_mono`` for CUDA tensors, runs the plain version for CPU ones."""
     if not _on_cuda(ox):
         return run_mono_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
-    out = _launch_mono(_entry("spectral_mono", tables), ox, oy, oz, dx, dy, dz, px, py,
-                       frame_id, tables)[0]
+    out, _, shared = _launch_mono(library_for("mono", tables), ox, oy, oz, dx, dy, dz, px, py,
+                                  frame_id, tables)
     trace.count("launch.mono")
     if tables.features:  # a feature build (``_entry`` refuses any other)
         trace.count("launch.mono_features")
+    if shared:
+        trace.count("launch.mono_shared_bins")
     return out
 
 
 def run_mono_variant(library: str, ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
                      tables: KernelTables) -> torch.Tensor:
     """``run_mono`` through a diagnostic build of ``mono.cu``
-    (``build.VARIANTS``: the earlier design's grid, the stats build), for
-    the measurement tools. CUDA tensors only; not counted."""
-    return _launch_mono(_entry("spectral_mono", tables, library), ox, oy, oz, dx, dy, dz,
-                        px, py, frame_id, tables)[0]
+    (``build.VARIANTS``: the stats build), for the measurement tools,
+    with the bins where ``shared_bins`` puts them in that build. CUDA
+    tensors only; not counted."""
+    return _launch_mono(library, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)[0]
 
 
-def _launch_mono(fn, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables, cost=False):
-    """One ``mono.cu`` launch: the radiance, and with ``cost`` the cost
-    plane (else None)."""
+def _launch_mono(library, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables, cost=False):
+    """One ``mono.cu`` launch in ``library``: the radiance, with ``cost``
+    the cost plane (else None), and whether it took the shared-bins build
+    (``shared_bins``)."""
+    kernel = "cost" if cost else "mono"
+    fn = _entry(f"spectral_{kernel}", tables, library)
+    shared = shared_bins(kernel, library, tables)
     n = ox.shape[0]
     _check_lanes(dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz),
                  dict(px=px, py=py), tables, n)
@@ -654,12 +670,12 @@ def _launch_mono(fn, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables, cost=Fals
         planes.append(torch.empty((n,), dtype=torch.float32, device=ox.device))
     counter = torch.empty((1,), dtype=torch.int32, device=ox.device)  # zeroed by the launch
     err = fn(
-        n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF,
+        n, cfg.n_samples, cfg.max_bounces, int(frame_id) & 0xFFFFFFFF, int(shared),
         *_table_args(tables),
         *map(_ptr, (ox, oy, oz, dx, dy, dz, px, py, *planes, counter)), _stream(ox),
     )
-    _raise_on(err, "cuda_cost" if cost else "cuda_mono")
-    return out, (planes[1] if cost else None)
+    _raise_on(err, f"cuda_{kernel}")
+    return out, (planes[1] if cost else None), shared
 
 
 def run_regen(px, py, first_frame: int, camera, offsets, lens,
@@ -691,16 +707,16 @@ def run_regen_variant(library: str, px, py, first_frame: int, camera, offsets, l
                       tables: KernelTables) -> torch.Tensor:
     """``run_regen`` through a diagnostic build of ``regen.cu``
     (``build.VARIANTS``: the earlier design's grid, the stats build), for
-    the measurement tools, with the bins where ``regen_shared_bins`` puts
+    the measurement tools, with the bins where ``shared_bins`` puts
     them in that build. CUDA tensors only; not counted."""
     return _launch_regen(library, px, py, first_frame, camera, offsets, lens, tables)[0]
 
 
 def _launch_regen(library, px, py, first_frame, camera, offsets, lens, tables):
     """One ``cuda_regen`` launch in ``library``: the radiance sum, and
-    whether it took the shared-bins build (``regen_shared_bins``)."""
+    whether it took the shared-bins build (``shared_bins``)."""
     fn = _entry("spectral_regen", tables, library, lens is not None)
-    shared = regen_shared_bins(library, tables)
+    shared = shared_bins("regen", library, tables)
     n = px.shape[0]
     _check_lanes({}, dict(px=px, py=py), tables, n)
     _check_camera(camera, offsets, lens, px.device)
@@ -726,19 +742,22 @@ def run_cost(ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
     The radiance is ``run_mono``'s bit for bit."""
     if not _on_cuda(ox):
         return run_cost_plain(ox, oy, oz, dx, dy, dz, px, py, frame_id, tables)
-    out = _launch_mono(_entry("spectral_cost", tables), ox, oy, oz, dx, dy, dz, px, py,
-                       frame_id, tables, cost=True)
+    out, cost, shared = _launch_mono(library_for("mono", tables), ox, oy, oz, dx, dy, dz, px,
+                                     py, frame_id, tables, cost=True)
     trace.count("launch.cost")
-    return out
+    if shared:
+        trace.count("launch.cost_shared_bins")
+    return out, cost
 
 
 def run_cost_variant(library: str, ox, oy, oz, dx, dy, dz, px, py, frame_id: int,
                      tables: KernelTables):
     """``run_cost`` through a diagnostic build of ``mono.cu``
-    (``build.VARIANTS``), for the measurement tools. CUDA tensors only;
-    not counted."""
-    return _launch_mono(_entry("spectral_cost", tables, library), ox, oy, oz, dx, dy, dz,
-                        px, py, frame_id, tables, cost=True)
+    (``build.VARIANTS``), for the measurement tools, with the bins where
+    ``shared_bins`` puts them in that build. CUDA tensors only; not
+    counted."""
+    return _launch_mono(library, ox, oy, oz, dx, dy, dz, px, py, frame_id, tables,
+                        cost=True)[:2]
 
 
 def run_persist(state: PersistState, lead: int, end: int,

@@ -222,19 +222,23 @@ def ray_order(wf, tables):
 
 
 def kernel_info(source, tb, library=None, variant=None, samples=None, many=None, tri=None,
-                smem=None):
+                smem=None, shared=None):
     """``spectral_<source>_info`` at ``tb``'s shared memory (or
     ``smem`` bytes of tables): of the instantiation ``tb`` takes, or
     of the one ``samples``, ``many``, ``tri`` name; ``variant``:
     persist's form (0 free-running, 1 ring, 2 lane-stop), mono's (0
     mono, 1 cost) or regen's build (0 the bins in registers, 1 in shared
     memory; by default the one a launch of ``tb`` takes,
-    ``megakernel.regen_shared_bins``)."""
+    ``megakernel.shared_bins``); ``shared``: mono's build (the bins in
+    shared memory or not; by default the one a launch of ``tb`` in that
+    form takes)."""
     from spectral_tpu_torch.ops import megakernel as mk
     from spectral_tpu_torch.runtime import build
 
     if source == "regen" and variant is None:
-        variant = int(mk.regen_shared_bins(library or source, tb))
+        variant = int(mk.shared_bins("regen", library or source, tb))
+    if source == "mono" and shared is None:
+        shared = mk.shared_bins(("mono", "cost")[variant], library or source, tb)
     samples = tb.config.n_samples if samples is None else samples
     many = tb.many_objects() if many is None else many
     tri = tb.triangles if tri is None else tri
@@ -242,6 +246,8 @@ def kernel_info(source, tb, library=None, variant=None, samples=None, many=None,
     fn = getattr(build.load(library or source), f"spectral_{source}_info")
     out = (ctypes.c_int * 3)()
     head = (samples, int(many), int(tri)) + (() if variant is None else (variant,))
+    if source == "mono":
+        head += (int(shared),)
     err = fn(*head, smem, out)
     if err:
         raise RuntimeError(f"spectral_{source}_info: cudaError_t {err}")
@@ -250,6 +256,8 @@ def kernel_info(source, tb, library=None, variant=None, samples=None, many=None,
                samples=samples)
     if variant is not None:
         got["variant"] = variant
+    if source == "mono":
+        got["shared_bins"] = bool(shared)
     return got
 
 
@@ -596,9 +604,16 @@ def main(argv=None) -> int:
                 for source, forms in (("persist", range(3)), ("mono", range(2))):
                     for lib in libs[source]:
                         for v in forms:
-                            infos.append(dict(kernel=source, library=lib, every_instantiation=True,
-                                              **kernel_info(source, k_tb, lib, variant=v,
-                                                     samples=samples, many=many, tri=tri)))
+                            # mono at S = 64 in both builds (the bins in
+                            # registers and in shared memory)
+                            builds = (False, True) if source == "mono" and samples == 64 else (
+                                None,)
+                            for sh in builds:
+                                infos.append(dict(kernel=source, library=lib,
+                                                  every_instantiation=True,
+                                                  **kernel_info(source, k_tb, lib, variant=v,
+                                                                samples=samples, many=many,
+                                                                tri=tri, shared=sh)))
                             if many and source == "persist" and v == 0:
                                 # the largest tables whose records stay in
                                 # shared memory

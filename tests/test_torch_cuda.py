@@ -48,10 +48,11 @@ Renderer's later images, and a sequence of live edits, equal renders
 from an empty memo bit for bit. The hero frame's shape (1920x1080, 64
 wavelengths, 30 bounces; one regeneration launch, then one mono frame)
 against the benchmark's blocked reference within its 1e-5 limit. At 64
-wavelengths ``cuda_regen``'s build with its radiance bins in shared
-memory bit for bit to the plain version and to the register build (the
-small scene, the clustered field, the prism, mesh64 and a lens scene),
-taken exactly where it holds more blocks per SM and counted as such; a
+wavelengths the builds of ``cuda_regen``, ``cuda_mono`` and ``cuda_cost``
+with their radiance bins in shared memory bit for bit to the plain
+version and to the register build (the small scene, the clustered
+field, the prism, mesh64 and a lens scene; the cost plane too), taken
+exactly where they hold more blocks per SM and counted as such; a
 launch of a feature build counted as one.
 """
 
@@ -103,7 +104,8 @@ class _Launches:
     def _now():
         return {k: trace.total(f"launch.{k}")
                 for k in ("mono", "regen", "persist", "cost", "seg", "regen_shared_bins",
-                          "regen_features", "mono_features")}
+                          "mono_shared_bins", "cost_shared_bins", "regen_features",
+                          "mono_features")}
 
     def __call__(self, *kinds):
         now = self._now()
@@ -905,7 +907,7 @@ def test_cuda_persist_info_and_mono_info(cuda):
     err, parent = info("persist_reg", "spectral_persist_info", 32, 0, 0, 0)
     assert err == 0 and parent[0] < new[0]
     assert info("persist", "spectral_persist_info", 12, 0, 0, 0)[0] != 0
-    err, mono = info("mono", "spectral_mono_info", 32, 0, 0, 1)
+    err, mono = info("mono", "spectral_mono_info", 32, 0, 0, 1, 0)
     assert err == 0 and mono[0] >= 1
 
 
@@ -1197,7 +1199,7 @@ def _bins_scene(kind):
 def test_cuda_regen_shared_bins_equal_plain_and_register_build(cuda, kind, monkeypatch):
     """At S = 64 ``cuda_regen`` takes the build with its lanes' radiance
     bins in shared memory where that holds more resident blocks per SM
-    (``regen_shared_bins``), which every one of these tables does: the
+    (``shared_bins``), which every one of these tables does: the
     small scene, the 101-object field on Morton lanes, the prism's
     feature build, mesh64's wide triangle build and the lens build. The
     radiance sum is ``torch.equal`` to the plain version's and to the
@@ -1207,16 +1209,49 @@ def test_cuda_regen_shared_bins_equal_plain_and_register_build(cuda, kind, monke
     tb = mk.pack_tables(port, cfg)
     perm = morton_layout(cfg.width, cfg.height, cuda)[0] if tb.many_objects() else None
     args = (*ci.regen_args(port, cfg, 0, 3, perm), tb)
-    shared = mk.regen_shared_bins(mk.library_for("regen", tb, args[5] is not None), tb)
+    shared = mk.shared_bins("regen", mk.library_for("regen", tb, args[5] is not None), tb)
     assert shared
     n = _Launches()
     got = mk.run_regen(*args)
     assert n("regen", "regen_shared_bins") == (1, 1)
-    monkeypatch.setattr(mk, "regen_shared_bins", lambda library, tables: False)
+    monkeypatch.setattr(mk, "shared_bins", lambda kernel, library, tables: False)
     registers = mk.run_regen(*args)
     assert n("regen", "regen_shared_bins") == (2, 1)
     assert torch.equal(got, registers)
     assert torch.equal(got, mk.run_regen_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["cornell", "field", "prism", "mesh64", "lens"])
+def test_cuda_mono_shared_bins_equal_plain_and_register_build(cuda, kind, monkeypatch):
+    """At S = 64 ``cuda_mono`` and ``cuda_cost`` take the build with their
+    lanes' radiance bins in shared memory where that holds more resident
+    blocks per SM (``shared_bins``), which every one of these tables
+    does: frame 1 of ``_bins_scene``'s five kinds (the field on Morton
+    lanes, the lens on host raygen's lens rays). The radiance and the
+    cost plane are ``torch.equal`` to the register build's and to the
+    plain version's, and each launch counts ``launch.mono_shared_bins``
+    or ``launch.cost_shared_bins`` exactly when it takes the shared
+    build."""
+    port, cfg = flatten_scene(_bins_scene(kind), cuda)
+    tb = mk.pack_tables(port, cfg)
+    planes, px, py = ci.primary_lanes(port, cfg, 1)
+    if tb.many_objects():
+        perm = morton_layout(cfg.width, cfg.height, cuda)[0]
+        planes, px, py = tuple(p[perm] for p in planes), px[perm], py[perm]
+    args = (*planes, px, py, 1, tb)
+    library = mk.library_for("mono", tb)
+    assert mk.shared_bins("mono", library, tb) and mk.shared_bins("cost", library, tb)
+    n = _Launches()
+    got, (cost_rad, cost) = mk.run_mono(*args), mk.run_cost(*args)
+    assert n("mono", "mono_shared_bins", "cost", "cost_shared_bins") == (1, 1, 1, 1)
+    monkeypatch.setattr(mk, "shared_bins", lambda kernel, library, tables: False)
+    registers, (reg_rad, reg_cost) = mk.run_mono(*args), mk.run_cost(*args)
+    assert n("mono", "mono_shared_bins", "cost", "cost_shared_bins") == (2, 1, 2, 1)
+    plain_rad, plain_cost = mk.run_cost_plain(*args)  # its radiance is run_mono_plain's
+    assert float(got.abs().max()) > 0.0
+    assert torch.equal(got, registers) and torch.equal(got, plain_rad)
+    assert torch.equal(cost_rad, got) and torch.equal(cost_rad, reg_rad)
+    assert torch.equal(cost, reg_cost) and torch.equal(cost, plain_cost)
 
 
 @pytest.mark.parametrize("kind", ["prism", "cornell"])
@@ -1252,18 +1287,54 @@ def test_cuda_regen_info_of_both_builds(cuda):
     reg, shared = (kernel_info("regen", hero, variant=v) for v in (0, 1))
     assert shared["blocks_per_sm"] > reg["blocks_per_sm"] >= 1
     assert shared["registers"] < reg["registers"]
-    assert mk.regen_shared_bins("regen", hero)
+    assert mk.shared_bins("regen", "regen", hero)
     for lights, blocks in ((120, (2, 1)), (280, (1, 0))):
         tb = tables(torch_scenes.many_lights(schema, presets, "cornell", lights, 64, 32, 8, 64))
         assert tuple(kernel_info("regen", tb, variant=v)["blocks_per_sm"]
                      for v in (0, 1)) == blocks
-        assert not mk.regen_shared_bins("regen", tb)
+        assert not mk.shared_bins("regen", "regen", tb)
     s32 = tables(_scene("cornell", 64, 32, 3, samples=32, iters=3))
-    assert not mk.regen_shared_bins("regen", s32)
+    assert not mk.shared_bins("regen", "regen", s32)
     assert kernel_info("regen", s32, variant=1)["blocks_per_sm"] == 0
     n = _Launches()
     mk.run_regen(*ci.regen_args(s32.scene, s32.config, 0, 3), s32)
     assert n("regen", "regen_shared_bins") == (1, 0)
+
+
+def test_cuda_mono_info_of_both_builds(cuda):
+    """At the hero frame's tables the shared-bins build of
+    ``mono_kernel<64,cost,0,0>`` holds more blocks of 128 per SM than the
+    register build, with fewer registers, in both forms, and the rule
+    takes it; at tables of 120 and 280 lights the rule takes it exactly
+    where it holds more blocks (280 leave it no room: no block). At
+    S = 32, which has no shared-bins build, the entry counts no block of
+    it and neither kernel counts a shared launch."""
+    from spectral_tpu_torch.tools.lane_stats import kernel_info
+
+    def tables(sc):
+        return mk.pack_tables(*flatten_scene(sc, cuda))
+
+    hero = tables(_scene("cornell", 192, 108, 30, samples=64))
+    for cost, kernel in enumerate(("mono", "cost")):
+        reg, shared = (kernel_info("mono", hero, variant=cost, shared=v) for v in (False, True))
+        assert shared["blocks_per_sm"] > reg["blocks_per_sm"] >= 1
+        assert shared["registers"] < reg["registers"]
+        assert mk.shared_bins(kernel, "mono", hero)
+        for lights in (120, 280):
+            tb = tables(torch_scenes.many_lights(schema, presets, "cornell", lights, 64, 32, 8,
+                                                 64))
+            reg, shared = (kernel_info("mono", tb, variant=cost, shared=v)["blocks_per_sm"]
+                           for v in (False, True))
+            assert mk.shared_bins(kernel, "mono", tb) == (shared > reg)
+            assert lights == 120 or shared == 0
+    s32 = tables(_scene("cornell", 64, 32, 3, samples=32, iters=3))
+    assert kernel_info("mono", s32, variant=0, shared=True)["blocks_per_sm"] == 0
+    assert not mk.shared_bins("mono", "mono", s32) and not mk.shared_bins("cost", "mono", s32)
+    planes, px, py = ci.primary_lanes(s32.scene, s32.config, 0)
+    n = _Launches()
+    mk.run_mono(*planes, px, py, 0, s32)
+    mk.run_cost(*planes, px, py, 0, s32)
+    assert n("mono", "mono_shared_bins", "cost", "cost_shared_bins") == (1, 0, 1, 0)
 
 
 def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
@@ -1279,7 +1350,7 @@ def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
     doc = sceneio.scene_to_dict(scene)
     launches = _Launches()
     fb = Renderer(scene, device="cuda", regen_frames=2).render()
-    assert launches("regen", "mono", "regen_shared_bins") == (1, 1, 1)
+    assert launches("regen", "mono", "regen_shared_bins", "mono_shared_bins") == (1, 1, 1, 1)
     px, py = check.pixel_grid(1920, 1080, 64, 2**31 + 17)
     st, cfg = paths.tables(doc, "cuda")
     ref = blocks.regen_plan_image(st, cfg, torch.from_numpy(px).cuda(),

@@ -2,13 +2,15 @@
 (``benchmark/reference/blocks.py``), on the CPU at tiny sizes: the
 blocked reference against the one-pass reference and against the
 Renderer's plan of full regeneration chunks and a frame-by-frame tail,
-the hero frame's plan, the ``render.tail`` span and count, and the cell
-``hero.regen`` as the harness loads and runs it."""
+the hero frame's plan, the ``render.tail`` span and count, the cell
+``hero.regen`` as the harness loads and runs it, and its reader of the
+mono launches' shared-bins share."""
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,7 +28,8 @@ from spectral_tpu_torch.utils import sceneio
 
 REPO = Path(__file__).resolve().parents[1]
 HERO = json.loads((REPO / "benchmark/configs/hero.json").read_text())
-HERO_METRICS = {"regen.roofline_pct.hero", "render.tail_pct.hero", "device.idle_pct.hero"}
+HERO_METRICS = {"regen.roofline_pct.hero", "render.tail_pct.hero", "device.idle_pct.hero",
+                "mono.shared_bins_pct.hero"}
 
 torch.set_num_threads(1)
 
@@ -153,3 +156,38 @@ def test_tiny_hero_cell_runs(hero_root, traced):
         assert 0.0 < out["metrics"]["render.tail_pct.hero"]["value"] < 100.0
     else:
         assert set(out["metrics"]) == {"msamples_per_s", "setup_s"}
+
+
+# ------------------------------------------------ the tail's shared-bins share
+
+
+def _read_mono_share(rows, monkeypatch):
+    """``mono.shared_bins_pct.hero`` over a traced window of [0, 10] s on
+    the profiler's clock, whose program clock runs 1,000 s ahead, with
+    the program's ``rows``."""
+    shift = 1000.0
+    monkeypatch.setattr(trace, "rows", lambda: [r._replace(time=r.time + shift) for r in rows])
+    driver = SimpleNamespace(spans=SimpleNamespace(rows=[("window", shift, 10.0 + shift)]))
+    view = core.TraceView(SimpleNamespace(config=HERO), 0.0, 10.0, [], [], driver, None)
+    return core.load_module(REPO / "benchmark/metrics/mono.shared_bins_pct.hero.py",
+                            "t_mono_shared_bins_pct_hero").read(view)
+
+
+def test_mono_shared_bins_share_of_mono_launches(monkeypatch):
+    rows = [trace.Count("launch.regen", t, 1, 1) for t in (1.0, 2.0)]
+    rows += [trace.Count("launch.regen_shared_bins", t, 1, 1) for t in (1.0, 2.0)]
+    rows += [trace.Count("launch.mono", t, 1, 1) for t in (3.0, 4.0, 5.0, 6.0)]
+    rows += [trace.Count("launch.mono_shared_bins", t, 1, 1) for t in (3.0, 4.0, 5.0)]
+    rows.append(trace.Count("launch.mono_shared_bins", 12.0, 1, 1))  # after the window
+    assert _read_mono_share(rows, monkeypatch) == pytest.approx(75.0)
+
+
+def test_mono_shared_bins_share_needs_a_mono_launch(monkeypatch):
+    """A window without a mono launch, or without the program's rows,
+    gives None and raises nothing; a program without the shared-bins
+    count (the parent of the count) reads 0."""
+    rows = [trace.Count("launch.regen", 1.0, 1, 1),
+            trace.Count("launch.regen_shared_bins", 1.0, 1, 1)]
+    assert _read_mono_share(rows, monkeypatch) is None
+    assert _read_mono_share([], monkeypatch) is None
+    assert _read_mono_share([trace.Count("launch.mono", 1.0, 1, 1)], monkeypatch) == 0.0

@@ -259,86 +259,176 @@ def test_persist_takes_its_register_build_where_the_state_leaves_no_room(
     assert mk.library_for("mono", full) == f"mono{fx}"
 
 
-# ------------------------------------------------ regen's radiance bins at S = 64
+# ------------------------------------ the radiance bins of regen, mono and cost at S = 64
+
+KERNELS = ("regen", "mono", "cost")
+LIBRARIES = {"regen": ("regen", "regen_lens"), "mono": ("mono", "mono_fx"),
+             "cost": ("mono", "mono_fx")}
 
 
 @pytest.fixture
-def regen_blocks(monkeypatch):
-    """Stub occupancy counts for ``regen_shared_bins`` (the CPU has no
-    kernel to ask): ``counts[shared]`` blocks per SM, each query
-    recorded; the rule's cache is emptied before and after."""
+def bins_blocks(monkeypatch):
+    """Stub occupancy counts for ``shared_bins`` (the CPU has no kernel
+    to ask): ``counts[shared]`` blocks per SM, each query recorded; the
+    rule's cache is emptied before and after."""
     counts, asked = {}, []
 
-    def blocks(library, n_samples, many, tri, shared, smem):
-        asked.append((library, n_samples, many, tri, shared, smem))
+    def blocks(kernel, library, n_samples, many, tri, shared, smem):
+        asked.append((kernel, library, n_samples, many, tri, shared, smem))
         return counts[shared]
 
-    monkeypatch.setattr(mk, "_regen_blocks", blocks)
-    mk._regen_shared_bins.cache_clear()
+    monkeypatch.setattr(mk, "_bins_blocks", blocks)
+    mk._shared_bins.cache_clear()
     yield counts, asked
-    mk._regen_shared_bins.cache_clear()
+    mk._shared_bins.cache_clear()
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("shared,registers,takes", [(3, 2, True), (4, 2, True), (2, 2, False),
                                                     (1, 2, False)])
-def test_regen_takes_shared_bins_where_they_hold_more_blocks(regen_blocks, shared, registers,
-                                                             takes):
-    """At S = 64 ``cuda_regen`` takes the build with its radiance bins in
-    shared memory where the occupancy API gives it more resident blocks
-    per SM than the register build; a tie or fewer keep registers. The
-    answer is cached per library, S, kind and table bytes: asked once."""
-    counts, asked = regen_blocks
+def test_regen_takes_shared_bins_where_they_hold_more_blocks(bins_blocks, shared, registers,
+                                                             takes, kernel):
+    """At S = 64 ``cuda_regen``, ``cuda_mono`` and ``cuda_cost`` take the
+    build with their radiance bins in shared memory where the occupancy
+    API gives it more resident blocks per SM than the register build; a
+    tie or fewer keep registers. The answer is cached per kernel,
+    library, S, kind and table bytes: asked once."""
+    counts, asked = bins_blocks
     counts.update({True: shared, False: registers})
     tb = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=64), "cpu"))
-    for library in ("regen", "regen", "regen_lens"):
-        assert mk.regen_shared_bins(library, tb) is takes
+    libraries = LIBRARIES[kernel]
+    for library in (libraries[0], *libraries):
+        assert mk.shared_bins(kernel, library, tb) is takes
     smem = tb.smem_bytes()
-    assert sorted(asked) == sorted((lib, 64, False, 0, sh, smem)
-                                   for lib in ("regen", "regen_lens") for sh in (False, True))
+    assert sorted(asked) == sorted((kernel, lib, 64, False, 0, sh, smem)
+                                   for lib in libraries for sh in (False, True))
 
 
-def test_regen_keeps_registers_without_room_or_below_s64(regen_blocks):
-    """Where ``spectral_regen_info`` counts no resident block of the
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_regen_keeps_registers_without_room_or_below_s64(bins_blocks, kernel):
+    """Where the kernel's info entry counts no resident block of the
     shared-bins build (tables that leave its bins no room, as 280 lights
     at S = 64 do; every S below 64, which has no such build) the launch
     keeps the register build, after that one query, once per key."""
-    counts, asked = regen_blocks
+    counts, asked = bins_blocks
     counts.update({True: 0, False: 1})
     sc = torch_scenes.many_lights(schema, presets, "cornell", 280, 8, 4, 1, 64)
     full = mk.pack_tables(*flatten_scene(sc, "cpu"))
     tables = [full] + [mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=s),
                                                      "cpu")) for s in (8, 16, 32)]
+    library = LIBRARIES[kernel][0]
     for tb in tables + tables:
-        assert not mk.regen_shared_bins("regen", tb)
-    assert asked == [("regen", tb.config.n_samples, False, 0, True, tb.smem_bytes())
+        assert not mk.shared_bins(kernel, library, tb)
+    assert asked == [(kernel, library, tb.config.n_samples, False, 0, True, tb.smem_bytes())
                      for tb in tables]
     assert full.smem_bytes() <= mk.MAX_SMEM
 
 
+def _stub_launch(kernel, taken):
+    """A stand-in for ``_launch_regen`` or ``_launch_mono`` (the CPU has no
+    kernel): zeros, and the build ``shared_bins`` takes; each library
+    recorded in ``taken``."""
+    if kernel == "regen":
+        def launch(library, px, *rest):
+            taken.append(library)
+            tables = rest[-1]
+            out = torch.zeros((tables.config.n_samples, px.shape[0]))
+            return out, mk.shared_bins("regen", library, tables)
+        return launch
+
+    def launch(library, ox, *rest, cost=False):
+        taken.append(library)
+        tables = rest[-1]
+        out = torch.zeros((tables.config.n_samples, ox.shape[0]))
+        plane = torch.zeros((ox.shape[0],)) if cost else None
+        return out, plane, mk.shared_bins("cost" if cost else "mono", library, tables)
+    return launch
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("samples,shared", [(64, True), (64, False), (32, False)])
-def test_regen_counts_its_shared_bins_launches(regen_blocks, monkeypatch, samples, shared):
-    """``run_regen`` counts ``launch.regen`` for every launch and
-    ``launch.regen_shared_bins`` for each that takes the shared build (the
-    launch itself stubbed: the CPU has no kernel), never at S = 32."""
-    counts, _ = regen_blocks
+def test_regen_counts_its_shared_bins_launches(bins_blocks, monkeypatch, samples, shared,
+                                               kernel):
+    """``run_regen``, ``run_mono`` and ``run_cost`` count ``launch.<kernel>``
+    for every launch and ``launch.<kernel>_shared_bins`` for each that
+    takes the shared build (the launch itself stubbed: the CPU has no
+    kernel), exactly at S = 64 where it holds more blocks, never at
+    S = 32."""
+    counts, _ = bins_blocks
     counts.update({True: (3 if shared else 2) if samples == 64 else 0, False: 2})
     tb = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=samples), "cpu"))
     taken = []
+    monkeypatch.setattr(mk, "_on_cuda", lambda t: True)
+    if kernel == "regen":
+        monkeypatch.setattr(mk, "_launch_regen", _stub_launch(kernel, taken))
+        args = (*ci.regen_args(tb.scene, tb.config, 0, 2), tb)
+    else:
+        monkeypatch.setattr(mk, "_launch_mono", _stub_launch(kernel, taken))
+        planes, px, py = ci.primary_lanes(tb.scene, tb.config, 0)
+        args = (*planes, px, py, 0, tb)
+    run = {"regen": mk.run_regen, "mono": mk.run_mono, "cost": mk.run_cost}[kernel]
+    names = (f"launch.{kernel}", f"launch.{kernel}_shared_bins")
+    others = [f"launch.{k}_shared_bins" for k in KERNELS if k != kernel]
+    before = [trace.total(n) for n in (*names, *others)]
+    for _ in range(2):
+        run(*args)
+    assert taken == [LIBRARIES[kernel][0]] * 2
+    got = [trace.total(n) - b for n, b in zip((*names, *others), before)]
+    assert got == [2, 2 * int(shared), 0, 0]
 
-    def launch(library, px, *rest):
-        taken.append(library)
-        tables = rest[-1]
-        out = torch.zeros((tables.config.n_samples, px.shape[0]))
-        return out, mk.regen_shared_bins(library, tables)
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("shared", [True, False])
+def test_launches_pass_their_build_to_the_entry(bins_blocks, monkeypatch, kernel, shared):
+    """A launch passes the build the rule takes to its C entry as the int
+    after the frame (``cuda_mono``, ``cuda_cost``) or after ``k``
+    (``cuda_regen``), in the argument count ``_SIGNATURES`` declares (the
+    entry stubbed: the CPU has no kernel)."""
+    counts, _ = bins_blocks
+    counts.update({True: 4 if shared else 2, False: 2})
+    tb = mk.pack_tables(*flatten_scene(_scene("cornell", 8, 4, 1, samples=64), "cpu"))
+    calls = []
+
+    def entry(fn, tables, library=None, lens=False):
+        calls.append(fn)
+        return lambda *args: calls.append(args) or 0
 
     monkeypatch.setattr(mk, "_on_cuda", lambda t: True)
-    monkeypatch.setattr(mk, "_launch_regen", launch)
-    before = trace.total("launch.regen"), trace.total("launch.regen_shared_bins")
-    for _ in range(2):
+    monkeypatch.setattr(mk, "_entry", entry)
+    monkeypatch.setattr(mk, "_stream", lambda t: None)
+    if kernel == "regen":
         mk.run_regen(*ci.regen_args(tb.scene, tb.config, 0, 2), tb)
-    assert taken == ["regen", "regen"]
-    assert (trace.total("launch.regen") - before[0],
-            trace.total("launch.regen_shared_bins") - before[1]) == (2, 2 * int(shared))
+    else:
+        planes, px, py = ci.primary_lanes(tb.scene, tb.config, 0)
+        (mk.run_mono if kernel == "mono" else mk.run_cost)(*planes, px, py, 3, tb)
+    fn, args = calls
+    head, n_ptrs = mk._SIGNATURES[fn][1]
+    assert fn == f"spectral_{kernel}"
+    assert len(args) == len(head) + len(mk._TABLE_ARGTYPES) + n_ptrs
+    assert args[len(head) - 1] == int(shared)
+    assert args[:4] == (32, 64, 1, 0 if kernel == "regen" else 3)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_bins_blocks_ask_the_kernels_info_entry(monkeypatch, kernel):
+    """``_bins_blocks`` asks ``spectral_regen_info`` (S, kind, build,
+    table bytes) or ``spectral_mono_info`` (S, kind, the cost form,
+    build, table bytes) of the library, and reads its blocks per SM."""
+    asked = []
+
+    def info(src, library):
+        def f(*args):
+            asked.append((src, library, args[:-1]))
+            args[-1][0] = 7
+            return 0
+        return f
+
+    monkeypatch.setattr(mk, "_bins_info", info)
+    library = LIBRARIES[kernel][1]
+    assert mk._bins_blocks(kernel, library, 64, True, 1, True, 4096) == 7
+    form = () if kernel == "regen" else (int(kernel == "cost"),)
+    src = "regen" if kernel == "regen" else "mono"
+    assert asked == [(src, library, (64, 1, 1, *form, 1, 4096))]
 
 
 @pytest.mark.parametrize("name,features", [("prism", True), ("cornell", False)])
@@ -354,11 +444,13 @@ def test_launches_count_their_feature_builds(monkeypatch, name, features):
         assert build.has_features(library) is features
         return torch.zeros((tb.config.n_samples, px.shape[0])), True
 
+    def launch_mono(library, ox, *rest):
+        assert build.has_features(library) is features
+        return torch.zeros((tb.config.n_samples, ox.shape[0])), None, False
+
     monkeypatch.setattr(mk, "_on_cuda", lambda t: True)
     monkeypatch.setattr(mk, "_launch_regen", launch)
-    monkeypatch.setattr(mk, "_entry", lambda fn, tables: fn)
-    monkeypatch.setattr(mk, "_launch_mono", lambda fn, ox, *rest: (
-        torch.zeros((tb.config.n_samples, ox.shape[0])), None))
+    monkeypatch.setattr(mk, "_launch_mono", launch_mono)
     kinds = ("regen", "regen_features", "regen_shared_bins", "mono", "mono_features")
     before = [trace.total(f"launch.{k}") for k in kinds]
     mk.run_regen(*ci.regen_args(tb.scene, tb.config, 0, 2), tb)
