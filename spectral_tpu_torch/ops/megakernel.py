@@ -700,6 +700,10 @@ def run_regen(px, py, first_frame: int, camera, offsets, lens,
         trace.count("launch.regen_features")
     if shared:
         trace.count("launch.regen_shared_bins")
+    if tables.triangles:
+        trace.count("launch.regen_triangles")
+    if tables.many_objects() and not tables.packed_shared and tables.packed.numel():
+        trace.count("launch.regen_packed_global")  # the walk streams its records
     return out
 
 

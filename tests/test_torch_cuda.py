@@ -53,7 +53,9 @@ with their radiance bins in shared memory bit for bit to the plain
 version and to the register build (the small scene, the clustered
 field, the prism, mesh64 and a lens scene; the cost plane too), taken
 exactly where they hold more blocks per SM and counted as such; a
-launch of a feature build counted as one.
+launch of a feature build counted as one, and a launch of mesh5k's
+triangle walk, whose packed records stay in global memory, as one of
+each.
 """
 
 import dataclasses
@@ -105,7 +107,7 @@ class _Launches:
         return {k: trace.total(f"launch.{k}")
                 for k in ("mono", "regen", "persist", "cost", "seg", "regen_shared_bins",
                           "mono_shared_bins", "cost_shared_bins", "regen_features",
-                          "mono_features")}
+                          "mono_features", "regen_triangles", "regen_packed_global")}
 
     def __call__(self, *kinds):
         now = self._now()
@@ -1268,6 +1270,22 @@ def test_cuda_launches_count_their_feature_builds(cuda, kind):
     torch.cuda.synchronize()
     fx = int(kind == "prism")
     assert n("regen", "regen_features", "mono", "mono_features") == (1, fx, 1, fx)
+
+
+@pytest.mark.parametrize("kind", ["mesh5k", "cornell"])
+def test_cuda_launches_count_their_triangle_walks(cuda, kind):
+    """One ``cuda_regen`` launch of mesh5k (6,400 triangles, whose packed
+    walk records outgrow shared memory) counts ``launch.regen_triangles``
+    and ``launch.regen_packed_global`` once each; the Cornell box's counts
+    neither."""
+    port, cfg = flatten_scene(_scene(kind, 64, 64, 3, samples=32), cuda)
+    tb = mk.pack_tables(port, cfg)
+    n = _Launches()
+    out = mk.run_regen(*ci.regen_args(port, cfg, 0, 2), tb)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0.0
+    mesh = int(kind == "mesh5k")
+    assert n("regen", "regen_triangles", "regen_packed_global") == (1, mesh, mesh)
 
 
 def test_cuda_regen_info_of_both_builds(cuda):
