@@ -22,10 +22,27 @@
 // a sphere run's members as one 16-byte record each and a triangle run's
 // as three (megakernel.cuh: packed), laid out in visit order, in shared
 // memory where they fit (spheres1000's 16 KB, mesh's 16 KB) and else
-// streamed from global memory (mesh5k's 300 KB); no order[] load comes
+// streamed from global memory (mesh5k's 307 KB); no order[] load comes
 // before a member test, and the 47-row table in global memory serves the
 // winner's shading, box runs and an unclustered mixed run. A sphere
 // member's root stage runs only under a warp vote (sphere_t_voted).
+//
+// Triangle runs (TRI builds, tri_run_nearest and tri_run_blocked). A warp's
+// 32 lanes are unrelated paths: in a warp that visits a cluster, few lanes
+// may need it, and the per-lane loop runs all its member tests (up to
+// 64, each a Moller-Trumbore of about 70 instructions and three loads of
+// one broadcast record) for them. At each packed triangle run every lane
+// on it takes the ballot of its cull; when the k needing lanes are few for
+// the run's size and the n lanes on it (coop_pays: k * (ceil(size / n) + 1)
+// < size, in member tests run), the warp takes the needing lanes one at
+// a time: each lane loads its own member's records (start + rank + i * n)
+// once, tests them against the needing lane's ray and best hit, which it
+// receives by shuffles, and the warp reduces the result to that lane (a
+// lexicographic minimum of (t, original index), or any hit for a shadow
+// ray). Otherwise, coherent warps say, the per-lane loop runs. A shadow
+// ray's lane that is blocked stays in the run loop as a helper rather
+// than returning. Sphere runs, box runs, the mixed run and every build
+// without TRI keep their loops.
 //
 // Exactness. A cluster is skipped only when the ray cannot enter its
 // union AABB at or before its current best hit (`<=`, not `<`: a member
@@ -36,6 +53,17 @@
 // SIMT form of the TPU kernel's tile-uniform lax.cond. Every object test
 // is `candidate_t`, the division form of the eager trace, where the TPU
 // kernel's many-object loop multiplies by a reciprocal (<= 1 ulp apart).
+// The triangle runs' cooperative pass keeps these bits: a lane visits the
+// same runs in the same order and culls each with the same t_best; every
+// (ray, member) test the per-lane loop runs for a needing lane runs in the
+// pass with the same tri_t, the same operations in the same order, with
+// the same filter t > 0 && t <= t_best. The sequential rule over one run,
+// t <= t_best && (t < t_best || o < win), keeps the lexicographic minimum
+// of (t, o) over the run's candidates and the incoming (t_best, win): a
+// candidate that ties the incoming t with win = -1 does not replace it,
+// and -1 is the least int; t > 0 (or +inf) so its bits order as its
+// value. The minimum does not depend on the order the candidates come in,
+// so the pass's per-lane folds and warp reduction give the same pair.
 // A shadow ray stops at its first blocker: occlusion is an any-hit
 // question, so the walk order cannot change it. That per-light early
 // exit is this loop's design in place of the TPU kernel's fused
@@ -385,12 +413,18 @@ __device__ __forceinline__ int packed_kind(const float* R) {
 // trace (base 0) and the shadow rays (base WALK_SHADOW): the traces, the
 // culled runs the lane needs and those its warp visits (any of its
 // active lanes needs them), the member tests the lane needs and those
-// its warp runs; then, once a warp (in its lowest active lane's slot),
-// the packed sphere member tests the warp runs and those whose root
-// stage it runs (sphere_t_voted).
+// its warp runs (lane slots: a packed triangle run adds what its pass
+// spends, walk_tri); then, once a warp (in its lowest active lane's
+// slot), the packed sphere member tests the warp runs and those whose
+// root stage it runs (sphere_t_voted); then the packed triangle runs:
+// once a warp, the visits its pass takes cooperatively and those it takes
+// per lane; per lane, the member tests the lane needs, and the lane slots
+// the warp spends on member tests in each branch.
 constexpr int WALK_TRACES = 0, WALK_RUNS_NEED = 1, WALK_RUNS_VISIT = 2,
               WALK_MEMB_NEED = 3, WALK_MEMB_VISIT = 4, WALK_SPHERE_TESTS = 5,
-              WALK_ROOT_STAGES = 6, WALK_SHADOW = 7, WALK_STATS = 14;
+              WALK_ROOT_STAGES = 6, WALK_TRI_COOP = 7, WALK_TRI_LANE = 8,
+              WALK_TRI_NEED = 9, WALK_TRI_SLOTS_COOP = 10,
+              WALK_TRI_SLOTS_LANE = 11, WALK_SHADOW = 12, WALK_STATS = 24;
 
 __device__ __forceinline__ unsigned* walk_slots() {
   __shared__ unsigned slots[WALK_STATS * BLOCK];
@@ -401,7 +435,10 @@ __device__ __forceinline__ void walk_count(int base, int what, unsigned v) {
   walk_slots()[(base + what) * BLOCK + threadIdx.x] += v;
 }
 
-__device__ __forceinline__ void walk_run(int base, const float* R, bool reach) {
+// `members`: count the lane slots of the run's member tests here (a
+// packed triangle run's pass counts its own)
+__device__ __forceinline__ void walk_run(int base, const float* R, bool reach,
+                                         bool members) {
   const bool any = __ballot_sync(__activemask(), reach) != 0u;
   const unsigned size = (unsigned)((int)R[RUN_STOP] - (int)R[RUN_START]);
   if (R[RUN_CULL] > 0.0f) {
@@ -409,7 +446,7 @@ __device__ __forceinline__ void walk_run(int base, const float* R, bool reach) {
     walk_count(base, WALK_RUNS_VISIT, any ? 1u : 0u);
   }
   walk_count(base, WALK_MEMB_NEED, reach ? size : 0u);
-  walk_count(base, WALK_MEMB_VISIT, any ? size : 0u);
+  if (members) walk_count(base, WALK_MEMB_VISIT, any ? size : 0u);
 }
 
 __device__ __forceinline__ void walk_sphere(int base, unsigned lanes, bool rooted) {
@@ -418,14 +455,32 @@ __device__ __forceinline__ void walk_sphere(int base, unsigned lanes, bool roote
     walk_count(base, WALK_ROOT_STAGES, rooted ? 1u : 0u);
   }
 }
+
+// a packed triangle run's pass over the warp's `lanes`: the branch it
+// took, the lane's need and the lane slots the warp spends
+__device__ __forceinline__ void walk_tri(int base, unsigned lanes, bool coop,
+                                         bool reach, unsigned size,
+                                         unsigned slots) {
+  if ((int)(threadIdx.x & 31u) == __ffs(lanes) - 1) {
+    walk_count(base, coop ? WALK_TRI_COOP : WALK_TRI_LANE, 1u);
+  }
+  walk_count(base, WALK_TRI_NEED, reach ? size : 0u);
+  walk_count(base, coop ? WALK_TRI_SLOTS_COOP : WALK_TRI_SLOTS_LANE, slots);
+  walk_count(base, WALK_MEMB_VISIT, slots);
+}
 #define SPECTRAL_WALK_TRACE(base) walk_count(base, WALK_TRACES, 1u)
-#define SPECTRAL_WALK_RUN(base, R, reach) walk_run(base, R, reach)
+#define SPECTRAL_WALK_RUN(base, R, reach) walk_run(base, R, reach, true)
+#define SPECTRAL_WALK_TRI_RUN(base, R, reach) walk_run(base, R, reach, false)
 #define SPECTRAL_WALK_SPHERE(shadow, lanes, rooted) \
   walk_sphere((shadow) ? WALK_SHADOW : 0, lanes, rooted)
+#define SPECTRAL_WALK_TRI(shadow, lanes, coop, reach, size, slots) \
+  walk_tri((shadow) ? WALK_SHADOW : 0, lanes, coop, reach, size, slots)
 #else
 #define SPECTRAL_WALK_TRACE(base) ((void)0)
 #define SPECTRAL_WALK_RUN(base, R, reach) ((void)0)
+#define SPECTRAL_WALK_TRI_RUN(base, R, reach) ((void)0)
 #define SPECTRAL_WALK_SPHERE(shadow, lanes, rooted) ((void)0)
+#define SPECTRAL_WALK_TRI(shadow, lanes, coop, reach, size, slots) ((void)0)
 #endif
 
 // sphere_t in two stages, for the packed sphere runs of the many-object
@@ -460,6 +515,159 @@ __device__ __forceinline__ bool sphere_t_voted(float cx, float cy, float cz,
   return root && (t >= 0.0f);
 }
 
+// The cooperative pass over a packed triangle run (TRI builds; the header's
+// "Triangle runs"). Its cost rule, in member tests a lane slot runs: the
+// per-lane loop costs the warp the run's `size` tests whatever the
+// number k of lanes that need them; the pass costs ceil(size / n) per
+// needing lane over the n lanes on the run, plus the exchange of the
+// needing lane's ray and best hit and the warp's reduction, which weigh
+// about one test (kCoopOverhead, in quarters of a test). Measured on an
+// H100 (PERF.md section 6): 4, 8 and 16 quarters within 4% of each
+// other on mesh5k, 4 the fastest on the mesh preset at 32 wavelengths.
+constexpr int kCoopOverhead = 4;
+
+__device__ __forceinline__ bool coop_pays(int k, int n, int size) {
+  return k * (4 * ((size + n - 1) / n) + kCoopOverhead) < 4 * size;
+}
+
+// The nearest trace's packed triangle run R (run index r) for every lane
+// of the warp on it, needed (reach) or not: where the rule pays, the warp
+// takes its needing lanes one at a time and spreads the run's members over
+// its lanes (member start + rank + i * n), each lane testing its member
+// against the needing lane's ray with tri_t as the per-lane loop does;
+// the needing lane takes the lexicographic minimum of (t, original index)
+// over the warp, its incoming (t_best, win) included. Else the per-lane
+// loop. `lanes` matches on r, so every lane of the pass reads one run.
+__device__ __forceinline__ void tri_run_nearest(const Tables& tb, const float* R,
+                                                int r, bool reach, float ox,
+                                                float oy, float oz, float dx,
+                                                float dy, float dz,
+                                                float& t_best, int& win) {
+  const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
+  const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
+  const unsigned lanes = __match_any_sync(__activemask(), r);
+  const unsigned need = __ballot_sync(lanes, reach);
+  if (need == 0u) return;
+  const int n = __popc(lanes), size = stop - start;
+  if (coop_pays(__popc(need), n, size)) {
+    const int me = (int)(threadIdx.x & 31u);
+    const int rank = __popc(lanes & ((1u << me) - 1u));
+    for (int first = start; first < stop; first += n) {
+      const int k = first + rank;
+      const bool has = k < stop;
+      const int slot = has ? k : start;
+      const float4 a = tb.packed[at + 3 * slot], b = tb.packed[at + 3 * slot + 1],
+                   c = tb.packed[at + 3 * slot + 2];
+      for (unsigned left = need; left != 0u; left &= left - 1u) {
+        const int j = __ffs(left) - 1;
+        const float jox = __shfl_sync(lanes, ox, j), joy = __shfl_sync(lanes, oy, j),
+                    joz = __shfl_sync(lanes, oz, j), jdx = __shfl_sync(lanes, dx, j),
+                    jdy = __shfl_sync(lanes, dy, j), jdz = __shfl_sync(lanes, dz, j);
+        float jt = __shfl_sync(lanes, t_best, j);
+        int jwin = __shfl_sync(lanes, win, j);
+        float t, u, v;
+        if (has &&
+            tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, jox, joy, joz,
+                  jdx, jdy, jdz, t, u, v) &&
+            t > 0.0f && t <= jt) {
+          const int o = tb.order[k];
+          if (t < jt || o < jwin) {
+            jt = t;
+            jwin = o;
+          }
+        }
+        // t > 0 or +inf: the bits order as the values
+        const unsigned t_min = __reduce_min_sync(lanes, __float_as_uint(jt));
+        const int w_min =
+            __reduce_min_sync(lanes, __float_as_uint(jt) == t_min ? jwin : 0x7fffffff);
+        if (me == j) {
+          t_best = __uint_as_float(t_min);
+          win = w_min;
+        }
+      }
+    }
+    SPECTRAL_WALK_TRI(false, lanes, true, reach, size,
+                      __popc(need) * ((size + n - 1) / n));
+    return;
+  }
+  SPECTRAL_WALK_TRI(false, lanes, false, reach, size, size);
+  if (!reach) return;
+  for (int k = start; k < stop; ++k) {
+    const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
+                 c = tb.packed[at + 3 * k + 2];
+    float t, u, v;
+    if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz, dx, dy,
+              dz, t, u, v) &&
+        t > 0.0f && t <= t_best) {
+      const int o = tb.order[k];  // ties: the lowest original index wins
+      if (t < t_best || o < win) {
+        t_best = t;
+        win = o;
+      }
+    }
+  }
+}
+
+// The shadow rays' packed triangle run R, as tri_run_nearest: a needing
+// lane is blocked if any lane's member test finds a hit in (0, max_dist];
+// a blocked lane needs no further test. Lanes already blocked take part
+// as helpers (their reach is false).
+__device__ __forceinline__ void tri_run_blocked(const Tables& tb, const float* R,
+                                                int r, bool reach, float ox,
+                                                float oy, float oz, float dx,
+                                                float dy, float dz,
+                                                float max_dist, bool& blocked) {
+  const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
+  const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
+  const unsigned lanes = __match_any_sync(__activemask(), r);
+  unsigned need = __ballot_sync(lanes, reach);
+  if (need == 0u) return;
+  const int n = __popc(lanes), size = stop - start;
+  if (coop_pays(__popc(need), n, size)) {
+    // the slots as the rule counts them, a blocked lane's early end aside
+    // (the per-lane loop's count takes none either)
+    SPECTRAL_WALK_TRI(true, lanes, true, reach, size,
+                      __popc(need) * ((size + n - 1) / n));
+    const int me = (int)(threadIdx.x & 31u);
+    const int rank = __popc(lanes & ((1u << me) - 1u));
+    for (int first = start; first < stop && need != 0u; first += n) {
+      const int k = first + rank;
+      const bool has = k < stop;
+      const int slot = has ? k : start;
+      const float4 a = tb.packed[at + 3 * slot], b = tb.packed[at + 3 * slot + 1],
+                   c = tb.packed[at + 3 * slot + 2];
+      for (unsigned left = need; left != 0u; left &= left - 1u) {
+        const int j = __ffs(left) - 1;
+        const float jox = __shfl_sync(lanes, ox, j), joy = __shfl_sync(lanes, oy, j),
+                    joz = __shfl_sync(lanes, oz, j), jdx = __shfl_sync(lanes, dx, j),
+                    jdy = __shfl_sync(lanes, dy, j), jdz = __shfl_sync(lanes, dz, j);
+        const float jmax = __shfl_sync(lanes, max_dist, j);
+        float t, u, v;
+        const bool hit = has &&
+                         tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, jox,
+                               joy, joz, jdx, jdy, jdz, t, u, v) &&
+                         t > 0.0f && t <= jmax && t < INFINITY;
+        if (__any_sync(lanes, hit) && me == j) blocked = true;
+      }
+      need = __ballot_sync(lanes, reach && !blocked);
+    }
+    return;
+  }
+  SPECTRAL_WALK_TRI(true, lanes, false, reach, size, size);
+  if (!reach) return;
+  for (int k = start; k < stop; ++k) {
+    const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
+                 c = tb.packed[at + 3 * k + 2];
+    float t, u, v;
+    if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz, dx, dy,
+              dz, t, u, v) &&
+        t > 0.0f && t <= max_dist && t < INFINITY) {
+      blocked = true;
+      return;
+    }
+  }
+}
+
 // Nearest positive hit: returns the winner's original index (-1: miss).
 // A small scene loops over its objects in index order, where strict <
 // alone keeps the lowest index on ties, and without the run table.
@@ -485,6 +693,13 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
   for (int r = 0; r < tb.n_runs; ++r) {
     const float* R = tb.runs + r * RUN_COLS;
     const bool reach = run_reachable(R, ox, oy, oz, ivx, ivy, ivz, t_best);
+    if constexpr (TRI) {
+      if (packed_kind(R) == OBJ_TRIANGLE) {  // every lane on the run takes part
+        SPECTRAL_WALK_TRI_RUN(0, R, reach);
+        tri_run_nearest(tb, R, r, reach, ox, oy, oz, dx, dy, dz, t_best, win);
+        continue;
+      }
+    }
     SPECTRAL_WALK_RUN(0, R, reach);
     if (!reach) continue;
     const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
@@ -498,24 +713,6 @@ __device__ __forceinline__ int trace_nearest(const Tables& tb, float ox,
                                   dz, t) &&
             t > 0.0f && t <= t_best) {
           const int o = tb.order[k];  // ties: the lowest original index wins
-          if (t < t_best || o < win) {
-            t_best = t;
-            win = o;
-          }
-        }
-      }
-      continue;
-    }
-    if (TRI && kind == OBJ_TRIANGLE) {
-      const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
-      for (int k = start; k < stop; ++k) {
-        const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
-                   c = tb.packed[at + 3 * k + 2];
-        float t, u, v;
-        if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz,
-                  dx, dy, dz, t, u, v) &&
-            t > 0.0f && t <= t_best) {
-          const int o = tb.order[k];
           if (t < t_best || o < win) {
             t_best = t;
             win = o;
@@ -560,10 +757,24 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
   const float foura = 4.0f * a, g0 = 2.0f * a * max_dist,
               amax2 = a * max_dist * max_dist;
 #endif
+  // TRI: a blocked lane keeps to the run loop, a helper of its warp's
+  // triangle passes (tri_run_blocked), until every lane with it is blocked
+  bool blocked = false;
   for (int r = 0; r < tb.n_runs; ++r) {
+    if constexpr (TRI) {
+      if (__all_sync(__activemask(), blocked)) break;
+    }
     const float* R = tb.runs + r * RUN_COLS;
-    const bool reach = run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist);
-    SPECTRAL_WALK_RUN(WALK_SHADOW, R, reach);
+    const bool reach =
+        !blocked && run_reachable(R, ox, oy, oz, ivx, ivy, ivz, max_dist);
+    if constexpr (TRI) {
+      if (packed_kind(R) == OBJ_TRIANGLE) {  // every lane on the run takes part
+        if (!blocked) SPECTRAL_WALK_TRI_RUN(WALK_SHADOW, R, reach);
+        tri_run_blocked(tb, R, r, reach, ox, oy, oz, dx, dy, dz, max_dist, blocked);
+        continue;
+      }
+    }
+    if (!blocked) SPECTRAL_WALK_RUN(WALK_SHADOW, R, reach);
     if (!reach) continue;
     const int start = (int)R[RUN_START], stop = (int)R[RUN_STOP];
     const int kind = packed_kind(R);
@@ -574,30 +785,20 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
 #ifdef SPECTRAL_SHADOW_INTERVAL
         if (sphere_interval_blocked(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy, dz,
                                     max_dist, foura, g0, amax2)) {
-          return true;
+          if constexpr (!TRI) return true;
+          blocked = true;
+          break;
         }
 #else
         float t;
         if (sphere_t_voted<true>(c.x, c.y, c.z, c.w, ox, oy, oz, dx, dy,
                                  dz, t) &&
             t > 0.0f && t <= max_dist && t < INFINITY) {
-          return true;
+          if constexpr (!TRI) return true;
+          blocked = true;
+          break;
         }
 #endif
-      }
-      continue;
-    }
-    if (TRI && kind == OBJ_TRIANGLE) {
-      const int at = (int)R[RUN_PACK] - 3 * start;  // slot k: at + 3k..
-      for (int k = start; k < stop; ++k) {
-        const float4 a = tb.packed[at + 3 * k], b = tb.packed[at + 3 * k + 1],
-                   c = tb.packed[at + 3 * k + 2];
-        float t, u, v;
-        if (tri_t(a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z, ox, oy, oz,
-                  dx, dy, dz, t, u, v) &&
-            t > 0.0f && t <= max_dist && t < INFINITY) {
-          return true;
-        }
       }
       continue;
     }
@@ -609,7 +810,9 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
                                     G(tb, G_SPHERE_POS + 2, o), G(tb, G_RADIUS, o),
                                     ox, oy, oz, dx, dy, dz, max_dist, foura, g0,
                                     amax2)) {
-          return true;
+          if constexpr (!TRI) return true;
+          blocked = true;
+          break;
         }
         continue;
       }
@@ -617,11 +820,13 @@ __device__ __forceinline__ bool shadow_blocked(const Tables& tb, float ox,
       float t;
       if (candidate_t<TRI>(tb, o, ox, oy, oz, dx, dy, dz, t) &&
           t <= max_dist && t < INFINITY) {
-        return true;
+        if constexpr (!TRI) return true;
+        blocked = true;
+        break;
       }
     }
   }
-  return false;
+  return blocked;
 }
 
 __device__ __forceinline__ float box_axis(float p, float lo, float hi) {

@@ -40,11 +40,19 @@ line per launch:
   after the running blocks fell below 90% of the slots;
 - ``walk``: per nearest-hit trace and per shadow ray, the culled runs
   (clusters) the lane needs and its warp visits, their SIMT efficiency
-  (member tests needed over those run), and ``visited_fraction``: the
+  (member tests needed over the lane slots the warp spends on member
+  tests: a run's size per lane on it in the per-lane loop, and in a
+  packed triangle run's cooperative pass its needing lanes times
+  ceil(size / lanes)), and ``visited_fraction``: the
   share of clusters a trace needs, the input of ``flops.kernel_ops``;
   beside it ``root_stage_share``: of the packed sphere member tests a
   warp runs, the share in which it runs the root stage because a lane
   has a root (``bounce.cuh:sphere_t_voted``), both counted once a warp;
+  and of the packed triangle runs a warp visits, ``coop_share``: the
+  share it takes in the cooperative pass (``bounce.cuh:tri_run_nearest``,
+  ``tri_run_blocked``), counted once a warp, and
+  ``triangle_simt_efficiency``: their member tests needed over the lane
+  slots spent in both branches;
 - ``bound_ms``: the least time of the launch (``flops.bound_ms``): its
   live iterations at ``kernel_ops``' count with the measured visited
   fractions, or its bytes over HBM.
@@ -86,7 +94,7 @@ MONO_DESIGNS = {
 }
 # the walk counters' slots per thread, as ``bounce.cuh`` numbers them:
 # the nearest trace's from 0, the shadow rays' from WALK_SHADOW
-WALK_SHADOW, WALK_STATS = 7, 14
+WALK_SHADOW, WALK_STATS = 12, 24
 
 
 def _bind(lib, buf: dict, threads: int) -> None:
@@ -174,7 +182,14 @@ def summarize(buf: dict, threads: int, slots: int, n_culled: int) -> dict:
                 simt_efficiency=w[base + 3] / max(w[base + 4], 1.0),
                 warp_sphere_tests=w[base + 5],
                 warp_root_stages=w[base + 6],
-                root_stage_share=w[base + 6] / max(w[base + 5], 1.0))
+                root_stage_share=w[base + 6] / max(w[base + 5], 1.0),
+                triangle_visits_coop=w[base + 7],
+                triangle_visits_per_lane=w[base + 8],
+                coop_share=w[base + 7] / max(w[base + 7] + w[base + 8], 1.0),
+                triangle_tests_needed_per_trace=w[base + 9] / traces,
+                triangle_slots_coop_per_trace=w[base + 10] / traces,
+                triangle_slots_per_lane_per_trace=w[base + 11] / traces,
+                triangle_simt_efficiency=w[base + 9] / max(w[base + 10] + w[base + 11], 1.0))
     return out
 
 

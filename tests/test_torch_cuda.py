@@ -55,7 +55,11 @@ field, the prism, mesh64 and a lens scene; the cost plane too), taken
 exactly where they hold more blocks per SM and counted as such; a
 launch of a feature build counted as one, and a launch of mesh5k's
 triangle walk, whose packed records stay in global memory, as one of
-each.
+each. The triangle runs' cooperative pass: mesh5k and the mesh preset
+through mono, cost, regen, seg and persist on Morton and shuffled lanes
+bit for bit to the plain versions and to the flat walk, and once in the
+wide, lens and shadow-interval builds; the stats build counts both of
+its branches on Morton lanes at 128x128.
 """
 
 import dataclasses
@@ -1375,3 +1379,120 @@ def test_cuda_hero_shape_matches_the_blocked_reference(cuda):
                                   torch.from_numpy(py).cuda(), 3, 2).cpu().numpy()
     assert float(np.abs(ref[:, :3]).max()) > 0.0
     assert check.pixel_gap(fb[py, px], ref) <= 1e-5
+
+
+# ------------------------------------- the triangle runs' cooperative pass
+
+
+def _lane_order(order, w, h, device):
+    if order == "morton":
+        return morton_layout(w, h, device)[0]
+    return torch.randperm(w * h, generator=torch.Generator().manual_seed(24)).to(device)
+
+
+def _walk_checks(tb, flat, perm, kernels, frame=1, k=3, budget=7):
+    """Each of ``kernels`` on the lanes ``perm`` with the tables ``tb``, bit
+    for bit to its plain version and to the same kernel on ``flat`` (the
+    tables without clusters): mono and cost on frame ``frame``'s
+    primaries, regen K = ``k``, seg over [0, 2) then [2, B), two persist
+    launches of ``budget`` iterations."""
+    port, cfg = tb.scene, tb.config
+    planes, px, py = ci.primary_lanes(port, cfg, frame)
+    planes, px, py = tuple(p[perm] for p in planes), px[perm], py[perm]
+    out = {}
+    if "mono" in kernels:
+        got = mk.run_mono(*planes, px, py, frame, tb)
+        out["mono"] = (torch.equal(got, mk.run_mono_plain(*planes, px, py, frame, tb))
+                       and torch.equal(got, mk.run_mono(*planes, px, py, frame, flat)))
+    if "cost" in kernels:
+        got = mk.run_cost(*planes, px, py, frame, tb)
+        out["cost"] = all(torch.equal(a, b) for want in (
+            mk.run_cost_plain(*planes, px, py, frame, tb),
+            mk.run_cost(*planes, px, py, frame, flat)) for a, b in zip(got, want))
+    if "regen" in kernels:
+        args = ci.regen_args(port, cfg, frame, k, perm)
+        got = mk.run_regen(*args, tb)
+        out["regen"] = (torch.equal(got, mk.run_regen_plain(*args, tb))
+                        and torch.equal(got, mk.run_regen(*args, flat)))
+    if "seg" in kernels:
+        wfs = [ci._gather(ci.frame_wavefront(port, cfg, frame), perm) for _ in range(3)]
+        for wf, t, run in zip(wfs, (tb, tb, flat), (mk.run_seg, mk.run_seg_plain, mk.run_seg)):
+            run(wf, 0, 2, frame, t)
+            run(wf, 2, cfg.max_bounces, frame, t)
+        out["seg"] = _equal(wfs[0], wfs[1]) and _equal(wfs[0], wfs[2])
+    if "persist" in kernels:
+        cam = camera_basis_table(port, cfg)
+        frames = cfg.intended_frames
+        sts = [ci.persist_init(port, cfg, perm) for _ in range(3)]
+        for _ in range(2):
+            for st, t, run in zip(sts, (tb, tb, flat),
+                                  (mk.run_persist, mk.run_persist_plain, mk.run_persist)):
+                run(st, frames, frames, t, cam, budget=budget)
+        out["persist"] = _equal(sts[0], sts[1]) and _equal(sts[0], sts[2])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("order", ["morton", "shuffled"])
+@pytest.mark.parametrize("kind", ["mesh", "mesh5k"])
+def test_cuda_triangle_pass_equals_plain_and_flat(cuda, kind, order):
+    """mesh5k (records in global memory) and the mesh preset (in shared
+    memory) at 64x64, 32 wavelengths, 6 bounces: every bounce kernel's
+    clustered triangle walk, whose warps take the cooperative pass or the
+    per-lane loop run by run, bit for bit to its plain version and to the
+    flat walk, on Morton lanes (coherent primaries) and on a shuffled lane
+    order (unrelated lanes in every warp)."""
+    port, cfg = flatten_scene(torch_scenes.preset(presets, kind, 64, 64, 6, 3, 32), cuda)
+    tb = mk.pack_tables(port, cfg)
+    assert tb.triangles == 1 and tb.many_objects() and tb.packed_shared == (kind == "mesh")
+    flat = mk.pack_tables(port, cfg, "none")
+    perm = _lane_order(order, 64, 64, cuda)
+    checks = _walk_checks(tb, flat, perm, ("mono", "cost", "regen", "seg", "persist"))
+    assert all(checks.values()), checks
+
+
+@pytest.mark.parametrize("build", ["wide16", "wide64", "lens", "shadow_interval"])
+def test_cuda_triangle_pass_in_wide_lens_and_interval_builds(cuda, build):
+    """The pass in the triangle builds beside the default ones, once each,
+    on mesh5k at 32x32 on shuffled lanes: the wide builds at S = 16 and 64
+    (every kernel), a lens (mono, cost and seg on lens rays, regen on its
+    lens table) and the shadow interval (mono, cost, regen), bit for bit to
+    the plain versions and to the flat walk."""
+    samples = {"wide16": 16, "wide64": 64}.get(build, 32)
+    sc = torch_scenes.preset(presets, "mesh5k", 32, 32, 4, 3, samples)
+    kernels = ("mono", "cost", "regen", "seg", "persist")
+    if build == "lens":
+        sc, kernels = torch_scenes.with_lens(sc, 0.05, 2.0), kernels[:4]
+    port, cfg = flatten_scene(sc, cuda)
+    tb, flat = mk.pack_tables(port, cfg), mk.pack_tables(port, cfg, "none")
+    if build == "shadow_interval":
+        tb, flat = mk.with_shadow_interval(tb), mk.with_shadow_interval(flat)
+        kernels = kernels[:3]
+    checks = _walk_checks(tb, flat, _lane_order("shuffled", 32, 32, cuda), kernels)
+    assert set(checks) == set(kernels) and all(checks.values()), checks
+
+
+def test_cuda_triangle_pass_takes_both_branches(cuda):
+    """The stats build of ``cuda_regen`` (``tools/lane_stats.py``) on
+    mesh5k at 128x128, 8 bounces, K = 3: on Morton lanes the warps take
+    both branches of the pass, in nearest traces and in shadow rays (the
+    coherent primaries per lane, the scattered bounces cooperatively);
+    on shuffled lanes a larger share is cooperative. Its image equals the
+    main build's bit for bit."""
+    from spectral_tpu_torch.runtime import build
+    from spectral_tpu_torch.tools import lane_stats
+
+    port, cfg = flatten_scene(torch_scenes.preset(presets, "mesh5k", 128, 128, 8, 3, 32), cuda)
+    tb = mk.pack_tables(port, cfg)
+    n, culled = 128 * 128, int((tb.runs[:, 8] > 0).sum())
+    shares = {}
+    for order in ("morton", "shuffled"):
+        args = (*ci.regen_args(port, cfg, 0, 3, _lane_order(order, 128, 128, cuda)), tb)
+        buf = lane_stats._buffers(n, cuda)
+        lane_stats._bind(build.load("regen_stats"), buf, n)
+        got = mk.run_regen_variant("regen_stats", *args)
+        assert torch.equal(got, mk.run_regen(*args))
+        walk = lane_stats.summarize(buf, n, 1, culled)
+        shares[order] = {w: walk[f"walk_{w}"]["coop_share"] for w in ("nearest", "shadow")}
+    assert all(0.0 < v < 1.0 for v in shares["morton"].values()), shares
+    assert shares["shuffled"]["nearest"] > shares["morton"]["nearest"], shares

@@ -2,8 +2,9 @@
 (the per-thread record its stats builds write on the card): the lane
 loop's SIMT efficiency, the waves, the blocks seen at once on one SM,
 the slot time held and the tail, and the walk's clusters and the share
-of packed sphere member tests that ran their root stage, each against
-its value worked out by hand or counted directly."""
+of packed sphere member tests that ran their root stage, and the packed
+triangle runs' cooperative share and SIMT efficiency over lane slots,
+each against its value worked out by hand or counted directly."""
 
 import numpy as np
 import pytest
@@ -126,3 +127,80 @@ def test_walk_summaries_and_the_root_stage_share():
         assert w["visited_fraction"] == pytest.approx(visited)
         assert w["warp_visited_fraction"] == 1.0
         assert w["simt_efficiency"] == pytest.approx(visited)
+
+
+def _triangle_pass(walk, base, warp, lanes, need, size, coop):
+    """Count one warp's pass over a packed triangle run as the stats build
+    does (``bounce.cuh:walk_run``, ``walk_tri``): the visit once a warp in
+    its lowest lane's slot; per lane on the run its need and the lane slots
+    the warp spends, ``size`` per lane in the per-lane loop, the needing
+    lanes times ceil(size / lanes) in the cooperative pass."""
+    n, k = len(lanes), len(need)
+    slots = k * -(-size // n) if coop else size
+    walk[base + (7 if coop else 8), 32 * warp + min(lanes)] += 1
+    for lane in lanes:
+        t = 32 * warp + lane
+        walk[base + 3, t] += size if lane in need else 0
+        walk[base + 9, t] += size if lane in need else 0
+        walk[base + (10 if coop else 11), t] += slots
+        walk[base + 4, t] += slots
+
+
+def _walk_of(passes, n=128):
+    walk = np.zeros((lane_stats.WALK_STATS, n), np.int64)
+    for base in (0, lane_stats.WALK_SHADOW):
+        walk[base + 0] = 1  # one trace a thread
+        for p in passes:
+            _triangle_pass(walk, base, *p)
+    return walk
+
+
+def _summarize_walk(walk, n=128):
+    return lane_stats.summarize(
+        _buffers(np.full(n, 8), np.zeros(n, np.int64), np.full(n, 100), [0], walk=walk),
+        n, slots=1, n_culled=100)
+
+
+def test_coop_share_and_the_slot_based_simt_efficiency():
+    """Warp 0 takes three runs of 64 members with all 32 lanes on them:
+    one per lane (20 lanes need it: 32 x 64 = 2048 slots), two
+    cooperatively (2 and 5 needing lanes: 2 x 2 x 32 = 128 and 5 x 2 x 32
+    = 320 slots); warp 1 one run of 40 members cooperatively with 10 lanes
+    on it, 3 needing (3 x 4 x 10 = 120 slots). Needed: (20 + 2 + 5) x 64 +
+    3 x 40 = 1848 tests, of 2048 + 448 + 120 = 2616 slots, 568 of them in
+    the pass; 3 of the 4 visits cooperative. Per trace: over 128 threads."""
+    all32, ten = list(range(32)), list(range(4, 14))
+    passes = [(0, all32, list(range(20)), 64, False),
+              (0, all32, [3, 9], 64, True),
+              (0, all32, [0, 1, 2, 30, 31], 64, True),
+              (1, ten, [4, 8, 13], 40, True)]
+    got = _summarize_walk(_walk_of(passes))
+    for name in ("nearest", "shadow"):
+        w = got[f"walk_{name}"]
+        assert w["triangle_visits_coop"] == 3 and w["triangle_visits_per_lane"] == 1
+        assert w["coop_share"] == pytest.approx(0.75)
+        assert w["triangle_simt_efficiency"] == pytest.approx(1848 / 2616)
+        assert w["simt_efficiency"] == pytest.approx(1848 / 2616)
+        assert w["triangle_tests_needed_per_trace"] == pytest.approx(1848 / 128)
+        assert w["triangle_slots_coop_per_trace"] == pytest.approx(568 / 128)
+        assert w["triangle_slots_per_lane_per_trace"] == pytest.approx(2048 / 128)
+
+
+def test_the_simt_efficiency_of_the_same_needs_before_and_after_the_pass():
+    """The same needs as a parent build counts them (every visited run per
+    lane: 3 x 32 x 64 + 10 x 40 = 6544 slots) and with the pass: the
+    efficiency over slots rises from 1848 / 6544 to 1848 / 2616, and a
+    build without the pass reads no triangle visits (coop share 0)."""
+    all32, ten = list(range(32)), list(range(4, 14))
+    needs = [(0, all32, list(range(20)), 64), (0, all32, [3, 9], 64),
+             (0, all32, [0, 1, 2, 30, 31], 64), (1, ten, [4, 8, 13], 40)]
+    walk = _walk_of([(*p, False) for p in needs])
+    parent = walk.copy()
+    for base in (0, lane_stats.WALK_SHADOW):
+        parent[base + 7:base + 12] = 0  # a parent build has no triangle counts
+    before = _summarize_walk(parent)["walk_nearest"]
+    assert before["simt_efficiency"] == pytest.approx(1848 / 6544)
+    assert before["coop_share"] == 0.0 and before["triangle_simt_efficiency"] == 0.0
+    after = _summarize_walk(_walk_of([(*p, p[2] != list(range(20))) for p in needs]))
+    assert after["walk_nearest"]["simt_efficiency"] == pytest.approx(1848 / 2616)
+    assert _summarize_walk(walk)["walk_shadow"]["coop_share"] == 0.0

@@ -14,7 +14,11 @@ visit order and with every run's members reversed. The same walk with
 the kernels' warp vote on the packed sphere tests
 (``bounce.cuh:sphere_t_voted``) equals it on the tangent field
 (``tests/torch_scenes.py:tangent_field``), whose tangent lanes read a
-discriminant of exactly 0.
+discriminant of exactly 0. The cooperative pass of the triangle runs
+(``bounce.cuh:tri_run_nearest``: a needing lane's run folded chunk by
+chunk, 32 members a chunk, each chunk the lexicographic minimum of
+(t, original index) over its candidates and the lane's best so far)
+equals the flat loop on the mesh preset with ties, in both visit orders.
 """
 
 import copy
@@ -118,12 +122,31 @@ def _sphere_voted(oc, d, r, lanes):
     return t, vote & root & (t >= 0.0), vote
 
 
-def _walk_packed(st, order, runs, packed, origin, direction, votes=None):
+def _coop_triangle_run(t_best, win, reach, t, valid, o, lanes=32):
+    """``bounce.cuh:tri_run_nearest``'s cooperative branch for every ray
+    that reaches the run: ``t``/``valid`` ``[rays, size]`` the members'
+    tests, ``o`` ``[size]`` their original indices. Chunk by chunk (one
+    member a lane), a ray's best becomes the lexicographic minimum of
+    (t, o) over the chunk's candidates (valid, t > 0, t <= its best) and
+    its best so far."""
+    big = torch.iinfo(torch.int64).max
+    for first in range(0, o.shape[0], lanes):
+        tc, vc, oc = t[:, first:first + lanes], valid[:, first:first + lanes], o[first:first + lanes]
+        cand = vc & (tc > 0.0) & (tc <= t_best[:, None])
+        t_min = torch.where(cand, tc, torch.tensor(float("inf"))).amin(1)
+        o_min = torch.where(cand & (tc == t_min[:, None]), oc, big).amin(1)
+        take = reach & ((t_min < t_best) | ((t_min == t_best) & (o_min < win)))
+        t_best, win = torch.where(take, t_min, t_best), torch.where(take, o_min, win)
+    return t_best, win
+
+
+def _walk_packed(st, order, runs, packed, origin, direction, votes=None, coop=False):
     """The kernel's nearest-hit walk over the run table and the packed
     records, vectorized over rays; boxes (no records) take the flat
     loop's candidate t of their object. With ``votes`` (a list) the packed
     sphere tests take the warp vote (``_sphere_voted``), and each test's
-    votes are appended to it."""
+    votes are appended to it. With ``coop`` every packed triangle run
+    takes the cooperative pass (``_coop_triangle_run``)."""
     dense = tgeom.candidates(origin, direction, st)
     n = origin.x.shape[0]
     t_best = torch.full((n,), float("inf"))
@@ -137,6 +160,15 @@ def _walk_packed(st, order, runs, packed, origin, direction, votes=None):
             box = [Vec3(*(torch.tensor(float(v)) for v in row[i:i + 3])) for i in (0, 3)]
             t_min, _, hit = tgeom.ray_slabs(origin, direction, *box)
             reach = hit & (t_min <= t_best)
+        if coop and at >= 0 and tag == OBJ_TRIANGLE:
+            tests = [tgeom.triangle_t(origin, direction, *(Vec3(*r[:3]) for r in
+                                                           P[at + 3 * (k - start):][:3]))
+                     for k in range(start, stop)]
+            t_best, win = _coop_triangle_run(
+                t_best, win, reach, torch.stack([x[0] for x in tests], 1),
+                torch.stack([x[1] for x in tests], 1),
+                torch.from_numpy(order[start:stop].astype(np.int64)))
+            continue
         for k in range(start, stop):
             o = int(order[k])
             if at >= 0 and tag == OBJ_SPHERE:
@@ -180,6 +212,33 @@ def test_plain_packed_walk_equals_the_flat_loop(kind, visit):
     # the duplicates tie: each loses to its original, the lower index
     dups = range(cfg.n_objects - (3 if kind == "field" else 20), cfg.n_objects)
     assert not bool(np.isin(win.numpy(), list(dups)).any())
+
+
+@pytest.mark.parametrize("visit", ["planned", "reversed"])
+def test_cooperative_triangle_pass_equals_the_flat_loop(visit):
+    """The mesh preset with a duplicated icosahedron (exact ties at every
+    ray that hits it): the walk whose packed triangle runs take the
+    cooperative pass equals the per-lane walk and the flat loop, winners
+    exact and t bit for bit, each duplicate losing to its original."""
+    st, cfg, tb = _tables("mesh", dup=True)
+    order, runs = tb.order.numpy().copy(), tb.runs.numpy().copy()
+    assert (runs[:, cl.RUN_TYPE] == OBJ_TRIANGLE).sum() >= 3
+    if visit == "reversed":
+        for start, stop in runs[:, [cl.RUN_START, cl.RUN_STOP]].astype(int):
+            order[start:stop] = order[start:stop][::-1].copy()
+    packed = cl.pack_walk(st.np_fields, order, runs)
+    origin, direction = _rays(st, cfg)
+    t, win = _walk_packed(st, order, runs, packed, origin, direction, coop=True)
+    lane_t, lane_win = _walk_packed(st, order, runs, packed, origin, direction)
+    assert torch.equal(win, lane_win) and torch.equal(t, lane_t)
+    want = tgeom.trace(origin, direction, st)
+    hit = want.hit
+    assert torch.equal(win, torch.where(hit, want.obj_idx, -1))
+    assert torch.equal(t[hit], want.t[hit]) and bool(torch.isinf(t[~hit]).all())
+    dups = list(range(cfg.n_objects - 20, cfg.n_objects))
+    tied = (tgeom.candidates(origin, direction, st)[:, dups] == t[:, None]).any(1) & hit
+    assert int(tied.sum()) > 0  # rays whose winner ties a duplicate
+    assert not bool(np.isin(win.numpy(), dups).any())
 
 
 def test_voted_walk_on_the_tangent_field_equals_the_flat_loop():
