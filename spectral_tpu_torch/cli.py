@@ -349,32 +349,54 @@ def _profiled(fn, out_dir, device) -> None:
     card's kernels when the device is the card) and write the Chrome
     trace into ``out_dir``, with the program's spans and counts
     (``runtime/trace.py``, on while the profiler records) as host events
-    ``spectral.<name>`` on a track of their own."""
+    ``spectral.<name>`` on a track of their own, among them the
+    ``wait.*`` spans of every host wait on the card.
+
+    The spans reach the trace's clock through ``trace.clock_map`` of two
+    paired readings, one before ``fn`` and one after it. On the card each
+    reading follows a ``cudaStreamSynchronize`` of an idle stream, whose
+    end the trace times, and the pair is the spans' clock against that
+    end: the wall clock's reading sits 50-70 us from the trace's times.
+    The first and the last such call in the trace are the pair's (the
+    profiler's own synchronisations are ``cudaDeviceSynchronize``, and
+    ``fn``'s lie between). Elsewhere the pair is the spans' clock against
+    the wall clock the trace's times are taken from."""
     import json
     import os
     from pathlib import Path
 
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from spectral_tpu_torch.runtime import trace
+
+    def paired():
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.current_stream().synchronize()
+        return time.perf_counter(), time.time_ns()
 
     activities = [ProfilerActivity.CPU]
     if device == "cuda":
         activities.append(ProfilerActivity.CUDA)
     trace.clear()
     with profile(activities=activities) as prof:
-        # one paired reading of the spans' clock and the wall clock that
-        # the trace's times are taken from
-        perf0, wall0_ns = time.perf_counter(), time.time_ns()
+        perf0, wall0_ns = paired()
         fn()
+        perf1, wall1_ns = paired()
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     path = out / "render_trace.json"
     prof.export_chrome_trace(str(path))
     doc = json.loads(path.read_text())
-    origin_us = (wall0_ns - int(doc.get("baseTimeNanoseconds", 0))) / 1e3
-    doc["traceEvents"].extend(trace.chrome_events(
-        trace.rows(), lambda t: origin_us + (t - perf0) * 1e6, os.getpid(), 0))
+    base_ns = int(doc.get("baseTimeNanoseconds", 0))
+    t0, t1 = (wall0_ns - base_ns) / 1e3, (wall1_ns - base_ns) / 1e3
+    syncs = [e["ts"] + e["dur"] for e in doc["traceEvents"]
+             if e.get("ph") == "X" and e.get("name") == "cudaStreamSynchronize"]
+    if device == "cuda" and len(syncs) >= 2:
+        t0, t1 = min(syncs), max(syncs)
+    to_us = trace.clock_map(perf0, t0, perf1, t1)
+    doc["traceEvents"].extend(trace.chrome_events(trace.rows(), to_us, os.getpid(), 0))
     path.write_text(json.dumps(doc))
     print(f"\nprofile -> {path}", file=sys.stderr)
 

@@ -240,16 +240,20 @@ def _pack(scene: SceneTensors, config: RenderConfig, plan, features: int) -> Ker
     packed = cl.pack_walk(f, order, runs)
     dev = scene.device
 
-    def t(a, dtype=np.float32):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+    def host(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
     sky = f["sky"] if f["sky"] is not None else np.zeros(config.n_samples, np.float32)
+    arrays = dict(
+        geom=host(geom), mat_albedo=host(f["mat_albedo"]), order=host(order, np.int32),
+        runs=host(runs), lpos=host(lpos), lspec=host(f["light_spec"]), cam=host(cam),
+        packed=host(packed), mat_fx=host(f["mat_scalars"][:, MAT_FX_SCALARS]),
+        mat_emission=host(f["mat_emission"]), lam=host(f["lambda_grid"]), sky=host(sky))
+    # each table is one copy from pageable host memory: on the card, a wait
+    with trace.span("wait.upload", arg=len(arrays)):
+        arrays = {k: a.to(dev) for k, a in arrays.items()}
     tables = KernelTables(
-        geom=t(geom), mat_albedo=t(f["mat_albedo"]), order=t(order, np.int32),
-        runs=t(runs), lpos=t(lpos), lspec=t(f["light_spec"]), cam=t(cam),
-        packed=t(packed), mat_fx=t(f["mat_scalars"][:, MAT_FX_SCALARS]),
-        mat_emission=t(f["mat_emission"]), lam=t(f["lambda_grid"]), sky=t(sky),
-        scene=scene, config=config, clusters=plan,
+        **arrays, scene=scene, config=config, clusters=plan,
         triangles=(2 if scene.smooth_tri else 1) if scene.has_triangles else 0,
         features=features,
     )

@@ -12,7 +12,11 @@ values are uint32 bit patterns.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from spectral_tpu_torch.runtime.trace import span
 
 MASK32 = 0xFFFFFFFF
 # 1 / 2^32 as float32 (both reference literals round to it)
@@ -47,9 +51,12 @@ def radical_inverse(bits) -> torch.Tensor:
 
 def hammersley(n, capital_n, device=None):
     """2D Hammersley point ``((n + 0.5) / N, radical_inverse(n + 1))``
-    (reference ``src/shader.rs:670-675``), float32 0-d tensors."""
-    n = as_u32(n, device)
-    capital_n = as_u32(capital_n, n.device)
+    (reference ``src/shader.rs:670-675``), float32 0-d tensors. Given a
+    ``device``, the two ints are copied there from pageable host memory:
+    on the card two waits for the stream (``wait.raygen``)."""
+    with span("wait.raygen", arg=2) if device is not None else contextlib.nullcontext():
+        n = as_u32(n, device)
+        capital_n = as_u32(capital_n, n.device)
     x = (n.to(torch.float32) + 0.5) / capital_n.to(torch.float32)
     y = radical_inverse((n + 1) & MASK32)
     return x, y

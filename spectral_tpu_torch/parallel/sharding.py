@@ -48,6 +48,7 @@ from spectral_tpu_torch.render.cuda_integrator import (
     render_frame_step_cuda,
     render_frames_step_cuda_regen,
 )
+from spectral_tpu_torch.runtime import trace
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors, from_numpy
 
 
@@ -193,9 +194,13 @@ def render_persistent_sharded(
     full_h = config.height
     fpl = frames_per_launch or 64
     if budget is None:
-        total = sum(float(probe_path_cost(s.scene, s.config, s.tables, n_probe_frames=1,
-                                          full_height=full_h, row_offset=s.row_offset)
-                          .sum(dtype=torch.float64)) for s in slabs)
+        total = 0.0
+        for s in slabs:
+            cost = probe_path_cost(s.scene, s.config, s.tables, n_probe_frames=1,
+                                   full_height=full_h, row_offset=s.row_offset)
+            cost = cost.sum(dtype=torch.float64)
+            with trace.span("wait.probe", arg=1):
+                total += float(cost)
         mean_cost = distributed.all_sum([total])[0] / (config.width * full_h)
         budget = max(8, int(round(fpl * mean_cost)))
     budget = int(budget)

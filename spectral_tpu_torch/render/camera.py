@@ -20,6 +20,7 @@ from spectral_tpu_torch.ops.rng import (
     random_pcg3d,
 )
 from spectral_tpu_torch.ops.vecmath import Vec3
+from spectral_tpu_torch.runtime.trace import span
 
 PI = math.pi
 
@@ -29,8 +30,9 @@ def camera_basis(cam_dir, cam_up, fov_y_deg, width: int, height: int):
     float32 0-d tensors on the camera tables' device, in the exact op
     order of the reference package's ``camera_basis``."""
     dev = cam_dir.device
-    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
-    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    with span("wait.raygen", arg=2):  # two copies from pageable host memory
+        w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+        h = torch.tensor(float(height), dtype=torch.float32, device=dev)
     aspect_ratio = w / h
     fov_half_rad = (fov_y_deg / 2.0) / 180.0 * PI
     focal_distance = 1.0 / torch.tan(fov_half_rad)
@@ -62,7 +64,9 @@ def lens_shifts(right, true_up, aperture, frame_ids) -> np.ndarray:
     dev = right[0].device
     f32_t = torch.float32
     basis = torch.stack([*(c.to(f32_t) for c in (*right, *true_up)),
-                         torch.as_tensor(aperture, dtype=f32_t, device=dev)]).cpu().numpy()
+                         torch.as_tensor(aperture, dtype=f32_t, device=dev)])
+    with span("wait.raygen", arg=1):
+        basis = basis.cpu().numpy()
     rt, aperture = basis[:6], basis[6]
     ids = torch.as_tensor(list(frame_ids), dtype=torch.int64) & MASK32
     u1, u2, _ = random_pcg3d(ids, 0x9E3779B9, 0x85EBCA6B)
@@ -81,7 +85,8 @@ def lens_point(right, true_up, aperture, frame_id) -> Vec3:
     """Frame ``frame_id``'s lens shift (``lens_shifts``) as 0-d float32
     tensors on the basis's device."""
     t = torch.from_numpy(lens_shifts(right, true_up, aperture, [frame_id])[0])
-    t = t.to(right[0].device)
+    with span("wait.raygen", arg=1):
+        t = t.to(right[0].device)
     return Vec3(t[0], t[1], t[2])
 
 
@@ -137,8 +142,9 @@ def generate_primary_rays(
     n = px.shape[0]
     xf = px.to(torch.float32)
     yf = py.to(torch.float32)
-    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
-    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    with span("wait.raygen", arg=2):  # two copies from pageable host memory
+        w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+        h = torch.tensor(float(height), dtype=torch.float32, device=dev)
     forward, right, true_up, focal_distance, aspect_ratio = camera_basis(
         cam_dir, cam_up, fov_y_deg, width, height
     )
@@ -186,9 +192,10 @@ def camera_basis_table(scene, config, full_height: int | None = None) -> torch.T
         float(config.width), float(height), float(config.intended_frames),
         scene.cam_focus if config.has_dof else 0.0, 0.0, 0.0,
     ]
-    return torch.stack([
-        torch.as_tensor(c, dtype=torch.float32, device=dev) for c in cols
-    ])
+    # each host number is a copy from pageable memory (a launch input's miss)
+    with span("wait.upload", arg=sum(not torch.is_tensor(c) for c in cols)):
+        cols = [torch.as_tensor(c, dtype=torch.float32, device=dev) for c in cols]
+    return torch.stack(cols)
 
 
 def hammersley_table(first_frame: int, k: int, intended_frames: int,
@@ -197,7 +204,9 @@ def hammersley_table(first_frame: int, k: int, intended_frames: int,
     ``first_frame + k - 1``: ``hammersley`` on the host, one copy to
     ``device``. The regeneration kernel's per-frame sub-pixel offsets."""
     off_x, off_y = hammersley(torch.arange(first_frame, first_frame + k), intended_frames)
-    return torch.stack([off_x, off_y], dim=1).to(device)
+    table = torch.stack([off_x, off_y], dim=1)
+    with span("wait.upload", arg=1):
+        return table.to(device)
 
 
 def lens_table(scene, config, first_frame: int, k: int):
@@ -214,7 +223,8 @@ def lens_table(scene, config, first_frame: int, k: int):
     table = np.zeros((k, 4), np.float32)
     table[:, :3] = lens_shifts(right, true_up, scene.cam_aperture,
                                range(first_frame, first_frame + k))
-    return torch.from_numpy(table).to(scene.cam_pos.device)
+    with span("wait.upload", arg=1):
+        return torch.from_numpy(table).to(scene.cam_pos.device)
 
 
 def primary_origin(table: torch.Tensor, lens_row=None) -> Vec3:

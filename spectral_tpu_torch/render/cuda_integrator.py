@@ -385,10 +385,13 @@ def cost_sort_perm(cost: torch.Tensor):
     """Descending-cost STABLE pixel order and its inverse (int64, on the
     cost's device): equal-cost pixels keep image order, which makes the
     relabeling deterministic (``pallas_integrator.py:216``)."""
-    order = np.argsort(-cost.cpu().numpy(), kind="stable")
-    inv = np.argsort(order)
     dev = cost.device
-    return torch.from_numpy(order).to(dev), torch.from_numpy(inv).to(dev)
+    with trace.span("wait.probe", arg=1):
+        host = cost.cpu()
+    order = np.argsort(-host.numpy(), kind="stable")
+    inv = np.argsort(order)
+    with trace.span("wait.upload", arg=2):
+        return torch.from_numpy(order).to(dev), torch.from_numpy(inv).to(dev)
 
 
 # ------------------------------------------------------ persistent render
@@ -498,7 +501,7 @@ class _Readback:
             self.host = t
 
     def value(self) -> int:
-        with trace.span("persist.wait"):
+        with trace.span("wait.persist", arg=1):
             if self.event is not None:
                 self.event.synchronize()
             return int(self.host)
@@ -522,8 +525,9 @@ def adapt_update(rad, fid, alive, stop, prev_lum, prev_cnt, s_mean, s_m2, s_j,
     lanes still owing frames, as a device scalar."""
     f32 = torch.float32
     dev = rad.device
-    rtol_t = torch.tensor(rtol, dtype=f32, device=dev)
-    atol_t = torch.tensor(atol, dtype=f32, device=dev)
+    with trace.span("wait.scalar", arg=2):  # copies from pageable host memory
+        rtol_t = torch.tensor(rtol, dtype=f32, device=dev)
+        atol_t = torch.tensor(atol, dtype=f32, device=dev)
     lum = rad.sum(dim=0)
     cnt = ((fid.long() & MASK32) + (alive <= 0.0).long()).to(f32)
     dc = cnt - prev_cnt
@@ -540,7 +544,8 @@ def adapt_update(rad, fid, alive, stop, prev_lum, prev_cnt, s_mean, s_m2, s_j,
     stop_new = torch.where(upd & conv, 1.0, stop)
     lum_out = torch.where(upd, lum, prev_lum)
     cnt_out = torch.where(upd, cnt, prev_cnt)
-    end_f = torch.tensor(float(int(end) & MASK32), dtype=f32, device=dev)
+    with trace.span("wait.scalar", arg=1):
+        end_f = torch.tensor(float(int(end) & MASK32), dtype=f32, device=dev)
     workable = (alive > 0.0) | ((stop_new <= 0.0) & (cnt < end_f))
     n_work = workable.sum()
     return stop_new, lum_out, cnt_out, mean_new, m2_new, j_new, n_work
@@ -586,8 +591,10 @@ def _load_state(rs: dict, config: RenderConfig, device) -> PersistState:
             t = t.to(torch.int32)
         else:
             t = t.to(torch.float32)
-        out[name] = t.to(device).contiguous().clone()
-    return PersistState(**out)
+        out[name] = t
+    with trace.span("wait.upload", arg=len(out)):  # a checkpoint's arrays: a copy each
+        out = {name: t.to(device) for name, t in out.items()}
+    return PersistState(**{name: t.contiguous().clone() for name, t in out.items()})
 
 
 @dataclasses.dataclass
@@ -643,15 +650,19 @@ class PersistLanes:
         """Put the working lanes first (a stable relabeling inside the
         set); returns how many there are."""
         st = self.st
-        workable = workable_mask(st.alive.cpu().numpy(), st.fid.cpu().numpy(),
-                                 self.stop.cpu().numpy(), end)
+        with trace.span("wait.state", arg=3):
+            alive, fid, stop = st.alive.cpu(), st.fid.cpu(), self.stop.cpu()
+        workable = workable_mask(alive.numpy(), fid.numpy(), stop.numpy(), end)
         order_np = np.argsort(~workable, kind="stable")
-        order = torch.from_numpy(order_np).to(st.px.device)
+        with trace.span("wait.upload", arg=1):
+            order = torch.from_numpy(order_np).to(st.px.device)
         _relabel(st, order)
         self.stop = self.stop[order]
         self.stats = tuple(a[order] for a in self.stats)
         self.pixel_of_slot = self.pixel_of_slot[order_np]
-        self.lane_inv = torch.from_numpy(slot_inverse(self.pixel_of_slot, self.n)).to(st.px.device)
+        inv = torch.from_numpy(slot_inverse(self.pixel_of_slot, self.n))
+        with trace.span("wait.upload", arg=1):
+            self.lane_inv = inv.to(st.px.device)
         return int(workable.sum())
 
     def finish(self) -> torch.Tensor:
@@ -660,7 +671,9 @@ class PersistLanes:
     def counts(self) -> np.ndarray:
         """Each pixel's completed frames, in pixel order (int64)."""
         c = np.empty(self.n, np.int64)
-        c[self.pixel_of_slot] = completed_frames(self.st).cpu().numpy()
+        done = completed_frames(self.st)
+        with trace.span("wait.state", arg=1):
+            c[self.pixel_of_slot] = done.cpu().numpy()
         return c
 
 
@@ -767,7 +780,9 @@ def persist_drain(sets: list[PersistLanes], max_bounces: int, budget: int) -> No
     most ``2 + max_bounces // budget``), so each pixel averages only its
     completed frames."""
     for _ in range(2 + max_bounces // max(budget, 1)):
-        live = [ls for ls in sets if bool((ls.st.alive > 0.0).any())]
+        alive = [(ls.st.alive > 0.0).any() for ls in sets]
+        with trace.span("wait.state", arg=len(sets)):
+            live = [ls for ls, a in zip(sets, alive) if bool(a)]
         if not live:
             break
         for ls in live:
@@ -926,7 +941,9 @@ def render_persistent(
             n_probe = max(1, int(cost_sort))
             cost = probe_path_cost(scene, config, tables, n_probe_frames=n_probe)
             if budget is None:
-                mean_cost = float(cost.mean()) / n_probe
+                mean = cost.mean()
+                with trace.span("wait.probe", arg=1):
+                    mean_cost = float(mean) / n_probe
                 budget = max(8, int(round(fpl * mean_cost)))
             if cost_sort:
                 lane_perm, lane_inv = cost_sort_perm(cost)
@@ -946,18 +963,24 @@ def render_persistent(
     packed, compactions = n, 0
     if adaptive is not None:
         if resume_state is not None:
-            lanes.stop = torch.as_tensor(np.asarray(resume_state["stop"]),
-                                         dtype=torch.float32).to(dev)
-            lanes.stats = tuple(torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)
-                                for a in resume_state["stats"])
+            saved = [torch.as_tensor(np.asarray(a), dtype=torch.float32)
+                     for a in (resume_state["stop"], *resume_state["stats"])]
+            with trace.span("wait.upload", arg=len(saved)):
+                lanes.stop, *stats = (a.to(dev) for a in saved)
+            lanes.stats = tuple(stats)
             lanes.pixel_of_slot = np.asarray(resume_state["pixel_of_slot"], np.int64)
             packed = int(resume_state["packed_workable"])
             compactions = int(resume_state["compactions"])
             if compactions:
-                lanes.lane_inv = torch.from_numpy(slot_inverse(lanes.pixel_of_slot, n)).to(dev)
+                inv = torch.from_numpy(slot_inverse(lanes.pixel_of_slot, n))
+                with trace.span("wait.upload", arg=1):
+                    lanes.lane_inv = inv.to(dev)
+        elif lane_perm is not None:
+            with trace.span("wait.state", arg=1):
+                perm = lane_perm.cpu()
+            lanes.start_adaptive(perm.numpy().astype(np.int64))
         else:
-            lanes.start_adaptive(lane_perm.cpu().numpy().astype(np.int64)
-                                 if lane_perm is not None else np.arange(n))
+            lanes.start_adaptive(np.arange(n))
 
     def refill(min_done):
         new_lead = min(min_done + ring_slots, n_frames)

@@ -23,6 +23,8 @@ import functools
 import numpy as np
 import torch
 
+from spectral_tpu_torch.runtime.trace import span
+
 __all__ = ["morton_layout"]
 
 
@@ -52,6 +54,7 @@ def morton_layout(width: int, height: int, device="cpu"):
     ``lane_perm[slot]`` is the flat pixel index computed by lane
     ``slot``; ``lane_inv`` is its inverse."""
     order = _morton_order_np(width, height)
-    perm = torch.from_numpy(order.astype(np.int64)).to(device)
-    inv = torch.from_numpy(np.argsort(order).astype(np.int64)).to(device)
-    return perm, inv
+    perm = torch.from_numpy(order.astype(np.int64))
+    inv = torch.from_numpy(np.argsort(order).astype(np.int64))
+    with span("wait.upload", arg=2):  # two copies from pageable host memory
+        return perm.to(device), inv.to(device)

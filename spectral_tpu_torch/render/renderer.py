@@ -615,7 +615,9 @@ class Renderer:
         for f in range(probe_frames):
             *_, hist = integrate_frame(self.scene_tensors, probe_cfg, f,
                                        return_occupancy=True)
-            occ = np.maximum(occ, hist.cpu().numpy().astype(np.float64) / (pw * ph))
+            with trace.span("wait.probe", arg=1):
+                hist = hist.cpu()
+            occ = np.maximum(occ, hist.numpy().astype(np.float64) / (pw * ph))
         self.phase_occupancy = occ
         return choose_stages(occ, n_pad, tile, margin=margin)
 
@@ -628,7 +630,9 @@ class Renderer:
             return
         fid, rgb, overflow = self._pending
         self._pending = None
-        if bool(overflow):
+        with trace.span("wait.overflow", arg=1):
+            overflow = bool(overflow)
+        if overflow:
             self.overflow_frames += 1
             rgb = integrate_frame_cuda(self.scene_tensors, self.config, fid,
                                        self.tables)
@@ -789,17 +793,21 @@ class Renderer:
         """Whether the accumulator is finite; a sharded render asks every
         process's slabs, so all of them raise together."""
         if self._slabs is None:
-            return bool(torch.isfinite(self.accum).all())
-        ok = all(bool(torch.isfinite(sl.accum).all()) for sl in self._slabs)
+            finite = torch.isfinite(self.accum).all()
+            with trace.span("wait.finite", arg=1):
+                return bool(finite)
+        finite = [torch.isfinite(sl.accum).all() for sl in self._slabs]
+        with trace.span("wait.finite", arg=len(finite)):
+            ok = all(bool(f) for f in finite)
         return distributed.all_min([1.0 if ok else 0.0])[0] == 1.0
 
     def _synchronize(self) -> None:
         """Wait for the queued work of every device this renderer uses."""
-        if self.device.type != "cuda":
-            return
         devices = {sl.scene.device for sl in self._slabs} if self._slabs else {self.device}
-        for dev in devices:
-            torch.cuda.synchronize(dev)
+        with trace.span("wait.progress", arg=len(devices)):
+            if self.device.type == "cuda":
+                for dev in devices:
+                    torch.cuda.synchronize(dev)
 
     def render(
         self,
@@ -822,7 +830,8 @@ class Renderer:
             self._resolve_pending()
             if self._slabs is not None:
                 return gather(self._slabs)
-            return self.accum.cpu().numpy()
+            with trace.span("wait.readback", arg=1):
+                return self.accum.cpu().numpy()
 
     def save_image(self, path, exposure=None, gamma=None) -> None:
         """Save the framebuffer (format by extension; linear, no gamma
@@ -855,7 +864,10 @@ class Renderer:
             meta = rs["meta"]
 
             def host(a):
-                return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+                if not torch.is_tensor(a):
+                    return np.asarray(a)
+                with trace.span("wait.readback", arg=1):
+                    return a.cpu().numpy()
 
             payload = {f"state_{i}": host(a) for i, a in enumerate(rs["state"])}
             payload.update(
@@ -924,9 +936,12 @@ class Renderer:
         if self._slabs is not None:
             for sl in self._slabs:  # each slot takes its own rows again
                 rows = accum[sl.row_offset:sl.row_offset + sl.config.height]
-                sl.accum = rows.to(sl.scene.device).contiguous()
+                with trace.span("wait.upload", arg=1):
+                    rows = rows.to(sl.scene.device)
+                sl.accum = rows.contiguous()
         else:
-            self.accum = accum.to(self.device)
+            with trace.span("wait.upload", arg=1):
+                self.accum = accum.to(self.device)
         self.next_frame = int(data["next_frame"])
 
     def _load_persist_checkpoint(self, data) -> None:

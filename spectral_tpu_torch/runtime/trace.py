@@ -19,11 +19,22 @@ it and read only by ``rows()``, so the render gains no host wait. The
 collector's passes are ``gc`` spans (``arg``: the generation), whoever
 triggered them. The rows live in memory, the newest ``MAX_ROWS``.
 
+The ``wait.<site>`` spans are one family: each holds only calls that
+block the host on the card, and its ``arg`` is how many of them it holds
+(a scalar or a table copied from pageable host memory, a copy to the
+host, a ``float`` or ``int`` of a device value, a stream or event
+synchronisation). On the card the host sits in such a call until the
+stream has drained, so whatever host work follows it runs while the card
+idles. The spans are kept on every device alike, so the CPU tests see
+which sites a path passes and how many calls each holds; off, each costs
+what any span costs.
+
 No span puts an event on the card's timeline: the rows stay here, and
 nothing calls ``torch.profiler.record_function``, whose ranges the
 profiler copies onto the card's timeline, where they would read as busy
 time. ``chrome_events`` turns the rows into Chrome trace events on a
-trace's clock (``cli.py:_profiled``).
+trace's clock, which ``clock_map`` gives from two paired readings of both
+clocks (``cli.py:_profiled``).
 """
 
 from __future__ import annotations
@@ -198,6 +209,17 @@ def _on_gc(phase: str, info: dict) -> None:
 
 
 gc.callbacks.append(_on_gc)
+
+
+def clock_map(p0: float, t0: float, p1: float, t1: float):
+    """The linear map of ``time.perf_counter()`` times onto another clock
+    that takes ``p0`` to ``t0`` and ``p1`` to ``t1``: two paired readings
+    of both clocks, one at each end of the stretch recorded, so that a
+    difference in rate between the clocks is spread over the stretch
+    rather than piled up at its far end. ``t`` is in the other clock's
+    unit (seconds, microseconds)."""
+    scale = (t1 - t0) / (p1 - p0)
+    return lambda p: t0 + (p - p0) * scale
 
 
 def chrome_events(rows_, to_us, pid: int, tid: int) -> list[dict]:

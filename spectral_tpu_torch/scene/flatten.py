@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from spectral_tpu_torch.runtime.trace import span
 from spectral_tpu_torch.scene.schema import (
     Mesh,
     PlainBox,
@@ -411,12 +412,14 @@ def from_numpy(
     ``device``. Values are copied bit for bit. ``smooth_tri``: see
     ``SceneTensors`` (``smooth_triangles`` of the scene)."""
     device = torch.device(device)
-    tensors = {
-        name: None
-        if np_fields[name] is None
-        else torch.from_numpy(np.array(np_fields[name], copy=True)).to(device)
+    host = {
+        name: None if np_fields[name] is None
+        else torch.from_numpy(np.array(np_fields[name], copy=True))
         for name in FIELDS
     }
+    # each table is one copy from pageable host memory: on the card, a wait
+    with span("wait.upload", arg=sum(t is not None for t in host.values())):
+        tensors = {name: None if t is None else t.to(device) for name, t in host.items()}
     return SceneTensors(**tensors, np_fields=dict(np_fields),
                         smooth_tri=bool(smooth_tri)), config
 

@@ -1496,3 +1496,168 @@ def test_cuda_triangle_pass_takes_both_branches(cuda):
         shares[order] = {w: walk[f"walk_{w}"]["coop_share"] for w in ("nearest", "shadow")}
     assert all(0.0 < v < 1.0 for v in shares["morton"].values()), shares
     assert shares["shuffled"]["nearest"] > shares["morton"]["nearest"], shares
+
+
+# ------------------------------------------- the host's waits on the card
+
+
+def _audit_scene(path):
+    """One cell's path at a small shape, and the Renderer's keywords."""
+    if path == "cornell_regen":  # one K = 100 launch an image
+        return _scene("cornell", 64, 64, 8, samples=32, iters=100), {}
+    if path == "hero_tail":  # S = 64: two K = 2 launches and a one-frame tail
+        return _scene("cornell", 96, 64, 8, samples=64, iters=5), {"regen_frames": 2}
+    if path == "prism":  # the feature build at S = 64
+        return _scene("prism", 80, 60, 8, samples=64, iters=4), {"regen_frames": 2}
+    if path == "mesh5k":  # the clustered triangle walk on Morton lanes
+        return torch_scenes.preset(presets, "mesh5k", 64, 64, 6, 4, 32), {"regen_frames": 2}
+    if path == "persist":  # the cost probe, the launches, the stale minimum
+        return _scene("cornell", 64, 64, 8, samples=32, iters=16), {"persist": True}
+    return _scene("cornell", 64, 64, 8, samples=32, iters=100), {"regen_frames": ("auto", 16)}
+
+
+def _syncs(run):
+    """The innermost open span of the program (its name, None outside
+    every span) at each synchronizing CUDA operation that ``run()`` makes,
+    under ``torch.cuda.set_sync_debug_mode("warn")`` with a profiler
+    recording (so the spans are kept), and the Python stack of each one
+    outside a ``wait.*`` span. Only ``run()``'s count: the first switch of
+    the mode in a process reports a synchronisation of its own."""
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    found, stray, armed = [], [], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if armed and "synchronizing" in str(message):
+            stack = trace._stack()
+            found.append(stack[-1].name if stack else None)
+            if not (found[-1] or "").startswith("wait."):
+                stray.append("".join(traceback.format_stack(limit=10)))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            armed.append(True)
+            try:
+                run()
+            finally:
+                armed.clear()
+                torch.cuda.set_sync_debug_mode(0)
+    return found, stray
+
+
+@pytest.mark.parametrize("path", ["cornell_regen", "hero_tail", "prism", "mesh5k", "persist",
+                                  "live"])
+def test_cuda_every_sync_on_the_cells_paths_is_a_wait(cuda, path):
+    """Every synchronizing CUDA operation of a cell's path falls inside a
+    ``wait.*`` span: the offline paths build a Renderer on an empty memo
+    and render two images; the live edit is ``Renderer(...)``,
+    ``render_frames(16)``, then ``framebuffer()``."""
+    import collections
+    import json
+
+    from spectral_tpu_torch.utils import sceneio
+
+    scene, kw = _audit_scene(path)
+    doc = sceneio.scene_to_dict(scene)
+    Renderer(sceneio.scene_from_dict(doc), device="cuda", **kw).render()  # builds the kernels
+
+    def offline():
+        r = Renderer(sceneio.scene_from_dict(doc), device="cuda", **kw)
+        r.render()
+        r.reset()
+        r.render()
+
+    def live():
+        r = Renderer(sceneio.scene_from_dict(doc), device="cuda", **kw)
+        r.render_frames(16)
+        r.framebuffer()
+
+    launch_inputs.MEMO.clear()
+    found, stray = _syncs(live if path == "live" else offline)
+    print(json.dumps({"sync_audit": path, "syncs": collections.Counter(map(str, found))}))
+    assert found  # the copy to the host at least
+    assert not stray, "\n".join(stray)
+
+
+def test_cuda_wait_spans_land_on_the_cards_clock(cuda, tmp_path):
+    """A window of about 8 s with a spin kernel of about 0.1 s at its
+    start and at its end, each followed by a ``wait.*`` span around the
+    host's synchronisation: on the profiler's clock as the benchmark's
+    readers put it (``metrics/waits.py``: ``program.rows``' shift at the
+    window's start), each wait ends at most 100 us after its kernel, at
+    both ends of the window; so do the waits of ``render --profile``'s
+    Chrome trace (``trace.clock_map`` of the two synchronisations that
+    bracket the call). A wait may read up to 50 us before its kernel's
+    end: ``program.rows`` pairs the window's start on the profiler's clock
+    (``record_function``'s entry) with a reading of the program's clock
+    taken after it, and the trace itself places the host's calls against
+    the kernels to some 25 us (on an H100 a synchronisation's return read
+    0.03-28 us after its kernel's end). Printed beside them: ``clock_map`` through both
+    ends of the window's span, and the host's synchronisation calls as
+    the trace times them, each against its kernel's end."""
+    import json
+    import time
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness import core
+    from benchmark.metrics import waits
+    from spectral_tpu_torch import cli
+
+    def spins():
+        for k in range(2):
+            if k:
+                time.sleep(7.5)
+            torch.cuda._sleep(200_000_000)
+            with trace.span("wait.clock", arg=1):
+                torch.cuda.synchronize()
+
+    def runtime_syncs(events, lo, hi):
+        """Ends of the host's long ``cudaDeviceSynchronize`` calls."""
+        return [e for n, s_, e in events if n == "cudaDeviceSynchronize" and e - s_ > 0.05
+                and lo <= s_ <= hi]
+
+    # the benchmark's window and its readers' mapping
+    torch.cuda.synchronize()
+    trace.clear()
+    spans = core.Spans(traced=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with spans("window"):
+            spins()
+    view = core._profiler_view(prof, None, SimpleNamespace(spans=spans), None)
+    host = [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6) for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+    kernels = sorted(e for _n, s_, e in view.device_spans if e - s_ > 0.05)
+    got = sorted(r.end for r in waits.spans(view) if r.name == "wait.clock")
+    (_n, t0, t1), = spans.rows
+    raw = sorted(r.end for r in trace.rows()
+                 if isinstance(r, trace.Span) and r.name == "wait.clock")
+    both_ends = trace.clock_map(t0, view.lo, t1, view.hi)
+    report = {"window_s": view.window_s}
+    for name, ends in (("readers_us", got), ("window_ends_us", [both_ends(p) for p in raw]),
+                       ("host_sync_us", sorted(runtime_syncs(host, view.lo, view.hi)))):
+        report[name] = [1e6 * (w - k) for k, w in zip(kernels, ends)]
+
+    # --profile's Chrome trace
+    trace.clear()
+    cli._profiled(spins, tmp_path, "cuda")
+    events = json.loads((tmp_path / "render_trace.json").read_text())["traceEvents"]
+    k_ends = sorted(e["ts"] + e["dur"] for e in events
+                    if e.get("cat") == "kernel" and e.get("dur", 0) > 50e3)
+    w_ends = sorted(e["ts"] + e["dur"] for e in events if e.get("name") == "spectral.wait.clock")
+    h_ends = sorted(e["ts"] + e["dur"] for e in events
+                    if e.get("name") == "cudaDeviceSynchronize" and e.get("dur", 0) > 50e3)
+    report["profile_us"] = [w - k for k, w in zip(k_ends, w_ends)]
+    report["profile_host_sync_us"] = [h - k for k, h in zip(k_ends, h_ends)]
+    print(json.dumps({"clock": report}))
+    assert len(kernels) == len(got) == len(k_ends) == len(w_ends) == 2, report
+    for key in ("readers_us", "profile_us"):
+        assert all(-50.0 <= d <= 100.0 for d in report[key]), report

@@ -29,7 +29,7 @@ from spectral_tpu_torch.utils import sceneio
 REPO = Path(__file__).resolve().parents[1]
 HERO = json.loads((REPO / "benchmark/configs/hero.json").read_text())
 HERO_METRICS = {"regen.roofline_pct.hero", "render.tail_pct.hero", "device.idle_pct.hero",
-                "mono.shared_bins_pct.hero"}
+                "mono.shared_bins_pct.hero", "render.waits_per_image", "render.wait_idle_pct"}
 
 torch.set_num_threads(1)
 

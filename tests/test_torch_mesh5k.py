@@ -32,7 +32,7 @@ from spectral_tpu_torch.utils import sceneio
 REPO = Path(__file__).resolve().parents[1]
 MESH5K = json.loads((REPO / "benchmark/configs/mesh5k.json").read_text())
 MESH5K_METRICS = {"regen.roofline_pct.mesh5k", "regen.packed_global_pct.mesh5k",
-                  "device.idle_pct.mesh5k"}
+                  "device.idle_pct.mesh5k", "render.waits_per_image", "render.wait_idle_pct"}
 
 torch.set_num_threads(1)
 

@@ -24,7 +24,16 @@ torch.set_num_threads(1)
 
 REGEN_SPANS = {"scene.parse", "renderer.init", "scene.flatten", "scene.pack",
                "renderer.digest", "renderer.reset", "render.frames", "launch.regen",
-               "render.tail", "launch.mono", "render.fold", "render.readback"}
+               "render.tail", "launch.mono", "render.fold", "render.readback",
+               "wait.upload", "wait.raygen", "wait.scalar", "wait.readback"}
+# where each wait opens: the tables' copies in the build (and a launch's
+# camera inputs where the memo misses), host raygen in a frame's launch
+# (and the camera table's basis on a miss), the blend's scalars, the copy
+# to the host
+WAIT_PARENTS = {"wait.upload": {"scene.flatten", "scene.pack", "launch.regen"},
+                "wait.raygen": {"launch.mono", "launch.regen"},
+                "wait.scalar": {"render.fold"},
+                "wait.readback": {"render.readback"}}
 
 
 def _cornell(w=16, h=12, bounces=3, iters=5):
@@ -68,7 +77,8 @@ def test_regen_path_spans_nest_and_share_their_request():
     the build's and the render's spans nest under ``renderer.init`` and
     ``render.frames`` (the ragged frame's under ``render.tail``), inside
     them in time, and carry the Renderer's serial; a second edit gets
-    another."""
+    another. Each ``wait.*`` span opens where its site is. The collector
+    is held off around the renders, so that no ``gc`` span joins them."""
     doc = sceneio.scene_to_dict(_cornell())
 
     def edit():
@@ -76,7 +86,12 @@ def test_regen_path_spans_nest_and_share_their_request():
         fb = r.render_frames(3)
         return r, fb
 
-    (r, fb), rows = _profiled(edit)
+    gc.disable()
+    try:
+        (r, fb), rows = _profiled(edit)
+        (r2, _), rows2 = _profiled(edit)
+    finally:
+        gc.enable()
     spans = _spans(rows)
     assert {s.name for s in spans} == REGEN_SPANS
     by_id = {s.id: s for s in spans}
@@ -96,6 +111,8 @@ def test_regen_path_spans_nest_and_share_their_request():
             assert s.parent == tail.id, s
         elif s.name == "render.fold":
             assert s.parent in (frames.id, tail.id), s
+        elif s.name in WAIT_PARENTS:
+            assert by_id[s.parent].name in WAIT_PARENTS[s.name], s
         if s.parent is not None:
             outer = by_id[s.parent]
             assert outer.start <= s.start <= s.end <= outer.end
@@ -103,7 +120,6 @@ def test_regen_path_spans_nest_and_share_their_request():
     assert [s.name for s in spans].count("launch.mono") == 1
     assert {s.request for s in spans if s is not parse} == {r.request}
     assert fb.shape == (12, 16, 4)
-    (r2, _), rows2 = _profiled(edit)
     assert r2.request != r.request
     assert {s.request for s in _spans(rows2) if s.name != "scene.parse"} == {r2.request}
 
@@ -148,7 +164,7 @@ def test_persist_counts_the_lanes_working_at_each_launch(monkeypatch, adaptive, 
     spans = _spans(rows)
     assert [s.name for s in spans].count("launch.persist") == len(got) * per_launch
     names = {s.name for s in spans}
-    assert {"launch.persist", "persist.wait", "persist.finish"} <= names
+    assert {"launch.persist", "wait.persist", "persist.finish"} <= names
     assert ("persist.init" in names) == (slots is None)
 
 
