@@ -12,11 +12,7 @@ values are uint32 bit patterns.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
-
-from spectral_tpu_torch.runtime.trace import span
 
 MASK32 = 0xFFFFFFFF
 # 1 / 2^32 as float32 (both reference literals round to it)
@@ -24,9 +20,11 @@ INV_2_32 = 2.3283064365386963e-10
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """Integer tensor or Python int -> int64 tensor of uint32 bit patterns."""
+    """Integer tensor or Python int -> int64 tensor of uint32 bit patterns.
+    A Python int is a fill on ``device`` (the value passed as a kernel
+    argument): no copy from host memory, so no wait on the card."""
     if not torch.is_tensor(x):
-        return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=device)
+        return torch.full((), int(x) & MASK32, dtype=torch.int64, device=device)
     return x.to(torch.int64) & MASK32
 
 
@@ -51,12 +49,10 @@ def radical_inverse(bits) -> torch.Tensor:
 
 def hammersley(n, capital_n, device=None):
     """2D Hammersley point ``((n + 0.5) / N, radical_inverse(n + 1))``
-    (reference ``src/shader.rs:670-675``), float32 0-d tensors. Given a
-    ``device``, the two ints are copied there from pageable host memory:
-    on the card two waits for the stream (``wait.raygen``)."""
-    with span("wait.raygen", arg=2) if device is not None else contextlib.nullcontext():
-        n = as_u32(n, device)
-        capital_n = as_u32(capital_n, n.device)
+    (reference ``src/shader.rs:670-675``), float32 0-d tensors, on
+    ``device`` where the ints are Python ints."""
+    n = as_u32(n, device)
+    capital_n = as_u32(capital_n, n.device)
     x = (n.to(torch.float32) + 0.5) / capital_n.to(torch.float32)
     y = radical_inverse((n + 1) & MASK32)
     return x, y

@@ -30,9 +30,9 @@ def camera_basis(cam_dir, cam_up, fov_y_deg, width: int, height: int):
     float32 0-d tensors on the camera tables' device, in the exact op
     order of the reference package's ``camera_basis``."""
     dev = cam_dir.device
-    with span("wait.raygen", arg=2):  # two copies from pageable host memory
-        w = torch.tensor(float(width), dtype=torch.float32, device=dev)
-        h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    # fills, the sizes passed as kernel arguments: no copy, no wait on the card
+    w = torch.full((), float(width), dtype=torch.float32, device=dev)
+    h = torch.full((), float(height), dtype=torch.float32, device=dev)
     aspect_ratio = w / h
     fov_half_rad = (fov_y_deg / 2.0) / 180.0 * PI
     focal_distance = 1.0 / torch.tan(fov_half_rad)
@@ -142,9 +142,8 @@ def generate_primary_rays(
     n = px.shape[0]
     xf = px.to(torch.float32)
     yf = py.to(torch.float32)
-    with span("wait.raygen", arg=2):  # two copies from pageable host memory
-        w = torch.tensor(float(width), dtype=torch.float32, device=dev)
-        h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    w = torch.full((), float(width), dtype=torch.float32, device=dev)
+    h = torch.full((), float(height), dtype=torch.float32, device=dev)
     forward, right, true_up, focal_distance, aspect_ratio = camera_basis(
         cam_dir, cam_up, fov_y_deg, width, height
     )

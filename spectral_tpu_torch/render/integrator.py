@@ -52,7 +52,6 @@ from spectral_tpu_torch.render.camera import (
     scene_dof,
 )
 from spectral_tpu_torch.render.color import spectra_to_rgb
-from spectral_tpu_torch.runtime.trace import span
 from spectral_tpu_torch.scene.flatten import RenderConfig, SceneTensors
 
 # reference src/shader.rs:8 and :14
@@ -569,9 +568,9 @@ def integrate_frame(
 
 
 def _f32(v: int, device) -> torch.Tensor:
-    # one copy from pageable host memory: on the card a wait for the stream
-    with span("wait.scalar", arg=1):
-        return torch.tensor(float(v), dtype=torch.float32, device=device)
+    # a fill, the value passed as a kernel argument: torch.tensor(float(v))'s
+    # bits without its copy from pageable host memory, so no wait on the card
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def accumulate_frame(accum: torch.Tensor, rgb: torch.Tensor, frame_id: int) -> torch.Tensor:

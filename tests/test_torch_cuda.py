@@ -45,9 +45,12 @@ each equal to the unsharded render bit for bit; ``frames_per_dispatch``
 equal to one frame per dispatch; the grid refused. The camera inputs
 the launches take from the memo (``render/launch_inputs.py``): a
 Renderer's later images, and a sequence of live edits, equal renders
-from an empty memo bit for bit. The hero frame's shape (1920x1080, 64
-wavelengths, 30 bounces; one regeneration launch, then one mono frame)
-against the benchmark's blocked reference within its 1e-5 limit. At 64
+from an empty memo bit for bit. With the memo warm, an image of launches
+and a tail frame makes no synchronizing call before its copy to the host
+(the sync debug mode's "error"), and the fills that give the fold and
+host raygen their scalars equal the copies they replace. The hero
+frame's shape (1920x1080, 64 wavelengths, 30 bounces; one regeneration
+launch, then one mono frame) against the benchmark's blocked reference within its 1e-5 limit. At 64
 wavelengths the builds of ``cuda_regen``, ``cuda_mono`` and ``cuda_cost``
 with their radiance bins in shared memory bit for bit to the plain
 version and to the register build (the small scene, the clustered
@@ -1584,6 +1587,65 @@ def test_cuda_every_sync_on_the_cells_paths_is_a_wait(cuda, path):
     print(json.dumps({"sync_audit": path, "syncs": collections.Counter(map(str, found))}))
     assert found  # the copy to the host at least
     assert not stray, "\n".join(stray)
+
+
+def test_cuda_render_waits_only_for_its_readback(cuda, monkeypatch):
+    """With the memo warm, an image of full launches and a tail frame (the
+    hero's S = 64, two K = 2 launches and a one-frame tail) makes no
+    synchronizing CUDA call from its first launch up to the copy to the
+    host under ``torch.cuda.set_sync_debug_mode("error")``: the fold's
+    scalars and host raygen's sizes and ints are fills, not copies. Its
+    framebuffer equals the same render with the mode off, bit for bit."""
+    import warnings
+
+    scene, kw = _audit_scene("hero_tail")
+    r = Renderer(scene, device="cuda", **kw)
+    cold = r.render()  # builds the kernels and fills the memo
+    r.reset()
+    want = r.render()
+    r.reset()
+    readback = r.framebuffer
+
+    def framebuffer():
+        torch.cuda.set_sync_debug_mode(0)
+        return readback()
+
+    monkeypatch.setattr(r, "framebuffer", framebuffer)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():  # the mode's first switch in a process reports one
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+    tail = trace.total("render.tail_frames")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = r.render()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trace.total("render.tail_frames") - tail == 1
+    for other in (want, cold):
+        assert np.array_equal(got.view(np.uint32), other.view(np.uint32))
+
+
+# 0 .. the hero's 1000 frames, its sizes, a float32 that rounds (2**24 + 1)
+# and the top of uint32
+SCALARS = [*range(0, 1001), 1080, 1920, (1 << 24) + 1, 0xFFFFFFFE, 0xFFFFFFFF]
+
+
+def test_cuda_fold_and_raygen_scalars_equal_the_copies(cuda):
+    """The card's fills that the fold (``integrator._f32``) and host
+    raygen (``as_u32``, the image sizes) now make hold what ``torch.tensor``
+    copied there, bit for bit."""
+    from spectral_tpu_torch.ops.rng import MASK32, as_u32
+    from spectral_tpu_torch.render.integrator import _f32
+
+    got = torch.stack([_f32(v, "cuda") for v in SCALARS])
+    want = torch.stack([torch.tensor(float(v), dtype=torch.float32, device="cuda")
+                        for v in SCALARS])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    got = torch.stack([as_u32(v, "cuda") for v in SCALARS])
+    want = torch.stack([torch.tensor(v & MASK32, dtype=torch.int64, device="cuda")
+                        for v in SCALARS])
+    assert torch.equal(got, want)
 
 
 def test_cuda_wait_spans_land_on_the_cards_clock(cuda, tmp_path):

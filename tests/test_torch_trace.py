@@ -25,14 +25,11 @@ torch.set_num_threads(1)
 REGEN_SPANS = {"scene.parse", "renderer.init", "scene.flatten", "scene.pack",
                "renderer.digest", "renderer.reset", "render.frames", "launch.regen",
                "render.tail", "launch.mono", "render.fold", "render.readback",
-               "wait.upload", "wait.raygen", "wait.scalar", "wait.readback"}
+               "wait.upload", "wait.readback"}
 # where each wait opens: the tables' copies in the build (and a launch's
-# camera inputs where the memo misses), host raygen in a frame's launch
-# (and the camera table's basis on a miss), the blend's scalars, the copy
-# to the host
+# camera inputs where the memo misses) and the copy to the host; the
+# blend's scalars and host raygen's sizes and ints are fills on the device
 WAIT_PARENTS = {"wait.upload": {"scene.flatten", "scene.pack", "launch.regen"},
-                "wait.raygen": {"launch.mono", "launch.regen"},
-                "wait.scalar": {"render.fold"},
                 "wait.readback": {"render.readback"}}
 
 

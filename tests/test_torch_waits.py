@@ -32,10 +32,12 @@ REPO = Path(__file__).resolve().parents[1]
 METRICS = REPO / "benchmark" / "metrics"
 OFFLINE = core.load_module(REPO / "benchmark/drivers/offline.py", "t_waits_offline")
 
-# the blocking calls of an offline image: per regeneration launch (its
-# blend's two scalars), per frame of the frame-by-frame tail (the blend's
-# scalar, host raygen's six) and per copy of the framebuffer to the host
-PER_LAUNCH, PER_TAIL_FRAME, PER_READBACK = 2, 7, 1
+# the blocking calls of an offline image once the memo is warm: none per
+# regeneration launch (its blend's two scalars are fills on the device,
+# not copies), none per frame of the frame-by-frame tail (the blend's
+# scalar and host raygen's six likewise) and one per copy of the
+# framebuffer to the host
+PER_LAUNCH, PER_TAIL_FRAME, PER_READBACK = 0, 0, 1
 
 torch.set_num_threads(1)
 
@@ -93,17 +95,15 @@ def _sum(waits):
     (2, 2, 1, 0),
 ])
 def test_regen_image_waits_per_launch_tail_frame_and_readback(iters, k, launches, tail):
-    """An offline image on the regeneration path waits twice a launch
-    (``accumulate_frames``' scalars, under ``render.fold``), seven times a
-    tail frame (``accumulate_frame``'s scalar; host raygen's six under
-    ``launch.mono``: the two sizes in ``generate_primary_rays``, two in
-    ``camera_basis``, the Hammersley pair) and once for the copy to the
-    host; a warm memo copies no camera input."""
+    """An offline image on the regeneration path waits only for the copy
+    to the host: ``accumulate_frames``' two scalars (under
+    ``render.fold``), a tail frame's ``accumulate_frame`` scalar and host
+    raygen's six scalars (under ``launch.mono``: the two sizes in
+    ``generate_primary_rays``, two in ``camera_basis``, the Hammersley
+    pair) are fills on the device, not copies, and a warm memo copies
+    no camera input."""
     got = _image(Renderer(_scene(iters=iters), device="cpu", regen_frames=k))
-    want = {("wait.scalar", "render.fold"): PER_LAUNCH * launches + tail,
-            ("wait.readback", "render.readback"): PER_READBACK}
-    if tail:
-        want[("wait.raygen", "launch.mono")] = (PER_TAIL_FRAME - 1) * tail
+    want = {("wait.readback", "render.readback"): PER_READBACK}
     assert got == want
     assert _sum(got) == PER_LAUNCH * launches + PER_TAIL_FRAME * tail + PER_READBACK
 
@@ -116,21 +116,21 @@ def test_regen_image_waits_per_launch_tail_frame_and_readback(iters, k, launches
 def test_feature_triangle_and_wide_builds_wait_alike(name, samples, bounces, check):
     """The prism's feature build, mesh5k's Morton lanes and the hero
     frame's 64 wavelengths wait where cornell does, as often: a K = 2
-    launch and a one-frame tail an image."""
+    launch and a one-frame tail an image, and only the readback waits."""
     r = Renderer(_scene(name, bounces=bounces, iters=3, samples=samples), device="cpu",
                  regen_frames=2)
     assert check(r)
     got = _image(r)
-    assert got == {("wait.scalar", "render.fold"): PER_LAUNCH + 1,
-                   ("wait.raygen", "launch.mono"): PER_TAIL_FRAME - 1,
-                   ("wait.readback", "render.readback"): PER_READBACK}
+    assert got == {("wait.readback", "render.readback"): PER_READBACK}
 
 
 def test_the_first_image_copies_the_tables_and_camera_inputs():
     """A Renderer's build copies every table of the scene and of the
     kernels once (``from_numpy``'s fields, ``_pack``'s twelve); its first
     launch on a cold memo copies the camera inputs, and Morton lanes copy
-    their permutation pair once."""
+    their permutation pair once. The camera table's basis, the fold and
+    the tail's raygen copy nothing: their scalars are fills on the
+    device."""
     from spectral_tpu_torch.render import launch_inputs
 
     launch_inputs.MEMO.clear()
@@ -148,7 +148,100 @@ def test_the_first_image_copies_the_tables_and_camera_inputs():
     assert got[("wait.upload", "render.frames")] == 2  # the Morton pair
     # the camera table's host numbers and the Hammersley table
     assert got[("wait.upload", "launch.regen")] == 6 + 1
-    assert got[("wait.raygen", "launch.regen")] == 2  # the camera table's basis
+    assert not {site for site, _parent in got} & {"wait.raygen", "wait.scalar"}
+    assert {parent for _site, parent in got} == {"scene.flatten", "scene.pack",
+                                                 "render.frames", "launch.regen",
+                                                 "render.readback"}
+
+
+def test_the_first_image_builds_its_launch_inputs_once():
+    """A Renderer's first image on an empty memo builds its camera inputs
+    once (the pixel planes, the camera table, one frame window a launch)
+    under ``wait.upload``; a second image builds nothing and looks up the
+    same entries, three a launch. The fold and the tail's raygen keep
+    nothing in the memo and wait for nothing."""
+    from spectral_tpu_torch.render import launch_inputs
+
+    def counts():
+        return trace.total("launch.inputs_miss"), trace.total("launch.inputs_hit")
+
+    launch_inputs.MEMO.clear()
+    r = Renderer(_scene(iters=5), device="cpu", regen_frames=2)  # 2 launches, 1 tail frame
+    miss0, hit0 = counts()
+    _, spans = _profiled(r.render)
+    miss1, hit1 = counts()
+    assert miss1 - miss0 == 1 + 1 + 2
+    assert len(launch_inputs.MEMO) == 4
+    # the camera table's six host numbers, a Hammersley table a frame window
+    assert _waits(spans) == {("wait.upload", "launch.regen"): 6 + 2,
+                             ("wait.readback", "render.readback"): PER_READBACK}
+    r.reset()
+    _, spans = _profiled(r.render)
+    miss2, hit2 = counts()
+    assert miss2 == miss1
+    assert hit2 - hit1 == 3 * 2
+    assert _waits(spans) == {("wait.readback", "render.readback"): PER_READBACK}
+
+
+# the hero frame's plan (1000 frames: 11 launches of 87, a 43-frame tail)
+# and its sizes; a float32 that rounds (2**24 + 1); frame ids at the top
+# of uint32 (a resumed or phased blend reads ``(fid + 1) & MASK32``)
+SCALARS = sorted({*range(0, 1001), 270, 1080, 1920, 4095, 4096, (1 << 24) + 1,
+                  0xFFFFFFFE, 0xFFFFFFFF})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64])
+def test_the_fold_and_raygen_scalars_equal_the_copies_they_replace(dtype):
+    """Every scalar the fold (``integrator._f32``) and host raygen (the
+    image sizes, ``as_u32``'s Hammersley ints) now fill on the device,
+    ``0 ..`` the hero's 1000 frames, its sizes and the edges, equals the
+    ``torch.tensor`` copy it replaces bit for bit."""
+    from spectral_tpu_torch.ops.rng import MASK32, as_u32
+    from spectral_tpu_torch.render.integrator import _f32
+
+    for v in SCALARS:
+        if dtype == torch.float32:
+            got = _f32(v, "cpu").view(torch.int32)
+            want = torch.tensor(float(v), dtype=torch.float32).view(torch.int32)
+        else:
+            got, want = as_u32(v, "cpu"), torch.tensor(v & MASK32, dtype=torch.int64)
+        assert got.dtype == want.dtype and got.shape == () and torch.equal(got, want), v
+
+
+@pytest.mark.parametrize("first, k", [(0, 87), (870, 87), (957, 1), (999, 1), (4, 3),
+                                      (4094, 2), (0xFFFFFFFE, 1), (0xFFFFFFFF, 2)])
+def test_fold_and_hammersley_take_the_copies_bits(first, k):
+    """``accumulate_frames``/``accumulate_frame`` and device Hammersley
+    points give the bits of their former copies on a hero launch, its tail
+    frames, a resume past 4096 frames and frame ids at the top of
+    uint32."""
+    from spectral_tpu_torch.ops import rng
+    from spectral_tpu_torch.render import integrator
+
+    mask = rng.MASK32
+
+    def f32(v):
+        return torch.tensor(float(v), dtype=torch.float32)
+
+    gen = torch.Generator().manual_seed(first % 1000 + k)
+    accum, rgb = torch.rand((3, 5, 4), generator=gen), torch.rand((3, 5, 3), generator=gen)
+    if k > 1:
+        inv = 1.0 / f32((first + k) & mask)
+        old = f32(first) * inv
+        got = integrator.accumulate_frames(accum, rgb, first, k)
+        want_rgb, want_a = accum[..., :3] * old + rgb * inv, accum[..., 3] * old + float(k) * inv
+    else:
+        ratio = 1.0 / f32((first + 1) & mask)
+        got = integrator.accumulate_frame(accum, rgb, first)
+        want_rgb = accum[..., :3] * (1.0 - ratio) + rgb * ratio
+        want_a = accum[..., 3] * (1.0 - ratio) + ratio
+    want = torch.cat([want_rgb, want_a[..., None]], dim=-1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for n in (first, first + k - 1):
+        got = rng.hammersley(n, 1000, device="cpu")
+        want = rng.hammersley(torch.tensor(n & mask), 1000)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
 
 
 def test_persist_image_waits_for_its_probe_each_launch_and_the_copy():
@@ -180,9 +273,9 @@ def test_adaptive_persist_waits_for_its_state():
 
 def test_live_edit_waits_per_edit():
     """One edit (``Renderer(...)``, ``render_frames(16)``, the preview):
-    the build's copies of every table, the launch's two scalars and the
-    copy to the host, all under the edit's Renderer; a second edit on the
-    same camera takes its camera inputs from the memo."""
+    the build's copies of every table and the copy to the host, all under
+    the edit's Renderer; a second edit on the same camera takes its camera
+    inputs and the fold's scalars from the memo."""
     doc = sceneio.scene_to_dict(_scene(iters=100))
     fields = sum(flatten_numpy(sceneio.scene_from_dict(doc))[0][n] is not None for n in FIELDS)
 
@@ -196,7 +289,6 @@ def test_live_edit_waits_per_edit():
     got = _waits(spans)
     assert got == {("wait.upload", "scene.flatten"): fields,
                    ("wait.upload", "scene.pack"): 12,
-                   ("wait.scalar", "render.fold"): PER_LAUNCH,
                    ("wait.readback", "render.readback"): PER_READBACK}
     assert {s.request for s in spans if s.name.startswith("wait.")} == {r.request}
 
@@ -208,16 +300,17 @@ def test_progress_waits_for_the_card_once_a_chunk():
 
 
 @pytest.mark.parametrize("cell, reading", [
-    ("cornell512.regen", 3),
-    ("prism.regen", 5),
-    ("mesh5k.regen", 3),
-    ("hero.regen", 324),
+    ("cornell512.regen", 1),
+    ("prism.regen", 1),
+    ("mesh5k.regen", 1),
+    ("hero.regen", 1),
 ])
 def test_the_cells_plans_give_their_waits_per_image(cell, reading):
     """``render.waits_per_image`` in each offline cell, from its plan
     (the Renderer's K, as the offline driver computes it, the launches and
     the tail) and the counts per launch, tail frame and readback above:
-    the hero frame's 11 launches of 87 frames and 43 tail frames."""
+    the hero frame's 11 launches of 87 frames and 43 tail frames wait
+    for nothing but the copy to the host."""
     workload = json.loads((REPO / f"benchmark/workloads/{cell}.json").read_text())
     config = json.loads((REPO / f"benchmark/configs/{workload['config']}.json").read_text())
     k = OFFLINE.Driver.regen_chunk(config)
@@ -341,7 +434,8 @@ def test_the_waits_metrics_are_the_cells():
 def test_profile_trace_shows_the_waits_inside_the_render(tmp_path):
     """``render --profile DIR`` writes the ``wait.*`` spans as
     ``spectral.wait.*`` events on the trace's clock (``clock_map`` of the
-    pairs read before and after the render), inside the render's span."""
+    pairs read before and after the render), the copy to the host inside
+    the render's span; the fold and raygen wait for nothing."""
     out, prof = tmp_path / "img.png", tmp_path / "trace"
     rc = cli.main(["render", "--preset", "cornell", "--width", "8", "--height", "6",
                    "--samples", "8", "--device", "cpu", "--iterations", "3",
@@ -351,11 +445,11 @@ def test_profile_trace_shows_the_waits_inside_the_render(tmp_path):
     events = json.loads((prof / "render_trace.json").read_text())["traceEvents"]
     ours = [e for e in events if e.get("cat") == "spectral" and e["ph"] == "X"]
     waits = [e for e in ours if e["name"].startswith("spectral.wait.")]
-    assert {"spectral.wait.upload", "spectral.wait.scalar", "spectral.wait.raygen",
-            "spectral.wait.readback"} <= {e["name"] for e in waits}
+    names = {e["name"] for e in waits}
+    assert {"spectral.wait.upload", "spectral.wait.readback"} <= names
+    assert not names & {"spectral.wait.scalar", "spectral.wait.raygen"}
     (frames,) = [e for e in ours if e["name"] == "spectral.render.frames"]
-    inside = [e for e in waits if e["name"] in ("spectral.wait.scalar",
-                                                "spectral.wait.raygen")]
-    assert inside and all(frames["ts"] <= e["ts"] and e["ts"] + e["dur"]
-                          <= frames["ts"] + frames["dur"] for e in inside)
+    inside = [e for e in waits if e["name"] == "spectral.wait.readback"
+              and frames["ts"] <= e["ts"] and e["ts"] + e["dur"] <= frames["ts"] + frames["dur"]]
+    assert len(inside) == 1
     assert all(e["args"]["arg"] >= 1 for e in waits)
